@@ -21,7 +21,11 @@
 // head dim interleaved (d = c + 4*i) so the shared-memory reads of a key or
 // value row are conflict-free.  Partial dot products meet by two warp
 // shuffles.  The online softmax runs in f32 and P is rounded to v's dtype
-// before the PV product, as flash_attention.py:69-70 does.  q/k/v/o are
+// before the PV product, as the reference model's _attn_block does
+// (src/repro/models/attention.py:175); that rounds the normalised softmax,
+// while here the unnormalised exp(s - m) of the running max is rounded.
+// (The Pallas kernel casts v to f32 at flash_attention.py:53, so its
+// p.astype(v.dtype) does not round.)  q/k/v/o are
 // read and written through their strides, so the model's (B, S, H, D)
 // activations are used in place (no transpose copy); head h reads KV head
 // h*K/H.  The ragged edge is masked instead of asserting S % tile == 0:

@@ -26,8 +26,9 @@ _HEAD_DIMS = (16, 32, 64, 128)   # instantiated in csrc/flash_attention.cu
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                         scale: float | None = None) -> torch.Tensor:
     """Plain version (port of ``kernels/ref.py::flash_attention_ref``,
-    causal).  P is rounded to v's dtype before PV, as the kernel and the
-    reference model's ``_attn_block`` do; at f32 that is the identity."""
+    causal).  The normalised P is rounded to v's dtype before PV, as the
+    reference model's ``_attn_block`` does (the kernel rounds the
+    unnormalised exponentials instead); at f32 that is the identity."""
     B, H, S, D = q.shape
     K = k.shape[1]
     scale = scale if scale is not None else 1.0 / math.sqrt(D)

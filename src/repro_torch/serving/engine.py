@@ -32,11 +32,10 @@ STEP_WINDOW = 512       # recent step times retained for inspection
 
 @dataclass
 class EngineKnobs:
-    """The TAPAS-configurable instance settings."""
+    """The TAPAS-configurable instance settings ported so far (the variant
+    and pause knobs wait for ``set_variant`` and reconfiguration)."""
     max_batch: int = 8
     freq_scale: float = 1.0      # 1.0 = nominal clock; <1 slows step time
-    variant: str = "full"        # model-size / quantization variant key
-    paused: bool = False         # drained during reconfiguration
 
 
 @dataclass
@@ -171,7 +170,7 @@ class Engine:
         # double-count the free lists across requests admitted together
         lanes_left = len(self.pool.free_lanes)
         blocks_left = len(self.pool.free_blocks)
-        while (self.queue and not self.knobs.paused
+        while (self.queue
                and len(self.active) + len(batch) < self.knobs.max_batch
                and lanes_left > 0):
             ctx_len = len(self._context(self.queue[0]))

@@ -7,7 +7,9 @@ device or no ``nvcc``; run them on a GPU machine with
 
 The module imports no JAX, so it runs where only PyTorch is installed.
 Tolerances: f32 at 1e-4 (sums in another order than the plain version),
-bf16 at 2e-2 (rounding of P and of the output to bf16)."""
+bf16 at 2e-2 (rounding of P and of the output to bf16); besides, the
+error's norm over the plain output's norm stays below 1e-5 (f32) or 1e-2
+(bf16), a bound that scales with outputs that shrink at long contexts."""
 import pytest
 import torch
 
@@ -21,6 +23,14 @@ from repro_torch.models import build_model, local_plan
 pytestmark = pytest.mark.cuda
 
 TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+REL_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
+
+
+def assert_close(got, want, dtype):
+    got, want = got.float(), want.float()
+    torch.testing.assert_close(got, want, atol=TOL[dtype], rtol=0)
+    rel = ((got - want).norm() / want.norm().clamp_min(1e-30)).item()
+    assert rel <= REL_TOL[dtype], f"relative error {rel:.3e}"
 
 
 @pytest.fixture(scope="module")
@@ -50,8 +60,7 @@ def test_flash_kernel_matches_plain(gen, dtype, B, H, K, S, D):
     o = fa.flash_attention(*args)
     assert fa.flash_attention.launches == before + 1
     assert o.stride() == args[0].stride()          # output keeps q's layout
-    torch.testing.assert_close(o.float(), fa.flash_attention_ref(*args).float(),
-                               atol=TOL[dtype], rtol=0)
+    assert_close(o, fa.flash_attention_ref(*args), dtype)
 
 
 @pytest.mark.parametrize("q_dt,kv_dt", [
@@ -74,8 +83,7 @@ def test_paged_decode_kernel_matches_plain(gen, q_dt, kv_dt, B, H, K, D, bs, T):
                      dtype=kv_dt)
     o = ops.paged_decode_attention(q, kp, vp, tables, pos)
     ref = pa.paged_decode_attention_ref(q, kp, vp, tables, pos)
-    tol = max(TOL[q_dt], TOL[kv_dt])
-    torch.testing.assert_close(o.float(), ref.float(), atol=tol, rtol=0)
+    assert_close(o, ref, max(q_dt, kv_dt, key=TOL.get))
 
 
 def test_kernel_wrappers_raise_on_bad_input(gen):

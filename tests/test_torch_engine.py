@@ -253,3 +253,12 @@ def test_engine_pool_fully_reclaimed(tiny):
     assert sorted(eng.pool.free_lanes) == [0, 1]
     assert (eng.pool.block_tables == 0).all()
     assert len(eng.stats.completed) == 3
+
+
+@pytest.mark.parametrize("knob", [{"variant": "int8"}, {"paused": True}])
+def test_unported_knobs_are_refused(knob):
+    """Knobs whose mechanism is not ported (set_variant, reconfiguration
+    drains) are not accepted, so no caller gets a silently ignored knob."""
+    assert {"variant", "paused"} <= set(JKnobs.__dataclass_fields__)
+    with pytest.raises(TypeError):
+        EngineKnobs(**knob)
