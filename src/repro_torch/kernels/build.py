@@ -21,7 +21,8 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD = CSRC.parent / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
-SOURCES = ("flash_attention", "paged_decode_attention")
+SOURCES = ("flash_attention", "paged_decode_attention",
+           "paged_prefill_attention", "decode_attention")
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 

@@ -10,8 +10,10 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import decode_attention as _dense
 from repro_torch.kernels import flash_attention as _flash
 from repro_torch.kernels import paged_decode_attention as _paged
+from repro_torch.kernels import paged_prefill_attention as _prefill
 
 
 def _on_cpu(*tensors: torch.Tensor) -> bool:
@@ -43,4 +45,35 @@ def paged_decode_attention(q, k_pool, v_pool, block_tables, positions, *,
                                          positions, scale=scale)
 
 
-__all__ = ["flash_attention", "paged_decode_attention"]
+def paged_prefill_attention(q, k_pool, v_pool, block_tables, starts, *,
+                            scale=None):
+    """Chunk attention over a paged KV pool: q (B, C, H, D) at
+    ``starts + c``."""
+    if _on_cpu(q, k_pool, v_pool, block_tables, starts):
+        return _prefill.paged_prefill_attention_ref(
+            q, k_pool, v_pool, block_tables, starts, scale=scale)
+    return _prefill.paged_prefill_attention(q, k_pool, v_pool, block_tables,
+                                            starts, scale=scale)
+
+
+def paged_verify_attention(q, k_pool, v_pool, block_tables, positions, *,
+                           scale=None):
+    """Speculative verify: chunk attention with ``starts = positions``."""
+    if _on_cpu(q, k_pool, v_pool, block_tables, positions):
+        return _prefill.paged_prefill_attention_ref(
+            q, k_pool, v_pool, block_tables, positions, scale=scale)
+    return _prefill.paged_verify_attention(q, k_pool, v_pool, block_tables,
+                                           positions, scale=scale)
+
+
+def decode_attention(q, k, v, positions, *, scale=None):
+    """One-token attention over a contiguous (B, S, K, D) cache, rounded
+    as the slot model path rounds (``flash_decode_ref`` on the CPU)."""
+    if _on_cpu(q, k, v, positions):
+        return _dense.flash_decode_ref(q, k, v, positions, scale=scale)
+    return _dense.decode_attention(q, k, v, positions, scale=scale)
+
+
+__all__ = ["flash_attention", "paged_decode_attention",
+           "paged_prefill_attention", "paged_verify_attention",
+           "decode_attention"]

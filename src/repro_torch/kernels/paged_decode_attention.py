@@ -16,34 +16,13 @@ import math
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels.decode_attention import decode_attention_ref
 
-NEG_INF = -1e30
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # (q dtype, pool dtype) pairs the kernel is built for; f32 queries over a
 # bf16 pool is the reference's f32 plan (the pool is always bf16 there)
 _PAIRS = {(torch.bfloat16, torch.bfloat16), (torch.float32, torch.float32),
           (torch.float32, torch.bfloat16)}
-
-
-def decode_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                         positions: torch.Tensor, *,
-                         scale: float | None = None) -> torch.Tensor:
-    """Plain dense decode (port of ``kernels/ref.py::decode_attention_ref``).
-    q (B, H, D); k/v (B, S, K, D); positions (B,).  Scores and softmax in
-    f32, probabilities rounded to v's dtype before PV as the reference
-    model's ``paged_attention`` does; at f32 that is the identity."""
-    B, H, D = q.shape
-    S, K = k.shape[1], k.shape[2]
-    scale = scale if scale is not None else 1.0 / math.sqrt(D)
-    ke = k.repeat_interleave(H // K, dim=2)
-    ve = v.repeat_interleave(H // K, dim=2)
-    s = torch.einsum("bhd,bshd->bhs", q.float(), ke.float()) * scale
-    mask = (torch.arange(S, device=q.device)[None, None, :]
-            <= positions[:, None, None])
-    s = torch.where(mask, s, NEG_INF)
-    p = torch.softmax(s, dim=-1)
-    o = torch.einsum("bhs,bshd->bhd", p.to(v.dtype).float(), ve.float())
-    return o.to(q.dtype)
 
 
 def paged_decode_attention_ref(q: torch.Tensor, k_pool: torch.Tensor,
@@ -52,7 +31,9 @@ def paged_decode_attention_ref(q: torch.Tensor, k_pool: torch.Tensor,
                                positions: torch.Tensor, *,
                                scale: float | None = None) -> torch.Tensor:
     """Plain version (port of ``kernels/ref.py::paged_decode_attention_ref``):
-    gather each lane's logical KV view through its table, then attend."""
+    gather each lane's logical KV view through its table, then attend
+    (``decode_attention_ref`` rounds the normalised P to v's dtype, as the
+    reference model's ``paged_attention`` does)."""
     B, H, D = q.shape
     bs, K = k_pool.shape[1], k_pool.shape[2]
     T = block_tables.shape[1]

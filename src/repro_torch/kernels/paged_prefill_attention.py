@@ -1,0 +1,147 @@
+"""Paged chunked-prefill attention (C query tokens per lane through a block
+table): the CUDA kernel's wrapper and its plain PyTorch version.
+
+The kernel (``csrc/paged_prefill_attention.cu``) replaces the Pallas TPU
+kernel ``repro/kernels/paged_decode_attention.py::paged_prefill_attention``.
+q (B, C, H, D), query c of lane b at absolute position ``starts[b] + c``;
+k_pool/v_pool (n_blocks, bs, K, D) already holding the chunk's own KV;
+block_tables (B, T) int32 (unused slots hold the parking block 0); starts
+(B,) int32 -> o (B, C, H, D) in q's dtype.  Key kpos is visible to query c
+iff ``kpos <= starts[b] + c``.
+
+``paged_verify_attention`` (speculative verify: the current token plus its
+drafts at ``positions + i``) is the same kernel with ``starts = positions``,
+as in the reference; it has no kernel of its own.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+import math
+
+import torch
+
+from repro_torch.kernels import build
+
+NEG_INF = -1e30
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# (q dtype, pool dtype) pairs the kernel is built for; f32 queries over a
+# bf16 pool is the reference's f32 plan (the pool is always bf16 there)
+_PAIRS = {(torch.bfloat16, torch.bfloat16), (torch.float32, torch.float32),
+          (torch.float32, torch.bfloat16)}
+_HEAD_DIMS = (16, 32, 64, 128)   # instantiated in the .cu source
+
+
+def paged_prefill_attention_ref(q: torch.Tensor, k_pool: torch.Tensor,
+                                v_pool: torch.Tensor,
+                                block_tables: torch.Tensor,
+                                starts: torch.Tensor, *,
+                                scale: float | None = None) -> torch.Tensor:
+    """Plain version (port of ``kernels/ref.py::paged_prefill_attention_ref``):
+    gather each lane's logical KV view through its table, mask
+    ``kpos <= starts + c``, softmax in f32.  The normalised P is rounded to
+    v's dtype before PV, as the reference model's
+    ``attention.paged_prefill_attention`` does; at f32 that is the
+    identity (the kernel rounds the unnormalised exponentials instead)."""
+    B, C, H, D = q.shape
+    bs, K = k_pool.shape[1], k_pool.shape[2]
+    T = block_tables.shape[1]
+    scale = scale if scale is not None else 1.0 / math.sqrt(D)
+    k = k_pool[block_tables].reshape(B, T * bs, K, D)
+    v = v_pool[block_tables].reshape(B, T * bs, K, D)
+    ke = k.repeat_interleave(H // K, dim=2)
+    ve = v.repeat_interleave(H // K, dim=2)
+    s = torch.einsum("bchd,bshd->bhcs", q.float(), ke.float()) * scale
+    qpos = starts[:, None] + torch.arange(C, device=q.device)[None, :]
+    mask = (torch.arange(T * bs, device=q.device)[None, None, :]
+            <= qpos[:, :, None])
+    s = torch.where(mask[:, None], s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bhcs,bshd->bchd", p.to(v.dtype).float(), ve.float())
+    return o.to(q.dtype)
+
+
+@functools.cache
+def _kernel():
+    fn = build.library("paged_prefill_attention").paged_prefill_attention
+    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 8
+                   + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
+                      ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _check(q, k_pool, v_pool, block_tables, starts) -> None:
+    named = (("q", q), ("k_pool", k_pool), ("v_pool", v_pool),
+             ("block_tables", block_tables), ("starts", starts))
+    for name, t in named:
+        if not t.is_cuda or t.device != q.device:
+            raise ValueError(f"paged_prefill_attention: {name} must be on "
+                             f"q's CUDA device, got {t.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"paged_prefill_attention: {name} must be "
+                             f"contiguous")
+    if (q.dtype, k_pool.dtype) not in _PAIRS or v_pool.dtype != k_pool.dtype:
+        raise TypeError(f"paged_prefill_attention: q {q.dtype} over pools "
+                        f"{k_pool.dtype}/{v_pool.dtype} not supported")
+    if block_tables.dtype != torch.int32 or starts.dtype != torch.int32:
+        raise TypeError("paged_prefill_attention: block_tables and starts "
+                        "must be int32")
+    if q.dim() != 4 or k_pool.dim() != 4 or k_pool.shape != v_pool.shape:
+        raise ValueError(f"paged_prefill_attention: shapes q "
+                         f"{tuple(q.shape)} pools {tuple(k_pool.shape)}/"
+                         f"{tuple(v_pool.shape)}")
+    B, C, H, D = q.shape
+    if k_pool.shape[3] != D or H % k_pool.shape[2]:
+        raise ValueError(f"paged_prefill_attention: q {tuple(q.shape)} does "
+                         f"not fit pools {tuple(k_pool.shape)}")
+    if D not in _HEAD_DIMS:
+        raise ValueError(f"paged_prefill_attention: head dim {D} not in "
+                         f"{_HEAD_DIMS}")
+    if block_tables.dim() != 2 or block_tables.shape[0] != B \
+            or starts.shape != (B,):
+        raise ValueError(f"paged_prefill_attention: tables "
+                         f"{tuple(block_tables.shape)} starts "
+                         f"{tuple(starts.shape)} for {B} lanes")
+    if k_pool.data_ptr() % 16 or v_pool.data_ptr() % 16:
+        raise ValueError("paged_prefill_attention: pools must start on 16 "
+                         "bytes")
+    if q.device.index != torch.cuda.current_device():
+        raise ValueError(f"paged_prefill_attention: q on {q.device}, current "
+                         f"device is cuda:{torch.cuda.current_device()}")
+
+
+def paged_prefill_attention(q: torch.Tensor, k_pool: torch.Tensor,
+                            v_pool: torch.Tensor, block_tables: torch.Tensor,
+                            starts: torch.Tensor, *,
+                            scale: float | None = None) -> torch.Tensor:
+    """Launch the CUDA kernel (all tensors on the current CUDA device)."""
+    _check(q, k_pool, v_pool, block_tables, starts)
+    B, C, H, D = q.shape
+    n_blocks, bs, K, _ = k_pool.shape
+    scale = scale if scale is not None else 1.0 / math.sqrt(D)
+    out = torch.empty_like(q)
+    err = _kernel()(
+        q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+        block_tables.data_ptr(), starts.data_ptr(), out.data_ptr(),
+        B, C, H, K, D, n_blocks, bs, block_tables.shape[1], scale,
+        _DTYPES[q.dtype], _DTYPES[k_pool.dtype],
+        torch.cuda.current_stream(q.device).cuda_stream)
+    build.check(err, "paged_prefill_attention")
+    paged_prefill_attention.launches += 1
+    return out
+
+
+paged_prefill_attention.launches = 0
+
+
+def paged_verify_attention(q: torch.Tensor, k_pool: torch.Tensor,
+                           v_pool: torch.Tensor, block_tables: torch.Tensor,
+                           positions: torch.Tensor, *,
+                           scale: float | None = None) -> torch.Tensor:
+    """Multi-query-per-lane decode (speculative verify): q (B, Q, H, D),
+    query i at ``positions[b] + i``.  The mask walk is chunked prefill's
+    with ``starts = positions``, so this launches the same kernel (and
+    counts as its launch)."""
+    return paged_prefill_attention(q, k_pool, v_pool, block_tables,
+                                   positions, scale=scale)

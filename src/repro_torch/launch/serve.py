@@ -36,7 +36,7 @@ def main(argv=None) -> dict:
     mode.add_argument("--paged", dest="paged", action="store_true",
                       default=None, help="force the paged-KV pool")
     mode.add_argument("--no-paged", dest="paged", action="store_false",
-                      help="force the slot pool (not ported yet)")
+                      help="force the slot pool")
     ap.add_argument("--device", default="cuda",
                     help="torch device to serve on (cuda or cpu)")
     args = ap.parse_args(argv)
@@ -64,7 +64,7 @@ def main(argv=None) -> dict:
     stats = eng.run()
     gp = eng.goodput(ttft_slo=50.0, tbt_slo=5.0)
     out = {
-        "mode": "paged",          # the only pool ported so far
+        "mode": "paged" if eng.paged else "slots",
         "completed": len(stats.completed),
         "decode_tokens": stats.decode_tokens,
         "prefill_tokens": stats.prefill_tokens,

@@ -3,8 +3,10 @@
 Projections keep the reference layouts (``w_q (d, H, hd)``, ``w_k``/``w_v
 (d, K, hd)``, ``w_o (H, hd, d)``) and run as plain matmuls.  Where the
 reference model runs XLA attention (``causal_attention``,
-``paged_attention``) the port calls the kernels through ``ops``: the CUDA
-kernels for CUDA tensors, their plain versions for CPU tensors.
+``paged_attention``, ``paged_prefill_attention``, ``_flash_decode_core``)
+the port calls the kernels through ``ops``: the CUDA kernels for CUDA
+tensors, their plain versions for CPU tensors.  Caches and pools are
+written in place.
 """
 from __future__ import annotations
 
@@ -89,6 +91,78 @@ def gqa_forward(p: dict, x: torch.Tensor, positions: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
+# chunked prefill over the paged pool
+# ---------------------------------------------------------------------------
+
+def gqa_prefill_paged(p: dict, x: torch.Tensor, cache: dict,
+                      starts: torch.Tensor, lengths: torch.Tensor,
+                      block_tables: torch.Tensor, cfg: ArchConfig,
+                      plan: ShardPlan):
+    """Chunked-prefill step over the paged pool: project a chunk of C
+    tokens, scatter its KV into the lane's blocks (in place), then attend
+    through the block table (cached context + the chunk itself, causally).
+
+    x: (B, C, d); starts: (B,) absolute position of x[:, 0]; lengths: (B,)
+    valid tokens per row.  Invalid positions are written to the parking
+    block 0 at offset 0, whose contents are never read unmasked.  The
+    scatter is queued before the kernel on the same stream, so the kernel
+    reads the chunk's own keys.  -> (out (B, C, d), cache)."""
+    dt = plan.compute_dtype
+    B, C = x.shape[:2]
+    q = _project(x, p["w_q"].to(dt))
+    k = _project(x, p["w_k"].to(dt))
+    v = _project(x, p["w_v"].to(dt))
+    if cfg.qk_norm:
+        q = L.rms_norm(q, p["q_norm"])
+        k = L.rms_norm(k, p["k_norm"])
+    cols = torch.arange(C, device=x.device)[None, :]
+    positions = starts[:, None] + cols
+    q = L.apply_rope(q, positions, cfg.rope_theta)
+    k = L.apply_rope(k, positions, cfg.rope_theta)
+    bs = cache["k"].shape[1]
+    valid = cols < lengths[:, None]
+    safe_pos = torch.where(valid, positions, 0)
+    blk = torch.gather(block_tables, 1, (safe_pos // bs).long())
+    blk = torch.where(valid, blk, 0).reshape(-1).long()
+    off = torch.where(valid, safe_pos % bs, 0).reshape(-1).long()
+    K = cache["k"].shape[2]
+    cache["k"][blk, off] = k.reshape(B * C, K, -1).to(cache["k"].dtype)
+    cache["v"][blk, off] = v.reshape(B * C, K, -1).to(cache["v"].dtype)
+    o = ops.paged_prefill_attention(q, cache["k"], cache["v"], block_tables,
+                                    starts,
+                                    scale=1.0 / math.sqrt(cfg.head_dim))
+    return _out_proj(o, p["w_o"].to(dt)), cache
+
+
+# ---------------------------------------------------------------------------
+# slot decode (contiguous per-lane cache)
+# ---------------------------------------------------------------------------
+
+def gqa_decode(p: dict, x: torch.Tensor, cache: dict,
+               positions: torch.Tensor, cfg: ArchConfig, plan: ShardPlan):
+    """Slot-cache decode step (``_flash_decode_core`` on one device): write
+    the new token's KV at ``positions`` (in place; a position outside the
+    cache keeps the old row), then attend over keys 0..position.
+    x: (B, d); cache leaves (B, S, K, hd) -> (out (B, d), cache)."""
+    if cfg.attn_kind == "mla" or (cfg.attn_kind == "swa" and cfg.window):
+        raise NotImplementedError(f"{cfg.name}: only the dense GQA slot "
+                                  f"decode is ported "
+                                  f"(attn_kind={cfg.attn_kind!r})")
+    dt = plan.compute_dtype
+    q, k_new, v_new = _decode_qkv(p, x, positions, cfg, plan)
+    S = cache["k"].shape[1]
+    rows = torch.arange(x.shape[0], device=x.device)
+    write = ((positions >= 0) & (positions < S))[:, None, None]
+    safe = positions.clamp(0, S - 1).long()
+    for name, new in (("k", k_new), ("v", v_new)):
+        dst = cache[name]
+        dst[rows, safe] = torch.where(write, new.to(dst.dtype), dst[rows, safe])
+    o = ops.decode_attention(q, cache["k"], cache["v"], positions,
+                             scale=1.0 / math.sqrt(cfg.head_dim))
+    return _out_proj(o, p["w_o"].to(dt)), cache
+
+
+# ---------------------------------------------------------------------------
 # paged decode
 # ---------------------------------------------------------------------------
 
@@ -140,5 +214,19 @@ def init_paged_attn_cache(cfg: ArchConfig, plan: ShardPlan, n_blocks: int,
         raise ValueError(f"{cfg.name}: paged KV cache requires plain GQA "
                          f"attention (got attn_kind={cfg.attn_kind!r})")
     shape = (n_blocks, block_size, cfg.n_kv_heads, cfg.head_dim)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def init_attn_cache(cfg: ArchConfig, plan: ShardPlan, batch: int,
+                    seq_len: int, dtype=torch.bfloat16, device="cuda") -> dict:
+    """Per-layer (unstacked) slot cache of the dense GQA families:
+    k/v (batch, seq_len, K, hd).  The MLA latent and SWA ring caches are
+    not ported yet."""
+    if cfg.attn_kind == "mla" or (cfg.attn_kind == "swa" and cfg.window):
+        raise NotImplementedError(f"{cfg.name}: only the dense GQA slot "
+                                  f"cache is ported "
+                                  f"(attn_kind={cfg.attn_kind!r})")
+    shape = (batch, seq_len, cfg.n_kv_heads, cfg.head_dim)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}

@@ -4,8 +4,9 @@
 Parameters are the reference's dict tree with layers stacked on a leading L
 axis (``transformer.py:534-535``), so a JAX ``Model.init`` tree carries over
 by copy (``repro_torch.convert``).  The reference scans the stacked layers
-with ``lax.scan``; here a Python loop walks per-layer views.  Decode and
-cache writes update the paged pool in place instead of returning a new one.
+with ``lax.scan``; here a Python loop walks per-layer views.  Decode,
+chunked prefill and cache writes update the paged pool or the slot cache in
+place instead of returning a new one.
 """
 from __future__ import annotations
 
@@ -73,6 +74,31 @@ def block_forward(x, lp: dict, positions, cfg: ArchConfig, plan: ShardPlan,
     x = x + attn_out
     x = x + _mlp(_norm(x, lp["norm2"], cfg), lp, cfg, plan)
     return x, ({"attn": attn_cache} if want_cache else None)
+
+
+def block_prefill_paged(x, lp: dict, lc: dict, starts, lengths,
+                        block_tables, cfg: ArchConfig, plan: ShardPlan):
+    """Chunked-prefill block over the paged pool, x (B, C, d); lc holds
+    this layer's pool slice, written in place."""
+    h = _norm(x, lp["norm1"], cfg)
+    attn_out, attn_cache = A.gqa_prefill_paged(lp["attn"], h, lc["attn"],
+                                               starts, lengths, block_tables,
+                                               cfg, plan)
+    x = x + attn_out
+    x = x + _mlp(_norm(x, lp["norm2"], cfg), lp, cfg, plan)
+    return x, {"attn": attn_cache}
+
+
+def block_decode(x, lp: dict, lc: dict, positions, cfg: ArchConfig,
+                 plan: ShardPlan):
+    """Slot-cache decode block, x (B, d); lc holds this layer's cache,
+    written in place."""
+    h = _norm(x, lp["norm1"], cfg)
+    attn_out, attn_cache = A.gqa_decode(lp["attn"], h, lc["attn"], positions,
+                                        cfg, plan)
+    x = x + attn_out
+    x = x + _mlp(_norm(x, lp["norm2"], cfg), lp, cfg, plan)
+    return x, {"attn": attn_cache}
 
 
 def block_decode_paged(x, lp: dict, lc: dict, positions, block_tables,
@@ -204,6 +230,37 @@ class Model:
         rows = torch.arange(x.shape[0], device=x.device)
         return self._head(params, x[rows, lengths.long() - 1]), caches
 
+    def prefill_chunk_paged(self, params, cache, tokens, starts, lengths,
+                            block_tables):
+        """One chunked-prefill step over the paged pool (updated in place).
+
+        tokens: (B, C) the next C context tokens per row, row b valid for
+        its first lengths[b]; starts: (B,) absolute position of tokens[:, 0]
+        (earlier chunks and prefix-shared blocks already sit in the pool);
+        block_tables: (B, T).  Returns (logits at each row's last valid
+        chunk token (B, V_pad), cache)."""
+        cfg, plan = self.cfg, self.plan
+        x = self._embed_inputs(params, tokens)
+        for i in range(cfg.num_layers):
+            x, _ = block_prefill_paged(x, _layer(params["layers"], i),
+                                       _layer(cache, i), starts, lengths,
+                                       block_tables, cfg, plan)
+        x = _norm(x, params["final_norm"], cfg)
+        rows = torch.arange(x.shape[0], device=x.device)
+        return self._head(params, x[rows, (lengths - 1).clamp_min(0).long()]), \
+            cache
+
+    def decode_step(self, params, cache, tokens, positions):
+        """One token per slot over the contiguous slot cache (updated in
+        place).  tokens/positions: (B,) int32."""
+        cfg, plan = self.cfg, self.plan
+        x = self._embed_inputs(params, tokens)
+        for i in range(cfg.num_layers):
+            x, _ = block_decode(x, _layer(params["layers"], i),
+                                _layer(cache, i), positions, cfg, plan)
+        x = _norm(x, params["final_norm"], cfg)
+        return self._head(params, x), cache
+
     def decode_step_paged(self, params, cache, tokens, positions,
                           block_tables):
         """One token per lane over the paged pool (updated in place).
@@ -260,6 +317,16 @@ class Model:
                 (tokens, positions, active, budgets), cache)
 
     # ----- cache -----
+    def init_cache(self, batch: int, seq_len: int, dtype=torch.bfloat16,
+                   device="cuda") -> dict:
+        """Layer-stacked slot cache on ``device`` (the slot pool passes the
+        model's): leaves (L, batch, seq_len, K, hd)."""
+        c = A.init_attn_cache(self.cfg, self.plan, batch, seq_len, dtype,
+                              device="meta")
+        return {"attn": {name: torch.zeros((self.cfg.num_layers,) + a.shape,
+                                           dtype=dtype, device=device)
+                         for name, a in c.items()}}
+
     def init_paged_cache(self, n_blocks: int, block_size: int,
                          dtype=torch.bfloat16) -> dict:
         """Layer-stacked paged KV pool: leaves (L, n_blocks, bs, K, hd)."""

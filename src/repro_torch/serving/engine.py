@@ -1,16 +1,24 @@
-"""LLM serving engine: continuous batching over the paged KV pool (port of
-the paged mode of ``repro.serving.engine``).
+"""LLM serving engine: continuous batching over a paged (or slot) KV cache
+(port of ``repro.serving.engine``).
 
 One Engine is one TAPAS "VM instance": it exposes the configurator's knobs
 (max batch, frequency cap as a step-time multiplier) and reports goodput.
-Admission runs bucketed batched prefill (prompts padded to power-of-two
-length buckets, one prefill launch per bucket shape); decode walks
-per-lane block tables, ``horizon`` greedy steps per host sync
-(``Model.decode_multi_paged``).  When the pool runs out of blocks the
-youngest request is preempted and recomputed later.
 
-Ported so far: greedy requests, whole-prompt prefill.  Not ported yet (see
-ROADMAP.md): the slot pool, chunked prefill and prefix sharing,
+* ``paged`` (the default for plain-GQA models): KV lives in the global
+  block pool (``PagedCachePool``).  Admission runs bucketed batched
+  prefill (prompts padded to power-of-two length buckets, one prefill
+  launch per bucket shape); decode walks per-lane block tables,
+  ``horizon`` greedy steps per host sync (``Model.decode_multi_paged``).
+  When the pool runs out of blocks the youngest request is preempted and
+  recomputed later.  With ``prefill_chunk=C`` prompts instead stream into
+  the pool C tokens per scheduler step, every prefilling row in one
+  launch, interleaved with decode; with ``prefix_share=True`` admission
+  reuses the refcounted blocks of a prompt head another request wrote.
+* ``slots`` (``paged=False``): the contiguous slot pool (``CachePool``),
+  one exact-length prefill per admitted request and one decode step per
+  scheduler step.
+
+Ported so far: greedy requests.  Not ported yet (see ROADMAP.md):
 speculative decode, sampling, variants and shards, and the resilience
 paths (deadlines, retries, quarantine, crash).
 """
@@ -24,7 +32,7 @@ import numpy as np
 import torch
 
 from repro_torch.models.transformer import Model
-from repro_torch.serving.kvcache import PagedCachePool
+from repro_torch.serving.kvcache import CachePool, PagedCachePool
 from repro_torch.serving.request import Request
 
 STEP_WINDOW = 512       # recent step times retained for inspection
@@ -90,27 +98,45 @@ class Engine:
     def __init__(self, model: Model, params: dict, *, max_seq: int = 512,
                  n_slots: int = 8, knobs: EngineKnobs | None = None,
                  paged: bool | None = None, block_size: int = 16,
-                 n_blocks: int | None = None, horizon: int = 1):
-        if paged is False:
-            raise NotImplementedError("the slot pool (paged=False) is not "
-                                      "ported yet")
-        if not model.supports_paged:
-            raise ValueError(f"{model.cfg.name} cannot serve paged "
-                             f"(attn_kind={model.cfg.attn_kind!r})")
-        if horizon < 1:
-            raise ValueError(f"horizon must be >= 1, got {horizon}")
+                 n_blocks: int | None = None, horizon: int = 1,
+                 prefill_chunk: int | None = None,
+                 prefix_share: bool = False):
         self.model = model
         self.params = params
         self.knobs = knobs or EngineKnobs(max_batch=n_slots)
         self.max_seq = max_seq
         self.n_slots = n_slots
         self.block_size = block_size
+        self.paged = model.supports_paged if paged is None else paged
+        if horizon < 1:
+            raise ValueError(f"horizon must be >= 1, got {horizon}")
         self.horizon = horizon
+        # prefix sharing rides on the chunked (in-pool) prefill path: a
+        # shared head must be skipped, so the suffix is prefilled against
+        # the pool; default to one whole-prompt-sized chunk when unset
+        if prefix_share and prefill_chunk is None:
+            prefill_chunk = max_seq
+        self.prefill_chunk = prefill_chunk
+        self.prefix_share = prefix_share
+        if (prefill_chunk or prefix_share) and not self.paged:
+            raise ValueError("chunked prefill / prefix sharing require the "
+                             "paged serving mode")
+        if self.paged and not model.supports_paged:
+            raise ValueError(f"{model.cfg.name} cannot serve paged "
+                             f"(attn_kind={model.cfg.attn_kind!r})")
         self.queue: deque[Request] = deque()
         self.active: dict[int, Request] = {}
+        self.prefilling: dict[int, Request] = {}
+        self._prefill_pos: dict[int, int] = {}
+        self._pending_waiter: int | None = None   # req deferred on a
+        #                                           pending shared prefill
         self.stats = EngineStats()
-        self.pool = PagedCachePool(model, n_slots, max_seq,
-                                   block_size=block_size, n_blocks=n_blocks)
+        if self.paged:
+            self.pool = PagedCachePool(model, n_slots, max_seq,
+                                       block_size=block_size,
+                                       n_blocks=n_blocks)
+        else:
+            self.pool = CachePool(model, n_slots, max_seq)
 
     def _to_device(self, a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(a).to(self.model.device)
@@ -155,12 +181,37 @@ class Engine:
             self.pool.release(req.req_id)
             return
         self.active[req.req_id] = req
-        self.pool.set_last_token(self.pool.lane_of[req.req_id], tok)
+        if self.paged:
+            self.pool.set_last_token(self.pool.lane_of[req.req_id], tok)
 
     def _next_from_prefill(self, logits: torch.Tensor) -> np.ndarray:
         """Each row's first output token: the greedy argmax."""
         v = self.model.cfg.vocab_size
         return logits[:, :v].argmax(dim=-1).cpu().numpy()
+
+    def _admit(self, now: float) -> None:
+        if self.paged:
+            if self.prefill_chunk:
+                self._admit_chunked(now)
+            else:
+                self._admit_paged(now)
+            return
+        # slot pool: one exact-length prefill (and one host sync) per request
+        while (self.queue and self.pool.has_free()
+               and len(self.active) < self.knobs.max_batch):
+            if len(self._context(self.queue[0])) > self.max_seq - 1:
+                self._reject(self.queue.popleft(), now)
+                continue
+            req = self.queue.popleft()
+            ctx = self._context(req)
+            logits, cache = self.model.prefill(
+                self.params, self._to_device(np.asarray([ctx], np.int32)))
+            self.stats.prefill_tokens += len(ctx)
+            self.stats.prefill_batches += 1
+            tok = int(self._next_from_prefill(logits)[0])
+            self.stats.host_syncs += 1
+            self.pool.insert(req.req_id, cache, len(ctx))
+            self._activate(req, tok, now)
 
     def _admit_paged(self, now: float) -> None:
         """Batched admission: drain the queue into length buckets, one
@@ -210,11 +261,97 @@ class Engine:
                 self.stats.prefill_tokens += int(lengths[i])
                 self._activate(req, int(nxt[i]), now)
 
+    def _admit_chunked(self, now: float) -> None:
+        """Chunked-prefill admission: claim a lane plus every block the
+        context needs (reusing prefix-shared blocks), then let
+        ``_prefill_tick`` stream the prompt into the pool one chunk per
+        scheduler step, interleaved with decode."""
+        while (self.queue and len(self.active) + len(self.prefilling)
+               < self.knobs.max_batch):
+            ctx = self._context(self.queue[0])
+            if len(ctx) > self.max_seq - 1:
+                self._reject(self.queue.popleft(), now)
+                continue
+            shared = self.pool.shared_prefix(ctx) if self.prefix_share \
+                else []
+            if self.prefix_share and self.pool.pending_shared(
+                    ctx, have=len(shared)):
+                # an in-flight prefill owns this prompt's next shareable
+                # block: wait at the queue head and attach to its copy
+                # (pending claims are released on preemption, so the wait
+                # cannot deadlock)
+                if self.queue[0].req_id != self._pending_waiter:
+                    self._pending_waiter = self.queue[0].req_id
+                    self.pool.pending_share_waits += 1
+                break
+            lane = self.pool.admit_prefill(self.queue[0].req_id, len(ctx),
+                                           shared)
+            if lane is None:
+                break
+            req = self.queue.popleft()
+            self.prefilling[req.req_id] = req
+            self._prefill_pos[req.req_id] = \
+                len(shared) * self.pool.block_size
+            if self.prefix_share:
+                self.pool.register_pending(req.req_id, ctx)
+
+    def _prefill_tick(self, now: float) -> int:
+        """Advance every in-progress prefill by one chunk: one
+        ``prefill_chunk_paged`` launch over all prefilling rows, padded to
+        shared row and chunk buckets."""
+        if not self.prefilling:
+            return 0
+        reqs = sorted(self.prefilling.values(), key=lambda r: r.req_id)
+        ctxs = [self._context(r) for r in reqs]
+        takes = [min(self.prefill_chunk,
+                     len(ctx) - self._prefill_pos[r.req_id])
+                 for r, ctx in zip(reqs, ctxs)]
+        c_pad = _bucket(max(takes), lo=min(16, self.prefill_chunk))
+        b_pad = _bucket(len(reqs), lo=1)
+        tokens = np.zeros((b_pad, c_pad), np.int32)
+        starts = np.zeros(b_pad, np.int32)
+        lens = np.zeros(b_pad, np.int32)
+        tables = np.zeros((b_pad, self.pool.blocks_per_seq), np.int32)
+        for i, (req, ctx, take) in enumerate(zip(reqs, ctxs, takes)):
+            pos = self._prefill_pos[req.req_id]
+            tokens[i, :take] = ctx[pos:pos + take]
+            starts[i] = pos
+            lens[i] = take
+            tables[i] = self.pool.block_tables[self.pool.lane_of[req.req_id]]
+        logits, _ = self.model.prefill_chunk_paged(
+            self.params, self.pool.cache, self._to_device(tokens),
+            self._to_device(starts), self._to_device(lens),
+            self._to_device(tables))
+        self.stats.prefill_batches += 1
+        nxt = None
+        if any(self._prefill_pos[r.req_id] + t == len(ctx)
+               for r, ctx, t in zip(reqs, ctxs, takes)):
+            nxt = self._next_from_prefill(logits)
+            self.stats.host_syncs += 1
+        worked = 0
+        for i, (req, ctx, take) in enumerate(zip(reqs, ctxs, takes)):
+            self._prefill_pos[req.req_id] += take
+            self.stats.prefill_tokens += take
+            worked += take
+            if self._prefill_pos[req.req_id] == len(ctx):
+                rid = req.req_id
+                del self.prefilling[rid]
+                del self._prefill_pos[rid]
+                self.pool.set_length(self.pool.lane_of[rid], len(ctx))
+                if self.prefix_share:
+                    self.pool.register_prefix(rid, ctx)
+                self._activate(req, int(nxt[i]), now)
+        return worked
+
     def _preempt(self, req_ids: list) -> None:
         """Pool ran dry: drop these requests' blocks and requeue them at the
-        front for recompute (prompt + generated-so-far become the context)."""
+        front for recompute (prompt + generated-so-far become the context).
+        A request still prefilling loses the chunks it wrote so far."""
         for rid in req_ids:
-            req = self.active.pop(rid)
+            req = self.active.pop(rid, None)
+            if req is None:
+                req = self.prefilling.pop(rid)
+                del self._prefill_pos[rid]
             self.pool.release(rid)
             self.queue.appendleft(req)
             self.stats.preemptions += 1
@@ -280,14 +417,53 @@ class Engine:
         self.stats.decode_tokens += produced
         return produced
 
+    def _decode_slots(self, now: float) -> int:
+        """One greedy decode step over every slot (parked slots decode at
+        position 0, which the next insert overwrites); one host sync."""
+        lanes = {rid: self.pool.slot_of[rid] for rid in self.active}
+        tokens = np.zeros(self.pool.n_slots, np.int32)
+        for rid, req in self.active.items():
+            tokens[lanes[rid]] = req.output[-1]
+        logits, _ = self.model.decode_step(self.params, self.pool.cache,
+                                           self._to_device(tokens),
+                                           self.pool.positions())
+        nxt = self._next_from_prefill(logits)
+        self.stats.host_syncs += 1
+        self.stats.decode_syncs += 1
+        produced = 0
+        finished = []
+        for rid, req in list(self.active.items()):
+            ln = lanes[rid]
+            tok = int(nxt[ln])
+            req.output.append(tok)
+            produced += 1
+            # ``>=``: the slot path stops one token before the paged
+            # path's ``>`` would, as in the reference
+            full = int(self.pool.lengths[ln]) + 1 >= self.max_seq
+            if (len(req.output) >= req.max_new_tokens
+                    or (req.eos_id is not None and tok == req.eos_id) or full):
+                finished.append(rid)
+        self.pool.advance(list(lanes.values()))
+        for rid in finished:
+            self._finish(self.active.pop(rid), now, "accepted")
+            self.pool.release(rid)
+        self.stats.decode_tokens += produced
+        return produced
+
     def step(self, now: float | None = None) -> int:
-        """One scheduler iteration: admit, then one decode launch of
-        ``horizon`` steps.  Returns the number of decode tokens produced."""
+        """One scheduler iteration: admit, advance chunked prefills by one
+        chunk, then one decode launch (``horizon`` steps in paged mode, one
+        in slot mode).  Returns the number of decode tokens produced."""
         t0 = time.perf_counter()
         now = now if now is not None else t0
-        self._admit_paged(now)
-        produced = self._decode_paged(now) if self.active else 0
-        if produced:
+        self._admit(now)
+        prefilled = self._prefill_tick(now) \
+            if self.paged and self.prefill_chunk else 0
+        produced = 0
+        if self.active:
+            produced = self._decode_paged(now) if self.paged \
+                else self._decode_slots(now)
+        if produced or prefilled:
             # simulated frequency knob: a capped clock stretches wall time
             self.stats.record_step((time.perf_counter() - t0)
                                    / max(self.knobs.freq_scale, 1e-3))
@@ -295,7 +471,8 @@ class Engine:
 
     def run(self, *, max_steps: int = 10_000) -> EngineStats:
         steps = 0
-        while (self.queue or self.active) and steps < max_steps:
+        while (self.queue or self.active or self.prefilling) \
+                and steps < max_steps:
             self.step(now=float(steps))
             steps += 1
         return self.stats

@@ -1,14 +1,21 @@
-"""Paged KV-cache pool for continuous batching (port of
-``repro.serving.kvcache.PagedCachePool``, without prefix sharing or the
-drafter pool).
+"""KV-cache pools for continuous batching (port of
+``repro.serving.kvcache``, without the drafter pool or fault injection).
 
-One global block pool per layer (leaves ``(L, n_blocks, block_size, K,
-hd)``), a free-list block allocator and a per-lane block table mapping
-logical KV blocks to physical pool blocks.  Admission writes exactly the
-blocks a prompt occupies, decode appends allocate blocks on demand, and
-release returns blocks to the free list.  Physical block 0 is the reserved
-*parking block*: idle lanes point their whole table at it, so a
-fixed-width decode batch never reads unowned memory.
+``PagedCachePool``: one global block pool per layer (leaves ``(L,
+n_blocks, block_size, K, hd)``), a free-list block allocator and a
+per-lane block table mapping logical KV blocks to physical pool blocks.
+Admission writes exactly the blocks a prompt occupies (or, for chunked
+prefill, claims them for the chunks to fill), decode appends allocate
+blocks on demand, and release returns blocks to the free list.  Physical
+block 0 is the reserved *parking block*: idle lanes point their whole
+table at it, so a fixed-width decode batch never reads unowned memory.
+Blocks are refcounted: full prompt blocks are published in a blake2b
+content-hash chain index so later prompts with the same head reuse them
+(prefix sharing), and an admission claims the chain keys it will publish
+so a same-wave duplicate waits and attaches instead of writing a copy.
+
+``CachePool``: the slot pool, one contiguous ``max_seq`` cache per slot;
+the fallback for cache families the block pool cannot hold.
 
 The numpy arrays (tables, lengths, last tokens) are the source of truth;
 ``tables()`` / ``positions()`` / ``last_tokens_dev()`` return persistent
@@ -19,10 +26,62 @@ is written in place (the reference donates it to a jitted scatter).
 """
 from __future__ import annotations
 
+import hashlib
+
 import numpy as np
 import torch
 
 from repro_torch.models.transformer import Model
+
+
+class CachePool:
+    """Slot pool: a layer-stacked ``(L, n_slots, max_seq, K, hd)`` cache,
+    one slot per request."""
+
+    def __init__(self, model: Model, n_slots: int, max_seq: int):
+        self.model = model
+        self.n_slots = n_slots
+        self.max_seq = max_seq
+        self.cache = model.init_cache(n_slots, max_seq, device=model.device)
+        self.lengths = [0] * n_slots          # tokens written per slot
+        self.free = list(range(n_slots))
+        self.slot_of: dict[int, int] = {}      # req_id -> slot
+
+    def has_free(self) -> bool:
+        return bool(self.free)
+
+    def insert(self, req_id: int, prefill_cache: dict, prompt_len: int) -> int:
+        """Copy a single-request prefill cache (leaves ``(L, 1, S_prompt,
+        K, hd)``) into the first ``S_prompt`` positions of a free slot."""
+        slot = self.free.pop()
+        for name, dst in self.cache["attn"].items():
+            src = prefill_cache["attn"][name]
+            dst[:, slot, : src.shape[2]] = src[:, 0].to(dst.dtype)
+        self.lengths[slot] = prompt_len
+        self.slot_of[req_id] = slot
+        return slot
+
+    def release(self, req_id: int) -> None:
+        slot = self.slot_of.pop(req_id)
+        self.lengths[slot] = 0
+        self.free.append(slot)
+
+    def positions(self) -> torch.Tensor:
+        """Next write position per slot (parked slots write at 0, which is
+        always overwritten by the next prefill insert)."""
+        return torch.tensor(self.lengths, dtype=torch.int32,
+                            device=self.model.device)
+
+    def advance(self, active_slots: list) -> None:
+        for s in active_slots:
+            self.lengths[s] += 1
+
+
+def _chain_key(prev: bytes, tokens) -> bytes:
+    """Collision-resistant running hash over block-sized token chunks."""
+    h = hashlib.blake2b(prev, digest_size=16)
+    h.update(np.asarray(tokens, np.int64).tobytes())
+    return h.digest()
 
 
 class PagedCachePool:
@@ -47,7 +106,19 @@ class PagedCachePool:
         self.block_tables = np.zeros((n_lanes, self.blocks_per_seq), np.int32)
         self.lengths = np.zeros(n_lanes, np.int32)  # tokens written per lane
         self.last_tokens = np.zeros(n_lanes, np.int32)  # next decode input
-        self.ref = np.zeros(self.n_blocks, np.int32)  # per-block refcount
+        # refcounts + prefix-sharing index; the index is a multimap of the
+        # live physical copies of each content chunk
+        self.ref = np.zeros(self.n_blocks, np.int32)
+        self.prefix_index: dict[bytes, list] = {}
+        self.key_of: dict[int, bytes] = {}   # phys block -> its chain key
+        self.shared_block_hits = 0           # blocks reused via the index
+        # pending-share dedup: chain keys an in-flight prefill will publish
+        # once it completes
+        self.pending_index: dict[bytes, int] = {}   # chain key -> req_id
+        self.pending_of: dict[int, list] = {}       # req_id -> its keys
+        # distinct admissions that deferred to attach to an in-flight
+        # prefill (counted by the engine once per waiting request)
+        self.pending_share_waits = 0
         self._dev: dict[str, torch.Tensor] = {}       # device mirrors
 
     # -- device mirrors ----------------------------------------------------
@@ -94,6 +165,63 @@ class PagedCachePool:
     def utilization(self) -> float:
         return self.used_blocks / max(self.n_blocks - 1, 1)
 
+    # -- prefix sharing ----------------------------------------------------
+    def _chain(self, tokens: list, n: int):
+        """The first ``n`` chain keys of ``tokens`` (one per full block)."""
+        key = b""
+        for i in range(n):
+            key = _chain_key(key, tokens[i * self.block_size:
+                                         (i + 1) * self.block_size])
+            yield key
+
+    def shared_prefix(self, tokens: list) -> list:
+        """Physical blocks already holding a prefix of ``tokens``: the
+        longest run of registered full blocks, leaving at least one token
+        unshared so the admission still has last-token logits."""
+        out = []
+        for key in self._chain(tokens, (len(tokens) - 1) // self.block_size):
+            copies = self.prefix_index.get(key)
+            if not copies:
+                break
+            out.append(copies[-1])
+        return out
+
+    def register_prefix(self, req_id: int, tokens: list) -> None:
+        """Publish a request's full, immutable prompt blocks in the prefix
+        index (decode appends land past ``len(tokens)``)."""
+        blks = self.blocks_of[req_id]
+        for i, key in enumerate(self._chain(tokens,
+                                            len(tokens) // self.block_size)):
+            if blks[i] in self.key_of:
+                continue                     # this copy already registered
+            self.prefix_index.setdefault(key, []).append(blks[i])
+            self.key_of[blks[i]] = key
+        self._clear_pending(req_id)
+
+    def register_pending(self, req_id: int, tokens: list) -> None:
+        """Claim the chain keys this admission will publish when its
+        prefill completes; first claimant wins, live keys need no claim."""
+        keys = []
+        for key in self._chain(tokens, len(tokens) // self.block_size):
+            if key not in self.pending_index and key not in self.prefix_index:
+                self.pending_index[key] = req_id
+                keys.append(key)
+        if keys:
+            self.pending_of[req_id] = keys
+
+    def pending_shared(self, tokens: list, *, have: int) -> bool:
+        """True when an in-flight prefill owns the next shareable block of
+        ``tokens`` (block ``have``, past what ``shared_prefix`` found)."""
+        if have >= (len(tokens) - 1) // self.block_size:
+            return False
+        *_, key = self._chain(tokens, have + 1)
+        return key in self.pending_index
+
+    def _clear_pending(self, req_id: int) -> None:
+        for key in self.pending_of.pop(req_id, ()):
+            if self.pending_index.get(key) == req_id:
+                del self.pending_index[key]
+
     # -- request lifecycle -------------------------------------------------
     def _scatter(self, prefill_cache: dict, blks: list, row: int) -> None:
         """Write row ``row`` of a layer-stacked prefill cache (leaves
@@ -123,6 +251,32 @@ class PagedCachePool:
         self.block_tables[lane, :] = 0
         self.block_tables[lane, :n] = blks
         self.lengths[lane] = prompt_len
+        self.lane_of[req_id] = lane
+        self.blocks_of[req_id] = blks
+        self.mirror_write("tables", lane)
+        self.mirror_write("positions", lane)
+        return lane
+
+    def admit_prefill(self, req_id: int, ctx_len: int,
+                      shared_blocks: list | None = None) -> int | None:
+        """Chunked-prefill admission: a lane plus every block the context
+        and its first decode append need, reusing the refcounted
+        ``shared_blocks`` for the prompt head.  The chunks fill the rest;
+        ``lengths`` starts at the shared length.  None when lanes or
+        blocks are exhausted."""
+        shared = list(shared_blocks or [])
+        need_new = self.blocks_for(ctx_len + 1) - len(shared)
+        if not self.free_lanes or len(self.free_blocks) < need_new:
+            return None
+        lane = self.free_lanes.pop()
+        blks = shared + [self.free_blocks.pop() for _ in range(need_new)]
+        for b in shared:
+            self.ref[b] += 1
+        self.ref[blks[len(shared):]] = 1
+        self.shared_block_hits += len(shared)
+        self.block_tables[lane, :] = 0
+        self.block_tables[lane, : len(blks)] = blks
+        self.lengths[lane] = len(shared) * self.block_size
         self.lane_of[req_id] = lane
         self.blocks_of[req_id] = blks
         self.mirror_write("tables", lane)
@@ -160,11 +314,20 @@ class PagedCachePool:
         return victims
 
     def release(self, req_id: int) -> None:
+        # a preempted prefill frees its pending claims, or the requests
+        # waiting on it would wait at the queue head forever
+        self._clear_pending(req_id)
         lane = self.lane_of.pop(req_id)
         for b in reversed(self.blocks_of.pop(req_id)):
             self.ref[b] -= 1
             if self.ref[b] == 0:
                 self.free_blocks.append(b)
+                key = self.key_of.pop(b, None)
+                if key is not None:
+                    copies = self.prefix_index[key]
+                    copies.remove(b)
+                    if not copies:
+                        del self.prefix_index[key]
         self.free_lanes.append(lane)
         self.block_tables[lane, :] = 0       # park the lane on block 0
         self.lengths[lane] = 0
@@ -183,6 +346,10 @@ class PagedCachePool:
     def last_tokens_dev(self) -> torch.Tensor:
         """Per-lane next decode input token, device-resident."""
         return self._device("last_tokens")
+
+    def set_length(self, lane: int, n: int) -> None:
+        self.lengths[lane] = n
+        self.mirror_write("positions", lane)
 
     def set_last_token(self, lane: int, tok: int) -> None:
         self.last_tokens[lane] = tok

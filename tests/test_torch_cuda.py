@@ -15,9 +15,11 @@ import torch
 
 from repro_torch.configs import get_config
 from repro_torch.kernels import build
+from repro_torch.kernels import decode_attention as da
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ops
 from repro_torch.kernels import paged_decode_attention as pa
+from repro_torch.kernels import paged_prefill_attention as ppa
 from repro_torch.models import build_model, local_plan
 
 pytestmark = pytest.mark.cuda
@@ -86,6 +88,70 @@ def test_paged_decode_kernel_matches_plain(gen, q_dt, kv_dt, B, H, K, D, bs, T):
     assert_close(o, ref, max(q_dt, kv_dt, key=TOL.get))
 
 
+@pytest.mark.parametrize("q_dt,kv_dt", [
+    (torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16),
+    (torch.float32, torch.bfloat16)])
+@pytest.mark.parametrize("B,C,H,K,D,bs,T", [
+    (2, 16, 8, 2, 64, 16, 8), (3, 8, 4, 4, 128, 32, 4),
+    (2, 5, 4, 1, 32, 8, 10), (2, 128, 32, 32, 128, 16, 24),
+    (2, 16, 64, 8, 128, 16, 20), (1, 24, 4, 2, 16, 8, 6),
+])
+def test_paged_prefill_kernel_matches_plain(gen, q_dt, kv_dt, B, C, H, K, D,
+                                            bs, T):
+    """Scrambled tables, one start at 0 and one mid-table, and a padded
+    lane (table of zeros, start 0) reading only the parking block."""
+    n_blocks = 1 + B * T
+    tables = (torch.randperm(n_blocks - 1, generator=gen, device="cuda")
+              + 1)[: B * T].reshape(B, T).to(torch.int32)
+    starts = torch.randint(0, T * bs - C + 1, (B,), generator=gen,
+                           device="cuda", dtype=torch.int32)
+    starts[0] = 0
+    if B > 2:
+        tables[-1] = 0
+        starts[-1] = 0
+    q = torch.randn(B, C, H, D, generator=gen, device="cuda", dtype=q_dt)
+    kp = torch.randn(n_blocks, bs, K, D, generator=gen, device="cuda",
+                     dtype=kv_dt)
+    vp = torch.randn(n_blocks, bs, K, D, generator=gen, device="cuda",
+                     dtype=kv_dt)
+    before = ppa.paged_prefill_attention.launches
+    o = ops.paged_prefill_attention(q, kp, vp, tables, starts)
+    assert ppa.paged_prefill_attention.launches == before + 1
+    ref = ppa.paged_prefill_attention_ref(q, kp, vp, tables, starts)
+    assert_close(o, ref, max(q_dt, kv_dt, key=TOL.get))
+    v = ops.paged_verify_attention(q, kp, vp, tables, starts)
+    assert ppa.paged_prefill_attention.launches == before + 2
+    assert torch.equal(o, v)
+
+
+@pytest.mark.parametrize("q_dt,kv_dt", [
+    (torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16),
+    (torch.float32, torch.bfloat16)])
+@pytest.mark.parametrize("B,H,K,D,S", [
+    (2, 8, 2, 64, 64), (1, 4, 4, 128, 100), (3, 4, 1, 32, 37),
+    (4, 32, 32, 128, 2048), (2, 64, 8, 128, 1000), (2, 4, 2, 16, 24),
+])
+def test_decode_kernel_matches_plain(gen, q_dt, kv_dt, B, H, K, D, S):
+    """Contiguous cache, S not always a multiple of the key tile, one lane
+    at the last position and one parked at 0; held against the plain
+    version of the slot model path (``flash_decode_ref``, what the
+    dispatcher takes on the CPU) and against the oracle."""
+    pos = torch.randint(0, S, (B,), generator=gen, device="cuda",
+                        dtype=torch.int32)
+    pos[0] = S - 1
+    if B > 1:
+        pos[-1] = 0
+    q = torch.randn(B, H, D, generator=gen, device="cuda", dtype=q_dt)
+    k = torch.randn(B, S, K, D, generator=gen, device="cuda", dtype=kv_dt)
+    v = torch.randn(B, S, K, D, generator=gen, device="cuda", dtype=kv_dt)
+    before = da.decode_attention.launches
+    o = ops.decode_attention(q, k, v, pos)
+    assert da.decode_attention.launches == before + 1
+    dt = max(q_dt, kv_dt, key=TOL.get)
+    assert_close(o, da.flash_decode_ref(q, k, v, pos), dt)
+    assert_close(o, da.decode_attention_ref(q, k, v, pos), dt)
+
+
 def test_kernel_wrappers_raise_on_bad_input(gen):
     q = torch.zeros(1, 2, 16, 48, device="cuda")          # head dim 48
     with pytest.raises(ValueError):
@@ -99,6 +165,17 @@ def test_kernel_wrappers_raise_on_bad_input(gen):
                                   pool, tab,
                                   torch.zeros(1, dtype=torch.int32,
                                               device="cuda"))
+    with pytest.raises(ValueError):                      # head dim 48
+        ppa.paged_prefill_attention(torch.zeros(1, 4, 2, 48, device="cuda"),
+                                    torch.zeros(3, 8, 2, 48, device="cuda"),
+                                    torch.zeros(3, 8, 2, 48, device="cuda"),
+                                    tab.int(), torch.zeros(1, dtype=torch.int32,
+                                                           device="cuda"))
+    with pytest.raises(ValueError):                      # H not a multiple of K
+        da.decode_attention(torch.zeros(1, 3, 32, device="cuda"),
+                            torch.zeros(1, 8, 2, 32, device="cuda"),
+                            torch.zeros(1, 8, 2, 32, device="cuda"),
+                            torch.zeros(1, dtype=torch.int32, device="cuda"))
 
 
 def test_smoke_model_kernel_path_matches_plain_path(gen):
@@ -119,6 +196,62 @@ def test_smoke_model_kernel_path_matches_plain_path(gen):
     finally:
         ops.flash_attention = saved
     torch.testing.assert_close(lk, lp, atol=1e-4, rtol=0)
+
+
+def test_smoke_model_chunk_and_slot_paths_match_plain_path(gen):
+    """A smoke-size model's chunked-prefill logits (kernel 3) and slot
+    decode logits (kernel 5) through the kernels vs through the plain
+    versions, both on the card, all in f32."""
+    cfg = get_config("llama2-7b").smoke_config()
+    m = build_model(cfg, local_plan(param_dtype=torch.float32,
+                                    compute_dtype=torch.float32))
+    p = m.init(torch.Generator(device="cuda").manual_seed(0))
+    B, C, bs, T = 3, 16, 8, 8
+    tokens = torch.randint(0, cfg.vocab_size, (B, C), generator=gen,
+                           device="cuda", dtype=torch.int32)
+    starts = torch.tensor([0, 16, 40], dtype=torch.int32, device="cuda")
+    lengths = torch.tensor([16, 5, 16], dtype=torch.int32, device="cuda")
+    tables = (1 + torch.arange(B * T, device="cuda", dtype=torch.int32)
+              ).reshape(B, T)
+    pool = m.init_paged_cache(1 + B * T, bs, dtype=torch.float32)
+    for leaf in pool["attn"].values():
+        leaf.normal_(generator=gen)
+    cache = m.init_cache(B, 64, dtype=torch.float32)
+    for leaf in cache["attn"].values():
+        leaf.normal_(generator=gen)
+    pos = torch.tensor([63, 0, 30], dtype=torch.int32, device="cuda")
+    pool2 = {"attn": {n: t.clone() for n, t in pool["attn"].items()}}
+    cache2 = {"attn": {n: t.clone() for n, t in cache["attn"].items()}}
+    lk, _ = m.prefill_chunk_paged(p, pool, tokens, starts, lengths, tables)
+    dk, _ = m.decode_step(p, cache, tokens[:, 0].contiguous(), pos)
+    saved = ops.paged_prefill_attention, ops.decode_attention
+    ops.paged_prefill_attention = ppa.paged_prefill_attention_ref
+    ops.decode_attention = da.flash_decode_ref
+    try:
+        lp, _ = m.prefill_chunk_paged(p, pool2, tokens, starts, lengths,
+                                      tables)
+        dp, _ = m.decode_step(p, cache2, tokens[:, 0].contiguous(), pos)
+    finally:
+        ops.paged_prefill_attention, ops.decode_attention = saved
+    torch.testing.assert_close(lk, lp, atol=1e-4, rtol=0)
+    torch.testing.assert_close(dk, dp, atol=1e-4, rtol=0)
+    # the same rows written; from layer 1 on their values carry the
+    # attention outputs' rounding differences
+    for n in ("k", "v"):
+        torch.testing.assert_close(pool["attn"][n][:, 1:],
+                                   pool2["attn"][n][:, 1:], atol=1e-4, rtol=0)
+        torch.testing.assert_close(cache["attn"][n], cache2["attn"][n],
+                                   atol=1e-4, rtol=0)
+
+
+@pytest.mark.parametrize("mode", [[], ["--no-paged"]])
+def test_serve_cli_modes_on_cuda_match_cpu(gen, mode):
+    """The paged and slot serve CLI on the card print the same dict as on
+    the CPU (no eos in its workload, so the counters do not depend on the
+    weights)."""
+    from repro_torch.launch import serve
+    assert serve.main(["--smoke", *mode]) == \
+        serve.main(["--smoke", *mode, "--device", "cpu"])
 
 
 def test_serve_cli_on_cuda_matches_cpu(gen):

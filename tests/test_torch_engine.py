@@ -113,8 +113,15 @@ def test_unported_request_kinds_raise(models):
         eng.submit(Request(prompt=[1, 2], temperature=0.7))
     with pytest.raises(NotImplementedError):
         eng.submit(Request(prompt=[1, 2], deadline_ms=10.0))
+    # the slot pool is ported; chunked prefill still needs the paged pool,
+    # as in the reference
+    with pytest.raises(ValueError):
+        Engine(tm, tp, max_seq=64, n_slots=2, paged=False, prefill_chunk=8)
+    slots = Engine(tm, tp, max_seq=64, n_slots=2, paged=False)
     with pytest.raises(NotImplementedError):
-        Engine(tm, tp, paged=False)
+        slots.submit(Request(prompt=[1, 2], temperature=0.7))
+    with pytest.raises(NotImplementedError):
+        slots.submit(Request(prompt=[1, 2], deadline_ms=10.0))
 
 
 def test_goodput_matches_reference(models):

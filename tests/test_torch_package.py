@@ -15,8 +15,10 @@ import repro_torch
 from repro_torch import convert
 from repro_torch.configs import get_config
 from repro_torch.kernels import build, ops
+from repro_torch.kernels import decode_attention as dense_mod
 from repro_torch.kernels import flash_attention as flash_mod
 from repro_torch.kernels import paged_decode_attention as paged_mod
+from repro_torch.kernels import paged_prefill_attention as prefill_mod
 from repro_torch.models import Model, build_model, layers, local_plan
 from repro_torch.models import attention as TA
 
@@ -65,14 +67,15 @@ def test_importing_every_module_loads_no_jax():
 def test_nothing_built_at_import():
     """Importing the kernel modules compiles and loads nothing."""
     assert build._LIBS == {}
-    assert not flash_mod._kernel.cache_info().currsize
-    assert not paged_mod._kernel.cache_info().currsize
+    for mod in (flash_mod, paged_mod, prefill_mod, dense_mod):
+        assert not mod._kernel.cache_info().currsize
 
 
 @pytest.mark.parametrize("fn", [
     build_model, Model.__init__, convert.from_jax_params, layers.dense_init,
     layers.embed_init, layers.rope_freqs, layers.mlp_init, TA.init_gqa,
-    TA.kv_index, TA.init_paged_attn_cache,
+    TA.kv_index, TA.init_paged_attn_cache, TA.init_attn_cache,
+    Model.init_cache,
 ], ids=lambda f: f.__qualname__)
 def test_entry_points_default_to_cuda(fn):
     assert inspect.signature(fn).parameters["device"].default == "cuda"
@@ -94,18 +97,38 @@ class _FakeCuda:
     device = torch.device("cuda", 0)
 
 
-@pytest.mark.parametrize("name,n_args", [("flash_attention", 3),
-                                         ("paged_decode_attention", 5)])
-def test_dispatcher_sends_cuda_tensors_to_the_kernel(monkeypatch, name,
-                                                     n_args):
-    mod = flash_mod if name == "flash_attention" else paged_mod
+# ops entry -> (module, kernel wrapper, plain versions it must not reach,
+# tensor arguments)
+DISPATCH = {
+    "flash_attention": (flash_mod, "flash_attention",
+                        ("flash_attention_ref",), 3),
+    "paged_decode_attention": (paged_mod, "paged_decode_attention",
+                               ("paged_decode_attention_ref",), 5),
+    "paged_prefill_attention": (prefill_mod, "paged_prefill_attention",
+                                ("paged_prefill_attention_ref",), 5),
+    "paged_verify_attention": (prefill_mod, "paged_verify_attention",
+                               ("paged_prefill_attention_ref",), 5),
+    "decode_attention": (dense_mod, "decode_attention",
+                         ("decode_attention_ref", "flash_decode_ref"), 4),
+}
+
+
+def test_dispatcher_covers_every_ops_entry():
+    assert set(DISPATCH) == set(ops.__all__)
+
+
+@pytest.mark.parametrize("name", sorted(DISPATCH))
+def test_dispatcher_sends_cuda_tensors_to_the_kernel(monkeypatch, name):
+    mod, wrapper, plains, n_args = DISPATCH[name]
     calls = []
-    monkeypatch.setattr(mod, name, lambda *a, **k: calls.append(a) or "kernel")
+    monkeypatch.setattr(mod, wrapper,
+                        lambda *a, **k: calls.append(a) or "kernel")
 
     def plain(*a, **k):
         raise AssertionError("a CUDA tensor reached the plain version")
 
-    monkeypatch.setattr(mod, f"{name}_ref", plain)
+    for ref in plains:
+        monkeypatch.setattr(mod, ref, plain)
     args = [_FakeCuda() for _ in range(n_args)]
     assert getattr(ops, name)(*args) == "kernel"
     assert len(calls) == 1
@@ -115,8 +138,15 @@ def test_dispatcher_sends_cuda_tensors_to_the_kernel(monkeypatch, name,
 def test_dispatcher_refuses_other_devices(devices):
     q = torch.zeros(1, 2, 4, 8, device=devices[0])
     k = torch.zeros(1, 2, 4, 8, device=devices[1])
+    i = torch.zeros(1, 2, dtype=torch.int32, device=devices[1])
     with pytest.raises(ValueError):
         ops.flash_attention(q, k, k)
+    with pytest.raises(ValueError):
+        ops.paged_prefill_attention(q, k, k, i, i[:, 0])
+    with pytest.raises(ValueError):
+        ops.paged_verify_attention(q, k, k, i, i[:, 0])
+    with pytest.raises(ValueError):
+        ops.decode_attention(q[:, 0], k, k, i[:, 0])
 
 
 def test_kernel_wrappers_refuse_cpu_tensors():
@@ -130,8 +160,19 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     with pytest.raises(ValueError):
         paged_mod.paged_decode_attention(torch.zeros(1, 2, 32), pool, pool,
                                          tab, torch.zeros(1, dtype=torch.int32))
+    with pytest.raises(ValueError):
+        prefill_mod.paged_prefill_attention(torch.zeros(1, 4, 2, 32), pool,
+                                            pool, tab,
+                                            torch.zeros(1, dtype=torch.int32))
+    with pytest.raises(ValueError):
+        dense_mod.decode_attention(torch.zeros(1, 2, 32),
+                                   torch.zeros(1, 8, 2, 32),
+                                   torch.zeros(1, 8, 2, 32),
+                                   torch.zeros(1, dtype=torch.int32))
     assert flash_mod.flash_attention.launches == 0
     assert paged_mod.paged_decode_attention.launches == 0
+    assert prefill_mod.paged_prefill_attention.launches == 0
+    assert dense_mod.decode_attention.launches == 0
 
 
 def test_model_runs_plain_versions_on_cpu_without_counting():
@@ -141,4 +182,18 @@ def test_model_runs_plain_versions_on_cpu_without_counting():
     logits, _ = m.prefill_ragged(p, torch.zeros(2, 16, dtype=torch.int32),
                                  torch.tensor([16, 3], dtype=torch.int32))
     assert logits.shape == (2, 128) and torch.isfinite(logits).all()
+    pool = m.init_paged_cache(5, 8)
+    tables = torch.arange(1, 5, dtype=torch.int32).reshape(2, 2)
+    logits, _ = m.prefill_chunk_paged(p, pool,
+                                      torch.zeros(2, 8, dtype=torch.int32),
+                                      torch.tensor([0, 4], dtype=torch.int32),
+                                      torch.tensor([8, 3], dtype=torch.int32),
+                                      tables)
+    assert logits.shape == (2, 128) and torch.isfinite(logits).all()
+    logits, _ = m.decode_step(p, m.init_cache(2, 16, device="cpu"),
+                              torch.zeros(2, dtype=torch.int32),
+                              torch.tensor([3, 0], dtype=torch.int32))
+    assert logits.shape == (2, 128) and torch.isfinite(logits).all()
     assert flash_mod.flash_attention.launches == 0
+    assert prefill_mod.paged_prefill_attention.launches == 0
+    assert dense_mod.decode_attention.launches == 0
