@@ -8,9 +8,10 @@ Builds the hand-written CUDA kernels from ``src/repro_torch/csrc`` (one
 
 1. holds each kernel against its plain PyTorch version on the card at the
    serving paths' shapes, in every (query, cache) dtype pair the kernel is
-   built for, and times kernel, plain version and a PyTorch library call
-   beside each (the library call is a yardstick only; the port never
-   calls it);
+   built for (for the WKV recurrence: f32 and bf16 r/k/v, at the decode,
+   prefill, ragged and state-carry shapes), and times kernel, plain
+   version and a PyTorch library call beside each where one exists (the
+   library call is a yardstick only; the port never calls it);
 2. serves full-width llama2-7b (random weights from a seeded generator)
    through the ``Engine`` on three paths, each with every launch count set
    to 0 just before and read just after: the paged pool with whole-prompt
@@ -31,6 +32,14 @@ Builds the hand-written CUDA kernels from ``src/repro_torch/csrc`` (one
    timed on the host clock after init (plain and under
    ``torch.inference_mode``) and after each later phase, so the drift of
    the host's clock over the run stands beside the trace.
+5. frees llama2-7b and runs phases 2-4 for full-width rwkv6-3b (random
+   weights from a seeded generator) on the slot pool: the same requests
+   served with every WKV launch counted (32 per prefill and per decode
+   step) and no attention kernel run; a prefill and a slot decode step
+   teacher-forced through the kernel and through its plain version, and
+   prefill of a prompt's head plus one decode step per remaining token
+   against prefill of the whole prompt (the state carried through the
+   model); traces of one prefill and one slot decode step.
 
 Any failed check exits non-zero.  The last line is the result JSON; the
 lines before it list every kernel with its launches, error and times, and
@@ -94,6 +103,24 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ms(torch, fn, kernel: str, iters: int = 20) -> float:
+    """Device time per call of the device kernels whose name holds
+    ``kernel``, from ``torch.profiler`` over ``iters`` calls after one
+    warm-up: for a kernel shorter than its wrapper's host time, where
+    CUDA events around back-to-back calls time the host."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(getattr(e, "self_device_time_total",
+                     getattr(e, "self_cuda_time_total", 0))
+             for e in prof.key_averages() if kernel in e.key)
+    return us / 1e3 / iters
 
 
 # ---------------------------------------------------------------------------
@@ -376,6 +403,129 @@ def check_dense(torch, gen):
             "bound_ms": bound, "bound_by": by, "library_ms": lib_ms}
 
 
+def held_scaled(label: str, got, want, name: str) -> float:
+    """``held`` for outputs that grow with the data: the max abs error over
+    max |plain| against ``TOL``, the error norm over the plain norm against
+    ``REL_TOL``.  Returns the max abs error."""
+    err, rel = compare(got, want)
+    scale = max(want.float().abs().max().item(), 1.0)
+    ok = err <= TOL[name] * scale and rel <= REL_TOL[name]
+    print(f"{label}: max_abs_err={err:.3e} max|plain|={scale:.3e} "
+          f"err/max={err / scale:.3e} tol={TOL[name]:.0e} rel_err={rel:.3e} "
+          f"rel_tol={REL_TOL[name]:.0e} {'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        fail(f"{label} disagrees with its plain version")
+    return err
+
+
+def _wkv_inputs(torch, gen, B, T, H, D, dt, zero_state):
+    """r/k/v in ``dt``; w = exp(-exp(dw)) around rwkv6-3b's init decay
+    (dw = -6 + N(0, 1)); u and s0 f32 (s0 None: a zero state)."""
+    r, k, v = (torch.randn(B, T, H, D, generator=gen, device="cuda",
+                           dtype=dt) for _ in range(3))
+    w = torch.exp(-torch.exp(-6.0 + torch.randn(B, T, H, D, generator=gen,
+                                                 device="cuda")))
+    u = 0.1 * torch.randn(H, D, generator=gen, device="cuda")
+    s0 = None if zero_state else torch.randn(B, H, D, D, generator=gen,
+                                             device="cuda")
+    return r, k, v, w, u, s0
+
+
+def wkv_bound(B: int, T: int, H: int, D: int, el: int, state_in: bool):
+    """(bound ms, what bounds it, bytes, flops) of one WKV call: r/k/v
+    (``el`` bytes) and w (f32) read once, y written once, u read, the
+    state read (when given) and written once; 7 f32 flops per state entry
+    and step (y: u*k times v, the add, the FMA with r; S: w*S + k*v) plus
+    u*k per step."""
+    n_bytes = (B * T * H * D * (4 * el + 4) + H * D * 4
+               + (1 + state_in) * B * H * D * D * 4)
+    flops = 7 * B * T * H * D * D + B * T * H * D
+    bound, by = bound_of(n_bytes, flops, "f32")
+    return bound, by, n_bytes, flops
+
+
+def check_wkv(torch, gen):
+    """Kernel 7 at rwkv6-3b's serving shapes (H=40, D=64): a slot decode
+    step (4 slots, T=1, from a random state), a prefill (B=1, T=200, zero
+    state) and a ragged T=37, with f32 and with bf16 r/k/v (w, u and the
+    state are f32 in both); then state carry: 120 + 80 steps against 200,
+    and eight one-step calls written over their own state against the
+    plain version's one call of eight.
+
+    The state sums ~1/(1 - w) steps (~400 at the init decay), so |y|
+    reaches the hundreds and an absolute f32 bound of 1e-4 would measure
+    summation order, not defects: y and the state are held by their max
+    abs error over max |plain| and their error norm over the plain norm
+    (``held_scaled``)."""
+    from repro_torch.kernels import rwkv6_wkv as wkv
+    H, D = 40, 64
+    timed = {}
+    for name, dt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        for label, B, T, zero in (("decode", 4, 1, False),
+                                  ("prefill", 1, 200, True),
+                                  ("ragged", 2, 37, False)):
+            args = _wkv_inputs(torch, gen, B, T, H, D, dt, zero)
+            y, s = wkv.rwkv6_wkv(*args)
+            y_ref, s_ref = wkv.rwkv6_wkv_ref(*args)
+            what = (f"rwkv6_wkv {label} r/k/v={dt} B={B} T={T} H={H} D={D} "
+                    f"s0={'zero' if zero else 'random'}")
+            err = held_scaled(f"{what} y", y, y_ref, name)
+            held_scaled(f"{what} state", s, s_ref, "f32")
+            if name == "bf16":
+                timed[label] = (args, err)
+        r, k, v, w, u, _ = _wkv_inputs(torch, gen, 1, 200, H, D, dt, True)
+        y, s = wkv.rwkv6_wkv(r, k, v, w, u)
+        y1, s1 = wkv.rwkv6_wkv(r[:, :120], k[:, :120], v[:, :120],
+                               w[:, :120], u)
+        y2, s2 = wkv.rwkv6_wkv(r[:, 120:], k[:, 120:], v[:, 120:],
+                               w[:, 120:], u, s1)
+        what = f"rwkv6_wkv carry r/k/v={dt} 120 + 80 steps vs 200"
+        held_scaled(f"{what} y", torch.cat([y1, y2], 1), y, name)
+        held_scaled(f"{what} state", s2, s, "f32")
+        state = torch.zeros(1, H, D, D, device="cuda")
+        ys = [wkv.rwkv6_wkv(r[:, t:t + 1], k[:, t:t + 1], v[:, t:t + 1],
+                            w[:, t:t + 1], u, state, s_out=state)[0]
+              for t in range(8)]
+        y8, s8 = wkv.rwkv6_wkv_ref(r[:, :8], k[:, :8], v[:, :8], w[:, :8], u)
+        what = (f"rwkv6_wkv in place r/k/v={dt} 8 one-step calls vs plain "
+                f"T=8")
+        held_scaled(f"{what} y", torch.cat(ys, 1), y8, name)
+        held_scaled(f"{what} state", state, s8, "f32")
+    rows = {}
+    for label, ((r, k, v, w, u, s0), err) in timed.items():
+        B, T = r.shape[:2]
+        if s0 is None:
+            call = lambda: wkv.rwkv6_wkv(r, k, v, w, u)  # noqa: E731
+            plain_ms = cuda_ms(lambda: wkv.rwkv6_wkv_ref(r, k, v, w, u),
+                               iters=5, warmup=1)
+        else:   # the slot decode's call: the state written in place
+            call = lambda: wkv.rwkv6_wkv(r, k, v, w, u, s0,  # noqa: E731
+                                         s_out=s0)
+            plain_ms = cuda_ms(lambda: wkv.rwkv6_wkv_ref(r, k, v, w, u, s0,
+                                                         s_out=s0))
+        # the kernel's own time on the card; CUDA events around back-to-back
+        # wrapper calls also time the wrapper's host work where that is longer
+        ms = device_ms(torch, call, "wkv_kernel")
+        call_ms = cuda_ms(call)
+        bound, by, n_bytes, flops = wkv_bound(B, T, H, D, r.element_size(),
+                                              s0 is not None)
+        rows[label] = (ms, plain_ms, bound, by, err)
+        print(f"rwkv6_wkv {label} bf16 r/k/v B={B} T={T} H={H} D={D}: "
+              f"kernel {ms:.4f} ms on the device ({call_ms:.4f} ms per "
+              f"back-to-back wrapper call, CUDA events), plain "
+              f"{plain_ms:.4f} ms, library none (no single PyTorch call "
+              f"computes the recurrence), bound {bound:.5f} ms ({by}: "
+              f"{n_bytes} B, {flops} flop)", flush=True)
+    # the line's entry is the decode shape's: 32 of the path's launches
+    # per decode step against 32 per request's prefill
+    ms, plain_ms, bound, by, err = rows["decode"]
+    return {"name": "rwkv6_wkv", "route": "cuda",
+            "source": "src/repro_torch/csrc/rwkv6_wkv.cu",
+            "replaces": "src/repro/kernels/rwkv6_wkv.py:52",
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound, "bound_by": by, "library_ms": None}
+
+
 # ---------------------------------------------------------------------------
 # phase 2: full-width llama2-7b through the Engine
 # ---------------------------------------------------------------------------
@@ -386,10 +536,12 @@ def kernel_wrappers() -> dict:
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import paged_decode_attention as pa
     from repro_torch.kernels import paged_prefill_attention as ppa
+    from repro_torch.kernels import rwkv6_wkv as wkv
     return {"flash_attention": fa.flash_attention,
             "paged_decode_attention": pa.paged_decode_attention,
             "paged_prefill_attention": ppa.paged_prefill_attention,
-            "decode_attention": da.decode_attention}
+            "decode_attention": da.decode_attention,
+            "rwkv6_wkv": wkv.rwkv6_wkv}
 
 
 def reset_launches() -> None:
@@ -452,7 +604,7 @@ def serve(torch, model, params, label: str, load: list, need: tuple,
            "shared_block_hits": getattr(pool, "shared_block_hits", 0),
            "pending_share_waits": getattr(pool, "pending_share_waits", 0)}
     L = model.cfg.num_layers
-    print(f"serve llama2-7b {label}: {len(stats.completed)} done, "
+    print(f"serve {model.cfg.name} {label}: {len(stats.completed)} done, "
           f"decode_tokens={stats.decode_tokens} "
           f"prefill_tokens={stats.prefill_tokens} "
           f"prefill_batches={stats.prefill_batches} "
@@ -467,7 +619,7 @@ def serve(torch, model, params, label: str, load: list, need: tuple,
           f"per_prefill_batch_per_layer="
           f"{(launches['flash_attention'] + launches['paged_prefill_attention']) / max(stats.prefill_batches * L, 1):.2f} "
           f"per_decode_step_per_layer="
-          f"{(launches['paged_decode_attention'] + launches['decode_attention']) / max(steps * L, 1):.2f}",
+          f"{(launches['paged_decode_attention'] + launches['decode_attention'] + launches['rwkv6_wkv']) / max(steps * L, 1):.2f}",
           flush=True)
     del eng, pool
     torch.cuda.empty_cache()
@@ -558,7 +710,11 @@ def serve_paths(torch, model, params) -> dict:
 
 class plain_versions:
     """Within the block, ``ops`` sends CUDA tensors to the plain versions
-    (the ones each kernel is held against)."""
+    (the ones each kernel is held against); ``wkv`` replaces the WKV
+    recurrence's."""
+
+    def __init__(self, wkv=None):
+        self.wkv = wkv
 
     def __enter__(self):
         from repro_torch.kernels import decode_attention as da
@@ -566,6 +722,7 @@ class plain_versions:
         from repro_torch.kernels import ops
         from repro_torch.kernels import paged_decode_attention as pa
         from repro_torch.kernels import paged_prefill_attention as ppa
+        from repro_torch.kernels import rwkv6_wkv as wkv
         self.ops = ops
         self.saved = {n: getattr(ops, n) for n in ops.__all__}
         ops.flash_attention = fa.flash_attention_ref
@@ -573,6 +730,7 @@ class plain_versions:
         ops.paged_prefill_attention = ppa.paged_prefill_attention_ref
         ops.paged_verify_attention = ppa.paged_prefill_attention_ref
         ops.decode_attention = da.flash_decode_ref
+        ops.rwkv6_wkv = self.wkv or wkv.rwkv6_wkv_ref
 
     def __exit__(self, *exc):
         for n, fn in self.saved.items():
@@ -841,6 +999,252 @@ def where_time_goes(torch, calls: dict) -> None:
               walls[name], per=per, unit=unit)
 
 
+# ---------------------------------------------------------------------------
+# phase 5: full-width rwkv6-3b through the slot pool
+# ---------------------------------------------------------------------------
+
+ATTENTION = ("flash_attention", "paged_decode_attention",
+             "paged_prefill_attention", "decode_attention")
+
+
+def serve_rwkv(torch, model, params) -> dict:
+    """``plain_load``'s requests through the slot pool (rwkv6-3b cannot
+    serve paged): every request completes, the WKV kernel launches once
+    per layer for every prefill and every decode step, and no attention
+    kernel runs."""
+    L = model.cfg.num_layers
+    run = serve(torch, model, params, "slots (paged=None)",
+                plain_load(model.cfg.vocab_size), ("rwkv6_wkv",), paged=None)
+    st, launches = run["stats"], run["launches"]
+    want = L * (st.prefill_batches + st.decode_syncs)
+    print(f"rwkv checks: rwkv6_wkv launches={launches['rwkv6_wkv']} ({L} x "
+          f"({st.prefill_batches} prefills + {st.decode_syncs} decode steps) "
+          f"= {want}); attention kernels "
+          f"{ {n: launches[n] for n in ATTENTION} } (all 0)", flush=True)
+    if launches["rwkv6_wkv"] != want:
+        fail("rwkv: rwkv6_wkv did not launch once per layer, prefill and "
+             "decode step")
+    if any(launches[n] for n in ATTENTION):
+        fail("rwkv: an attention kernel ran on an attention-free model")
+    return launches
+
+
+def _clone(tree):
+    if isinstance(tree, dict):
+        return {k: _clone(v) for k, v in tree.items()}
+    return tree.clone()
+
+
+def wkv_other_order(r, k, v, w, u, s0=None, *, s_out=None):
+    """The plain recurrence with y summed elementwise over k in place of
+    the einsum: the same function in another f32 summation order."""
+    import torch
+    B, T, H, D = r.shape
+    s = torch.zeros(B, H, D, D, device=r.device) if s0 is None else s0.float()
+    ys = []
+    for t in range(T):
+        rt, kt, vt, wt = (a[:, t].float() for a in (r, k, v, w))
+        kv = kt[..., :, None] * vt[..., None, :]
+        bonus = (u.float()[None] * kt)[..., :, None] * vt[..., None, :]
+        ys.append((rt[..., :, None] * (s + bonus)).sum(dim=-2))
+        s = wt[..., :, None] * s + kv
+    y = torch.stack(ys, dim=1).to(r.dtype)
+    return y, (s if s_out is None else s_out.copy_(s))
+
+
+def _reading(torch, vocab: int, what: str, a, b) -> None:
+    a, b = a[:, :vocab].float(), b[:, :vocab].float()
+    print(f"reading {what} logits: max_abs_err={(a - b).abs().max().item():.4e} "
+          f"max|logit|={b.abs().max().item():.3f} argmax_same="
+          f"{int((a.argmax(-1) == b.argmax(-1)).sum())}/{a.shape[0]}",
+          flush=True)
+
+
+def rwkv_layers_forced(torch, m, params, tokens) -> bool:
+    """Every layer of a whole prefill fed the same input (the kernel
+    path's hidden state), through the kernel and through its plain
+    version: the block's output and its new WKV state, held by the error
+    norm over the plain norm (``REL_TOL`` of the plan's dtype)."""
+    from repro_torch.models import transformer as TR
+    name = "f32" if m.plan.compute_dtype == torch.float32 else "bf16"
+    x = m._embed_inputs(params, tokens)
+    worst = [0.0, 0.0]
+    for i in range(m.cfg.num_layers):
+        lp = TR._layer(params["layers"], i)
+        xk, ck = TR.block_forward(x, lp, None, m.cfg, m.plan, want_cache=True)
+        with plain_versions():
+            xp, cp = TR.block_forward(x, lp, None, m.cfg, m.plan,
+                                      want_cache=True)
+        worst[0] = max(worst[0], compare(xk, xp)[1])
+        worst[1] = max(worst[1], compare(ck["tmix"]["wkv"],
+                                         cp["tmix"]["wkv"])[1])
+        x = xk
+    ok = max(worst) <= REL_TOL[name]
+    print(f"teacher-forced rwkv {name} plan, each of {m.cfg.num_layers} "
+          f"layers fed the same input ({tuple(tokens.shape)} tokens): "
+          f"worst rel_err block output {worst[0]:.3e}, WKV state "
+          f"{worst[1]:.3e} rel_tol={REL_TOL[name]:.0e} "
+          f"{'ok' if ok else 'FAIL'}", flush=True)
+    return ok
+
+
+def rwkv_divergence(torch, m, params, tokens) -> None:
+    """A reading: two whole passes, one through the kernel and one through
+    the plain version, each layer fed its own pass's hidden state; the
+    relative difference of the two hidden states after chosen layers, at
+    the first and at the last position, and of two plain passes (the
+    run-to-run repeatability of the rest of the model)."""
+    from repro_torch.models import transformer as TR
+    xs = {}
+    for name in ("kernel", "plain", "plain again"):
+        x = m._embed_inputs(params, tokens)
+        seq = []
+        for i in range(m.cfg.num_layers):
+            lp = TR._layer(params["layers"], i)
+            if name == "kernel":
+                x, _ = TR.block_forward(x, lp, None, m.cfg, m.plan,
+                                        want_cache=False)
+            else:
+                with plain_versions():
+                    x, _ = TR.block_forward(x, lp, None, m.cfg, m.plan,
+                                            want_cache=False)
+            seq.append(x)
+        xs[name] = seq
+
+    def rel(a, b, t):
+        return compare(a[:, t], b[:, t])[1]
+
+    for a, b in (("kernel", "plain"), ("plain again", "plain")):
+        cells = " ".join(
+            f"L{i}:{rel(xs[a][i], xs[b][i], 0):.1e}/"
+            f"{rel(xs[a][i], xs[b][i], -1):.1e}"
+            for i in (0, 1, 2, 3, 5, 8, 12, 16, 24, 31) if i < len(xs[a]))
+        print(f"reading rwkv {m.plan.compute_dtype} unforced {a} vs {b}, "
+              f"rel diff of the hidden state after layer (first/last "
+              f"position): {cells}", flush=True)
+
+
+def teacher_forced_rwkv(torch, model, params):
+    """Teacher-forced checks of rwkv6-3b on 4 prompts of 200 tokens, in
+    the serving (bf16) plan and in an f32 compute plan over the same bf16
+    weights.
+
+    Checks, in both plans: one slot decode step from a prefill's state,
+    through the kernel and through its plain version (the argmax-with-
+    margin rule), and a whole prefill with every layer fed the same input
+    (``rwkv_layers_forced``); in the bf16 plan, the state carried through
+    the model: prefill of the first 192 tokens and one decode step per
+    remaining token against the 200-token prefill.
+
+    Readings: whole prefills through the kernel against the plain
+    version, beside the plain version against itself in another f32
+    summation order, and the divergence of two such passes by layer.  This
+    random-weight model amplifies a rounding difference layer after layer
+    in a prefill, in f32 as in bf16, so two summation orders of the plain
+    version differ at the logits as much as kernel and plain do: there a
+    comparison measures the model, not the kernel."""
+    from repro_torch.models import build_model, local_plan
+    vocab, dev = model.cfg.vocab_size, model.device
+    B, S, head = 4, 200, 192
+    gen = torch.Generator(device=dev).manual_seed(5)
+    tokens = torch.randint(0, vocab, (B, S), generator=gen, device=dev,
+                           dtype=torch.int32)
+    pos = torch.full((B,), S, dtype=torch.int32, device=dev)
+    ok = True
+    f32_model = build_model(model.cfg, local_plan(
+        param_dtype=torch.bfloat16, compute_dtype=torch.float32))
+    for plan, m in (("bf16", model), ("f32", f32_model)):
+        lk, state = m.prefill(params, tokens)
+        with plain_versions():
+            lp, _ = m.prefill(params, tokens)
+        with plain_versions(wkv_other_order):
+            lo, _ = m.prefill(params, tokens)
+        _reading(torch, vocab, f"rwkv {plan} plan prefill, kernel vs plain",
+                 lk, lp)
+        _reading(torch, vocab, f"rwkv {plan} plan prefill, plain vs plain "
+                 f"in another summation order", lo, lp)
+        rwkv_divergence(torch, m, params, tokens[:, :32])
+        ok &= rwkv_layers_forced(torch, m, params, tokens)
+        nxt = lk[:, :vocab].argmax(-1).to(torch.int32)
+        state_copy = _clone(state)
+        dk, _ = m.decode_step(params, state, nxt, pos)
+        with plain_versions():
+            dp, _ = m.decode_step(params, state_copy, nxt, pos)
+        ok &= logits_agree(torch, vocab, f"rwkv {plan} plan slot decode, "
+                           f"kernel vs plain", dk, dp)
+        del state, state_copy
+        if plan != "bf16":
+            continue
+        _, carried = m.prefill(params, tokens[:, :head])
+        for t in range(head, S):
+            lc, _ = m.decode_step(params, carried, tokens[:, t].contiguous(),
+                                  torch.full((B,), t, dtype=torch.int32,
+                                             device=dev))
+        ok &= logits_agree(torch, vocab, f"rwkv bf16 plan prefill {head} + "
+                           f"{S - head} decode steps vs prefill {S}", lc, lk)
+        del carried
+    torch.cuda.empty_cache()
+    if not ok:
+        fail("teacher-forced rwkv6-3b disagrees")
+
+
+def rwkv_phase4_calls(torch, model, params) -> dict:
+    """One request's prefill (200 tokens; the slot pool prefills one
+    request at a time) and one slot decode step over 4 slots."""
+    dev = model.device
+    tokens = torch.randint(0, model.cfg.vocab_size, (1, 200), device=dev,
+                           dtype=torch.int32,
+                           generator=torch.Generator(device=dev).manual_seed(6))
+    slots = model.init_cache(4, 2048, device=dev)
+    tok = tokens[0, :4].contiguous()
+    pos = torch.tensor([230, 180, 120, 40], dtype=torch.int32, device=dev)
+    return {
+        "prefill": ("1 prompt of 200 tokens",
+                    lambda: model.prefill(params, tokens), 1, "prefill"),
+        "slot": ("4 slots", lambda: model.decode_step(params, slots, tok,
+                                                      pos), 1, "step"),
+    }
+
+
+def rwkv_phases(torch) -> dict:
+    """Phases 2-4 for full-width rwkv6-3b; returns the serve run's
+    launches."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model, local_plan
+    cfg = get_config("rwkv6-3b")
+    model = build_model(cfg, local_plan(param_dtype=torch.bfloat16))
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _leaves(params))
+    # param_count leaves out the per-layer vectors: the six token-shift
+    # mixes (mu_base, mu) and decay_base, u_bonus, ln_x of the time-mix,
+    # mu_k and mu_r of the channel-mix
+    vectors = cfg.num_layers * (8 * cfg.d_model
+                                + 3 * cfg.n_heads * cfg.head_dim)
+    print(f"rwkv6-3b full width: {cfg.num_layers} layers d_model "
+          f"{cfg.d_model} heads {cfg.n_heads} x {cfg.head_dim} d_ff "
+          f"{cfg.d_ff} vocab {cfg.vocab_size}; {n_params} params in bf16 "
+          f"(config's count {cfg.param_count()} + {vectors} per-layer "
+          f"vector entries), init {time.perf_counter() - t0:.1f} s, "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated",
+          flush=True)
+    if n_params != cfg.param_count() + vectors:
+        fail(f"rwkv6-3b parameter count {n_params} != "
+             f"{cfg.param_count()} + {vectors}")
+    launches = serve_rwkv(torch, model, params)
+    teacher_forced_rwkv(torch, model, params)
+    calls = rwkv_phase4_calls(torch, model, params)
+    walls = {name: host_walls(torch, fn, per, reps=5)
+             for name, (_, fn, per, _) in calls.items()}
+    for name, (label, fn, per, unit) in calls.items():
+        trace(torch, f"{name} profile rwkv6-3b bf16, {label}", fn,
+              walls[name], per=per, unit=unit)
+    del model, params, calls
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -870,7 +1274,8 @@ def main() -> int:
     gen = torch.Generator(device="cuda").manual_seed(0)
     dtypes = {"bf16": torch.bfloat16, "f32": torch.float32}
     entries = [check_flash(torch, dtypes, gen), check_paged(torch, gen),
-               check_prefill(torch, gen), check_dense(torch, gen)]
+               check_prefill(torch, gen), check_dense(torch, gen),
+               check_wkv(torch, gen)]
     print(f"phase 1 done at {time.perf_counter() - t_start:.1f} s",
           flush=True)
 
@@ -895,8 +1300,6 @@ def main() -> int:
     with torch.inference_mode():
         host_probe(torch, "after init, under torch.inference_mode", decode)
     launches = serve_paths(torch, model, params)
-    for e in entries:
-        e["launches"] = launches[e["name"]]
     host_probe(torch, "after serve", decode)
     print(f"phase 2 done at {time.perf_counter() - t_start:.1f} s",
           flush=True)
@@ -910,6 +1313,16 @@ def main() -> int:
     # phase 4
     where_time_goes(torch, calls)
     host_probe(torch, "after phase 4", decode)
+    print(f"phase 4 done at {time.perf_counter() - t_start:.1f} s",
+          flush=True)
+
+    # phase 5: llama2-7b's weights, pools and traces go first
+    del model, params, calls, decode
+    torch.cuda.empty_cache()
+    for name, n in rwkv_phases(torch).items():
+        launches[name] += n
+    for e in entries:
+        e["launches"] = launches[e["name"]]
     print(f"all phases done at {time.perf_counter() - t_start:.1f} s",
           flush=True)
 

@@ -14,6 +14,7 @@ from repro_torch.kernels import decode_attention as _dense
 from repro_torch.kernels import flash_attention as _flash
 from repro_torch.kernels import paged_decode_attention as _paged
 from repro_torch.kernels import paged_prefill_attention as _prefill
+from repro_torch.kernels import rwkv6_wkv as _wkv
 
 
 def _on_cpu(*tensors: torch.Tensor) -> bool:
@@ -74,6 +75,14 @@ def decode_attention(q, k, v, positions, *, scale=None):
     return _dense.decode_attention(q, k, v, positions, scale=scale)
 
 
+def rwkv6_wkv(r, k, v, w, u, s0=None, *, s_out=None):
+    """RWKV6 WKV recurrence over (B, T, H, D); returns (y, final state).
+    With ``s_out`` (which may be ``s0``) the final state is written there."""
+    if _on_cpu(*(t for t in (r, k, v, w, u, s0, s_out) if t is not None)):
+        return _wkv.rwkv6_wkv_ref(r, k, v, w, u, s0, s_out=s_out)
+    return _wkv.rwkv6_wkv(r, k, v, w, u, s0, s_out=s_out)
+
+
 __all__ = ["flash_attention", "paged_decode_attention",
            "paged_prefill_attention", "paged_verify_attention",
-           "decode_attention"]
+           "decode_attention", "rwkv6_wkv"]

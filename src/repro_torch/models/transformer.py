@@ -1,12 +1,12 @@
-"""Model assembly for the dense GQA family (port of the dense parts of
-``repro.models.transformer``).
+"""Model assembly for the dense GQA and RWKV6 families (port of those parts
+of ``repro.models.transformer``).
 
 Parameters are the reference's dict tree with layers stacked on a leading L
 axis (``transformer.py:534-535``), so a JAX ``Model.init`` tree carries over
 by copy (``repro_torch.convert``).  The reference scans the stacked layers
 with ``lax.scan``; here a Python loop walks per-layer views.  Decode,
-chunked prefill and cache writes update the paged pool or the slot cache in
-place instead of returning a new one.
+chunked prefill and cache writes update the paged pool or the slot cache
+(for RWKV6, the recurrent state) in place instead of returning a new one.
 """
 from __future__ import annotations
 
@@ -17,6 +17,7 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
+from repro_torch.models import ssm as S
 from repro_torch.models.sharding import ShardPlan
 
 NEG_INF = -1e30
@@ -32,12 +33,15 @@ def _norm_init(cfg: ArchConfig, dt, device) -> dict:
 
 
 def _ported(cfg: ArchConfig) -> bool:
-    """The blocks this module ports: causal GQA + RMSNorm + gated MLP on
-    token inputs."""
-    return (cfg.attn_kind == "gqa" and cfg.causal and not cfg.rwkv
+    """The blocks this module ports, on token inputs with RMSNorm: causal
+    GQA + gated MLP, and RWKV6 time-mix + channel-mix."""
+    if cfg.norm_kind != "rms" or cfg.input_kind != "tokens":
+        return False
+    if cfg.rwkv:
+        return cfg.mlp_kind == "rwkv_cmix"
+    return (cfg.attn_kind == "gqa" and cfg.causal
             and cfg.family not in ("hybrid", "moe") and not cfg.n_experts
-            and cfg.mlp_kind == "glu" and cfg.norm_kind == "rms"
-            and cfg.input_kind == "tokens")
+            and cfg.mlp_kind == "glu")
 
 
 # ---------------------------------------------------------------------------
@@ -47,13 +51,18 @@ def _ported(cfg: ArchConfig) -> bool:
 def init_layer(cfg: ArchConfig, plan: ShardPlan, *,
                generator: torch.Generator, device="cuda") -> dict:
     dt = plan.param_dtype
-    return {
-        "norm1": _norm_init(cfg, dt, device),
-        "norm2": _norm_init(cfg, dt, device),
-        "attn": A.init_gqa(cfg, plan, generator=generator, device=device),
-        "mlp": L.mlp_init(cfg.d_model, cfg.d_ff, generator=generator,
-                          dtype=dt, device=device),
-    }
+    p = {"norm1": _norm_init(cfg, dt, device),
+         "norm2": _norm_init(cfg, dt, device)}
+    if cfg.rwkv:
+        p["tmix"] = S.init_rwkv_tmix(cfg, plan, generator=generator,
+                                     device=device)
+        p["cmix"] = S.init_rwkv_cmix(cfg, plan, generator=generator,
+                                     device=device)
+        return p
+    p["attn"] = A.init_gqa(cfg, plan, generator=generator, device=device)
+    p["mlp"] = L.mlp_init(cfg.d_model, cfg.d_ff, generator=generator,
+                          dtype=dt, device=device)
+    return p
 
 
 # ---------------------------------------------------------------------------
@@ -67,7 +76,16 @@ def _mlp(h, lp: dict, cfg: ArchConfig, plan: ShardPlan):
 
 def block_forward(x, lp: dict, positions, cfg: ArchConfig, plan: ShardPlan,
                   *, want_cache: bool):
-    """Prefill block, x (B, S, d).  Returns (x, cache_or_None)."""
+    """Prefill block, x (B, S, d).  Returns (x, cache_or_None); an RWKV
+    block starts from a zero state and its cache is the new state."""
+    if cfg.rwkv:
+        y, tmix = S.rwkv_tmix_forward(lp["tmix"], _norm(x, lp["norm1"], cfg),
+                                      cfg, plan)
+        x = x + y
+        y, cmix = S.rwkv_cmix_forward(lp["cmix"], _norm(x, lp["norm2"], cfg),
+                                      cfg, plan)
+        x = x + y
+        return x, ({"tmix": tmix, "cmix": cmix} if want_cache else None)
     h = _norm(x, lp["norm1"], cfg)
     attn_out, attn_cache = A.gqa_forward(lp["attn"], h, positions, cfg, plan,
                                          want_cache=want_cache)
@@ -91,8 +109,16 @@ def block_prefill_paged(x, lp: dict, lc: dict, starts, lengths,
 
 def block_decode(x, lp: dict, lc: dict, positions, cfg: ArchConfig,
                  plan: ShardPlan):
-    """Slot-cache decode block, x (B, d); lc holds this layer's cache,
-    written in place."""
+    """Slot-cache decode block, x (B, d); lc holds this layer's cache (for
+    RWKV6 its recurrent state), written in place."""
+    if cfg.rwkv:
+        x3 = x[:, None]
+        y, _ = S.rwkv_tmix_forward(lp["tmix"], _norm(x3, lp["norm1"], cfg),
+                                   cfg, plan, lc["tmix"], out_state=lc["tmix"])
+        x3 = x3 + y
+        y, _ = S.rwkv_cmix_forward(lp["cmix"], _norm(x3, lp["norm2"], cfg),
+                                   cfg, plan, lc["cmix"], out_state=lc["cmix"])
+        return (x3 + y)[:, 0], lc
     h = _norm(x, lp["norm1"], cfg)
     attn_out, attn_cache = A.gqa_decode(lp["attn"], h, lc["attn"], positions,
                                         cfg, plan)
@@ -123,7 +149,7 @@ def _layer(tree: dict, i: int) -> dict:
 # ---------------------------------------------------------------------------
 
 class Model:
-    """One dense GQA architecture bound to a plan and a device."""
+    """One dense GQA or RWKV6 architecture bound to a plan and a device."""
 
     def __init__(self, cfg: ArchConfig, plan: ShardPlan, device="cuda"):
         if not _ported(cfg):
@@ -182,9 +208,7 @@ class Model:
         x = _norm(x, params["final_norm"], cfg)
         if not want_cache:
             return x, None
-        stacked = {name: torch.stack([c["attn"][name] for c in caches])
-                   for name in ("k", "v")}
-        return x, {"attn": stacked}
+        return x, L.tree_map(lambda *a: torch.stack(a), *caches)
 
     def _head(self, params, x):
         w = self._unembed_w(params).to(self.plan.compute_dtype)
@@ -251,9 +275,20 @@ class Model:
             cache
 
     def decode_step(self, params, cache, tokens, positions):
-        """One token per slot over the contiguous slot cache (updated in
-        place).  tokens/positions: (B,) int32."""
+        """One token per slot over the contiguous slot cache, or for RWKV6
+        the slots' recurrent state, updated in place (the WKV kernel writes
+        its final state over the pool's).  tokens/positions: (B,) int32.
+
+        The reference returns the new RWKV state in the compute dtype, so
+        a pool's shift leaves in another dtype (bf16 under an f32 plan)
+        are replaced by compute-dtype copies at the first step, in
+        ``cache`` itself."""
         cfg, plan = self.cfg, self.plan
+        if cfg.rwkv:
+            for part in ("tmix", "cmix"):
+                leaf = cache[part]["shift"]
+                if leaf.dtype != plan.compute_dtype:
+                    cache[part]["shift"] = leaf.to(plan.compute_dtype)
         x = self._embed_inputs(params, tokens)
         for i in range(cfg.num_layers):
             x, _ = block_decode(x, _layer(params["layers"], i),
@@ -320,12 +355,18 @@ class Model:
     def init_cache(self, batch: int, seq_len: int, dtype=torch.bfloat16,
                    device="cuda") -> dict:
         """Layer-stacked slot cache on ``device`` (the slot pool passes the
-        model's): leaves (L, batch, seq_len, K, hd)."""
-        c = A.init_attn_cache(self.cfg, self.plan, batch, seq_len, dtype,
-                              device="meta")
-        return {"attn": {name: torch.zeros((self.cfg.num_layers,) + a.shape,
-                                           dtype=dtype, device=device)
-                         for name, a in c.items()}}
+        model's): leaves (L, batch, seq_len, K, hd); for RWKV6 the
+        recurrent state, ``{"tmix": {"shift", "wkv"}, "cmix": {"shift"}}``
+        with leaves (L, batch, ...), the WKV state in f32."""
+        cfg, plan = self.cfg, self.plan
+        if cfg.rwkv:
+            one = S.init_rwkv_state(cfg, plan, batch, dtype, device="meta")
+        else:
+            one = {"attn": A.init_attn_cache(cfg, plan, batch, seq_len, dtype,
+                                             device="meta")}
+        return L.tree_map(lambda a: torch.zeros((cfg.num_layers,) + a.shape,
+                                                dtype=a.dtype, device=device),
+                          one)
 
     def init_paged_cache(self, n_blocks: int, block_size: int,
                          dtype=torch.bfloat16) -> dict:

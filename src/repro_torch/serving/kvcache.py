@@ -14,8 +14,9 @@ content-hash chain index so later prompts with the same head reuse them
 (prefix sharing), and an admission claims the chain keys it will publish
 so a same-wave duplicate waits and attaches instead of writing a copy.
 
-``CachePool``: the slot pool, one contiguous ``max_seq`` cache per slot;
-the fallback for cache families the block pool cannot hold.
+``CachePool``: the slot pool, one contiguous ``max_seq`` cache (for RWKV6
+the recurrent state) per slot; the fallback for cache families the block
+pool cannot hold.
 
 The numpy arrays (tables, lengths, last tokens) are the source of truth;
 ``tables()`` / ``positions()`` / ``last_tokens_dev()`` return persistent
@@ -31,12 +32,14 @@ import hashlib
 import numpy as np
 import torch
 
+from repro_torch.models.layers import tree_map
 from repro_torch.models.transformer import Model
 
 
 class CachePool:
     """Slot pool: a layer-stacked ``(L, n_slots, max_seq, K, hd)`` cache,
-    one slot per request."""
+    or for RWKV6 the recurrent state ``(L, n_slots, ...)``, one slot per
+    request."""
 
     def __init__(self, model: Model, n_slots: int, max_seq: int):
         self.model = model
@@ -51,12 +54,20 @@ class CachePool:
         return bool(self.free)
 
     def insert(self, req_id: int, prefill_cache: dict, prompt_len: int) -> int:
-        """Copy a single-request prefill cache (leaves ``(L, 1, S_prompt,
-        K, hd)``) into the first ``S_prompt`` positions of a free slot."""
+        """Copy a single-request prefill cache (batch dim 1) into a free
+        slot, cast to the pool's dtypes: a leaf whose trailing shape
+        differs from the pool's (``(L, 1, S_prompt, K, hd)`` KV) fills the
+        first ``S_prompt`` positions, any other (the RWKV state) the whole
+        slot."""
         slot = self.free.pop()
-        for name, dst in self.cache["attn"].items():
-            src = prefill_cache["attn"][name]
-            dst[:, slot, : src.shape[2]] = src[:, 0].to(dst.dtype)
+
+        def put_leaf(dst, src):
+            if dst.dim() >= 3 and src.shape[2:] != dst.shape[2:]:
+                dst[:, slot, : src.shape[2]] = src[:, 0].to(dst.dtype)
+            else:
+                dst[:, slot] = src[:, 0].to(dst.dtype)
+
+        tree_map(put_leaf, self.cache, prefill_cache)
         self.lengths[slot] = prompt_len
         self.slot_of[req_id] = slot
         return slot

@@ -20,6 +20,7 @@ from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ops
 from repro_torch.kernels import paged_decode_attention as pa
 from repro_torch.kernels import paged_prefill_attention as ppa
+from repro_torch.kernels import rwkv6_wkv as wkv
 from repro_torch.models import build_model, local_plan
 
 pytestmark = pytest.mark.cuda
@@ -242,6 +243,158 @@ def test_smoke_model_chunk_and_slot_paths_match_plain_path(gen):
                                    pool2["attn"][n][:, 1:], atol=1e-4, rtol=0)
         torch.testing.assert_close(cache["attn"][n], cache2["attn"][n],
                                    atol=1e-4, rtol=0)
+
+
+def _wkv_inputs(gen, B, T, H, D, dtype, zero_state=False):
+    """r/k/v in ``dtype``; w = exp(-exp(dw)) around the model's init decay
+    (dw = -6 + N(0, 1)), u and s0 f32."""
+    r, k, v = (torch.randn(B, T, H, D, generator=gen, device="cuda",
+                           dtype=dtype) for _ in range(3))
+    dw = -6.0 + torch.randn(B, T, H, D, generator=gen, device="cuda")
+    w = torch.exp(-torch.exp(dw))
+    u = 0.1 * torch.randn(H, D, generator=gen, device="cuda")
+    s0 = None if zero_state else torch.randn(B, H, D, D, generator=gen,
+                                             device="cuda")
+    return r, k, v, w, u, s0
+
+
+def assert_wkv_close(got, want, dtype):
+    """The state sums ~1/(1 - w) steps (~400 at the init decay), so |y|
+    reaches the hundreds: held by the error's max over max |plain| and
+    its norm over the plain norm (summation order, not defects, sets the
+    absolute error)."""
+    got, want = got.float(), want.float()
+    err = (got - want).abs().max().item()
+    assert err <= TOL[dtype] * max(want.abs().max().item(), 1.0), err
+    rel = ((got - want).norm() / want.norm().clamp_min(1e-30)).item()
+    assert rel <= REL_TOL[dtype], f"relative error {rel:.3e}"
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,T,H,D,zero", [
+    (4, 1, 40, 64, False),     # decode: one step from a carried state
+    (1, 200, 40, 64, True),    # prefill from a zero state
+    (2, 37, 3, 64, False),     # ragged T
+    (1, 64, 2, 32, False), (2, 128, 4, 64, False),   # test_kernels.py's
+    (2, 50, 3, 16, False), (1, 33, 2, 128, True),
+])
+def test_wkv_kernel_matches_plain(gen, dtype, B, T, H, D, zero):
+    args = _wkv_inputs(gen, B, T, H, D, dtype, zero_state=zero)
+    before = wkv.rwkv6_wkv.launches
+    y, s = wkv.rwkv6_wkv(*args)
+    torch.cuda.synchronize()
+    assert wkv.rwkv6_wkv.launches == before + 1
+    assert y.dtype == dtype and s.dtype == torch.float32
+    y_ref, s_ref = wkv.rwkv6_wkv_ref(*args)
+    assert_wkv_close(y, y_ref, dtype)
+    assert_wkv_close(s, s_ref, torch.float32)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_wkv_kernel_carries_state_in_place(gen, dtype):
+    """Two calls (120 + 80 steps) equal one call of 200; eight one-step
+    calls written over their own state (``s_out = s0``) equal one call of
+    eight; strided (B, T, H, D) views run as their copies do."""
+    r, k, v, w, u, _ = _wkv_inputs(gen, 1, 200, 40, 64, dtype)
+    y, s = wkv.rwkv6_wkv(r, k, v, w, u)
+    y1, s1 = wkv.rwkv6_wkv(r[:, :120], k[:, :120], v[:, :120], w[:, :120], u)
+    y2, s2 = wkv.rwkv6_wkv(r[:, 120:], k[:, 120:], v[:, 120:], w[:, 120:], u,
+                           s1)
+    assert_wkv_close(torch.cat([y1, y2], 1), y, dtype)
+    assert_wkv_close(s2, s, torch.float32)
+    state = torch.zeros(1, 40, 64, 64, device="cuda")
+    ys = []
+    for t in range(8):
+        yt, st = wkv.rwkv6_wkv(r[:, t:t + 1], k[:, t:t + 1], v[:, t:t + 1],
+                               w[:, t:t + 1], u, state, s_out=state)
+        assert st is state
+        ys.append(yt)
+    y8, s8 = wkv.rwkv6_wkv(r[:, :8], k[:, :8], v[:, :8], w[:, :8], u)
+    torch.testing.assert_close(torch.cat(ys, 1), y8, atol=0, rtol=0)
+    torch.testing.assert_close(state, s8, atol=0, rtol=0)
+    big = torch.randn(1, 50, 40, 3 * 64, generator=gen, device="cuda",
+                      dtype=dtype)
+    rs, ks, vs = big[..., :64], big[..., 64:128], big[..., 128:]
+    ws = w[:, :50]
+    ys_, ss_ = wkv.rwkv6_wkv(rs, ks, vs, ws, u)
+    yc, sc = wkv.rwkv6_wkv(rs.contiguous(), ks.contiguous(), vs.contiguous(),
+                           ws.contiguous(), u)
+    torch.testing.assert_close(ys_, yc, atol=0, rtol=0)
+    torch.testing.assert_close(ss_, sc, atol=0, rtol=0)
+
+
+def test_wkv_wrapper_raises_on_bad_input(gen):
+    r, k, v, w, u, s0 = _wkv_inputs(gen, 2, 5, 3, 32, torch.float32)
+    before = wkv.rwkv6_wkv.launches
+    bad = [
+        dict(w=w.bfloat16()),                       # w must be f32
+        dict(r=r.bfloat16()),                       # r/k/v of one dtype
+        dict(u=u[:2]),                              # u (H, D)
+        dict(s0=s0[:1]),                            # s0 (B, H, D, D)
+        dict(r=torch.randn(2, 5, 3, 64, device="cuda")[..., ::2]),
+        dict(s0=s0.transpose(2, 3)),                # non-contiguous state
+        dict(s0=s0.cpu()),                          # device mix
+    ]
+    for kw in bad:
+        args = dict(r=r, k=k, v=v, w=w, u=u, s0=s0) | kw
+        with pytest.raises((ValueError, TypeError)):
+            wkv.rwkv6_wkv(**args)
+    r48 = torch.randn(2, 5, 3, 48, device="cuda")
+    with pytest.raises(ValueError):
+        wkv.rwkv6_wkv(r48, r48, r48, r48.abs(), torch.zeros(3, 48,
+                                                            device="cuda"))
+    flat = torch.zeros(2 * 3 * 32 * 32 + 32, device="cuda")
+    with pytest.raises(ValueError):                 # s_out overlaps s0
+        wkv.rwkv6_wkv(r, k, v, w, u, flat[:s0.numel()].view_as(s0),
+                      s_out=flat[32:].view_as(s0))
+    with pytest.raises(ValueError):
+        wkv.rwkv6_wkv(r.cpu(), k.cpu(), v.cpu(), w.cpu(), u.cpu())
+    assert wkv.rwkv6_wkv.launches == before
+
+
+def test_smoke_rwkv_kernel_path_matches_plain_path(gen):
+    """rwkv6-3b's smoke model, f32: prefill logits and state, then a slot
+    decode step written in place, through kernel 7 vs through its plain
+    version, both on the card."""
+    cfg = get_config("rwkv6-3b").smoke_config()
+    m = build_model(cfg, local_plan(param_dtype=torch.float32,
+                                    compute_dtype=torch.float32))
+    p = m.init(torch.Generator(device="cuda").manual_seed(0))
+    tokens = torch.randint(0, cfg.vocab_size, (3, 29), generator=gen,
+                           device="cuda", dtype=torch.int32)
+    before = wkv.rwkv6_wkv.launches
+    lk, ck = m.prefill(p, tokens)
+    dk, _ = m.decode_step(p, ck, tokens[:, 0].contiguous(),
+                          torch.full((3,), 29, dtype=torch.int32,
+                                     device="cuda"))
+    assert wkv.rwkv6_wkv.launches == before + 2 * cfg.num_layers
+    saved = ops.rwkv6_wkv
+    ops.rwkv6_wkv = wkv.rwkv6_wkv_ref
+    try:
+        lp, cp = m.prefill(p, tokens)
+        dp, _ = m.decode_step(p, cp, tokens[:, 0].contiguous(),
+                              torch.full((3,), 29, dtype=torch.int32,
+                                         device="cuda"))
+    finally:
+        ops.rwkv6_wkv = saved
+    torch.testing.assert_close(lk, lp, atol=1e-4, rtol=0)
+    torch.testing.assert_close(dk, dp, atol=1e-4, rtol=0)
+    for part in ("tmix", "cmix"):
+        for name, leaf in ck[part].items():
+            torch.testing.assert_close(leaf, cp[part][name], atol=1e-4,
+                                       rtol=1e-4)
+
+
+def test_serve_cli_rwkv_on_cuda_matches_cpu(gen):
+    """rwkv6-3b's serve CLI on the card runs kernel 7 in slot mode and
+    prints the same dict as on the CPU."""
+    from repro_torch.launch import serve
+    argv = ["--arch", "rwkv6-3b", "--smoke", "--requests", "4",
+            "--max-new", "6"]
+    wkv.rwkv6_wkv.launches = 0
+    got = serve.main(argv)
+    assert wkv.rwkv6_wkv.launches > 0 and got["mode"] == "slots"
+    assert got == serve.main(argv + ["--device", "cpu"])
 
 
 @pytest.mark.parametrize("mode", [[], ["--no-paged"]])

@@ -82,9 +82,10 @@ def test_local_plan_pads_match_reference(name):
 
 
 def test_registry_lists_ported_archs():
-    assert list_archs() == ["llama2-13b", "llama2-70b", "llama2-7b"]
+    assert list_archs() == ["llama2-13b", "llama2-70b", "llama2-7b",
+                            "rwkv6-3b"]
     with pytest.raises(KeyError):
-        get_config("rwkv6-3b")
+        get_config("minicpm3-4b")
 
 
 def test_port_init_matches_reference_tree(pair):

@@ -19,8 +19,10 @@ from repro_torch.kernels import decode_attention as dense_mod
 from repro_torch.kernels import flash_attention as flash_mod
 from repro_torch.kernels import paged_decode_attention as paged_mod
 from repro_torch.kernels import paged_prefill_attention as prefill_mod
+from repro_torch.kernels import rwkv6_wkv as wkv_mod
 from repro_torch.models import Model, build_model, layers, local_plan
 from repro_torch.models import attention as TA
+from repro_torch.models import ssm as TS
 
 ROOT = Path(__file__).resolve().parent.parent
 PKG = Path(repro_torch.__file__).resolve().parent
@@ -67,7 +69,7 @@ def test_importing_every_module_loads_no_jax():
 def test_nothing_built_at_import():
     """Importing the kernel modules compiles and loads nothing."""
     assert build._LIBS == {}
-    for mod in (flash_mod, paged_mod, prefill_mod, dense_mod):
+    for mod in (flash_mod, paged_mod, prefill_mod, dense_mod, wkv_mod):
         assert not mod._kernel.cache_info().currsize
 
 
@@ -75,7 +77,8 @@ def test_nothing_built_at_import():
     build_model, Model.__init__, convert.from_jax_params, layers.dense_init,
     layers.embed_init, layers.rope_freqs, layers.mlp_init, TA.init_gqa,
     TA.kv_index, TA.init_paged_attn_cache, TA.init_attn_cache,
-    Model.init_cache,
+    Model.init_cache, TS.init_rwkv_tmix, TS.init_rwkv_cmix,
+    TS.init_rwkv_state,
 ], ids=lambda f: f.__qualname__)
 def test_entry_points_default_to_cuda(fn):
     assert inspect.signature(fn).parameters["device"].default == "cuda"
@@ -110,6 +113,7 @@ DISPATCH = {
                                ("paged_prefill_attention_ref",), 5),
     "decode_attention": (dense_mod, "decode_attention",
                          ("decode_attention_ref", "flash_decode_ref"), 4),
+    "rwkv6_wkv": (wkv_mod, "rwkv6_wkv", ("rwkv6_wkv_ref",), 6),
 }
 
 
@@ -147,6 +151,8 @@ def test_dispatcher_refuses_other_devices(devices):
         ops.paged_verify_attention(q, k, k, i, i[:, 0])
     with pytest.raises(ValueError):
         ops.decode_attention(q[:, 0], k, k, i[:, 0])
+    with pytest.raises(ValueError):
+        ops.rwkv6_wkv(q, k, k, k, q[0, 0], None)
 
 
 def test_kernel_wrappers_refuse_cpu_tensors():
@@ -169,10 +175,14 @@ def test_kernel_wrappers_refuse_cpu_tensors():
                                    torch.zeros(1, 8, 2, 32),
                                    torch.zeros(1, 8, 2, 32),
                                    torch.zeros(1, dtype=torch.int32))
+    r = torch.zeros(1, 3, 2, 32)
+    with pytest.raises(ValueError):
+        wkv_mod.rwkv6_wkv(r, r, r, r, torch.zeros(2, 32), None)
     assert flash_mod.flash_attention.launches == 0
     assert paged_mod.paged_decode_attention.launches == 0
     assert prefill_mod.paged_prefill_attention.launches == 0
     assert dense_mod.decode_attention.launches == 0
+    assert wkv_mod.rwkv6_wkv.launches == 0
 
 
 def test_model_runs_plain_versions_on_cpu_without_counting():
@@ -197,3 +207,17 @@ def test_model_runs_plain_versions_on_cpu_without_counting():
     assert flash_mod.flash_attention.launches == 0
     assert prefill_mod.paged_prefill_attention.launches == 0
     assert dense_mod.decode_attention.launches == 0
+
+
+def test_rwkv_model_runs_plain_version_on_cpu_without_counting():
+    m = Model(get_config("rwkv6-3b").smoke_config(), local_plan(),
+              device="cpu")
+    p = m.init(torch.Generator().manual_seed(0))
+    logits, state = m.prefill(p, torch.zeros(1, 7, dtype=torch.int32))
+    assert logits.shape == (1, 128) and torch.isfinite(logits).all()
+    cache = m.init_cache(2, 16, device="cpu")
+    logits, _ = m.decode_step(p, cache, torch.zeros(2, dtype=torch.int32),
+                              torch.tensor([3, 0], dtype=torch.int32))
+    assert logits.shape == (2, 128) and torch.isfinite(logits).all()
+    assert cache["tmix"]["wkv"].abs().sum() > 0     # written in place
+    assert wkv_mod.rwkv6_wkv.launches == 0
