@@ -5,14 +5,19 @@
 // Replaces the Pallas TPU kernel src/repro/kernels/rwkv6_wkv.py:52
 // (rwkv6_wkv; kernel body _wkv_kernel, :24).
 //
-// What bounds it on the H100: bytes, and the sequential time axis.  Each
-// step does ~4*D^2 flops per (b, h) against 4*D + D elements of r/k/v/w
-// read and y written, so at most ~D/5 flops per byte: far under the card's
-// ~20 f32 flops per byte of HBM bandwidth for D <= 128.  At decode (T = 1)
-// the bytes are the state, read and written once: 2 * B*H*D^2*4 B, 5.24 MB
-// at B=4, H=40, D=64, ~1.6 us at 3.35 TB/s.  At prefill they are the
-// T*H*D sequence tensors.  Besides, T steps depend on each other, which
-// sets a latency floor of T dependent steps whatever the bandwidth.
+// What bounds it on the H100: bytes or operations, and the sequential time
+// axis.  The function needs 5*D^2 + 5*D f32 flops per step and (b, h), in
+// the form y_j = sum_i r_i S_ij + v_j sum_i r_i u_i k_i, then
+// S_ij <- w_i S_ij + k_i v_j, against D elements each of r, k, v and w
+// read and of y written: D/4 flops per byte with f32 r/k/v/y, 5*D/12 with
+// bf16, beside the card's ~20 f32 flops per byte of HBM bandwidth.  So at
+// prefill with D = 64 the f32 pair is bound by bytes and the bf16 pair by
+// operations (2.48 us for T = 200, H = 40).  At decode (T = 1) the bytes
+// are the state, read and written once: 2 * B*H*D^2*4 B, 5.24 MB at B=4,
+// H=40, D=64, ~1.6 us at 3.35 TB/s.  Besides, T steps depend on each
+// other, which sets a latency floor of T dependent steps whatever the
+// bandwidth.  This body spends 8 flops per entry (it recomputes
+// (u_i k_i) v_j for every entry), which is not what holds it back.
 //
 // Design.  On the TPU the grid is (b, h, time block) with the time axis
 // walked in order and S kept in VMEM scratch between blocks; it asserts
