@@ -9,29 +9,40 @@ Builds the hand-written CUDA kernels from ``src/repro_torch/csrc`` (one
 1. holds each kernel against its plain PyTorch version on the card at the
    serving paths' shapes, in every (query, cache) dtype pair the kernel is
    built for (for the WKV recurrence: f32 and bf16 r/k/v, at the decode,
-   prefill, ragged and state-carry shapes), and times kernel, plain
-   version and a PyTorch library call beside each where one exists (the
-   library call is a yardstick only; the port never calls it);
+   prefill, ragged and state-carry shapes; for the per-stripe decode,
+   kernel 4, each stripe of a pool split 2 and 4 ways, and the stripes
+   merged by ``combine_lse`` against kernel 2 over the whole pool), and
+   times kernel, plain version and a PyTorch library call beside each
+   where one exists (the library call is a yardstick only; the port never
+   calls it);
 2. serves full-width llama2-7b (random weights from a seeded generator)
-   through the ``Engine`` on three paths, each with every launch count set
+   through the ``Engine`` on five paths, each with every launch count set
    to 0 just before and read just after: the paged pool with whole-prompt
-   prefill at horizon 1 and at horizon 8 (identical greedy streams);
-   chunked prefill with prefix sharing (a shared 128-token system prompt,
-   chunks of 128, horizon 8), beside a whole-prompt run of the same
-   requests; and the slot pool (``paged=False``).  Each checks
-   completion, its counters and that its kernels ran;
+   prefill at horizon 1 and at horizon 8 (identical greedy streams); the
+   block-striped pool through ``EngineSpec(shards=2, horizon=8)`` and then
+   ``set_shards(4)`` on that engine (every decode step through kernel 4,
+   ``shards`` launches per layer, none through kernel 2; every stripe
+   holding live blocks); chunked prefill with prefix sharing (a shared
+   128-token system prompt, chunks of 128, horizon 8), beside a
+   whole-prompt run of the same requests; and the slot pool
+   (``paged=False``).  Each checks completion, its counters, that its
+   kernels ran and, on the paged pool, that the free list and refcounts
+   return to their start;
 3. compares logits teacher-forced: prefill and one paged decode step,
-   a two-chunk prefill over a shared head and one slot decode step, each
-   through the kernels and through the plain versions on the card; the
-   chunked prompt against whole-prompt prefill; and the slot decode step
-   against the paged one on the same context;
-4. traces one whole-prompt prefill, one decode horizon, one chunk tick and
-   one slot decode step at the serving shape with ``torch.profiler``: host
-   wall time and device busy time per step, the device's idle share, and
-   the device kernels that take the time.  The same decode horizon is also
-   timed on the host clock after init (plain and under
-   ``torch.inference_mode``) and after each later phase, so the drift of
-   the host's clock over the run stands beside the trace.
+   one decode step through the block-striped pool at shards 2 and 4
+   against the unsharded step (bf16 and f32 compute plans), a two-chunk
+   prefill over a shared head and one slot decode step, each through the
+   kernels and through the plain versions on the card; the chunked prompt
+   against whole-prompt prefill; and the slot decode step against the
+   paged one on the same context;
+4. traces one whole-prompt prefill, one decode horizon (unsharded and at
+   shards 2 and 4), one chunk tick and one slot decode step at the serving
+   shape with ``torch.profiler``: host wall time and device busy time per
+   step, the device's idle share, and the device kernels that take the
+   time.  The same decode horizon is also timed on the host clock after
+   init (plain and under ``torch.inference_mode``) and after each later
+   phase, so the drift of the host's clock over the run stands beside the
+   trace.
 5. frees llama2-7b and runs phases 2-4 for full-width rwkv6-3b (random
    weights from a seeded generator) on the slot pool: the same requests
    served with every WKV launch counted (32 per prefill and per decode
@@ -239,6 +250,104 @@ def check_paged(torch, gen):
     return {"name": "paged_decode_attention", "route": "cuda",
             "source": "src/repro_torch/csrc/paged_decode_attention.cu",
             "replaces": "src/repro/kernels/paged_decode_attention.py:331",
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound, "bound_by": by, "library_ms": lib_ms}
+
+
+def check_lse(torch, gen):
+    """Kernel 4 at kernel 2's phase-1 shapes (B=8, H=K=32, D=128, bs=16,
+    T=128) over a pool of 1028 blocks (a multiple of 2 and 4) with
+    scrambled tables across all of it, split into 2 and 4 stripes: every
+    stripe owns blocks of every lane.  Per stripe, (o, lse) against the
+    plain version; the stripes' ``combine_lse`` against kernel 2 over the
+    whole pool.  bf16 and f32-over-bf16 pairs.  Timed at 2 stripes, per
+    launch: CUDA events around both stripes' launches, halved."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import paged_decode_attention as pa
+    B, H, K, D, bs, T = 8, 32, 32, 128, 16, 128
+    n_blocks = 1028
+    timed = None
+    bf16, f32 = torch.bfloat16, torch.float32
+    for name, q_dt, kv_dt in (("bf16", bf16, bf16), ("bf16", f32, bf16)):
+        perm = torch.randperm(n_blocks - 1, generator=gen, device="cuda") + 1
+        tables = perm[: B * T].reshape(B, T).to(torch.int32)
+        pos = torch.randint(0, T * bs, (B,), generator=gen, device="cuda",
+                            dtype=torch.int32)
+        pos[0] = T * bs - 1
+        q = torch.randn(B, H, D, generator=gen, device="cuda", dtype=q_dt)
+        kp, vp = (torch.randn(n_blocks, bs, K, D, generator=gen,
+                              device="cuda", dtype=kv_dt) for _ in range(2))
+        full = pa.paged_decode_attention(q, kp, vp, tables, pos)
+        for shards in (2, 4):
+            nb_loc = n_blocks // shards
+            calls, os_, lses = [], [], []
+            for r in range(shards):
+                local = tables - r * nb_loc
+                owned = ((local >= 0) & (local < nb_loc)).to(torch.int32)
+                if not bool(owned.any(dim=1).all()):
+                    fail(f"lse setup: stripe {r}/{shards} owns no block of "
+                         f"some lane")
+                args = (q, kp[r * nb_loc:(r + 1) * nb_loc],
+                        vp[r * nb_loc:(r + 1) * nb_loc],
+                        local.clamp(0, nb_loc - 1), pos, owned)
+                o, lse = pa.paged_decode_attention_lse(*args)
+                o_ref, lse_ref = pa.paged_decode_attention_lse_ref(*args)
+                what = (f"paged_decode_attention_lse q={q_dt} pool={kv_dt} "
+                        f"B={B} H={H} K={K} D={D} bs={bs} T={T} stripe "
+                        f"{r}/{shards}")
+                err = held(f"{what} o", o, o_ref, name)
+                empty = lse_ref == -1e30
+                lse_err = (lse - lse_ref)[~empty].abs().max().item()
+                print(f"{what} lse: max_abs_err={lse_err:.3e} tol=1e-04, "
+                      f"{int(empty.sum())} (lane, head) rows with no key",
+                      flush=True)
+                if not torch.equal(lse == -1e30, empty) or lse_err > 1e-4:
+                    fail(f"{what} lse disagrees with its plain version")
+                calls.append(args)
+                os_.append(o)
+                lses.append(lse)
+            held(f"combine_lse of {shards} kernel-4 stripes vs "
+                 f"paged_decode_attention q={q_dt} pool={kv_dt}",
+                 pa.combine_lse(torch.stack(os_), torch.stack(lses)), full,
+                 name)
+            if shards == 2 and q_dt == torch.bfloat16:
+                timed = (calls, err)
+    calls, err = timed
+    ms = cuda_ms(lambda: [pa.paged_decode_attention_lse(*a)
+                          for a in calls]) / 2
+    plain_ms = cuda_ms(lambda: [pa.paged_decode_attention_lse_ref(*a)
+                                for a in calls]) / 2
+    # yardstick: SDPA over each stripe's owned keys gathered into a dense,
+    # masked (B, K, T*bs, D) cache (the gather itself is not timed); it
+    # gives o but no lse
+    sdpa, n_bytes, flops = [], 0, 0
+    for q, k_s, v_s, local, pos, owned in calls:
+        keys_live = ((torch.arange(T * bs, device="cuda")[None, :]
+                      <= pos[:, None])
+                     & (owned != 0).repeat_interleave(bs, dim=1))
+        kd = k_s[local.long()].reshape(B, T * bs, K, D).transpose(1, 2)
+        vd = v_s[local.long()].reshape(B, T * bs, K, D).transpose(1, 2)
+        sdpa.append((q[:, :, None], kd, vd, keys_live[:, None, None, :]))
+        keys = int(keys_live.sum().item())
+        slots_seen = int(((torch.arange(T, device="cuda")[None, :] * bs)
+                          <= pos[:, None]).sum().item())
+        blocks = int(keys_live.reshape(B, T, bs).any(-1).sum().item())
+        n_bytes += (2 * keys * K * D * k_s.element_size()  # owned live K, V
+                    + 2 * B * H * D * q.element_size()     # q in, o out
+                    + 4 * B * H                            # lse out
+                    + 4 * (slots_seen + blocks + B))       # owned, ids, pos
+        flops += 4 * D * H * keys
+    lib_ms = cuda_ms(lambda: [F.scaled_dot_product_attention(
+        qq, kd, vd, attn_mask=m) for qq, kd, vd, m in sdpa]) / 2
+    bound, by = bound_of(n_bytes // 2, flops // 2, "bf16")
+    print(f"paged_decode_attention_lse bf16 B={B} H={H} K={K} D={D}, 2 "
+          f"stripes of {n_blocks // 2} blocks, per launch: kernel {ms:.4f} "
+          f"ms, plain {plain_ms:.4f} ms, sdpa over the gathered owned keys "
+          f"{lib_ms:.4f} ms (o only, no lse), bound {bound:.4f} ms ({by}: "
+          f"{n_bytes // 2} B, {flops // 2} flop)", flush=True)
+    return {"name": "paged_decode_attention_lse", "route": "cuda",
+            "source": "src/repro_torch/csrc/paged_decode_attention.cu",
+            "replaces": "src/repro/kernels/paged_decode_attention.py:180",
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound, "bound_by": by, "library_ms": lib_ms}
 
@@ -545,6 +654,7 @@ def kernel_wrappers() -> dict:
     from repro_torch.kernels import rwkv6_wkv as wkv
     return {"flash_attention": fa.flash_attention,
             "paged_decode_attention": pa.paged_decode_attention,
+            "paged_decode_attention_lse": pa.paged_decode_attention_lse,
             "paged_prefill_attention": ppa.paged_prefill_attention,
             "decode_attention": da.decode_attention,
             "rwkv6_wkv": wkv.rwkv6_wkv}
@@ -578,58 +688,114 @@ def system_prompt_load(vocab: int) -> list:
             for n in rng.integers(16, 201, 8)]
 
 
+COUNTERS = ("decode_tokens", "prefill_tokens", "prefill_batches",
+            "preemptions", "host_syncs", "decode_syncs")
+
+
+def watch_pool(pool, shards: int) -> dict:
+    """Record the paged pool at its fullest: after each
+    ``ensure_append_blocks`` (a step's admissions come before it, its
+    releases after) the live blocks, and at the largest count the live
+    blocks of each of the ``shards`` stripes."""
+    seen = {"peak": 0, "stripes": [0] * shards}
+    inner = pool.ensure_append_blocks
+    nb_loc = pool.n_blocks // shards
+
+    def ensure_append_blocks(*a, **kw):
+        out = inner(*a, **kw)
+        if pool.used_blocks > seen["peak"]:
+            seen["peak"] = pool.used_blocks
+            seen["stripes"] = [int((pool.ref[r * nb_loc:(r + 1) * nb_loc]
+                                    > 0).sum()) for r in range(shards)]
+        return out
+
+    pool.ensure_append_blocks = ensure_append_blocks
+    return seen
+
+
 def serve(torch, model, params, label: str, load: list, need: tuple,
           **engine_kw) -> dict:
     """Serve ``load`` through one Engine (4 lanes, blocks of 16, max_seq
-    2048) with every launch count set to 0 just before the run and read
-    just after; check completion and that the kernels in ``need`` ran.
-    The engine and its pool are freed before returning."""
-    from repro_torch.serving import Engine, EngineKnobs, Request
+    2048) with ``drive``; the engine and its pool are freed before
+    returning."""
+    from repro_torch.serving import Engine, EngineKnobs
     eng = Engine(model, params, max_seq=2048, n_slots=4,
                  knobs=EngineKnobs(max_batch=4), block_size=16, **engine_kw)
+    out = drive(torch, eng, label, load, need)
+    del eng
+    torch.cuda.empty_cache()
+    return out
+
+
+def drive(torch, eng, label: str, load: list, need: tuple) -> dict:
+    """Serve ``load`` through ``eng`` with every launch count set to 0
+    just before the run and read just after; check completion and that
+    the kernels in ``need`` ran.  Counters are this run's (the engine's
+    less their values before it).  On a paged pool, also record its
+    fullest point (``watch_pool``) and check that the free list and the
+    refcounts are back to their start (``_sharded_parity_main.py``'s
+    ``check_pool_invariants``)."""
+    from types import SimpleNamespace
+    from repro_torch.serving import PagedCachePool, Request
+    model, stats, pool = eng.model, eng.stats, eng.pool
     reqs = [Request(prompt=p, max_new_tokens=m, arrival_s=0.0)
             for p, m in load]
     for r in reqs:
         eng.submit(r)
+    paged = isinstance(pool, PagedCachePool)
+    shards = pool.shards if paged else 1
+    seen = watch_pool(pool, shards) if paged else None
+    if paged:
+        free0, lanes0 = len(pool.free_blocks), len(pool.free_lanes)
+    before = {k: getattr(stats, k) for k in COUNTERS}
+    n_done, n_steps = len(stats.completed), stats.n_steps
     torch.cuda.synchronize()
     reset_launches()
     t0 = time.perf_counter()
-    stats = eng.run()
+    eng.run()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = read_launches()
+    run = SimpleNamespace(
+        completed=stats.completed[n_done:],
+        step_times=list(stats.step_times)[
+            max(len(stats.step_times) - (stats.n_steps - n_steps), 0):],
+        **{k: getattr(stats, k) - v for k, v in before.items()})
     streams = [list(r.output) for r in reqs]
     horizon = eng.horizon if eng.paged else 1
-    steps = stats.decode_syncs * horizon
+    steps = run.decode_syncs * horizon
     # scheduler steps end on the decode readback; steps that also admitted
     # or advanced a prefill are among them
-    step_ms = sorted(t * 1e3 / horizon for t in stats.step_times)
-    pool = eng.pool
-    out = {"streams": streams, "stats": stats, "launches": launches,
-           "wall": wall, "steps": steps,
+    step_ms = sorted(t * 1e3 / horizon for t in run.step_times)
+    out = {"streams": streams, "stats": run, "launches": launches,
+           "wall": wall, "steps": steps, "shards": shards,
            "shared_block_hits": getattr(pool, "shared_block_hits", 0),
-           "pending_share_waits": getattr(pool, "pending_share_waits", 0)}
+           "pending_share_waits": getattr(pool, "pending_share_waits", 0),
+           "peak_blocks": seen["peak"] if paged else 0,
+           "stripe_blocks": seen["stripes"] if paged else []}
     L = model.cfg.num_layers
-    print(f"serve {model.cfg.name} {label}: {len(stats.completed)} done, "
-          f"decode_tokens={stats.decode_tokens} "
-          f"prefill_tokens={stats.prefill_tokens} "
-          f"prefill_batches={stats.prefill_batches} "
-          f"host_syncs={stats.host_syncs} decode_steps={steps} "
-          f"preemptions={stats.preemptions} "
+    per_step = (launches["paged_decode_attention"]
+                + launches["paged_decode_attention_lse"]
+                + launches["decode_attention"] + launches["rwkv6_wkv"])
+    print(f"serve {model.cfg.name} {label}: {len(run.completed)} done, "
+          f"decode_tokens={run.decode_tokens} "
+          f"prefill_tokens={run.prefill_tokens} "
+          f"prefill_batches={run.prefill_batches} "
+          f"host_syncs={run.host_syncs} decode_steps={steps} "
+          f"preemptions={run.preemptions} "
           f"shared_block_hits={out['shared_block_hits']} "
           f"pending_share_waits={out['pending_share_waits']} "
-          f"wall_s={wall:.3f} decode_tok_per_s={stats.decode_tokens / wall:.1f} "
+          f"wall_s={wall:.3f} decode_tok_per_s={run.decode_tokens / wall:.1f} "
           f"step_ms_median={step_ms[len(step_ms) // 2]:.3f} "
           f"({step_ms[0]:.3f}-{step_ms[-1]:.3f} over {len(step_ms)} "
           f"scheduler steps, per decode step) launches={launches} "
           f"per_prefill_batch_per_layer="
-          f"{(launches['flash_attention'] + launches['paged_prefill_attention']) / max(stats.prefill_batches * L, 1):.2f} "
-          f"per_decode_step_per_layer="
-          f"{(launches['paged_decode_attention'] + launches['decode_attention'] + launches['rwkv6_wkv']) / max(steps * L, 1):.2f}",
-          flush=True)
-    del eng, pool
-    torch.cuda.empty_cache()
-    if len(stats.completed) != len(load) or any(
+          f"{(launches['flash_attention'] + launches['paged_prefill_attention']) / max(run.prefill_batches * L, 1):.2f} "
+          f"per_decode_step_per_layer={per_step / max(steps * L, 1):.2f}"
+          + (f" pool: {pool.n_blocks} blocks, fullest at "
+             f"{out['peak_blocks']} live, per stripe {out['stripe_blocks']}"
+             if paged else ""), flush=True)
+    if len(run.completed) != len(load) or any(
             len(s) != m for s, (_, m) in zip(streams, load)):
         fail(f"{label}: not every request completed its budget")
     if any(not 0 <= t < model.cfg.vocab_size for s in streams for t in s):
@@ -638,6 +804,13 @@ def serve(torch, model, params, label: str, load: list, need: tuple,
     if missing:
         fail(f"{label}: kernels of the path never launched: {missing} "
              f"({launches})")
+    if paged and (len(pool.free_blocks) != free0
+                  or len(pool.free_lanes) != lanes0
+                  or int(pool.ref[1:].sum()) != 0
+                  or sorted(pool.free_blocks) != list(
+                      range(1, pool.n_blocks))):
+        fail(f"{label}: the free list or refcounts did not return to their "
+             f"start")
     return out
 
 
@@ -645,10 +818,73 @@ def same_streams(a: list, b: list) -> int:
     return sum(x == y for x, y in zip(a, b))
 
 
+def serve_sharded(torch, model, params, load: list, ref: dict) -> list:
+    """The block-striped pool: ``EngineSpec(shards=2, horizon=8).build()``
+    serves ``load``, then ``set_shards(4)`` on that engine and the same
+    load again.  The pool holds the smallest multiple of 4 blocks above
+    the unsharded horizon-8 run's fullest point (``ref``), so the same
+    schedule runs without preemption and the upper stripes hold live
+    blocks.  Each run checks kernel 4's launches (shards x L x decode
+    steps) and none of kernel 2, no preemption, a live block in every
+    stripe at the fullest point, and (in ``drive``) the free list; the
+    reshard is counted.  Streams against the unsharded run are a reading
+    (bf16 at full width)."""
+    from repro_torch.serving import EngineSpec
+    cfg, L = model.cfg, model.cfg.num_layers
+    n_blocks = -(-(ref["peak_blocks"] + 1) // 4) * 4
+    spec = EngineSpec(cfg, shards=2, max_seq=2048, n_slots=4, max_batch=4,
+                      block_size=16, n_blocks=n_blocks, horizon=8, seed=0)
+    t0 = time.perf_counter()
+    eng = spec.build(device=model.device)
+    torch.cuda.synchronize()
+    same = all(torch.equal(a, b)
+               for a, b in zip(_leaves(eng.params), _leaves(params)))
+    print(f"EngineSpec(shards=2) built in {time.perf_counter() - t0:.1f} s; "
+          f"its seed-0 weights equal the serve runs': {same}", flush=True)
+    if not same:
+        fail("EngineSpec's seeded weights differ from build_model + init")
+    eng.params = params          # one copy of the weights on the card
+    torch.cuda.empty_cache()
+    runs = []
+    for n in (2, 4):
+        if n == 4:
+            eng.set_shards(4)
+            print(f"set_shards(4): shards={eng.shards} "
+                  f"shard_swaps={eng.stats.shard_swaps}", flush=True)
+            if eng.shards != 4 or eng.stats.shard_swaps != 1:
+                fail("set_shards(4) did not reshard once")
+        run = drive(torch, eng, f"EngineSpec shards={n} horizon=8", load,
+                    ("flash_attention", "paged_decode_attention_lse"))
+        lse, want = run["launches"]["paged_decode_attention_lse"], \
+            n * L * run["steps"]
+        print(f"shards={n} checks: paged_decode_attention_lse launches={lse} "
+              f"({n} x {L} x {run['steps']} decode steps = {want}), "
+              f"paged_decode_attention launches="
+              f"{run['launches']['paged_decode_attention']} (0), "
+              f"preemptions={run['stats'].preemptions} (0), live blocks per "
+              f"stripe at the fullest point {run['stripe_blocks']} (all > "
+              f"0); {same_streams(run['streams'], ref['streams'])}/8 streams "
+              f"equal to the shards=1 horizon-8 run (a reading, not a "
+              f"check: bf16 at full width)", flush=True)
+        if lse != want or run["launches"]["paged_decode_attention"]:
+            fail(f"shards={n}: decode did not go through kernel 4 alone, "
+                 f"{n} launches per layer and step")
+        if run["stats"].preemptions:
+            fail(f"shards={n}: a request was preempted in a pool sized for "
+                 f"the load")
+        if len(run["stripe_blocks"]) != n or min(run["stripe_blocks"]) == 0:
+            fail(f"shards={n}: a stripe held no live block")
+        runs.append(run)
+    del eng
+    torch.cuda.empty_cache()
+    return runs
+
+
 def serve_paths(torch, model, params) -> dict:
-    """Phase 2: the paged pool at horizon 1 and 8, chunked prefill with
-    prefix sharing beside a whole-prompt run of its requests, and the slot
-    pool.  Returns the launches of each kernel summed over the runs."""
+    """Phase 2: the paged pool at horizon 1 and 8, the block-striped pool
+    at shards 2 and 4 (``serve_sharded``), chunked prefill with prefix
+    sharing beside a whole-prompt run of its requests, and the slot pool.
+    Returns the launches of each kernel summed over the runs."""
     vocab, L = model.cfg.vocab_size, model.cfg.num_layers
     paged = ("flash_attention", "paged_decode_attention")
     load = plain_load(vocab)
@@ -657,6 +893,7 @@ def serve_paths(torch, model, params) -> dict:
     if runs[0]["streams"] != runs[1]["streams"]:
         fail("greedy streams differ between horizon 1 and horizon 8")
     print("greedy streams identical at horizon 1 and 8", flush=True)
+    runs += serve_sharded(torch, model, params, load, runs[1])
 
     sys_load = system_prompt_load(vocab)
     chunked = serve(torch, model, params,
@@ -730,6 +967,7 @@ class plain_versions:
         self.saved = {n: getattr(ops, n) for n in ops.__all__}
         ops.flash_attention = fa.flash_attention_ref
         ops.paged_decode_attention = pa.paged_decode_attention_ref
+        ops.paged_decode_attention_lse = pa.paged_decode_attention_lse_ref
         ops.paged_prefill_attention = ppa.paged_prefill_attention_ref
         ops.paged_verify_attention = ppa.paged_prefill_attention_ref
         ops.decode_attention = da.flash_decode_ref
@@ -805,6 +1043,53 @@ def teacher_forced(torch, model, params):
     torch.cuda.empty_cache()
     if not ok:
         fail("teacher-forced kernel path disagrees with the plain path")
+
+
+def teacher_forced_sharded(torch, model, params):
+    """One paged decode step through the block-striped pool at shards 2
+    and 4 (kernel 4, ``combine_lse``) against the unsharded step (kernel 2)
+    from the same pool state, in the serving (bf16) plan and in an f32
+    compute plan over the same bf16 weights.  The pool of 32 blocks (a
+    multiple of 4) holds the four prompts' prefill and first append in
+    blocks 1-29, so every stripe holds live blocks at both degrees."""
+    from repro_torch.models import build_model, local_plan
+    from repro_torch.serving import PagedCachePool, serving_plan
+    cfg, vocab = model.cfg, model.cfg.vocab_size
+    tokens, lengths = _prompts(torch, model, 1)
+    rids = [100 + i for i in range(4)]
+    ok = True
+    for name, cdt in (("bf16", torch.bfloat16), ("f32", torch.float32)):
+        kw = dict(param_dtype=torch.bfloat16, compute_dtype=cdt)
+        m1 = build_model(cfg, local_plan(**kw), device=model.device)
+        lk, cache = m1.prefill_ragged(params, tokens, lengths)
+        pool = PagedCachePool(m1, 4, 2048, block_size=16, n_blocks=32)
+        for rid, n in zip(rids, lengths.tolist()):
+            pool.insert(rid, cache, rid - 100, n)
+        pool.ensure_append_blocks(rids)
+        del cache
+        nxt = lk[:, :vocab].argmax(-1).to(torch.int32)
+        pos, tab = pool.positions(), pool.tables()
+        d1, _ = m1.decode_step_paged(params, _clone(pool.cache), nxt, pos,
+                                     tab)
+        for n in (2, 4):
+            nb_loc = pool.n_blocks // n
+            live = [int((pool.ref[r * nb_loc:(r + 1) * nb_loc] > 0).sum())
+                    for r in range(n)]
+            print(f"teacher-forced shards={n}: live blocks per stripe {live}",
+                  flush=True)
+            if min(live) == 0:
+                fail(f"teacher-forced shards={n}: a stripe holds no live "
+                     f"block")
+            ms = build_model(cfg, serving_plan(n, **kw), device=model.device)
+            dn, _ = ms.decode_step_paged(params, _clone(pool.cache), nxt, pos,
+                                         tab)
+            ok &= logits_agree(torch, vocab, f"{name} plan paged decode, "
+                               f"shards={n} (kernel 4) vs shards=1 "
+                               f"(kernel 2)", dn, d1)
+        del pool
+    torch.cuda.empty_cache()
+    if not ok:
+        fail("teacher-forced sharded decode disagrees with the unsharded one")
 
 
 def teacher_forced_chunks(torch, model, params):
@@ -936,16 +1221,19 @@ def trace(torch, label: str, fn, walls: list, per: int, unit: str) -> None:
 
 
 def phase4_calls(torch, model, params, horizon: int = 8) -> dict:
-    """The serving shape's four device calls, as closures over their
-    inputs: one bucketed prefill (4 prompts of 40-230 tokens in a 256
-    bucket), one greedy decode horizon (4 lanes at the same positions),
-    one chunk tick (4 rows at start 128 past a shared head, tails of 128,
-    100, 37 and 5 tokens in a chunk of 128) and one slot decode step
-    (4 slots of 2048 at the same positions)."""
-    from repro_torch.serving import PagedCachePool
+    """The serving shape's device calls, as closures over their inputs:
+    one bucketed prefill (4 prompts of 40-230 tokens in a 256 bucket), one
+    greedy decode horizon (4 lanes at the same positions), the same
+    horizon through the block-striped pool at shards 2 and 4 (516 blocks,
+    a multiple of both, the lanes' blocks spread over the stripes), one
+    chunk tick (4 rows at start 128 past a shared head, tails of 128, 100,
+    37 and 5 tokens in a chunk of 128) and one slot decode step (4 slots
+    of 2048 at the same positions)."""
+    from repro_torch.models import build_model
+    from repro_torch.serving import PagedCachePool, serving_plan
     B, dev = 4, model.device
     lengths = [230, 180, 120, 40]
-    pool = PagedCachePool(model, B, 2048, block_size=16)
+    pool = PagedCachePool(model, B, 2048, block_size=16, n_blocks=516)
     slots = model.init_cache(B, 2048, device=dev)
     T = pool.blocks_per_seq
     tokens = torch.randint(0, model.cfg.vocab_size, (B, 256), device=dev,
@@ -961,15 +1249,27 @@ def phase4_calls(torch, model, params, horizon: int = 8) -> dict:
     chunk = tokens[:, :128].contiguous()
     starts = torch.full((B,), 128, dtype=torch.int32, device=dev)
     takes = torch.tensor([128, 100, 37, 5], dtype=torch.int32, device=dev)
+
+    def decode(m):
+        return lambda: m.decode_multi_paged(
+            params, pool.cache, tok, lens, tables, active, budgets, eos,
+            num_steps=horizon, max_len=2048)
+
+    sharded = {
+        f"decode shards={n}": (
+            f"{B} lanes at positions {lengths}, horizon={horizon}, {n} "
+            f"stripes of {516 // n} blocks",
+            decode(build_model(model.cfg, serving_plan(
+                n, param_dtype=model.plan.param_dtype), device=dev)),
+            horizon, "step")
+        for n in (2, 4)}
     return {
         "prefill": (f"{B} prompts of {lengths} tokens in a 256 bucket",
                     lambda: model.prefill_ragged(params, tokens, lens), 1,
                     "prefill"),
         "decode": (f"{B} lanes at positions {lengths}, horizon={horizon}",
-                   lambda: model.decode_multi_paged(
-                       params, pool.cache, tok, lens, tables, active,
-                       budgets, eos, num_steps=horizon, max_len=2048),
-                   horizon, "step"),
+                   decode(model), horizon, "step"),
+        **sharded,
         "chunk": (f"{B} rows at start 128, takes {takes.tolist()} in a "
                   f"chunk of 128",
                   lambda: model.prefill_chunk_paged(
@@ -1008,7 +1308,8 @@ def where_time_goes(torch, calls: dict) -> None:
 # ---------------------------------------------------------------------------
 
 ATTENTION = ("flash_attention", "paged_decode_attention",
-             "paged_prefill_attention", "decode_attention")
+             "paged_decode_attention_lse", "paged_prefill_attention",
+             "decode_attention")
 
 
 def serve_rwkv(torch, model, params) -> dict:
@@ -1269,9 +1570,10 @@ def main() -> int:
     # phase 1
     gen = torch.Generator(device="cuda").manual_seed(0)
     dtypes = {"bf16": torch.bfloat16, "f32": torch.float32}
+    # kernel 4 last: the earlier kernels draw the inputs they drew before
     entries = [check_flash(torch, dtypes, gen), check_paged(torch, gen),
                check_prefill(torch, gen), check_dense(torch, gen),
-               check_wkv(torch, gen)]
+               check_wkv(torch, gen), check_lse(torch, gen)]
     print(f"phase 1 done at {time.perf_counter() - t_start:.1f} s",
           flush=True)
 
@@ -1302,6 +1604,7 @@ def main() -> int:
 
     # phase 3
     teacher_forced(torch, model, params)
+    teacher_forced_sharded(torch, model, params)
     teacher_forced_chunks(torch, model, params)
     teacher_forced_slots(torch, model, params)
     host_probe(torch, "after teacher-forced", decode)

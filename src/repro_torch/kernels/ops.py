@@ -46,6 +46,17 @@ def paged_decode_attention(q, k_pool, v_pool, block_tables, positions, *,
                                          positions, scale=scale)
 
 
+def paged_decode_attention_lse(q, k_pool, v_pool, block_tables, positions,
+                               owned, *, scale=None):
+    """One-token attention over the owned slots of one pool stripe;
+    returns ``(o, lse)``."""
+    if _on_cpu(q, k_pool, v_pool, block_tables, positions, owned):
+        return _paged.paged_decode_attention_lse_ref(
+            q, k_pool, v_pool, block_tables, positions, owned, scale=scale)
+    return _paged.paged_decode_attention_lse(
+        q, k_pool, v_pool, block_tables, positions, owned, scale=scale)
+
+
 def paged_prefill_attention(q, k_pool, v_pool, block_tables, starts, *,
                             scale=None):
     """Chunk attention over a paged KV pool: q (B, C, H, D) at
@@ -84,5 +95,5 @@ def rwkv6_wkv(r, k, v, w, u, s0=None, *, s_out=None):
 
 
 __all__ = ["flash_attention", "paged_decode_attention",
-           "paged_prefill_attention", "paged_verify_attention",
-           "decode_attention", "rwkv6_wkv"]
+           "paged_decode_attention_lse", "paged_prefill_attention",
+           "paged_verify_attention", "decode_attention", "rwkv6_wkv"]

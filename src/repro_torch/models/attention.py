@@ -6,7 +6,9 @@ reference model runs XLA attention (``causal_attention``,
 ``paged_attention``, ``paged_prefill_attention``, ``_flash_decode_core``)
 the port calls the kernels through ``ops``: the CUDA kernels for CUDA
 tensors, their plain versions for CPU tensors.  Caches and pools are
-written in place.
+written in place.  Under a sharded plan the paged decode step walks the
+pool stripe by stripe (``_paged_decode_core``, the reference's per-rank
+body) and merges the stripes with ``combine_lse``.
 """
 from __future__ import annotations
 
@@ -16,6 +18,7 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels import ops
+from repro_torch.kernels.paged_decode_attention import combine_lse
 from repro_torch.models import layers as L
 from repro_torch.models.sharding import ShardPlan
 
@@ -182,22 +185,94 @@ def _decode_qkv(p: dict, x: torch.Tensor, positions: torch.Tensor,
     return q, k_new, v_new
 
 
+def _write_owned(stripe: torch.Tensor, rows: torch.Tensor,
+                 owned: torch.Tensor, new: torch.Tensor) -> None:
+    """``stripe`` viewed as rows of (K, hd): row ``rows[b]`` = ``new[b]``
+    for the owned lanes only, in place and with no host sync.  The
+    reference drops the other lanes' writes (an out-of-range index with
+    ``mode="drop"``); torch has no such scatter, so each unowned lane
+    writes the first owned lane's row with that lane's value (with no lane
+    owned, row ``rows[0]`` with the value it holds).  Every repeated index
+    then carries one value, and the order of the writes cannot matter.
+    The first owned lane is picked through a (1,) index tensor: indexing
+    with a 0-dim tensor would copy it to the host."""
+    flat = stripe.view(-1, *stripe.shape[2:])
+    first = owned.to(torch.int32).argmax().reshape(1)  # first owned, or 0
+    row = rows.index_select(0, first)
+    fill = torch.where(owned.any(), new.index_select(0, first),
+                       flat.index_select(0, row))
+    flat[torch.where(owned, rows, row)] = \
+        torch.where(owned[:, None, None], new, fill)
+
+
+def _paged_decode_core(rank: int, q, k_stripe, v_stripe, block_tables,
+                       positions, k_new, v_new, *, scale: float):
+    """One rank's paged decode on its stripe of the block-striped pool
+    (port of ``models/attention.py::_paged_decode_core`` up to its
+    collectives).
+
+    Rank r owns the physical blocks ``[r*nb_loc, (r+1)*nb_loc)``: the new
+    token's KV is written (in place) only by the rank that owns its block,
+    the table is localized and clipped into the stripe, and kernel 4
+    attends over the owned slots only.  q (B, H, hd); k_stripe/v_stripe
+    (nb_loc, bs, K, hd); block_tables (B, T) *global* block ids; k_new/
+    v_new (B, K, hd).  Returns this stripe's ``(o, lse)``, which
+    ``combine_lse`` merges where the reference takes pmax/psum."""
+    nb_loc, bs = k_stripe.shape[0], k_stripe.shape[1]
+    off = rank * nb_loc
+    blk = torch.gather(block_tables, 1,
+                       (positions // bs)[:, None].long())[:, 0]
+    local_b = blk - off
+    owned = (local_b >= 0) & (local_b < nb_loc)
+    rows = (local_b.clamp(0, nb_loc - 1) * bs + positions % bs).long()
+    _write_owned(k_stripe, rows, owned, k_new.to(k_stripe.dtype))
+    _write_owned(v_stripe, rows, owned, v_new.to(v_stripe.dtype))
+    local_t = block_tables - off
+    t_owned = ((local_t >= 0) & (local_t < nb_loc)).to(torch.int32)
+    return ops.paged_decode_attention_lse(
+        q, k_stripe, v_stripe, local_t.clamp(0, nb_loc - 1), positions,
+        t_owned, scale=scale)
+
+
+def _paged_decode_striped(shards: int, q, k_pool, v_pool, block_tables,
+                          positions, k_new, v_new, *, scale: float):
+    """The sharded paged decode on one device: every rank's
+    ``_paged_decode_core`` on its contiguous stripe of the pool (the array
+    ``shard_map`` hands that rank in the reference), then one
+    ``combine_lse`` where the reference reduces with pmax/psum.
+    k_pool/v_pool (n_blocks, bs, K, hd), n_blocks a multiple of
+    ``shards``.  -> o (B, H, hd) in q's dtype."""
+    nb_loc = k_pool.shape[0] // shards
+    os, lses = zip(*(
+        _paged_decode_core(r, q, k_pool[r * nb_loc:(r + 1) * nb_loc],
+                           v_pool[r * nb_loc:(r + 1) * nb_loc], block_tables,
+                           positions, k_new, v_new, scale=scale)
+        for r in range(shards)))
+    return combine_lse(torch.stack(os), torch.stack(lses))
+
+
 def gqa_decode_paged(p: dict, x: torch.Tensor, cache: dict,
                      positions: torch.Tensor, block_tables: torch.Tensor,
                      cfg: ArchConfig, plan: ShardPlan):
     """Paged-pool decode step: write the new token's KV into its block (in
     place: the pool is updated where it lies), then attend through the
-    block table.  x: (B, d) -> (out (B, d), cache)."""
+    block table; under a sharded plan, stripe by stripe.
+    x: (B, d) -> (out (B, d), cache)."""
     dt = plan.compute_dtype
     q, k_new, v_new = _decode_qkv(p, x, positions, cfg, plan)
+    scale = 1.0 / math.sqrt(cfg.head_dim)
+    if plan.paged_pool_sharded(cfg):
+        o = _paged_decode_striped(plan.tp, q, cache["k"], cache["v"],
+                                  block_tables, positions, k_new, v_new,
+                                  scale=scale)
+        return _out_proj(o, p["w_o"].to(dt)), cache
     bs = cache["k"].shape[1]
     blk = torch.gather(block_tables, 1, (positions // bs)[:, None].long())[:, 0]
     off = positions % bs
     cache["k"][blk, off] = k_new.to(cache["k"].dtype)
     cache["v"][blk, off] = v_new.to(cache["v"].dtype)
     o = ops.paged_decode_attention(q, cache["k"], cache["v"], block_tables,
-                                   positions,
-                                   scale=1.0 / math.sqrt(cfg.head_dim))
+                                   positions, scale=scale)
     return _out_proj(o, p["w_o"].to(dt)), cache
 
 
@@ -213,6 +288,9 @@ def init_paged_attn_cache(cfg: ArchConfig, plan: ShardPlan, n_blocks: int,
     if cfg.rwkv or cfg.family == "hybrid" or cfg.attn_kind != "gqa":
         raise ValueError(f"{cfg.name}: paged KV cache requires plain GQA "
                          f"attention (got attn_kind={cfg.attn_kind!r})")
+    if plan.paged_pool_sharded(cfg) and n_blocks % plan.tp:
+        raise ValueError(f"paged pool of {n_blocks} blocks does not divide "
+                         f"the {plan.tp}-way model axis; round n_blocks up")
     shape = (n_blocks, block_size, cfg.n_kv_heads, cfg.head_dim)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}

@@ -1,9 +1,19 @@
-"""Single-device shard plan (port of ``repro.models.sharding``).
+"""Shard plan (port of ``repro.models.sharding``).
 
-Only the meaning of ``local_plan`` is ported: one device, no mesh, so every
-padded dimension equals the published one (``h_pad == n_heads``,
-``k_pad == n_kv_heads``, ``v_pad == vocab_size``).  The plan carries the two
-dtypes every model function reads.
+The plan carries the two dtypes every model function reads and the
+model-parallel degree ``tp``.  There is no mesh: at ``tp > 1`` only the
+paged KV pool is block-striped (``paged_pool_sharded``), and every stripe
+stays on the model's one device, where the reference hands rank r its
+stripe on its own device through ``shard_map``.  The weights stay whole,
+so projections, MLP and head compute as at ``tp = 1``.
+
+Every padded dimension equals the published one (``h_pad == n_heads``,
+``k_pad == n_kv_heads``, ``v_pad == vocab_size``): a serving plan only
+takes degrees that divide the head, kv-head, vocab and d_ff counts
+(``serving.engine.shard_compat``).  For the same reason the reference's
+``kv_padded`` (kv heads padded up to ``tp`` when ``0 < k < tp``) can never
+hold on a serving plan: there ``k % tp != 0``, which ``shard_compat``
+rejects, so the port has no kv padding.
 """
 from __future__ import annotations
 
@@ -18,6 +28,8 @@ from repro_torch.configs.base import ArchConfig
 class ShardPlan:
     compute_dtype: torch.dtype = torch.bfloat16
     param_dtype: torch.dtype = torch.float32
+    tp: int = 1                          # model-parallel degree
+    shard_paged_pool: bool = True        # stripe the paged pool over tp
 
     def h_pad(self, cfg: ArchConfig) -> int:
         return cfg.n_heads
@@ -27,6 +39,15 @@ class ShardPlan:
 
     def v_pad(self, cfg: ArchConfig) -> int:
         return cfg.vocab_size
+
+    def paged_pool_sharded(self, cfg: ArchConfig | None = None) -> bool:
+        """Stripe the paged block pool's ``n_blocks`` axis over ``tp``
+        ranks?  Rank r owns the physical blocks ``[r*nb_loc,
+        (r+1)*nb_loc)``; decode attends stripe by stripe and merges the
+        partial softmaxes exactly (``attention._paged_decode_striped``).
+        It shards by blocks, not heads, so it holds for any kv-head
+        count."""
+        return self.shard_paged_pool and self.tp > 1
 
 
 def local_plan(**kw) -> ShardPlan:

@@ -264,6 +264,11 @@ class Model:
         block_tables: (B, T).  Returns (logits at each row's last valid
         chunk token (B, V_pad), cache)."""
         cfg, plan = self.cfg, self.plan
+        if plan.paged_pool_sharded(cfg):
+            raise NotImplementedError(
+                "chunked prefill over a block-striped pool needs the "
+                "reference's _paged_prefill_core with an owned/LSE form of "
+                "kernel 3, not ported yet (ROADMAP.md, Queue 1 item 12)")
         x = self._embed_inputs(params, tokens)
         for i in range(cfg.num_layers):
             x, _ = block_prefill_paged(x, _layer(params["layers"], i),
@@ -370,7 +375,10 @@ class Model:
 
     def init_paged_cache(self, n_blocks: int, block_size: int,
                          dtype=torch.bfloat16) -> dict:
-        """Layer-stacked paged KV pool: leaves (L, n_blocks, bs, K, hd)."""
+        """Layer-stacked paged KV pool: leaves (L, n_blocks, bs, K, hd).
+        Under a sharded plan ``n_blocks`` must divide into ``tp`` stripes;
+        rank r's stripe of layer i is the contiguous view
+        ``leaf[i, r*nb_loc:(r+1)*nb_loc]``."""
         c = A.init_paged_attn_cache(self.cfg, self.plan, n_blocks, block_size,
                                     dtype, device="meta")
         return {"attn": {name: torch.zeros((self.cfg.num_layers,) + a.shape,

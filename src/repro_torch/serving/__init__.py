@@ -1,6 +1,8 @@
-from repro_torch.serving.engine import Engine, EngineKnobs, EngineStats
+from repro_torch.serving.engine import (Engine, EngineKnobs, EngineStats,
+                                        shard_compat)
 from repro_torch.serving.kvcache import CachePool, PagedCachePool
 from repro_torch.serving.request import Request
+from repro_torch.serving.spec import EngineSpec, serving_plan
 
-__all__ = ["CachePool", "Engine", "EngineKnobs", "EngineStats",
-           "PagedCachePool", "Request"]
+__all__ = ["CachePool", "Engine", "EngineKnobs", "EngineSpec", "EngineStats",
+           "PagedCachePool", "Request", "serving_plan", "shard_compat"]

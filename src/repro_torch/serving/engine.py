@@ -18,8 +18,14 @@ One Engine is one TAPAS "VM instance": it exposes the configurator's knobs
   one exact-length prefill per admitted request and one decode step per
   scheduler step.
 
-Ported so far: greedy requests.  Not ported yet (see ROADMAP.md):
-speculative decode, sampling, variants and shards, and the resilience
+``set_shards(n)`` reconfigures the model-parallel degree: the paged pool
+is block-striped over ``n`` ranks and every decode step attends stripe by
+stripe.  All stripes live on the engine's one device (the reference puts
+each on its own device), so no device count limits ``n``.
+
+Ported so far: greedy requests; shards > 1 with whole-prompt prefill.
+Not ported yet (see ROADMAP.md): chunked prefill and prefix sharing at
+shards > 1, speculative decode, sampling, variants, and the resilience
 paths (deadlines, retries, quarantine, crash).
 """
 from __future__ import annotations
@@ -52,6 +58,7 @@ class EngineStats:
     decode_tokens: int = 0
     prefill_batches: int = 0     # prefill launches (not requests)
     preemptions: int = 0         # requests requeued for recompute
+    shard_swaps: int = 0         # set_shards reconfigures (preempt actives)
     rejected: int = 0            # contexts that can never fit max_seq
     host_syncs: int = 0          # device->host readbacks on the serving path
     decode_syncs: int = 0        # the subset issued by decode launches
@@ -83,6 +90,31 @@ class EngineStats:
         return good / t_max
 
 
+def shard_compat(shards: int, cfg) -> str | None:
+    """Why ``cfg`` cannot serve at ``shards``-way model parallelism, or
+    None when it can.
+
+    Sharded serving requires *identity pads*: head, kv-head, vocab and ffn
+    counts that the shard degree divides, so the parameters carry over
+    unchanged between plans on ``set_shards`` and the KV pool keeps the
+    real head count."""
+    if shards <= 1:
+        return None
+    if cfg.n_kv_heads and cfg.n_kv_heads % shards:
+        return (f"{cfg.name}: n_kv_heads={cfg.n_kv_heads} is not divisible "
+                f"by shard degree {shards}")
+    if cfg.n_heads % shards:
+        return (f"{cfg.name}: n_heads={cfg.n_heads} is not divisible by "
+                f"shard degree {shards}")
+    if cfg.vocab_size % shards:
+        return (f"{cfg.name}: vocab_size={cfg.vocab_size} is not divisible "
+                f"by shard degree {shards}")
+    if cfg.d_ff % shards:
+        return (f"{cfg.name}: d_ff={cfg.d_ff} is not divisible by "
+                f"shard degree {shards}")
+    return None
+
+
 def _bucket(n: int, lo: int = 16, hi: int | None = None) -> int:
     """Power-of-two prompt-length bucket (bounds distinct prefill shapes),
     clamped to ``hi``; callers reject contexts longer than ``hi`` first."""
@@ -107,6 +139,7 @@ class Engine:
         self.max_seq = max_seq
         self.n_slots = n_slots
         self.block_size = block_size
+        self.n_blocks = n_blocks
         self.paged = model.supports_paged if paged is None else paged
         if horizon < 1:
             raise ValueError(f"horizon must be >= 1, got {horizon}")
@@ -121,9 +154,6 @@ class Engine:
         if (prefill_chunk or prefix_share) and not self.paged:
             raise ValueError("chunked prefill / prefix sharing require the "
                              "paged serving mode")
-        if self.paged and not model.supports_paged:
-            raise ValueError(f"{model.cfg.name} cannot serve paged "
-                             f"(attn_kind={model.cfg.attn_kind!r})")
         self.queue: deque[Request] = deque()
         self.active: dict[int, Request] = {}
         self.prefilling: dict[int, Request] = {}
@@ -131,12 +161,68 @@ class Engine:
         self._pending_waiter: int | None = None   # req deferred on a
         #                                           pending shared prefill
         self.stats = EngineStats()
+        self._bind(model)
+
+    def _bind(self, model: Model) -> None:
+        """(Re)build the pool for ``model``."""
+        self.model = model
+        if self.paged and not model.supports_paged:
+            raise ValueError(f"{model.cfg.name} cannot serve paged "
+                             f"(attn_kind={model.cfg.attn_kind!r})")
+        self._refuse_chunked_sharded(self.shards)
         if self.paged:
-            self.pool = PagedCachePool(model, n_slots, max_seq,
-                                       block_size=block_size,
-                                       n_blocks=n_blocks)
+            self.pool = PagedCachePool(model, self.n_slots, self.max_seq,
+                                       block_size=self.block_size,
+                                       n_blocks=self.n_blocks)
         else:
-            self.pool = CachePool(model, n_slots, max_seq)
+            self.pool = CachePool(model, self.n_slots, self.max_seq)
+
+    def _refuse_chunked_sharded(self, n: int) -> None:
+        if n > 1 and self.prefill_chunk:
+            raise NotImplementedError(
+                "chunked prefill and prefix sharing at shards > 1 are not "
+                "ported yet (ROADMAP.md, Queue 1 item 12)")
+
+    # -- shard management (parallelism-degree knob) ------------------------
+    @property
+    def shards(self) -> int:
+        """Current model-parallel degree of the serving plan."""
+        plan = self.model.plan
+        return plan.tp if plan.paged_pool_sharded(self.model.cfg) else 1
+
+    def can_shard(self, n: int) -> str | None:
+        """Why the engine cannot reconfigure to ``n``-way model
+        parallelism (None = it can): the paged mode, and a model whose
+        counts divide cleanly.  The reference also needs ``n`` devices;
+        here every stripe lives on the engine's one device, so that
+        objection does not arise."""
+        if n < 1:
+            return f"shard degree must be >= 1, got {n}"
+        if n == 1:
+            return None
+        if not self.paged:
+            return "sharded serving requires the paged mode"
+        err = shard_compat(n, self.model.cfg)
+        return None if err is None else f"variant 'full': {err}"
+
+    def set_shards(self, n: int) -> None:
+        """Reconfigure the model-parallel degree (costs a pause, like a
+        variant reload): preempt in-flight work, rebuild the model under
+        the new plan with the same parameters, and rebuild the pool.
+        Raises, without preempting, when ``can_shard`` objects."""
+        if n == self.shards:
+            return
+        err = self.can_shard(n)
+        if err is not None:
+            raise ValueError(f"set_shards({n}): {err}")
+        self._refuse_chunked_sharded(n)
+        from repro_torch.serving.spec import serving_plan  # import cycle
+        plan = serving_plan(n, param_dtype=self.model.plan.param_dtype)
+        in_flight = set(self.active) | set(self.prefilling)
+        if in_flight:
+            self._preempt(sorted(in_flight, reverse=True))
+        self.stats.shard_swaps += 1
+        self._bind(Model(self.model.cfg, plan, self.model.device))
 
     def _to_device(self, a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(a).to(self.model.device)

@@ -3,9 +3,11 @@
 
 ``PagedCachePool``: one global block pool per layer (leaves ``(L,
 n_blocks, block_size, K, hd)``), a free-list block allocator and a
-per-lane block table mapping logical KV blocks to physical pool blocks.
-Admission writes exactly the blocks a prompt occupies (or, for chunked
-prefill, claims them for the chunks to fill), decode appends allocate
+per-lane block table mapping logical KV blocks to physical pool blocks
+(under a sharded plan the block ids are striped over the ranks and
+``n_blocks`` is rounded up to a multiple of them).  Admission writes
+exactly the blocks a prompt occupies (or, for chunked prefill, claims them
+for the chunks to fill), decode appends allocate
 blocks on demand, and release returns blocks to the free list.  Physical
 block 0 is the reserved *parking block*: idle lanes point their whole
 table at it, so a fixed-width decode batch never reads unowned memory.
@@ -109,6 +111,13 @@ class PagedCachePool:
         # +1: block 0 is the reserved parking block, never allocated
         self.n_blocks = n_blocks if n_blocks is not None \
             else 1 + n_lanes * self.blocks_per_seq
+        # a sharded pool stripes contiguous block-id ranges over the ranks;
+        # round up so every rank owns an equal stripe (the extra blocks
+        # just enlarge the free list)
+        self.shards = model.plan.tp \
+            if model.plan.paged_pool_sharded(model.cfg) else 1
+        if self.n_blocks % self.shards:
+            self.n_blocks += self.shards - self.n_blocks % self.shards
         self.cache = model.init_paged_cache(self.n_blocks, block_size, dtype)
         self.free_blocks = list(range(self.n_blocks - 1, 0, -1))
         self.free_lanes = list(range(n_lanes - 1, -1, -1))

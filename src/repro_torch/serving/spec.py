@@ -1,0 +1,102 @@
+"""One serving construction API (port of ``repro.serving.spec``).
+
+``EngineSpec`` turns an ``ArchConfig`` plus a shard count into (plan,
+seeded parameters, paged pool, ``Engine``) in one call.  ``serving_plan``
+is the serving plan's one entry point: ``local_plan`` at ``shards = 1``,
+otherwise a plan whose paged pool is block-striped over ``shards`` ranks.
+
+The reference builds a ``(1, shards)`` device mesh and needs ``shards``
+devices.  The port keeps every stripe of the pool on the engine's one
+device (rank r's stripe is a contiguous view of the pool) and merges the
+stripes in-process, so it needs one device at any degree; the weights stay
+whole on it.
+
+Weights come from a seeded ``torch.Generator``, which draws other numbers
+than the reference's ``jax.random`` key of the same seed: a test that holds
+the port to the reference carries the reference's weights across
+(``repro_torch.convert.from_jax_params``) into ``Engine.params``.
+"""
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass
+
+import torch
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.models.sharding import ShardPlan, local_plan
+from repro_torch.models.transformer import Model
+from repro_torch.serving.engine import Engine, EngineKnobs, shard_compat
+
+
+def serving_plan(shards: int = 1, **kw) -> ShardPlan:
+    """The serving plan for ``shards``-way model parallelism: a single-
+    device ``local_plan`` at ``shards <= 1``, else a plan that stripes the
+    paged pool over ``shards`` ranks (all on one device, see the module
+    docstring).  ``param_dtype`` defaults to bf16, as the reference's."""
+    kw.setdefault("param_dtype", torch.bfloat16)
+    if shards <= 1:
+        return local_plan(**kw)
+    return ShardPlan(tp=shards, **kw)
+
+
+@dataclass(frozen=True)
+class EngineSpec:
+    """Declarative description of one serving engine.
+
+    Ported: the fields below ``cfg`` to ``param_dtype``, with
+    ``prefill_chunk``/``prefix_share`` at ``shards = 1`` only.  The
+    reference's speculative-decode fields (``spec_k``, ``draft``) and its
+    model registries (``variants``, ``drafters``) raise
+    ``NotImplementedError`` when set (ROADMAP.md, Queue 1 items 8 and 9);
+    its ``ngram`` is left out with them."""
+    cfg: ArchConfig
+    shards: int = 1
+    max_seq: int = 512
+    n_slots: int = 8
+    max_batch: int | None = None        # default: n_slots
+    block_size: int = 16
+    n_blocks: int | None = None
+    horizon: int = 1
+    prefill_chunk: int | None = None
+    prefix_share: bool = False
+    spec_k: int = 4
+    draft: str | None = None
+    seed: int = 0
+    param_dtype: torch.dtype = torch.bfloat16
+    variants: tuple = ()
+    drafters: tuple = ()
+
+    def replace(self, **kw) -> "EngineSpec":
+        return dataclasses.replace(self, **kw)
+
+    def plan(self) -> ShardPlan:
+        return serving_plan(self.shards, param_dtype=self.param_dtype)
+
+    def validate(self) -> None:
+        unported = [name for name, on in (
+            ("spec_k", self.spec_k != 4), ("draft", self.draft is not None),
+            ("variants", bool(self.variants)),
+            ("drafters", bool(self.drafters))) if on]
+        if unported:
+            raise NotImplementedError(f"EngineSpec fields {unported} are not "
+                                      f"ported yet (ROADMAP.md, Queue 1 items "
+                                      f"8 and 9)")
+        err = shard_compat(self.shards, self.cfg)
+        if err is not None:
+            raise ValueError(f"EngineSpec ('full'): {err}")
+
+    def build(self, *, device="cuda") -> Engine:
+        """Build (plan, seeded parameters, pool, Engine) on ``device``."""
+        self.validate()
+        model = Model(self.cfg, self.plan(), device)
+        params = model.init(
+            torch.Generator(device=device).manual_seed(self.seed))
+        eng = Engine(
+            model, params, max_seq=self.max_seq, n_slots=self.n_slots,
+            knobs=EngineKnobs(max_batch=self.max_batch or self.n_slots),
+            paged=True, block_size=self.block_size, n_blocks=self.n_blocks,
+            horizon=self.horizon, prefill_chunk=self.prefill_chunk,
+            prefix_share=self.prefix_share)
+        eng.spec = self
+        return eng

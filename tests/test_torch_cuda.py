@@ -153,6 +153,98 @@ def test_decode_kernel_matches_plain(gen, q_dt, kv_dt, B, H, K, D, S):
     assert_close(o, da.decode_attention_ref(q, k, v, pos), dt)
 
 
+def _striped_inputs(gen, shards, B, H, K, D, bs, T, q_dt, kv_dt):
+    """A pool of a multiple of ``shards`` blocks, scrambled tables over all
+    of it (every stripe holds blocks of most lanes), one lane at the last
+    position and one at position 0 (its one live key in one stripe)."""
+    n_blocks = -(-(1 + B * T) // shards) * shards
+    tables = (torch.randperm(n_blocks - 1, generator=gen, device="cuda")
+              + 1)[: B * T].reshape(B, T).to(torch.int32)
+    pos = torch.randint(0, T * bs, (B,), generator=gen, device="cuda",
+                        dtype=torch.int32)
+    pos[0] = T * bs - 1
+    if B > 1:
+        pos[-1] = 0
+    q = torch.randn(B, H, D, generator=gen, device="cuda", dtype=q_dt)
+    kp = torch.randn(n_blocks, bs, K, D, generator=gen, device="cuda",
+                     dtype=kv_dt)
+    vp = torch.randn(n_blocks, bs, K, D, generator=gen, device="cuda",
+                     dtype=kv_dt)
+    return q, kp, vp, tables, pos
+
+
+def _stripe_args(kp, vp, tables, r, shards):
+    nb_loc = kp.shape[0] // shards
+    local = tables - r * nb_loc
+    owned = ((local >= 0) & (local < nb_loc)).to(torch.int32)
+    return (kp[r * nb_loc:(r + 1) * nb_loc], vp[r * nb_loc:(r + 1) * nb_loc],
+            local.clamp(0, nb_loc - 1), owned)
+
+
+@pytest.mark.parametrize("q_dt,kv_dt", [
+    (torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16),
+    (torch.float32, torch.bfloat16)])
+@pytest.mark.parametrize("B,H,K,D,bs,T", [
+    (2, 8, 2, 64, 16, 8), (1, 4, 4, 128, 32, 4), (3, 4, 1, 64, 16, 8),
+    (2, 64, 8, 128, 16, 20), (4, 8, 8, 32, 8, 6), (3, 8, 2, 128, 8, 40),
+])
+@pytest.mark.parametrize("shards", [2, 4])
+def test_paged_decode_lse_kernel_matches_plain(gen, q_dt, kv_dt, shards, B,
+                                               H, K, D, bs, T):
+    """Kernel 4 per stripe against its plain version (GQA, MHA and MQA,
+    head dims 32/64/128, block sizes 8/16/32): o at the dtype's
+    tolerance, lse at 1e-4 where finite and -1e30 exactly where the
+    stripe saw no key; the stripes' ``combine_lse`` against kernel 2 and
+    its plain version over the whole pool."""
+    q, kp, vp, tables, pos = _striped_inputs(gen, shards, B, H, K, D, bs, T,
+                                             q_dt, kv_dt)
+    dt = max(q_dt, kv_dt, key=TOL.get)
+    os_, lses = [], []
+    for r in range(shards):
+        args = (q, *_stripe_args(kp, vp, tables, r, shards))
+        k_s, v_s, local, owned = args[1:]
+        before = pa.paged_decode_attention_lse.launches
+        o, lse = ops.paged_decode_attention_lse(q, k_s, v_s, local, pos, owned)
+        assert pa.paged_decode_attention_lse.launches == before + 1
+        o_ref, lse_ref = pa.paged_decode_attention_lse_ref(q, k_s, v_s, local,
+                                                           pos, owned)
+        assert o.dtype == q_dt and lse.dtype == torch.float32
+        assert_close(o, o_ref, dt)
+        empty = lse_ref == -1e30
+        assert torch.equal(lse == -1e30, empty)
+        torch.testing.assert_close(lse[~empty], lse_ref[~empty], atol=1e-4,
+                                   rtol=0)
+        assert (o[empty] == 0).all()
+        os_.append(o)
+        lses.append(lse)
+    got = pa.combine_lse(torch.stack(os_), torch.stack(lses))
+    assert_close(got, pa.paged_decode_attention_ref(q, kp, vp, tables, pos),
+                 dt)
+    assert_close(got, pa.paged_decode_attention(q, kp, vp, tables, pos), dt)
+
+
+def test_paged_decode_lse_kernel_edges(gen):
+    """A stripe that owns nothing gives o = 0 and lse = -1e30 everywhere;
+    a lane at a negative position sees no key; the wrapper refuses owned
+    of another dtype or shape."""
+    q, kp, vp, tables, pos = _striped_inputs(gen, 2, 3, 8, 2, 64, 16, 8,
+                                             torch.bfloat16, torch.bfloat16)
+    k_s, v_s, local, owned = _stripe_args(kp, vp, tables, 0, 2)
+    o, lse = pa.paged_decode_attention_lse(q, k_s, v_s, local, pos,
+                                           torch.zeros_like(owned))
+    assert (o == 0).all() and (lse == -1e30).all()
+    pos = pos.clone()
+    pos[1] = -1
+    o, lse = pa.paged_decode_attention_lse(q, k_s, v_s, local, pos,
+                                           torch.ones_like(owned))
+    assert (o[1] == 0).all() and (lse[1] == -1e30).all()
+    with pytest.raises(TypeError):
+        pa.paged_decode_attention_lse(q, k_s, v_s, local, pos, owned.long())
+    with pytest.raises(ValueError):
+        pa.paged_decode_attention_lse(q, k_s, v_s, local, pos,
+                                      owned[:, :-1].contiguous())
+
+
 def test_kernel_wrappers_raise_on_bad_input(gen):
     q = torch.zeros(1, 2, 16, 48, device="cuda")          # head dim 48
     with pytest.raises(ValueError):
@@ -417,3 +509,75 @@ def test_serve_cli_on_cuda_matches_cpu(gen):
     assert fa.flash_attention.launches > 0
     assert pa.paged_decode_attention.launches > 0
     assert got == serve.main(["--smoke", "--device", "cpu"])
+
+
+@pytest.mark.parametrize("shards", [2, 4])
+def test_smoke_model_sharded_decode_matches_plain_and_unsharded(gen, shards):
+    """One paged decode step of a smoke-size model (4 kv heads) under a
+    sharded plan, all f32: kernel 4 against its plain version, and
+    against the unsharded step through kernel 2, on one pool state."""
+    from repro_torch.models import transformer as TR
+    from repro_torch.serving import serving_plan
+    cfg = get_config("llama2-7b").smoke_config().replace(n_kv_heads=4)
+    f32 = dict(param_dtype=torch.float32, compute_dtype=torch.float32)
+    m1 = build_model(cfg, local_plan(**f32))
+    ms = build_model(cfg, serving_plan(shards, **f32))
+    p = m1.init(torch.Generator(device="cuda").manual_seed(0))
+    B, bs, T = 4, 8, 6
+    n_blocks = 4 + B * T
+    tables = (torch.randperm(n_blocks - 1, generator=gen, device="cuda")
+              + 1)[: B * T].reshape(B, T).to(torch.int32)
+    pos = torch.tensor([47, 0, 20, 9], dtype=torch.int32, device="cuda")
+    tokens = torch.randint(0, cfg.vocab_size, (B,), generator=gen,
+                           device="cuda", dtype=torch.int32)
+    pool = m1.init_paged_cache(n_blocks, bs, dtype=torch.float32)
+    for leaf in pool["attn"].values():
+        leaf.normal_(generator=gen)
+    copies = [TR.L.tree_map(torch.clone, pool) for _ in range(2)]
+    before = pa.paged_decode_attention_lse.launches
+    lk, _ = ms.decode_step_paged(p, pool, tokens, pos, tables)
+    assert pa.paged_decode_attention_lse.launches == \
+        before + shards * cfg.num_layers
+    saved = ops.paged_decode_attention_lse
+    ops.paged_decode_attention_lse = pa.paged_decode_attention_lse_ref
+    try:
+        lp, _ = ms.decode_step_paged(p, copies[0], tokens, pos, tables)
+    finally:
+        ops.paged_decode_attention_lse = saved
+    l1, _ = m1.decode_step_paged(p, copies[1], tokens, pos, tables)
+    torch.testing.assert_close(lk, lp, atol=1e-4, rtol=0)
+    torch.testing.assert_close(lk, l1, atol=1e-4, rtol=0)
+    for n in ("k", "v"):
+        torch.testing.assert_close(pool["attn"][n], copies[1]["attn"][n],
+                                   atol=1e-4, rtol=0)
+
+
+def test_sharded_engine_spec_on_cuda(gen):
+    """A 2-way ``EngineSpec`` engine on the card serves the CPU run's
+    counters, every decode step through kernel 4 (2 stripes x 2 layers)
+    and none through kernel 2; ``set_shards(1)`` goes back to kernel 2."""
+    from repro_torch.serving import EngineSpec, Request
+    cfg = get_config("llama2-7b").smoke_config()
+    spec = EngineSpec(cfg, shards=2, max_seq=64, n_slots=4, block_size=8,
+                      n_blocks=8, horizon=4)
+
+    def run(eng):
+        keys = ("decode_tokens", "prefill_tokens", "host_syncs",
+                "preemptions")
+        before = [getattr(eng.stats, k) for k in keys]
+        for i in range(3):
+            eng.submit(Request(prompt=[3 + i, 7, 11, 13 + i],
+                               max_new_tokens=12))
+        eng.run()
+        return [getattr(eng.stats, k) - b for k, b in zip(keys, before)]
+
+    eng = spec.build()
+    pa.paged_decode_attention_lse.launches = 0
+    pa.paged_decode_attention.launches = 0
+    got = run(eng)
+    steps = eng.stats.decode_syncs * eng.horizon
+    assert pa.paged_decode_attention_lse.launches == 2 * 2 * steps
+    assert pa.paged_decode_attention.launches == 0
+    assert got == run(spec.build(device="cpu"))
+    eng.set_shards(1)
+    assert run(eng) == got and pa.paged_decode_attention.launches > 0

@@ -23,6 +23,7 @@ from repro_torch.kernels import rwkv6_wkv as wkv_mod
 from repro_torch.models import Model, build_model, layers, local_plan
 from repro_torch.models import attention as TA
 from repro_torch.models import ssm as TS
+from repro_torch.serving import EngineSpec, serving_plan
 
 ROOT = Path(__file__).resolve().parent.parent
 PKG = Path(repro_torch.__file__).resolve().parent
@@ -71,6 +72,7 @@ def test_nothing_built_at_import():
     assert build._LIBS == {}
     for mod in (flash_mod, paged_mod, prefill_mod, dense_mod, wkv_mod):
         assert not mod._kernel.cache_info().currsize
+    assert not paged_mod._lse_kernel.cache_info().currsize
 
 
 @pytest.mark.parametrize("fn", [
@@ -78,7 +80,7 @@ def test_nothing_built_at_import():
     layers.embed_init, layers.rope_freqs, layers.mlp_init, TA.init_gqa,
     TA.kv_index, TA.init_paged_attn_cache, TA.init_attn_cache,
     Model.init_cache, TS.init_rwkv_tmix, TS.init_rwkv_cmix,
-    TS.init_rwkv_state,
+    TS.init_rwkv_state, EngineSpec.build,
 ], ids=lambda f: f.__qualname__)
 def test_entry_points_default_to_cuda(fn):
     assert inspect.signature(fn).parameters["device"].default == "cuda"
@@ -107,6 +109,8 @@ DISPATCH = {
                         ("flash_attention_ref",), 3),
     "paged_decode_attention": (paged_mod, "paged_decode_attention",
                                ("paged_decode_attention_ref",), 5),
+    "paged_decode_attention_lse": (paged_mod, "paged_decode_attention_lse",
+                                   ("paged_decode_attention_lse_ref",), 6),
     "paged_prefill_attention": (prefill_mod, "paged_prefill_attention",
                                 ("paged_prefill_attention_ref",), 5),
     "paged_verify_attention": (prefill_mod, "paged_verify_attention",
@@ -152,6 +156,8 @@ def test_dispatcher_refuses_other_devices(devices):
     with pytest.raises(ValueError):
         ops.decode_attention(q[:, 0], k, k, i[:, 0])
     with pytest.raises(ValueError):
+        ops.paged_decode_attention_lse(q[:, 0], k, k, i, i[:, 0], i)
+    with pytest.raises(ValueError):
         ops.rwkv6_wkv(q, k, k, k, q[0, 0], None)
 
 
@@ -167,6 +173,10 @@ def test_kernel_wrappers_refuse_cpu_tensors():
         paged_mod.paged_decode_attention(torch.zeros(1, 2, 32), pool, pool,
                                          tab, torch.zeros(1, dtype=torch.int32))
     with pytest.raises(ValueError):
+        paged_mod.paged_decode_attention_lse(
+            torch.zeros(1, 2, 32), pool, pool, tab,
+            torch.zeros(1, dtype=torch.int32), torch.ones_like(tab))
+    with pytest.raises(ValueError):
         prefill_mod.paged_prefill_attention(torch.zeros(1, 4, 2, 32), pool,
                                             pool, tab,
                                             torch.zeros(1, dtype=torch.int32))
@@ -180,6 +190,7 @@ def test_kernel_wrappers_refuse_cpu_tensors():
         wkv_mod.rwkv6_wkv(r, r, r, r, torch.zeros(2, 32), None)
     assert flash_mod.flash_attention.launches == 0
     assert paged_mod.paged_decode_attention.launches == 0
+    assert paged_mod.paged_decode_attention_lse.launches == 0
     assert prefill_mod.paged_prefill_attention.launches == 0
     assert dense_mod.decode_attention.launches == 0
     assert wkv_mod.rwkv6_wkv.launches == 0
@@ -204,9 +215,16 @@ def test_model_runs_plain_versions_on_cpu_without_counting():
                               torch.zeros(2, dtype=torch.int32),
                               torch.tensor([3, 0], dtype=torch.int32))
     assert logits.shape == (2, 128) and torch.isfinite(logits).all()
+    sharded = Model(m.cfg, serving_plan(2), device="cpu")
+    logits, _ = sharded.decode_step_paged(
+        p, sharded.init_paged_cache(6, 8), torch.zeros(2, dtype=torch.int32),
+        torch.tensor([3, 9], dtype=torch.int32),
+        torch.tensor([[1, 4], [5, 2]], dtype=torch.int32))
+    assert logits.shape == (2, 128) and torch.isfinite(logits).all()
     assert flash_mod.flash_attention.launches == 0
     assert prefill_mod.paged_prefill_attention.launches == 0
     assert dense_mod.decode_attention.launches == 0
+    assert paged_mod.paged_decode_attention_lse.launches == 0
 
 
 def test_rwkv_model_runs_plain_version_on_cpu_without_counting():
