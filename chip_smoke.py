@@ -11,10 +11,12 @@ Builds the hand-written CUDA kernels from ``src/repro_torch/csrc`` (one
    built for (for the WKV recurrence: f32 and bf16 r/k/v, at the decode,
    prefill, ragged and state-carry shapes; for the per-stripe decode,
    kernel 4, each stripe of a pool split 2 and 4 ways, and the stripes
-   merged by ``combine_lse`` against kernel 2 over the whole pool), and
-   times kernel, plain version and a PyTorch library call beside each
-   where one exists (the library call is a yardstick only; the port never
-   calls it);
+   merged by ``combine_lse`` against kernel 2 over the whole pool; for
+   the int8 GEMM, kernel 6, bit-exact at the reference's test shapes,
+   granite's expert shapes, a ragged and a large shape, in both output
+   types), and times kernel, plain version and a PyTorch library call
+   beside each where one exists (the library call is a yardstick only; the
+   port never calls it);
 2. serves full-width llama2-7b (random weights from a seeded generator)
    through the ``Engine`` on five paths, each with every launch count set
    to 0 just before and read just after: the paged pool with whole-prompt
@@ -51,6 +53,18 @@ Builds the hand-written CUDA kernels from ``src/repro_torch/csrc`` (one
    prefill of a prompt's head plus one decode step per remaining token
    against prefill of the whole prompt (the state carried through the
    model); traces of one prefill and one slot decode step.
+6. frees rwkv6-3b and serves full-width granite-moe-3b-a800m (random bf16
+   weights from a seeded generator) and its int8-expert variant (the same
+   draws, quantized) through the paged pool: horizon 1 and 8 on the full
+   variant (identical greedy streams), and a horizon-8 run that switches
+   to the int8 variant with ``set_variant`` after two steps (every
+   request completes, one swap, every in-flight request preempted); each
+   variant's prefill and paged decode step teacher-forced through the
+   kernels and the plain versions, and the int8 variant's logits against
+   the full variant's (a reading: the quality cost of the knob); kernel 6
+   through ``ops.int8_matmul_quantized`` on the tokens that layer 0 of a
+   prefill routes to one expert, with that expert's dequantized weights;
+   traces of one prefill and one decode step per variant.
 
 Any failed check exits non-zero.  The last line is the result JSON; the
 lines before it list every kernel with its launches, error and times, and
@@ -71,7 +85,7 @@ sys.path.insert(0, str(ROOT / "src"))
 # is the larger of its bytes over HBM bandwidth and its flops over the
 # peak of its input type
 HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {"bf16": 989e12, "f32": 67e12}
+PEAK_FLOPS = {"bf16": 989e12, "f32": 67e12, "int8": 1979e12}
 # kernel vs plain version, by the lowest input precision: the max abs err,
 # and the error's norm relative to the plain output's norm (the latter scales
 # with the outputs, which shrink as more keys are averaged: a bf16 defect of
@@ -116,22 +130,38 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_ms(torch, fn, kernel: str, iters: int = 20) -> float:
-    """Device time per call of the device kernels whose name holds
-    ``kernel``, from ``torch.profiler`` over ``iters`` calls after one
-    warm-up: for a kernel shorter than its wrapper's host time, where
-    CUDA events around back-to-back calls time the host."""
-    from torch.profiler import ProfilerActivity, profile
+def device_ms(torch, fn, iters: int = 20) -> float:
+    """Device time per call of ``fn``: CUDA events around ``iters`` calls
+    queued behind a spin kernel (``torch.cuda._sleep``) that holds the
+    card until the host has queued them all, so that the card runs them
+    back to back and the events time the card alone, for a kernel shorter
+    than its wrapper's host work, where events around calls that are not
+    held time the host.  The spin is doubled until the start event is
+    still pending when the last call has been queued."""
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    host_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    # twice the host's time to queue the calls, plus 1 ms, at <= 2 GHz
+    cycles = int(2 * host_s * 2e9) + 2_000_000
+    for _ in range(6):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(cycles)
+        start.record()
         for _ in range(iters):
             fn()
-        torch.cuda.synchronize()
-    us = sum(getattr(e, "self_device_time_total",
-                     getattr(e, "self_cuda_time_total", 0))
-             for e in prof.key_averages() if kernel in e.key)
-    return us / 1e3 / iters
+        end.record()
+        held = not start.query()
+        end.synchronize()
+        if held:
+            return start.elapsed_time(end) / iters
+        cycles *= 2
+    fail("device_ms: the card ran the calls before the host had queued "
+         "them all, at every spin length")
 
 
 # ---------------------------------------------------------------------------
@@ -141,28 +171,27 @@ def device_ms(torch, fn, kernel: str, iters: int = 20) -> float:
 def check_flash(torch, dtypes, gen):
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
-    B, H, K, D = 4, 32, 32, 128
+    B = 4
+    # llama2-7b's heads, then granite-moe-3b-a800m's (GQA 24/8, D=64) at
+    # its prefill buckets from a generator of their own, so the llama
+    # inputs stay as drawn
+    g6 = torch.Generator(device="cuda").manual_seed(6)
+    shapes = ([(gen, 32, 32, 128, S, "") for S in (16, 200, 512)]
+              + [(g6, 24, 8, 64, S, " (granite)") for S in (16, 200, 256)])
     timed = None
     for name, dt in dtypes.items():
-        for S in (16, 200, 512):
+        for g, H, K, D, S, model in shapes:
             # the model's (B, S, H, D) activations, passed as strided views
-            q, k, v = (torch.randn(B, S, n, D, generator=gen, device="cuda",
+            q, k, v = (torch.randn(B, S, n, D, generator=g, device="cuda",
                                    dtype=dt).transpose(1, 2)
                        for n in (H, K, K))
-            err, rel = compare(fa.flash_attention(q, k, v),
-                               fa.flash_attention_ref(q, k, v))
-            ok = err <= TOL[name] and rel <= REL_TOL[name]
-            print(f"flash_attention {name} B={B} H={H} K={K} S={S} D={D}: "
-                  f"max_abs_err={err:.3e} tol={TOL[name]:.0e} "
-                  f"rel_err={rel:.3e} rel_tol={REL_TOL[name]:.0e} "
-                  f"{'ok' if ok else 'FAIL'}", flush=True)
-            if not ok:
-                fail(f"flash_attention {name} S={S} disagrees with its plain "
-                     f"version")
+            err = held(f"flash_attention {name} B={B} H={H} K={K} S={S} "
+                       f"D={D}{model}", fa.flash_attention(q, k, v),
+                       fa.flash_attention_ref(q, k, v), name)
             if name == "bf16" and S == 512:
                 timed = (q, k, v, err)
     q, k, v, err = timed
-    S = q.shape[2]
+    _, H, S, D = q.shape
     ms = cuda_ms(lambda: fa.flash_attention(q, k, v))
     plain_ms = cuda_ms(lambda: fa.flash_attention_ref(q, k, v))
     lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v,
@@ -221,6 +250,19 @@ def check_paged(torch, gen):
                  f"disagrees with its plain version")
         if timed is None:
             timed = (args, err)
+    # granite-moe-3b-a800m's decode (GQA 24/8, D=64, four lanes) at its
+    # phase-6 step's positions, from a generator of its own
+    g7 = torch.Generator(device="cuda").manual_seed(7)
+    for name, q_dt, kv_dt in (("bf16", bf16, bf16), ("f32", f32, f32),
+                              ("bf16", f32, bf16)):
+        q, kp, vp, tables, _ = _paged_inputs(torch, g7, 4, 24, 8, 64, bs, T,
+                                             q_dt, kv_dt)
+        pos = torch.tensor([230, 180, 120, 40], dtype=torch.int32,
+                           device="cuda")
+        held(f"paged_decode_attention q={q_dt} pool={kv_dt} B=4 H=24 K=8 "
+             f"D=64 bs={bs} T={T} positions 230/180/120/40 (granite)",
+             pa.paged_decode_attention(q, kp, vp, tables, pos),
+             pa.paged_decode_attention_ref(q, kp, vp, tables, pos), name)
     (q, kp, vp, tables, pos), err = timed
     H, K = q.shape[1], kp.shape[2]
     ms = cuda_ms(lambda: pa.paged_decode_attention(q, kp, vp, tables, pos))
@@ -616,7 +658,7 @@ def check_wkv(torch, gen):
                                                          s_out=s0))
         # the kernel's own time on the card; CUDA events around back-to-back
         # wrapper calls also time the wrapper's host work where that is longer
-        ms = device_ms(torch, call, "wkv_kernel")
+        ms = device_ms(torch, call)
         call_ms = cuda_ms(call)
         bound, by, n_bytes, flops = wkv_bound(B, T, H, D, r.element_size(),
                                               s0 is not None)
@@ -629,9 +671,10 @@ def check_wkv(torch, gen):
               f"{n_bytes} B, {flops} flop)", flush=True)
     # the line's entry is the decode shape's: 32 of the path's launches
     # per decode step against 32 per request's prefill.  Its ms is the
-    # profiler's device time, where the other kernels' is CUDA events
-    # around back-to-back calls; call_ms is this kernel's by that measure
-    # (its wrapper's host work, longer than the kernel)
+    # device time of calls held back to back on the card (``device_ms``),
+    # where the other kernels' is CUDA events around back-to-back calls;
+    # call_ms is this kernel's by that measure (its wrapper's host work,
+    # longer than the kernel)
     ms, call_ms, plain_ms, bound, by, err = rows["decode"]
     return {"name": "rwkv6_wkv", "route": "cuda",
             "source": "src/repro_torch/csrc/rwkv6_wkv.cu",
@@ -639,6 +682,113 @@ def check_wkv(torch, gen):
             "max_abs_err": err, "ms": ms, "call_ms": call_ms,
             "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
             "library_ms": None}
+
+
+INT8_SHAPES = [(128, 256, 128), (256, 512, 256),     # the reference's tests
+               (256, 1536, 512), (256, 512, 1536),   # granite's experts at
+               #                                       a prefill bucket's
+               #                                       capacity of 256 rows
+               (200, 1536, 520),                     # ragged (byte staging)
+               (4096, 4096, 4096)]                   # for the rate
+
+
+def int8_bound(M: int, K: int, N: int, out_bytes: int):
+    """(bound ms, what bounds it, bytes, ops) of one w8a8 GEMM: x and w
+    read once (int8), the scales read once (f32), the output written
+    once; 2*M*N*K integer operations at the int8 dense peak."""
+    n_bytes = M * K + K * N + 4 * (M + N) + out_bytes * M * N
+    ops = 2 * M * N * K
+    bound, by = bound_of(n_bytes, ops, "int8")
+    return bound, by, n_bytes, ops
+
+
+def check_int8(torch, gen):
+    """Kernel 6 against its plain version, bit for bit (integer sums are
+    exact and the f32 epilogue is the same sequence of operations), at
+    ``INT8_SHAPES`` in both output types; ``ops.int8_matmul_quantized``
+    on f32 operands against quantize + plain (bit-exact) and against the
+    f32 GEMM (relative error < 0.02, the reference's
+    ``test_int8_quantized_matmul_error_bound``).  Each shape timed with
+    bf16 output: the kernel's device time, plain, bound, and the yardstick
+    ``torch._int_mm`` (cuBLASLt's int8 GEMM) plus the same scale epilogue,
+    by its device time.  The line's entry is granite's gate/up shape (256,
+    1536, 512), the path's."""
+    from repro_torch.kernels import int8_matmul as i8
+    from repro_torch.kernels import ops
+    rows, errs = {}, {}
+    for M, K, N in INT8_SHAPES:
+        x_q = torch.randint(-127, 128, (M, K), generator=gen, device="cuda",
+                            dtype=torch.int32).to(torch.int8)
+        w_q = torch.randint(-127, 128, (K, N), generator=gen, device="cuda",
+                            dtype=torch.int32).to(torch.int8)
+        sx = 0.01 + 0.09 * torch.rand(M, 1, generator=gen, device="cuda")
+        sw = 0.01 + 0.09 * torch.rand(1, N, generator=gen, device="cuda")
+        args = (x_q, w_q, sx, sw)
+        for dt in (torch.bfloat16, torch.float32):
+            got = i8.int8_matmul(*args, out_dtype=dt)
+            want = i8.int8_matmul_ref(*args, out_dtype=dt)
+            err = (got.float() - want.float()).abs().max().item()
+            same = torch.equal(got, want)
+            errs[(M, K, N)] = max(errs.get((M, K, N), 0.0), err)
+            print(f"int8_matmul M={M} K={K} N={N} out={dt}: bit-exact="
+                  f"{same} max_abs_err={err:.3e} tol=0 "
+                  f"{'ok' if same else 'FAIL'}", flush=True)
+            if not same:
+                fail(f"int8_matmul M={M} K={K} N={N} {dt} is not bit-exact "
+                     f"against its plain version")
+        # the kernel's own time on the card (``device_ms``), beside CUDA
+        # events around back-to-back wrapper calls, which at the small
+        # shapes time the wrapper's host work
+        ms = device_ms(torch, lambda: i8.int8_matmul(*args))
+        call_ms = cuda_ms(lambda: i8.int8_matmul(*args))
+        plain_ms = cuda_ms(lambda: i8.int8_matmul_ref(*args), iters=5,
+                           warmup=1)
+
+        def library():
+            return (torch._int_mm(x_q, w_q).float() * sx * sw).to(
+                torch.bfloat16)
+        try:
+            if not torch.equal(library(), want.to(torch.bfloat16)):
+                print(f"  torch._int_mm at M={M} K={K} N={N} differs from "
+                      f"the plain version (a reading)", flush=True)
+            # device time of every kernel of the call: the GEMM and the
+            # epilogue's elementwise passes; the GEMM alone beside it
+            lib_ms = device_ms(torch, library)
+            lib_call_ms = cuda_ms(library)
+            mm_ms = device_ms(torch, lambda: torch._int_mm(x_q, w_q))
+            lib = (f"{lib_ms:.4f} ms on the device ({lib_call_ms:.4f} ms "
+                   f"CUDA events; the GEMM alone {mm_ms:.4f} ms)")
+        except RuntimeError as e:          # shapes cuBLASLt does not take
+            lib_ms, lib = None, f"n/a ({e})"
+        bound, by, n_bytes, n_ops = int8_bound(M, K, N, 2)
+        rows[(M, K, N)] = (ms, call_ms, plain_ms, bound, by, lib_ms)
+        print(f"int8_matmul bf16-out M={M} K={K} N={N}: kernel {ms:.4f} ms "
+              f"on the device ({n_ops / ms / 1e9:.1f} TOPS; {call_ms:.4f} "
+              f"ms per back-to-back wrapper call, CUDA events), plain "
+              f"{plain_ms:.4f} ms, torch._int_mm + scales {lib}, bound "
+              f"{bound:.5f} ms ({by}: {n_bytes} B, {n_ops} int8 ops)",
+              flush=True)
+    x = torch.randn(128, 256, generator=gen, device="cuda")
+    w = torch.randn(256, 128, generator=gen, device="cuda")
+    got = ops.int8_matmul_quantized(x, w)
+    same = torch.equal(got, i8.int8_matmul_quantized_ref(x, w))
+    ref = x @ w
+    rel = ((got.float() - ref).abs().mean() / ref.abs().mean()).item()
+    print(f"int8_matmul_quantized f32 128x256 @ 256x128: bit-exact against "
+          f"quantize + plain={same}, mean relative error against the f32 "
+          f"GEMM {rel:.4e} (< 0.02) {'ok' if same and rel < 0.02 else 'FAIL'}",
+          flush=True)
+    if not same or rel >= 0.02:
+        fail("int8_matmul_quantized disagrees")
+    # ms and library_ms are device times (``device_ms``), call_ms CUDA
+    # events around back-to-back wrapper calls, as for kernel 7
+    ms, call_ms, plain_ms, bound, by, lib_ms = rows[(256, 1536, 512)]
+    return {"name": "int8_matmul", "route": "cuda",
+            "source": "src/repro_torch/csrc/int8_matmul.cu",
+            "replaces": "src/repro/kernels/int8_matmul.py:41",
+            "max_abs_err": errs[(256, 1536, 512)], "ms": ms,
+            "call_ms": call_ms, "plain_ms": plain_ms, "bound_ms": bound,
+            "bound_by": by, "library_ms": lib_ms}
 
 
 # ---------------------------------------------------------------------------
@@ -649,6 +799,7 @@ def kernel_wrappers() -> dict:
     """Every kernel wrapper of the port by name; each counts its launches."""
     from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import int8_matmul as i8
     from repro_torch.kernels import paged_decode_attention as pa
     from repro_torch.kernels import paged_prefill_attention as ppa
     from repro_torch.kernels import rwkv6_wkv as wkv
@@ -657,7 +808,8 @@ def kernel_wrappers() -> dict:
             "paged_decode_attention_lse": pa.paged_decode_attention_lse,
             "paged_prefill_attention": ppa.paged_prefill_attention,
             "decode_attention": da.decode_attention,
-            "rwkv6_wkv": wkv.rwkv6_wkv}
+            "rwkv6_wkv": wkv.rwkv6_wkv,
+            "int8_matmul": i8.int8_matmul}
 
 
 def reset_launches() -> None:
@@ -689,7 +841,7 @@ def system_prompt_load(vocab: int) -> list:
 
 
 COUNTERS = ("decode_tokens", "prefill_tokens", "prefill_batches",
-            "preemptions", "host_syncs", "decode_syncs")
+            "preemptions", "host_syncs", "decode_syncs", "variant_swaps")
 
 
 def watch_pool(pool, shards: int) -> dict:
@@ -727,14 +879,18 @@ def serve(torch, model, params, label: str, load: list, need: tuple,
     return out
 
 
-def drive(torch, eng, label: str, load: list, need: tuple) -> dict:
+def drive(torch, eng, label: str, load: list, need: tuple,
+          swap: tuple | None = None) -> dict:
     """Serve ``load`` through ``eng`` with every launch count set to 0
     just before the run and read just after; check completion and that
     the kernels in ``need`` ran.  Counters are this run's (the engine's
     less their values before it).  On a paged pool, also record its
     fullest point (``watch_pool``) and check that the free list and the
     refcounts are back to their start (``_sharded_parity_main.py``'s
-    ``check_pool_invariants``)."""
+    ``check_pool_invariants``), on the pool the run ends on.  With
+    ``swap=(n, name)`` the run calls ``set_variant(name)`` after n
+    scheduler steps; ``in_flight`` is then the requests in flight at the
+    swap."""
     from types import SimpleNamespace
     from repro_torch.serving import PagedCachePool, Request
     model, stats, pool = eng.model, eng.stats, eng.pool
@@ -752,10 +908,17 @@ def drive(torch, eng, label: str, load: list, need: tuple) -> dict:
     torch.cuda.synchronize()
     reset_launches()
     t0 = time.perf_counter()
+    in_flight = None
+    if swap is not None:
+        for i in range(swap[0]):
+            eng.step(now=float(i))
+        in_flight = len(eng.active) + len(eng.prefilling)
+        eng.set_variant(swap[1])
     eng.run()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = read_launches()
+    pool = eng.pool
     run = SimpleNamespace(
         completed=stats.completed[n_done:],
         step_times=list(stats.step_times)[
@@ -769,6 +932,7 @@ def drive(torch, eng, label: str, load: list, need: tuple) -> dict:
     step_ms = sorted(t * 1e3 / horizon for t in run.step_times)
     out = {"streams": streams, "stats": run, "launches": launches,
            "wall": wall, "steps": steps, "shards": shards,
+           "in_flight": in_flight,
            "shared_block_hits": getattr(pool, "shared_block_hits", 0),
            "pending_share_waits": getattr(pool, "pending_share_waits", 0),
            "peak_blocks": seen["peak"] if paged else 0,
@@ -794,7 +958,10 @@ def drive(torch, eng, label: str, load: list, need: tuple) -> dict:
           f"per_decode_step_per_layer={per_step / max(steps * L, 1):.2f}"
           + (f" pool: {pool.n_blocks} blocks, fullest at "
              f"{out['peak_blocks']} live, per stripe {out['stripe_blocks']}"
-             if paged else ""), flush=True)
+             if paged else "")
+          + (f" set_variant({swap[1]!r}) after {swap[0]} steps with "
+             f"{in_flight} in flight, variant_swaps={run.variant_swaps}"
+             if swap else ""), flush=True)
     if len(run.completed) != len(load) or any(
             len(s) != m for s, (_, m) in zip(streams, load)):
         fail(f"{label}: not every request completed its budget")
@@ -959,6 +1126,7 @@ class plain_versions:
     def __enter__(self):
         from repro_torch.kernels import decode_attention as da
         from repro_torch.kernels import flash_attention as fa
+        from repro_torch.kernels import int8_matmul as i8
         from repro_torch.kernels import ops
         from repro_torch.kernels import paged_decode_attention as pa
         from repro_torch.kernels import paged_prefill_attention as ppa
@@ -972,6 +1140,8 @@ class plain_versions:
         ops.paged_verify_attention = ppa.paged_prefill_attention_ref
         ops.decode_attention = da.flash_decode_ref
         ops.rwkv6_wkv = wkv.rwkv6_wkv_ref
+        ops.int8_matmul = i8.int8_matmul_ref
+        ops.int8_matmul_quantized = i8.int8_matmul_quantized_ref
         return ops
 
     def __exit__(self, *exc):
@@ -979,9 +1149,9 @@ class plain_versions:
             setattr(self.ops, n, fn)
 
 
-def logits_agree(torch, vocab: int, what: str, a, b) -> bool:
-    """Within 5% of max |logit| of ``b`` and the same argmax on every row
-    that bf16 logits decide.  A row whose top-2 margin in ``b`` is within
+def logits_agree(torch, vocab: int, what: str, a, b, tol=None) -> bool:
+    """Within ``tol`` (default 5% of max |logit| of ``b``) and the same
+    argmax on every row that bf16 logits decide.  A row whose top-2 margin in ``b`` is within
     two bf16 steps at max |logit| is a tie at bf16 resolution: one step
     of rounding anywhere upstream can swap its argmax, so there the
     token ``a`` picks must score within those two steps of ``b``'s max."""
@@ -991,7 +1161,9 @@ def logits_agree(torch, vocab: int, what: str, a, b) -> bool:
         fail(f"{what} logits not finite")
     err = (a - b).abs().max().item()
     scale = b.abs().max().item()
-    tol = 0.05 * scale
+    limit = (f"5% of max|logit| {scale:.3f}" if tol is None
+             else f"max|logit| {scale:.3f}")
+    tol = 0.05 * scale if tol is None else tol
     band = 2 * 2.0 ** (math.floor(math.log2(scale)) - 7)   # 2 bf16 steps
     top2 = b.topk(2, dim=-1).values
     margins = top2[:, 0] - top2[:, 1]
@@ -1001,8 +1173,8 @@ def logits_agree(torch, vocab: int, what: str, a, b) -> bool:
     in_band = b.gather(1, pick[:, None])[:, 0] >= top2[:, 0] - band
     agree = bool((same | (tied & in_band)).all())
     print(f"teacher-forced {what} logits ({a.shape[0]} rows, bf16): "
-          f"max_abs_err={err:.4e} tol={tol:.4e} (5% of max|logit| "
-          f"{scale:.3f}) argmax_same={int(same.sum())}/{a.shape[0]} "
+          f"max_abs_err={err:.4e} tol={tol:.4e} ({limit}) "
+          f"argmax_same={int(same.sum())}/{a.shape[0]} "
           f"tied_rows={int(tied.sum())} (top-2 margin <= {band:.4e}) "
           f"argmax_agree={agree} min_top2_margin={margins.min().item():.4e}",
           flush=True)
@@ -1542,6 +1714,323 @@ def rwkv_phases(torch) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 6: full-width granite-moe-3b-a800m and its int8-expert variant
+# ---------------------------------------------------------------------------
+
+def granite_models(torch):
+    """Both variants from seed 0: the full variant in bf16, the int8
+    variant (``quantize_serve``) from the same draws, quantized.  Checks
+    the parameter counts (the config's; plus the int8 variant's scales)
+    and that the int8 experts of the first and last layer are the full
+    variant's, quantized."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model, local_plan
+    from repro_torch.models import moe as M
+    cfg = get_config("granite-moe-3b-a800m")
+    out = {}
+    for name, q in (("full", False), ("int8", True)):
+        model = build_model(cfg, local_plan(param_dtype=torch.bfloat16,
+                                            quantize_serve=q))
+        t0 = time.perf_counter()
+        params = model.init(torch.Generator(device="cuda").manual_seed(0))
+        torch.cuda.synchronize()
+        leaves = list(_leaves(params))
+        n = sum(t.numel() for t in leaves)
+        n_bytes = sum(t.numel() * t.element_size() for t in leaves)
+        scales = q * cfg.num_layers * cfg.n_experts * (2 * cfg.expert_d_ff
+                                                      + cfg.d_model)
+        print(f"granite-moe-3b-a800m {name}: {cfg.num_layers} layers d_model "
+              f"{cfg.d_model} heads {cfg.n_heads}/{cfg.n_kv_heads} x "
+              f"{cfg.head_dim}, {cfg.n_experts} experts top-{cfg.top_k} of "
+              f"d_ff {cfg.expert_d_ff}, vocab {cfg.vocab_size}, tied; {n} "
+              f"params ({cfg.param_count()} + {scales} scales), "
+              f"{n_bytes / 2**30:.2f} GiB, init "
+              f"{time.perf_counter() - t0:.1f} s, "
+              f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated",
+              flush=True)
+        if n != cfg.param_count() + scales:
+            fail(f"granite {name}: parameter count {n} != "
+                 f"{cfg.param_count()} + {scales}")
+        out[name] = (model, params)
+    full, q = out["full"][1]["layers"]["moe"], out["int8"][1]["layers"]["moe"]
+    for i in (0, cfg.num_layers - 1):
+        for w in M.EXPERT_WEIGHTS:
+            w_q, s_ = M._quantize_experts(full[w][i])
+            if not (torch.equal(w_q, q[w + "_q"][i])
+                    and torch.equal(s_, q[w + "_s"][i])):
+                fail(f"granite int8 layer {i} {w} is not the full variant's "
+                     f"quantized")
+    print(f"granite int8 variant: layers 0 and {cfg.num_layers - 1} hold "
+          f"the full variant's experts quantized", flush=True)
+    return out
+
+
+def serve_granite(torch, variants) -> dict:
+    """``plain_load`` on the full variant at horizon 1 and 8 (identical
+    streams), then at horizon 8 with ``set_variant("int8")`` after two
+    scheduler steps.  Each run checks completion, kernels 1 and 2 once per
+    layer for every prefill batch and decode step, and the pool; the swap
+    run one swap and at least one preemption per request in flight at the
+    swap.  Returns the launches summed over the runs."""
+    from repro_torch.serving import Engine, EngineKnobs
+    model, params = variants["full"]
+    L = model.cfg.num_layers
+    paged = ("flash_attention", "paged_decode_attention")
+    load = plain_load(model.cfg.vocab_size)
+    runs = [serve(torch, model, params, "full horizon=1", load, paged,
+                  horizon=1),
+            serve(torch, model, params, "full horizon=8", load, paged,
+                  horizon=8)]
+    if runs[0]["streams"] != runs[1]["streams"]:
+        fail("granite: greedy streams differ between horizon 1 and 8")
+    print("granite greedy streams identical at horizon 1 and 8", flush=True)
+    eng = Engine(model, params, max_seq=2048, n_slots=4,
+                 knobs=EngineKnobs(max_batch=4), block_size=16, horizon=8)
+    eng.add_variant("int8", *variants["int8"])
+    swap = drive(torch, eng, "horizon=8, full then int8", load, paged,
+                 swap=(2, "int8"))
+    del eng
+    torch.cuda.empty_cache()
+    st = swap["stats"]
+    print(f"granite swap checks: variant_swaps={st.variant_swaps} (1), "
+          f"preemptions={st.preemptions} (>= {swap['in_flight']} in flight "
+          f"at the swap); {same_streams(swap['streams'], runs[1]['streams'])}"
+          f"/8 streams equal to the full variant's (a reading: requests "
+          f"finished before the swap are the full variant's)", flush=True)
+    if st.variant_swaps != 1 or not swap["in_flight"] \
+            or st.preemptions < swap["in_flight"]:
+        fail("granite: set_variant did not swap once, preempting every "
+             "request in flight")
+    for run in runs + [swap]:
+        st, la = run["stats"], run["launches"]
+        if (la["flash_attention"] != L * st.prefill_batches
+                or la["paged_decode_attention"] != L * run["steps"]):
+            fail(f"granite: kernels 1/2 did not launch once per layer and "
+                 f"prefill batch / decode step ({la})")
+    total = {}
+    for run in runs + [swap]:
+        for name, n in run["launches"].items():
+            total[name] = total.get(name, 0) + n
+    return total
+
+
+def _reading_top1(torch, vocab: int, what: str, a, b) -> None:
+    a, b = a[:, :vocab].float(), b[:, :vocab].float()
+    same = (a.argmax(-1) == b.argmax(-1)).float().mean().item()
+    print(f"reading {what}: top-1 agreement {same:.4f} over {a.shape[0]} "
+          f"rows, max_abs_diff {(a - b).abs().max().item():.4e}, "
+          f"max|logit| {b.abs().max().item():.3f}", flush=True)
+
+
+def _granite_pool(torch, model, cache, lengths, dtype):
+    """A paged pool of ``dtype`` holding a 4-row prefill's cache, each
+    row's next block allocated."""
+    from repro_torch.serving import PagedCachePool
+    pool = PagedCachePool(model, 4, 2048, block_size=16, dtype=dtype)
+    for i, n in enumerate(lengths.tolist()):
+        pool.insert(100 + i, cache, i, n)
+    pool.ensure_append_blocks([100 + i for i in range(4)])
+    return pool
+
+
+def _granite_decode(model, params, pool, nxt):
+    """One paged decode step of ``nxt`` on a copy of ``pool``'s cache."""
+    cache = {"attn": {n: t.clone() for n, t in pool.cache["attn"].items()}}
+    logits, _ = model.decode_step_paged(params, cache, nxt, pool.positions(),
+                                        pool.tables())
+    return logits
+
+
+def teacher_forced_granite(torch, variants):
+    """Per variant, prefill through the kernels and through the plain
+    versions, then one paged decode step both ways from copies of one
+    pool, filled by the kernels' prefill, in the plan's compute dtype (an
+    f32 pool in the f32 plan, so the new token's K/V, f32 values a few
+    ulp apart on the two paths, are not rounded to bf16 neighbours).
+    Checked at ``TOL["f32"]`` (``logits_agree``) in an f32 compute plan
+    over the bf16 weights, a reading in the serving bf16 plan, where a
+    rounding step of the attention output can move a token's top-8
+    routing at a near-tie (the router is discontinuous).  Then the int8
+    variant against the full one in the serving plan, both through the
+    kernels: top-1 agreement and max abs difference, a reading (the
+    knob's quality cost on random weights)."""
+    from repro_torch.models import build_model, local_plan
+    model = variants["full"][0]
+    vocab = model.cfg.vocab_size
+    tokens, lengths = _prompts(torch, model, 1)
+    ok = True
+    served = {}
+    for name, (m, p) in variants.items():
+        for plan, cdt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+            mm = build_model(m.cfg, local_plan(
+                param_dtype=torch.bfloat16, compute_dtype=cdt,
+                quantize_serve=m.plan.quantize_serve), device=m.device)
+            lk, ck = mm.prefill_ragged(p, tokens, lengths)
+            with plain_versions():
+                lp, cp = mm.prefill_ragged(p, tokens, lengths)
+            what = f"granite {name} {plan} plan"
+            if plan == "f32":
+                # why two bf16 pools, one filled by each prefill, decode
+                # apart: their K/V round to different bf16 neighbours
+                pairs = list(zip(_leaves(ck), _leaves(cp)))
+                differ = sum(int((a.bfloat16() != b.bfloat16()).sum())
+                             for a, b in pairs)
+                print(f"reading {what}: {differ} of "
+                      f"{sum(a.numel() for a, _ in pairs)} prefill K/V "
+                      f"entries round to a different bf16 value, kernel vs "
+                      f"plain prefill", flush=True)
+            del cp
+            pool = _granite_pool(torch, mm, ck, lengths, cdt)
+            del ck
+            nxt = lk[:, :vocab].argmax(-1).to(torch.int32)
+            dk = _granite_decode(mm, p, pool, nxt)
+            with plain_versions():
+                dp = _granite_decode(mm, p, pool, nxt)
+            del pool
+            tol = TOL["f32"] if plan == "f32" else None
+            agree = logits_agree(torch, vocab, f"{what} prefill, kernel vs "
+                                 f"plain", lk, lp, tol)
+            agree &= logits_agree(torch, vocab, f"{what} paged decode, "
+                                  f"kernel vs plain", dk, dp, tol)
+            if plan == "f32":
+                ok &= agree
+            else:
+                print(f"  ({what}: a reading, not a check)", flush=True)
+                served[name] = (lk, dk, nxt)
+            torch.cuda.empty_cache()
+    _, _, nxt = served["full"]
+    m8, p8 = variants["int8"]
+    lq, cq = m8.prefill_ragged(p8, tokens, lengths)
+    dq = _granite_decode(m8, p8, _granite_pool(torch, m8, cq, lengths,
+                                               torch.bfloat16), nxt)
+    del cq
+    _reading_top1(torch, vocab, "granite int8 vs full prefill logits",
+                  lq, served["full"][0])
+    _reading_top1(torch, vocab, "granite int8 vs full paged decode logits "
+                  "(same input token)", dq, served["full"][1])
+    torch.cuda.empty_cache()
+    if not ok:
+        fail("teacher-forced granite kernel path disagrees with the plain "
+             "path (f32 plan)")
+
+
+def int8_on_served_data(torch, variants) -> dict:
+    """Kernel 6 on the served model's own data: layer 0's MoE input in a
+    prefill of ``_prompts`` (4 rows in a 256 bucket: capacity 256 per
+    expert), taken from the model's own ``_moe_core`` call with the
+    dequantized experts it was given, the rows routed to the expert with
+    the most tokens, and that expert's weights: gate and up (256 x 1536 @
+    1536 x 512), then down on its ``act * up`` (256 x 512 @ 512 x 1536),
+    each through ``ops.int8_matmul_quantized`` with every launch count set
+    to 0 before and read after.  Checks: bit-exact against quantize +
+    plain.  Readings: the error against the bf16 expert GEMM the model
+    runs (w8a16).  Returns the launches."""
+    from repro_torch.kernels import int8_matmul as i8
+    from repro_torch.kernels import ops
+    from repro_torch.models import moe as M
+    model, params = variants["int8"]
+    tokens, lengths = _prompts(torch, model, 1)
+    seen, core = [], M._moe_core
+
+    def first_call(x, router_w, *weights, **kw):
+        if not seen:
+            seen.append((x, router_w, weights, kw))
+        return core(x, router_w, *weights, **kw)
+
+    M._moe_core = first_call
+    try:
+        model.prefill_ragged(params, tokens, lengths)
+    finally:
+        M._moe_core = core
+    x, router_w, weights, kw = seen[0]
+    cap = kw["capacity"]
+    topv, topi = M.route(x, router_w, kw["cfg"])
+    buf_src, _, _ = M.dispatch(topv, topi, e_pad=kw["e_pad"], capacity=cap)
+    filled = (buf_src < x.shape[0]).reshape(kw["e_pad"], cap).sum(1)
+    e = int(filled.argmax())
+    xg = torch.cat([x, x.new_zeros(1, x.shape[1])])[buf_src].reshape(
+        kw["e_pad"], cap, -1)[e]
+    w = {n: t[e] for n, t in zip(M.EXPERT_WEIGHTS, weights)}
+    act = (torch.nn.functional.silu((xg @ w["w_gate"]).float())
+           .to(xg.dtype) * (xg @ w["w_up"]))
+    calls = {"gate": (xg, w["w_gate"]), "up": (xg, w["w_up"]),
+             "down": (act, w["w_down"])}
+    torch.cuda.synchronize()
+    reset_launches()
+    outs = {k: ops.int8_matmul_quantized(a, b) for k, (a, b) in calls.items()}
+    torch.cuda.synchronize()
+    launches = read_launches()
+    print(f"kernel 6 on granite's served data: layer 0, expert {e} "
+          f"({int(filled[e])} of {cap} rows filled; {int((filled == cap).sum())}"
+          f" experts full), launches {launches['int8_matmul']}", flush=True)
+    for k, (a, b) in calls.items():
+        same = torch.equal(outs[k], i8.int8_matmul_quantized_ref(a, b))
+        ref = a @ b
+        rel = ((outs[k].float() - ref.float()).abs().mean()
+               / ref.float().abs().mean()).item()
+        print(f"  {k}: {tuple(a.shape)} @ {tuple(b.shape)} bit-exact against "
+              f"quantize + plain={same}; reading: w8a8 against the bf16 "
+              f"expert GEMM mean relative error {rel:.4e}, max abs "
+              f"{(outs[k].float() - ref.float()).abs().max().item():.4e} "
+              f"(max|ref| {ref.float().abs().max().item():.3f})", flush=True)
+        if not same:
+            fail(f"kernel 6 on granite's {k} GEMM is not bit-exact")
+    if launches["int8_matmul"] != len(calls):
+        fail("kernel 6 did not launch once per ops.int8_matmul_quantized")
+    return launches
+
+
+def granite_calls(torch, model, params, name: str) -> dict:
+    """One bucketed prefill (4 prompts of 40-230 tokens in a 256 bucket)
+    and one greedy decode horizon of 8 (4 lanes at the same positions)."""
+    from repro_torch.serving import PagedCachePool
+    B, dev, lengths = 4, model.device, [230, 180, 120, 40]
+    pool = PagedCachePool(model, B, 2048, block_size=16, n_blocks=516)
+    T = pool.blocks_per_seq
+    tokens = torch.randint(0, model.cfg.vocab_size, (B, 256), device=dev,
+                           dtype=torch.int32,
+                           generator=torch.Generator(device=dev).manual_seed(2))
+    lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    tables = (1 + torch.arange(B * T, device=dev, dtype=torch.int32)
+              ).reshape(B, T)
+    tok = tokens[:, 0].contiguous()
+    active = torch.ones(B, dtype=torch.bool, device=dev)
+    budgets = torch.full((B,), 1000, dtype=torch.int32, device=dev)
+    eos = torch.full((B,), -1, dtype=torch.int32, device=dev)
+    return {
+        f"prefill {name}": (f"{B} prompts of {lengths} tokens in a 256 bucket",
+                            lambda: model.prefill_ragged(params, tokens, lens),
+                            1, "prefill"),
+        f"decode {name}": (f"{B} lanes at positions {lengths}, horizon=8",
+                           lambda: model.decode_multi_paged(
+                               params, pool.cache, tok, lens, tables, active,
+                               budgets, eos, num_steps=8, max_len=2048),
+                           8, "step"),
+    }
+
+
+def granite_phases(torch) -> dict:
+    """Phase 6; returns the launches of its serve runs and of kernel 6 on
+    the served data."""
+    variants = granite_models(torch)
+    launches = serve_granite(torch, variants)
+    teacher_forced_granite(torch, variants)
+    for name, n in int8_on_served_data(torch, variants).items():
+        launches[name] += n
+    calls = {}
+    for name, (m, p) in variants.items():
+        calls.update(granite_calls(torch, m, p, name))
+    walls = {name: host_walls(torch, fn, per, reps=3)
+             for name, (_, fn, per, _) in calls.items()}
+    for name, (label, fn, per, unit) in calls.items():
+        trace(torch, f"{name} profile granite-moe-3b-a800m bf16, {label}",
+              fn, walls[name], per=per, unit=unit)
+    del variants, calls
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1570,10 +2059,12 @@ def main() -> int:
     # phase 1
     gen = torch.Generator(device="cuda").manual_seed(0)
     dtypes = {"bf16": torch.bfloat16, "f32": torch.float32}
-    # kernel 4 last: the earlier kernels draw the inputs they drew before
+    # kernels 4 and 6 last, in the order they came: the earlier kernels
+    # draw the inputs they drew before
     entries = [check_flash(torch, dtypes, gen), check_paged(torch, gen),
                check_prefill(torch, gen), check_dense(torch, gen),
-               check_wkv(torch, gen), check_lse(torch, gen)]
+               check_wkv(torch, gen), check_lse(torch, gen),
+               check_int8(torch, gen)]
     print(f"phase 1 done at {time.perf_counter() - t_start:.1f} s",
           flush=True)
 
@@ -1619,6 +2110,12 @@ def main() -> int:
     del model, params, calls, decode
     torch.cuda.empty_cache()
     for name, n in rwkv_phases(torch).items():
+        launches[name] += n
+    print(f"phase 5 done at {time.perf_counter() - t_start:.1f} s",
+          flush=True)
+
+    # phase 6: rwkv6-3b went at the end of phase 5
+    for name, n in granite_phases(torch).items():
         launches[name] += n
     for e in entries:
         e["launches"] = launches[e["name"]]

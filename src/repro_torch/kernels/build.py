@@ -22,7 +22,8 @@ BUILD = CSRC.parent / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 SOURCES = ("flash_attention", "paged_decode_attention",
-           "paged_prefill_attention", "decode_attention", "rwkv6_wkv")
+           "paged_prefill_attention", "decode_attention", "rwkv6_wkv",
+           "int8_matmul")
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 

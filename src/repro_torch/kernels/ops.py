@@ -12,6 +12,7 @@ import torch
 
 from repro_torch.kernels import decode_attention as _dense
 from repro_torch.kernels import flash_attention as _flash
+from repro_torch.kernels import int8_matmul as _i8
 from repro_torch.kernels import paged_decode_attention as _paged
 from repro_torch.kernels import paged_prefill_attention as _prefill
 from repro_torch.kernels import rwkv6_wkv as _wkv
@@ -94,6 +95,38 @@ def rwkv6_wkv(r, k, v, w, u, s0=None, *, s_out=None):
     return _wkv.rwkv6_wkv(r, k, v, w, u, s0, s_out=s_out)
 
 
+def int8_matmul(x_q, w_q, sx, sw, *, out_dtype=torch.bfloat16):
+    """w8a8 GEMM: x_q (M, K) and w_q (K, N) int8, sx (M, 1) and sw (1, N)
+    f32 -> (M, N) in ``out_dtype``."""
+    if _on_cpu(x_q, w_q, sx, sw):
+        return _i8.int8_matmul_ref(x_q, w_q, sx, sw, out_dtype=out_dtype)
+    return _i8.int8_matmul(x_q, w_q, sx, sw, out_dtype=out_dtype)
+
+
+def int8_matmul_quantized(x, w, *, out_dtype=torch.bfloat16):
+    """Quantize bf16/f32 operands on the fly (per row of x, per column of
+    w), then the w8a8 GEMM."""
+    if _on_cpu(x, w):
+        return _i8.int8_matmul_quantized_ref(x, w, out_dtype=out_dtype)
+    return _i8.int8_matmul_quantized(x, w, out_dtype=out_dtype)
+
+
+def quantize_rows(x):
+    """Symmetric per-row int8 quantization: (x_q, scale (M, 1) f32).
+    Plain torch on either device: it is plain ``jnp`` in the reference."""
+    _on_cpu(x)
+    return _i8.quantize_rows(x)
+
+
+def quantize_cols(w):
+    """Symmetric per-column int8 quantization: (w_q, scale (1, N) f32).
+    Plain torch on either device."""
+    _on_cpu(w)
+    return _i8.quantize_cols(w)
+
+
 __all__ = ["flash_attention", "paged_decode_attention",
            "paged_decode_attention_lse", "paged_prefill_attention",
-           "paged_verify_attention", "decode_attention", "rwkv6_wkv"]
+           "paged_verify_attention", "decode_attention", "rwkv6_wkv",
+           "int8_matmul", "int8_matmul_quantized", "quantize_rows",
+           "quantize_cols"]

@@ -1,7 +1,8 @@
 """Shard plan (port of ``repro.models.sharding``).
 
-The plan carries the two dtypes every model function reads and the
-model-parallel degree ``tp``.  There is no mesh: at ``tp > 1`` only the
+The plan carries the two dtypes every model function reads, the
+model-parallel degree ``tp`` and the serve-time quantization knob
+``quantize_serve`` (int8 MoE experts, ``models.moe``).  There is no mesh: at ``tp > 1`` only the
 paged KV pool is block-striped (``paged_pool_sharded``), and every stripe
 stays on the model's one device, where the reference hands rank r its
 stripe on its own device through ``shard_map``.  The weights stay whole,
@@ -30,6 +31,7 @@ class ShardPlan:
     param_dtype: torch.dtype = torch.float32
     tp: int = 1                          # model-parallel degree
     shard_paged_pool: bool = True        # stripe the paged pool over tp
+    quantize_serve: bool = False         # int8 MoE experts (TAPAS's knob)
 
     def h_pad(self, cfg: ArchConfig) -> int:
         return cfg.n_heads
@@ -39,6 +41,13 @@ class ShardPlan:
 
     def v_pad(self, cfg: ArchConfig) -> int:
         return cfg.vocab_size
+
+    def e_pad(self, cfg: ArchConfig) -> int:
+        """Expert count padded to a multiple of ``tp`` (the reference's
+        expert parallelism; 0 without experts)."""
+        if not cfg.n_experts:
+            return 0
+        return -(-cfg.n_experts // self.tp) * self.tp
 
     def paged_pool_sharded(self, cfg: ArchConfig | None = None) -> bool:
         """Stripe the paged block pool's ``n_blocks`` axis over ``tp``

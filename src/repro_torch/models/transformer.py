@@ -1,5 +1,5 @@
-"""Model assembly for the dense GQA and RWKV6 families (port of those parts
-of ``repro.models.transformer``).
+"""Model assembly for the dense GQA, MoE and RWKV6 families (port of those
+parts of ``repro.models.transformer``).
 
 Parameters are the reference's dict tree with layers stacked on a leading L
 axis (``transformer.py:534-535``), so a JAX ``Model.init`` tree carries over
@@ -17,6 +17,7 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
+from repro_torch.models import moe as M
 from repro_torch.models import ssm as S
 from repro_torch.models.sharding import ShardPlan
 
@@ -34,14 +35,14 @@ def _norm_init(cfg: ArchConfig, dt, device) -> dict:
 
 def _ported(cfg: ArchConfig) -> bool:
     """The blocks this module ports, on token inputs with RMSNorm: causal
-    GQA + gated MLP, and RWKV6 time-mix + channel-mix."""
+    GQA + a gated MLP or a MoE layer of gated experts, and RWKV6 time-mix +
+    channel-mix."""
     if cfg.norm_kind != "rms" or cfg.input_kind != "tokens":
         return False
     if cfg.rwkv:
         return cfg.mlp_kind == "rwkv_cmix"
     return (cfg.attn_kind == "gqa" and cfg.causal
-            and cfg.family not in ("hybrid", "moe") and not cfg.n_experts
-            and cfg.mlp_kind == "glu")
+            and cfg.family != "hybrid" and cfg.mlp_kind == "glu")
 
 
 # ---------------------------------------------------------------------------
@@ -60,8 +61,11 @@ def init_layer(cfg: ArchConfig, plan: ShardPlan, *,
                                      device=device)
         return p
     p["attn"] = A.init_gqa(cfg, plan, generator=generator, device=device)
-    p["mlp"] = L.mlp_init(cfg.d_model, cfg.d_ff, generator=generator,
-                          dtype=dt, device=device)
+    if cfg.n_experts:
+        p["moe"] = M.init_moe(cfg, plan, generator=generator, device=device)
+    else:
+        p["mlp"] = L.mlp_init(cfg.d_model, cfg.d_ff, generator=generator,
+                              dtype=dt, device=device)
     return p
 
 
@@ -70,6 +74,12 @@ def init_layer(cfg: ArchConfig, plan: ShardPlan, *,
 # ---------------------------------------------------------------------------
 
 def _mlp(h, lp: dict, cfg: ArchConfig, plan: ShardPlan):
+    """The block's feed-forward, the MoE layer or the gated MLP, on
+    (B, S, d) or on the decode blocks' one token per row (B, d)."""
+    if cfg.n_experts:
+        if h.dim() == 2:
+            return M.moe_ffn(lp["moe"], h[:, None], cfg, plan)[:, 0]
+        return M.moe_ffn(lp["moe"], h, cfg, plan)
     w = {k: v.to(plan.compute_dtype) for k, v in lp["mlp"].items()}
     return L.glu_mlp(h, w, activation=cfg.activation)
 
@@ -149,13 +159,19 @@ def _layer(tree: dict, i: int) -> dict:
 # ---------------------------------------------------------------------------
 
 class Model:
-    """One dense GQA or RWKV6 architecture bound to a plan and a device."""
+    """One dense GQA, MoE or RWKV6 architecture bound to a plan and a
+    device."""
 
     def __init__(self, cfg: ArchConfig, plan: ShardPlan, device="cuda"):
         if not _ported(cfg):
             raise NotImplementedError(f"{cfg.name} ({cfg.family}, "
                                       f"attn_kind={cfg.attn_kind!r}) is not "
                                       f"ported yet")
+        if cfg.n_experts and plan.tp > 1:
+            raise NotImplementedError(
+                f"{cfg.name}: MoE at shards > 1 (the reference's expert "
+                f"parallelism) is not ported yet (ROADMAP.md, Queue 1 item "
+                f"12)")
         self.cfg = cfg
         self.plan = plan
         self.device = torch.device(device)

@@ -2,7 +2,8 @@
 (port of ``repro.serving.engine``).
 
 One Engine is one TAPAS "VM instance": it exposes the configurator's knobs
-(max batch, frequency cap as a step-time multiplier) and reports goodput.
+(max batch, frequency cap as a step-time multiplier, model variant) and
+reports goodput.
 
 * ``paged`` (the default for plain-GQA models): KV lives in the global
   block pool (``PagedCachePool``).  Admission runs bucketed batched
@@ -18,18 +19,25 @@ One Engine is one TAPAS "VM instance": it exposes the configurator's knobs
   one exact-length prefill per admitted request and one decode step per
   scheduler step.
 
+``set_variant(name)`` reloads another registered model variant
+(``add_variant``): a model size, or the int8-expert form of a MoE model
+(``ShardPlan.quantize_serve``), TAPAS's quantization knob (paper §4.3).
+In-flight requests are preempted and recomputed under the new variant.
+
 ``set_shards(n)`` reconfigures the model-parallel degree: the paged pool
 is block-striped over ``n`` ranks and every decode step attends stripe by
 stripe.  All stripes live on the engine's one device (the reference puts
 each on its own device), so no device count limits ``n``.
 
-Ported so far: greedy requests; shards > 1 with whole-prompt prefill.
-Not ported yet (see ROADMAP.md): chunked prefill and prefix sharing at
-shards > 1, speculative decode, sampling, variants, and the resilience
-paths (deadlines, retries, quarantine, crash).
+Ported so far: greedy requests; variants; shards > 1 with whole-prompt
+prefill for the dense families.  Not ported yet (see ROADMAP.md): chunked
+prefill and prefix sharing at shards > 1, MoE at shards > 1 (expert
+parallelism), speculative decode, sampling, the pause knob, and the
+resilience paths (deadlines, retries, quarantine, crash).
 """
 from __future__ import annotations
 
+import dataclasses
 import time
 from collections import deque
 from dataclasses import dataclass, field
@@ -46,10 +54,11 @@ STEP_WINDOW = 512       # recent step times retained for inspection
 
 @dataclass
 class EngineKnobs:
-    """The TAPAS-configurable instance settings ported so far (the variant
-    and pause knobs wait for ``set_variant`` and reconfiguration)."""
+    """The TAPAS-configurable instance settings ported so far (the pause
+    knob waits for the reconfiguration drains)."""
     max_batch: int = 8
     freq_scale: float = 1.0      # 1.0 = nominal clock; <1 slows step time
+    variant: str = "full"        # model-size / quantization variant key
 
 
 @dataclass
@@ -57,7 +66,9 @@ class EngineStats:
     prefill_tokens: int = 0
     decode_tokens: int = 0
     prefill_batches: int = 0     # prefill launches (not requests)
-    preemptions: int = 0         # requests requeued for recompute
+    preemptions: int = 0         # requests requeued for recompute (pool ran
+    #                              dry, or displaced by a variant reload)
+    variant_swaps: int = 0       # set_variant reloads (may preempt actives)
     shard_swaps: int = 0         # set_shards reconfigures (preempt actives)
     rejected: int = 0            # contexts that can never fit max_seq
     host_syncs: int = 0          # device->host readbacks on the serving path
@@ -134,7 +145,8 @@ class Engine:
                  prefill_chunk: int | None = None,
                  prefix_share: bool = False):
         self.model = model
-        self.params = params
+        self.variants: dict[str, tuple[Model, dict]] = {"full": (model,
+                                                                params)}
         self.knobs = knobs or EngineKnobs(max_batch=n_slots)
         self.max_seq = max_seq
         self.n_slots = n_slots
@@ -169,7 +181,8 @@ class Engine:
         if self.paged and not model.supports_paged:
             raise ValueError(f"{model.cfg.name} cannot serve paged "
                              f"(attn_kind={model.cfg.attn_kind!r})")
-        self._refuse_chunked_sharded(self.shards)
+        if self.prefill_chunk and self.shards > 1:
+            raise NotImplementedError(self._unported_at(self.shards))
         if self.paged:
             self.pool = PagedCachePool(model, self.n_slots, self.max_seq,
                                        block_size=self.block_size,
@@ -177,11 +190,65 @@ class Engine:
         else:
             self.pool = CachePool(model, self.n_slots, self.max_seq)
 
-    def _refuse_chunked_sharded(self, n: int) -> None:
-        if n > 1 and self.prefill_chunk:
-            raise NotImplementedError(
-                "chunked prefill and prefix sharing at shards > 1 are not "
-                "ported yet (ROADMAP.md, Queue 1 item 12)")
+    def _unported_at(self, n: int) -> str | None:
+        """What serving at ``n`` > 1 shards would need that is not ported
+        yet, or None."""
+        if n <= 1:
+            return None
+        if self.prefill_chunk:
+            return ("chunked prefill and prefix sharing at shards > 1 are "
+                    "not ported yet (ROADMAP.md, Queue 1 item 12)")
+        moe = [name for name, (m, _) in self.variants.items()
+               if m.cfg.n_experts]
+        if moe:
+            return (f"MoE variants {moe} at shards > 1 (the reference's "
+                    f"expert parallelism) are not ported yet (ROADMAP.md, "
+                    f"Queue 1 item 12)")
+        return None
+
+    # -- variant management (model-size / quantization knob) --------------
+    def add_variant(self, name: str, model: Model, params: dict) -> None:
+        self.variants[name] = (model, params)
+
+    def set_variant(self, name: str) -> None:
+        """Reload a different model variant (costs a pause, paper §4.3).
+
+        In-flight requests lose their KV state (the new variant's pool is
+        rebuilt) but are not dropped: they are preempted (blocks released,
+        requeued at the front) and recomputed under the new variant, as in
+        a pool-exhaustion preemption.  A variant that cannot serve at the
+        current shard degree is refused before anything is preempted.
+        Setting the active variant is a no-op."""
+        if name == self.knobs.variant:
+            return
+        model, _ = self.variants[name]
+        err = shard_compat(self.shards, model.cfg)
+        if err is not None:
+            raise ValueError(f"set_variant({name!r}) at shard degree "
+                             f"{self.shards}: {err}")
+        in_flight = set(self.active) | set(self.prefilling)
+        if in_flight:
+            # reverse-sorted so the front of the queue ends up in rid order
+            self._preempt(sorted(in_flight, reverse=True))
+        self.knobs.variant = name
+        self.stats.variant_swaps += 1
+        self._bind(model)
+
+    def variant_compatible(self, name: str) -> bool:
+        """Can ``set_variant(name)`` succeed at the current shard degree?"""
+        if name not in self.variants:
+            return False
+        return shard_compat(self.shards, self.variants[name][0].cfg) is None
+
+    @property
+    def params(self) -> dict:
+        """The active variant's parameters."""
+        return self.variants[self.knobs.variant][1]
+
+    @params.setter
+    def params(self, params: dict) -> None:
+        model, _ = self.variants[self.knobs.variant]
+        self.variants[self.knobs.variant] = (model, params)
 
     # -- shard management (parallelism-degree knob) ------------------------
     @property
@@ -192,37 +259,53 @@ class Engine:
 
     def can_shard(self, n: int) -> str | None:
         """Why the engine cannot reconfigure to ``n``-way model
-        parallelism (None = it can): the paged mode, and a model whose
-        counts divide cleanly.  The reference also needs ``n`` devices;
-        here every stripe lives on the engine's one device, so that
-        objection does not arise."""
+        parallelism (None = it can): the paged mode, every registered
+        variant's counts divide cleanly, and nothing it serves is unported
+        at ``n`` (chunked prefill, MoE).  The reference also needs ``n``
+        devices; here every stripe lives on the engine's one device, so
+        that objection does not arise."""
         if n < 1:
             return f"shard degree must be >= 1, got {n}"
         if n == 1:
             return None
         if not self.paged:
             return "sharded serving requires the paged mode"
-        err = shard_compat(n, self.model.cfg)
-        return None if err is None else f"variant 'full': {err}"
+        for name, (m, _) in self.variants.items():
+            err = shard_compat(n, m.cfg)
+            if err is not None:
+                return f"variant {name!r}: {err}"
+        return self._unported_at(n)
 
     def set_shards(self, n: int) -> None:
         """Reconfigure the model-parallel degree (costs a pause, like a
-        variant reload): preempt in-flight work, rebuild the model under
-        the new plan with the same parameters, and rebuild the pool.
-        Raises, without preempting, when ``can_shard`` objects."""
+        variant reload): preempt in-flight work, rebuild every registered
+        variant's model under the new plan with the same parameters, and
+        rebuild the pool.  Raises, without preempting, when ``can_shard``
+        objects: ``NotImplementedError`` for a path not ported at ``n``,
+        else ``ValueError``.
+
+        Each variant keeps its own ``quantize_serve``, where the
+        reference's rebuild under ``serving_plan`` drops it (its int8
+        variant would then look up bf16 experts it does not hold)."""
         if n == self.shards:
             return
+        unported = self._unported_at(n)
+        if unported is not None:
+            raise NotImplementedError(f"set_shards({n}): {unported}")
         err = self.can_shard(n)
         if err is not None:
             raise ValueError(f"set_shards({n}): {err}")
-        self._refuse_chunked_sharded(n)
         from repro_torch.serving.spec import serving_plan  # import cycle
         plan = serving_plan(n, param_dtype=self.model.plan.param_dtype)
         in_flight = set(self.active) | set(self.prefilling)
         if in_flight:
             self._preempt(sorted(in_flight, reverse=True))
+        self.variants = {
+            k: (Model(m.cfg, dataclasses.replace(
+                plan, quantize_serve=m.plan.quantize_serve), m.device), p)
+            for k, (m, p) in self.variants.items()}
         self.stats.shard_swaps += 1
-        self._bind(Model(self.model.cfg, plan, self.model.device))
+        self._bind(self.variants[self.knobs.variant][0])
 
     def _to_device(self, a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(a).to(self.model.device)

@@ -44,12 +44,15 @@ def serving_plan(shards: int = 1, **kw) -> ShardPlan:
 class EngineSpec:
     """Declarative description of one serving engine.
 
-    Ported: the fields below ``cfg`` to ``param_dtype``, with
-    ``prefill_chunk``/``prefix_share`` at ``shards = 1`` only.  The
-    reference's speculative-decode fields (``spec_k``, ``draft``) and its
-    model registries (``variants``, ``drafters``) raise
-    ``NotImplementedError`` when set (ROADMAP.md, Queue 1 items 8 and 9);
-    its ``ngram`` is left out with them."""
+    ``variants`` are ``(name, ArchConfig)`` pairs: their models are built
+    under the spec's plan and registered on the engine, the i-th one's
+    parameters from seed ``seed + 10 + i``, as the reference's.  Ported:
+    every field but the reference's speculative-decode fields (``spec_k``,
+    ``draft``) and its drafter registry (``drafters``), which raise
+    ``NotImplementedError`` when set (ROADMAP.md, Queue 1 item 8); its
+    ``ngram`` is left out with them.  ``prefill_chunk``/``prefix_share``
+    serve at ``shards = 1`` only, and a MoE config at ``shards = 1`` only
+    (ROADMAP.md, Queue 1 item 12)."""
     cfg: ArchConfig
     shards: int = 1
     max_seq: int = 512
@@ -64,7 +67,7 @@ class EngineSpec:
     draft: str | None = None
     seed: int = 0
     param_dtype: torch.dtype = torch.bfloat16
-    variants: tuple = ()
+    variants: tuple = ()                # ((name, ArchConfig), ...)
     drafters: tuple = ()
 
     def replace(self, **kw) -> "EngineSpec":
@@ -76,27 +79,36 @@ class EngineSpec:
     def validate(self) -> None:
         unported = [name for name, on in (
             ("spec_k", self.spec_k != 4), ("draft", self.draft is not None),
-            ("variants", bool(self.variants)),
             ("drafters", bool(self.drafters))) if on]
         if unported:
             raise NotImplementedError(f"EngineSpec fields {unported} are not "
-                                      f"ported yet (ROADMAP.md, Queue 1 items "
-                                      f"8 and 9)")
-        err = shard_compat(self.shards, self.cfg)
-        if err is not None:
-            raise ValueError(f"EngineSpec ('full'): {err}")
+                                      f"ported yet (ROADMAP.md, Queue 1 item "
+                                      f"8)")
+        for name, cfg in (("full", self.cfg), *self.variants):
+            err = shard_compat(self.shards, cfg)
+            if err is not None:
+                raise ValueError(f"EngineSpec ({name!r}): {err}")
+
+    def _materialize(self, cfg: ArchConfig, plan: ShardPlan, seed: int,
+                     device):
+        model = Model(cfg, plan, device)
+        return model, model.init(
+            torch.Generator(device=device).manual_seed(seed))
 
     def build(self, *, device="cuda") -> Engine:
         """Build (plan, seeded parameters, pool, Engine) on ``device``."""
         self.validate()
-        model = Model(self.cfg, self.plan(), device)
-        params = model.init(
-            torch.Generator(device=device).manual_seed(self.seed))
+        plan = self.plan()
+        model, params = self._materialize(self.cfg, plan, self.seed, device)
         eng = Engine(
             model, params, max_seq=self.max_seq, n_slots=self.n_slots,
             knobs=EngineKnobs(max_batch=self.max_batch or self.n_slots),
             paged=True, block_size=self.block_size, n_blocks=self.n_blocks,
             horizon=self.horizon, prefill_chunk=self.prefill_chunk,
             prefix_share=self.prefix_share)
+        for i, (name, vcfg) in enumerate(self.variants):
+            eng.add_variant(name, *self._materialize(vcfg, plan,
+                                                     self.seed + 10 + i,
+                                                     device))
         eng.spec = self
         return eng

@@ -17,6 +17,7 @@ from repro_torch.configs import get_config
 from repro_torch.kernels import build
 from repro_torch.kernels import decode_attention as da
 from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import int8_matmul as i8
 from repro_torch.kernels import ops
 from repro_torch.kernels import paged_decode_attention as pa
 from repro_torch.kernels import paged_prefill_attention as ppa
@@ -581,3 +582,132 @@ def test_sharded_engine_spec_on_cuda(gen):
     assert got == run(spec.build(device="cpu"))
     eng.set_shards(1)
     assert run(eng) == got and pa.paged_decode_attention.launches > 0
+
+
+def _int8_inputs(gen, M, K, N):
+    x_q = torch.randint(-127, 128, (M, K), generator=gen, device="cuda",
+                        dtype=torch.int32).to(torch.int8)
+    w_q = torch.randint(-127, 128, (K, N), generator=gen, device="cuda",
+                        dtype=torch.int32).to(torch.int8)
+    sx = 0.01 + 0.09 * torch.rand(M, 1, generator=gen, device="cuda")
+    sw = 0.01 + 0.09 * torch.rand(1, N, generator=gen, device="cuda")
+    return x_q, w_q, sx, sw
+
+
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("M,K,N", [
+    (128, 256, 128), (256, 512, 256),           # the reference's test shapes
+    (256, 1536, 512), (256, 512, 1536),         # granite's expert GEMMs
+    (200, 1536, 520), (64, 100, 48),           # one operand staged by byte
+    (65, 100, 33), (3, 7, 5), (1, 16, 16), (64, 0, 8),
+])
+def test_int8_matmul_kernel_is_bit_exact(gen, M, K, N, out_dtype):
+    """Bit-exact against the plain version, at aligned (16-byte staging),
+    half-ragged (x or w staged by byte) and ragged shapes, for both output
+    types."""
+    args = _int8_inputs(gen, M, K, N)
+    before = i8.int8_matmul.launches
+    out = i8.int8_matmul(*args, out_dtype=out_dtype)
+    assert i8.int8_matmul.launches == before + 1
+    assert out.dtype == out_dtype and out.shape == (M, N)
+    assert torch.equal(out, i8.int8_matmul_ref(*args, out_dtype=out_dtype))
+
+
+def test_int8_matmul_kernel_extremes_and_misaligned(gen):
+    """Sums past 2**24 (every product 127 * 127, K = 4096: f32 rounds the
+    sum, the same way on both sides), and operands that start one byte
+    past a 16-byte boundary (the byte staging path)."""
+    M, K, N = 64, 4096, 80
+    x_q = torch.full((M, K), -127, dtype=torch.int8, device="cuda")
+    w_q = torch.full((K, N), -127, dtype=torch.int8, device="cuda")
+    x_q[::3] = 127
+    sx = torch.full((M, 1), 0.37, device="cuda")
+    sw = torch.full((1, N), 1.3, device="cuda")
+    for dt in (torch.float32, torch.bfloat16):
+        assert torch.equal(i8.int8_matmul(x_q, w_q, sx, sw, out_dtype=dt),
+                           i8.int8_matmul_ref(x_q, w_q, sx, sw, out_dtype=dt))
+    x_q, w_q, sx, sw = _int8_inputs(gen, 96, 64, 48)
+    xs = torch.empty(x_q.numel() + 1, dtype=torch.int8, device="cuda")
+    ws = torch.empty(w_q.numel() + 1, dtype=torch.int8, device="cuda")
+    xs[1:] = x_q.reshape(-1)
+    ws[1:] = w_q.reshape(-1)
+    xm, wm = xs[1:].view(96, 64), ws[1:].view(64, 48)
+    assert xm.is_contiguous() and xm.data_ptr() % 16 == 1
+    assert torch.equal(i8.int8_matmul(xm, wm, sx, sw),
+                       i8.int8_matmul_ref(x_q, w_q, sx, sw))
+
+
+def test_int8_matmul_quantized_on_cuda(gen):
+    """Quantize + kernel against quantize + plain, bit-exact, and within
+    the reference's 2% of the f32 GEMM."""
+    x = torch.randn(256, 1536, generator=gen, device="cuda")
+    w = torch.randn(1536, 512, generator=gen, device="cuda")
+    o = ops.int8_matmul_quantized(x, w)
+    assert torch.equal(o, i8.int8_matmul_quantized_ref(x, w))
+    o_ref = x @ w
+    rel = ((o.float() - o_ref).abs().mean() / o_ref.abs().mean()).item()
+    assert rel < 0.02, rel
+
+
+def test_int8_matmul_wrapper_raises_on_bad_input(gen):
+    x_q, w_q, sx, sw = _int8_inputs(gen, 32, 64, 48)
+    before = i8.int8_matmul.launches
+    with pytest.raises(ValueError):                       # not contiguous
+        i8.int8_matmul(x_q, w_q.T.contiguous().T, sx, sw)
+    with pytest.raises(ValueError):
+        i8.int8_matmul(x_q.T.contiguous().T, w_q, sx, sw)
+    with pytest.raises(TypeError):                        # wrong dtypes
+        i8.int8_matmul(x_q.to(torch.uint8), w_q, sx, sw)
+    with pytest.raises(TypeError):
+        i8.int8_matmul(x_q, w_q.int(), sx, sw)
+    with pytest.raises(TypeError):
+        i8.int8_matmul(x_q, w_q, sx.double(), sw)
+    with pytest.raises(TypeError):
+        i8.int8_matmul(x_q, w_q, sx, sw, out_dtype=torch.float16)
+    with pytest.raises(ValueError):                       # shapes
+        i8.int8_matmul(x_q, w_q[:-1].contiguous(), sx, sw)
+    with pytest.raises(ValueError):
+        i8.int8_matmul(x_q, w_q, sx.reshape(1, -1), sw)
+    with pytest.raises(ValueError):                       # a CPU scale
+        i8.int8_matmul(x_q, w_q, sx.cpu(), sw)
+    assert i8.int8_matmul.launches == before
+
+
+@pytest.mark.parametrize("quantize", [False, True])
+def test_smoke_moe_model_kernel_path_matches_plain_path(gen, quantize):
+    """granite-moe's smoke model, both variants, at f32 (an f32 pool):
+    prefill and one paged decode step through the kernels vs the plain
+    versions."""
+    cfg = get_config("granite-moe-3b-a800m").smoke_config()
+    m = build_model(cfg, local_plan(param_dtype=torch.float32,
+                                    compute_dtype=torch.float32,
+                                    quantize_serve=quantize))
+    p = m.init(torch.Generator(device="cuda").manual_seed(0))
+    tokens = torch.randint(0, cfg.vocab_size, (3, 32), generator=gen,
+                           device="cuda", dtype=torch.int32)
+    lengths = torch.tensor([32, 7, 20], dtype=torch.int32, device="cuda")
+    tables = torch.arange(1, 13, dtype=torch.int32, device="cuda") \
+        .reshape(3, 4)
+    pool = m.init_paged_cache(13, 16, dtype=torch.float32)
+    nxt = tokens[:, 0].contiguous()
+
+    def run():
+        lp, _ = m.prefill_ragged(p, tokens, lengths)
+        ld, _ = m.decode_step_paged(p, {"attn": {n: t.clone() for n, t in
+                                                 pool["attn"].items()}},
+                                    nxt, lengths, tables)
+        return lp, ld
+
+    before = (fa.flash_attention.launches, pa.paged_decode_attention.launches)
+    lk, dk = run()
+    assert fa.flash_attention.launches > before[0]
+    assert pa.paged_decode_attention.launches > before[1]
+    saved = ops.flash_attention, ops.paged_decode_attention
+    ops.flash_attention = fa.flash_attention_ref
+    ops.paged_decode_attention = pa.paged_decode_attention_ref
+    try:
+        lp, dp = run()
+    finally:
+        ops.flash_attention, ops.paged_decode_attention = saved
+    torch.testing.assert_close(lk, lp, atol=1e-4, rtol=0)
+    torch.testing.assert_close(dk, dp, atol=1e-4, rtol=0)

@@ -264,8 +264,14 @@ def test_engine_pool_fully_reclaimed(tiny):
 
 @pytest.mark.parametrize("knob", [{"variant": "int8"}, {"paused": True}])
 def test_unported_knobs_are_refused(knob):
-    """Knobs whose mechanism is not ported (set_variant, reconfiguration
-    drains) are not accepted, so no caller gets a silently ignored knob."""
+    """A knob whose mechanism is not ported (``paused``: the
+    reconfiguration drains) is not accepted, so no caller gets a silently
+    ignored knob; ``variant`` is ported (``set_variant``) and is taken
+    with the reference's default."""
     assert {"variant", "paused"} <= set(JKnobs.__dataclass_fields__)
+    if "variant" in knob:
+        assert EngineKnobs(**knob).variant == "int8"
+        assert EngineKnobs().variant == JKnobs().variant == "full"
+        return
     with pytest.raises(TypeError):
         EngineKnobs(**knob)

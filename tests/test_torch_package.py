@@ -17,11 +17,13 @@ from repro_torch.configs import get_config
 from repro_torch.kernels import build, ops
 from repro_torch.kernels import decode_attention as dense_mod
 from repro_torch.kernels import flash_attention as flash_mod
+from repro_torch.kernels import int8_matmul as i8_mod
 from repro_torch.kernels import paged_decode_attention as paged_mod
 from repro_torch.kernels import paged_prefill_attention as prefill_mod
 from repro_torch.kernels import rwkv6_wkv as wkv_mod
 from repro_torch.models import Model, build_model, layers, local_plan
 from repro_torch.models import attention as TA
+from repro_torch.models import moe as TM
 from repro_torch.models import ssm as TS
 from repro_torch.serving import EngineSpec, serving_plan
 
@@ -70,9 +72,17 @@ def test_importing_every_module_loads_no_jax():
 def test_nothing_built_at_import():
     """Importing the kernel modules compiles and loads nothing."""
     assert build._LIBS == {}
-    for mod in (flash_mod, paged_mod, prefill_mod, dense_mod, wkv_mod):
+    for mod in (flash_mod, paged_mod, prefill_mod, dense_mod, wkv_mod,
+                i8_mod):
         assert not mod._kernel.cache_info().currsize
     assert not paged_mod._lse_kernel.cache_info().currsize
+
+
+def test_every_kernel_source_is_built():
+    """``build_all`` builds every ``csrc/*.cu``, one library each."""
+    assert sorted(build.SOURCES) == sorted(
+        p.stem for p in build.CSRC.glob("*.cu"))
+    assert "int8_matmul" in build.SOURCES
 
 
 @pytest.mark.parametrize("fn", [
@@ -80,7 +90,7 @@ def test_nothing_built_at_import():
     layers.embed_init, layers.rope_freqs, layers.mlp_init, TA.init_gqa,
     TA.kv_index, TA.init_paged_attn_cache, TA.init_attn_cache,
     Model.init_cache, TS.init_rwkv_tmix, TS.init_rwkv_cmix,
-    TS.init_rwkv_state, EngineSpec.build,
+    TS.init_rwkv_state, TM.init_moe, EngineSpec.build,
 ], ids=lambda f: f.__qualname__)
 def test_entry_points_default_to_cuda(fn):
     assert inspect.signature(fn).parameters["device"].default == "cuda"
@@ -118,11 +128,18 @@ DISPATCH = {
     "decode_attention": (dense_mod, "decode_attention",
                          ("decode_attention_ref", "flash_decode_ref"), 4),
     "rwkv6_wkv": (wkv_mod, "rwkv6_wkv", ("rwkv6_wkv_ref",), 6),
+    "int8_matmul": (i8_mod, "int8_matmul", ("int8_matmul_ref",), 4),
+    "int8_matmul_quantized": (i8_mod, "int8_matmul_quantized",
+                              ("int8_matmul_quantized_ref",), 2),
 }
+# ops entries that are plain torch on every device, as they are plain jnp
+# in the reference (the quantizers around kernel 6)
+PLAIN_EVERYWHERE = {"quantize_rows", "quantize_cols"}
 
 
 def test_dispatcher_covers_every_ops_entry():
-    assert set(DISPATCH) == set(ops.__all__)
+    assert set(DISPATCH) | PLAIN_EVERYWHERE == set(ops.__all__)
+    assert not set(DISPATCH) & PLAIN_EVERYWHERE
 
 
 @pytest.mark.parametrize("name", sorted(DISPATCH))
@@ -159,6 +176,14 @@ def test_dispatcher_refuses_other_devices(devices):
         ops.paged_decode_attention_lse(q[:, 0], k, k, i, i[:, 0], i)
     with pytest.raises(ValueError):
         ops.rwkv6_wkv(q, k, k, k, q[0, 0], None)
+    with pytest.raises(ValueError):
+        ops.int8_matmul(q[0, 0], k[0, 0].T, q[0, 0, :, :1], k[0, 0, :1])
+    with pytest.raises(ValueError):
+        ops.int8_matmul_quantized(q[0, 0], k[0, 0].T)
+    if devices[0] == devices[1]:
+        for fn in (ops.quantize_rows, ops.quantize_cols):
+            with pytest.raises(ValueError):
+                fn(k[0, 0])
 
 
 def test_kernel_wrappers_refuse_cpu_tensors():
@@ -188,12 +213,19 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     r = torch.zeros(1, 3, 2, 32)
     with pytest.raises(ValueError):
         wkv_mod.rwkv6_wkv(r, r, r, r, torch.zeros(2, 32), None)
+    xq = torch.zeros(4, 32, dtype=torch.int8)
+    with pytest.raises(ValueError):
+        i8_mod.int8_matmul(xq, xq.T.contiguous(), torch.ones(4, 1),
+                           torch.ones(1, 4))
+    with pytest.raises(ValueError):
+        i8_mod.int8_matmul_quantized(torch.ones(4, 32), torch.ones(32, 4))
     assert flash_mod.flash_attention.launches == 0
     assert paged_mod.paged_decode_attention.launches == 0
     assert paged_mod.paged_decode_attention_lse.launches == 0
     assert prefill_mod.paged_prefill_attention.launches == 0
     assert dense_mod.decode_attention.launches == 0
     assert wkv_mod.rwkv6_wkv.launches == 0
+    assert i8_mod.int8_matmul.launches == 0
 
 
 def test_model_runs_plain_versions_on_cpu_without_counting():
@@ -239,3 +271,23 @@ def test_rwkv_model_runs_plain_version_on_cpu_without_counting():
     assert logits.shape == (2, 128) and torch.isfinite(logits).all()
     assert cache["tmix"]["wkv"].abs().sum() > 0     # written in place
     assert wkv_mod.rwkv6_wkv.launches == 0
+
+
+@pytest.mark.parametrize("quantize", [False, True])
+def test_moe_model_and_int8_ops_run_plain_on_cpu_without_counting(quantize):
+    m = Model(get_config("granite-moe-3b-a800m").smoke_config(),
+              local_plan(quantize_serve=quantize), device="cpu")
+    p = m.init(torch.Generator().manual_seed(0))
+    logits, _ = m.prefill_ragged(p, torch.zeros(2, 16, dtype=torch.int32),
+                                 torch.tensor([16, 3], dtype=torch.int32))
+    assert logits.shape == (2, 128) and torch.isfinite(logits).all()
+    logits, _ = m.decode_step_paged(
+        p, m.init_paged_cache(5, 8), torch.zeros(2, dtype=torch.int32),
+        torch.tensor([3, 9], dtype=torch.int32),
+        torch.tensor([[1, 4], [3, 2]], dtype=torch.int32))
+    assert logits.shape == (2, 128) and torch.isfinite(logits).all()
+    out = ops.int8_matmul_quantized(torch.randn(8, 64), torch.randn(64, 16))
+    assert out.shape == (8, 16) and out.dtype == torch.bfloat16
+    assert flash_mod.flash_attention.launches == 0
+    assert paged_mod.paged_decode_attention.launches == 0
+    assert i8_mod.int8_matmul.launches == 0

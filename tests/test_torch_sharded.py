@@ -397,7 +397,8 @@ def test_set_shards_preempts_in_flight():
 
 def test_sharded_paths_not_ported_raise():
     """Chunked prefill and prefix sharing at shards > 1, and the spec
-    fields of unported items, raise ``NotImplementedError``."""
+    fields of unported items, raise ``NotImplementedError``; the
+    ``variants`` field is ported and builds."""
     _, tcfg = _cfgs(2)
     for kw in (dict(prefill_chunk=16), dict(prefix_share=True)):
         with pytest.raises(NotImplementedError):
@@ -407,10 +408,11 @@ def test_sharded_paths_not_ported_raise():
             eng.set_shards(2)
         assert eng.shards == 1 and eng.stats.shard_swaps == 0
     for kw in (dict(spec_k=2), dict(draft="ngram"),
-               dict(variants=(("small", tcfg),)),
                dict(drafters=(("d", tcfg),))):
         with pytest.raises(NotImplementedError):
             EngineSpec(tcfg, **kw).build(device="cpu")
+    eng = EngineSpec(tcfg, variants=(("small", tcfg),)).build(device="cpu")
+    assert list(eng.variants) == ["full", "small"]
     m = build_model(tcfg, serving_plan(2), device="cpu")
     pool = m.init_paged_cache(4, 8)
     i = torch.zeros(1, dtype=torch.int32)
