@@ -14,9 +14,13 @@ Builds the hand-written CUDA kernels from ``src/repro_torch/csrc`` (one
    merged by ``combine_lse`` against kernel 2 over the whole pool; for
    the int8 GEMM, kernel 6, bit-exact at the reference's test shapes,
    granite's expert shapes, a ragged and a large shape, in both output
-   types), and times kernel, plain version and a PyTorch library call
-   beside each where one exists (the library call is a yardstick only; the
-   port never calls it);
+   types; for kernel 1's window form, hymba-1.5b's prefill shape and edge
+   windows at small S; for kernel 5, also hymba's ring with its positions
+   clamped to the ring's last slot), and times kernel, plain version and a
+   PyTorch library call beside each where one exists (the library call is
+   a yardstick only; the port never calls it).  Kernels 1-5 and kernel
+   1's window form are timed five times (20 calls each): median, min and
+   max;
 2. serves full-width llama2-7b (random weights from a seeded generator)
    through the ``Engine`` on five paths, each with every launch count set
    to 0 just before and read just after: the paged pool with whole-prompt
@@ -65,6 +69,19 @@ Builds the hand-written CUDA kernels from ``src/repro_torch/csrc`` (one
    through ``ops.int8_matmul_quantized`` on the tokens that layer 0 of a
    prefill routes to one expert, with that expert's dequantized weights;
    traces of one prefill and one decode step per variant.
+
+7. frees granite and serves full-width hymba-1.5b (random bf16 weights
+   from a seeded generator; sliding-window attention, window 1024, beside
+   a Mamba branch in every layer) through the slot pool: four of phase
+   2's prompts and four of 1000-1990 tokens, every request completing,
+   kernel 1 once per layer and prefill (in its window form for each prompt
+   longer than the window), kernel 5 once per layer and decode step over
+   the ring, no other attention kernel; a 1536-token prefill and one slot
+   decode step teacher-forced through the kernels and the plain versions
+   (checked in an f32 compute plan over an f32 cache, read in bf16); a
+   1000-token prefill plus 64 decode steps across the ring's wrap against
+   the 1064-token prefill (f32 plan); traces of one 1536-token prefill and
+   one slot decode step at positions 1990/1400/1000/200.
 
 Any failed check exits non-zero.  The last line is the result JSON; the
 lines before it list every kernel with its launches, error and times, and
@@ -130,6 +147,19 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def spread_ms(fn, per: int = 1, reps: int = 5) -> tuple[float, float, float]:
+    """(median, min, max) over ``reps`` runs of ``cuda_ms(fn)`` (each 20
+    calls after 3 warm-up calls), each divided by ``per``: the spread of a
+    kernel's time within one run."""
+    import statistics
+    runs = [cuda_ms(fn) / per for _ in range(reps)]
+    return statistics.median(runs), min(runs), max(runs)
+
+
+def spread(ms: float, lo: float, hi: float) -> str:
+    return f"{ms:.4f} ms (median; {lo:.4f}-{hi:.4f} over 5 x 20 calls)"
+
+
 def device_ms(torch, fn, iters: int = 20) -> float:
     """Device time per call of ``fn``: CUDA events around ``iters`` calls
     queued behind a spin kernel (``torch.cuda._sleep``) that holds the
@@ -192,7 +222,7 @@ def check_flash(torch, dtypes, gen):
                 timed = (q, k, v, err)
     q, k, v, err = timed
     _, H, S, D = q.shape
-    ms = cuda_ms(lambda: fa.flash_attention(q, k, v))
+    ms, lo, hi = spread_ms(lambda: fa.flash_attention(q, k, v))
     plain_ms = cuda_ms(lambda: fa.flash_attention_ref(q, k, v))
     lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v,
                                                             is_causal=True))
@@ -201,14 +231,82 @@ def check_flash(torch, dtypes, gen):
     bound = max(n_bytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS["bf16"]) * 1e3
     by = "bytes" if n_bytes / HBM_BYTES_PER_S > flops / PEAK_FLOPS["bf16"] \
         else "operations"
-    print(f"flash_attention bf16 B={B} H={H} S={S} D={D}: kernel {ms:.4f} ms, "
+    print(f"flash_attention bf16 B={B} H={H} S={S} D={D}: kernel "
+          f"{spread(ms, lo, hi)}, "
           f"plain {plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, bound {bound:.4f} "
           f"ms ({by}: {n_bytes} B, {flops} flop)", flush=True)
     return {"name": "flash_attention", "route": "cuda",
             "source": "src/repro_torch/csrc/flash_attention.cu",
             "replaces": "src/repro/kernels/flash_attention.py:79",
-            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound, "bound_by": by, "library_ms": lib_ms}
+            "max_abs_err": err, "ms": ms, "ms_min": lo, "ms_max": hi,
+            "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
+            "library_ms": lib_ms}
+
+
+def window_pairs(S: int, W: int) -> int:
+    """(query, key) pairs a causal window of W keys sees over S queries."""
+    W = min(W, S)
+    return W * (W + 1) // 2 + (S - W) * W
+
+
+def check_flash_window(torch, dtypes):
+    """Kernel 1's window form against its plain version: hymba-1.5b's
+    prefill shape (B=1, 25/5 heads, D=64, S=2048, window 1024), then edge
+    windows at small S (1 and 16, below the 32-key and 64-row tiles; 33,
+    not a multiple of either; 64; 1000 >= S), bf16 and f32, from a
+    generator of its own so the other checks' inputs stay as drawn.  A
+    window >= S must give the causal kernel's output bit for bit.  Times
+    the main shape in bf16 beside its plain version, SDPA with a banded
+    boolean mask over GQA-expanded K/V (a yardstick only; the expansion is
+    not timed), and the causal kernel at the same shape (a reading)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+    g = torch.Generator(device="cuda").manual_seed(8)
+    main = (1, 25, 5, 2048, 64, 1024)
+    shapes = [main] + [(2, 4, 2, 256, 64, w) for w in (1, 16, 33, 64, 1000)] \
+        + [(1, 25, 5, 200, 64, 33)]
+    timed = None
+    for name, dt in dtypes.items():
+        for B, H, K, S, D, W in shapes:
+            q, k, v = (torch.randn(B, S, n, D, generator=g, device="cuda",
+                                   dtype=dt).transpose(1, 2)
+                       for n in (H, K, K))
+            o = fa.flash_attention(q, k, v, window=W)
+            err = held(f"flash_attention window={W} {name} B={B} H={H} "
+                       f"K={K} S={S} D={D}", o,
+                       fa.flash_attention_ref(q, k, v, window=W), name)
+            if W >= S and not torch.equal(o, fa.flash_attention(q, k, v)):
+                fail(f"flash_attention window={W} >= S={S} differs from "
+                     f"the causal kernel")
+            if name == "bf16" and (B, H, K, S, D, W) == main:
+                timed = (q, k, v, err)
+    q, k, v, err = timed
+    B, H, S, D = q.shape
+    K, W = k.shape[1], main[-1]
+    ms, lo, hi = spread_ms(lambda: fa.flash_attention(q, k, v, window=W))
+    plain_ms = cuda_ms(lambda: fa.flash_attention_ref(q, k, v, window=W))
+    causal_ms = cuda_ms(lambda: fa.flash_attention(q, k, v))
+    ke, ve = (t.repeat_interleave(H // K, dim=1) for t in (k, v))
+    band = torch.ones(S, S, dtype=torch.bool, device="cuda").tril() \
+        .triu(1 - W)
+    lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+        q, ke, ve, attn_mask=band))
+    n_bytes = 2 * B * S * (H + K) * D * q.element_size()  # q, k, v in, o out
+    flops = 4 * D * B * H * window_pairs(S, W)
+    bound, by = bound_of(n_bytes, flops, "bf16")
+    print(f"flash_attention window={W} bf16 B={B} H={H} K={K} S={S} D={D}: "
+          f"kernel {spread(ms, lo, hi)}, plain {plain_ms:.4f} ms, sdpa with "
+          f"a banded mask over expanded K/V {lib_ms:.4f} ms, bound "
+          f"{bound:.4f} ms ({by}: {n_bytes} B, {flops} flop, "
+          f"{window_pairs(S, W)} pairs per head); reading: the causal "
+          f"kernel at this shape {causal_ms:.4f} ms ({window_pairs(S, S)} "
+          f"pairs per head)", flush=True)
+    return {"name": "flash_attention_window", "route": "cuda",
+            "source": "src/repro_torch/csrc/flash_attention.cu",
+            "replaces": "src/repro/kernels/flash_attention.py:79",
+            "max_abs_err": err, "ms": ms, "ms_min": lo, "ms_max": hi,
+            "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
+            "library_ms": lib_ms}
 
 
 def _paged_inputs(torch, gen, B, H, K, D, bs, T, q_dt, kv_dt):
@@ -265,7 +363,8 @@ def check_paged(torch, gen):
              pa.paged_decode_attention_ref(q, kp, vp, tables, pos), name)
     (q, kp, vp, tables, pos), err = timed
     H, K = q.shape[1], kp.shape[2]
-    ms = cuda_ms(lambda: pa.paged_decode_attention(q, kp, vp, tables, pos))
+    ms, lo, hi = spread_ms(
+        lambda: pa.paged_decode_attention(q, kp, vp, tables, pos))
     plain_ms = cuda_ms(
         lambda: pa.paged_decode_attention_ref(q, kp, vp, tables, pos))
     # yardstick: SDPA over the same keys gathered into a dense, masked
@@ -286,14 +385,15 @@ def check_paged(torch, gen):
     by = "bytes" if n_bytes / HBM_BYTES_PER_S > flops / PEAK_FLOPS["bf16"] \
         else "operations"
     print(f"paged_decode_attention bf16 B={B} H={H} K={K} D={D} keys={keys}: "
-          f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa-dense "
+          f"kernel {spread(ms, lo, hi)}, plain {plain_ms:.4f} ms, sdpa-dense "
           f"{lib_ms:.4f} ms, bound {bound:.4f} ms ({by}: {n_bytes} B, "
           f"{flops} flop)", flush=True)
     return {"name": "paged_decode_attention", "route": "cuda",
             "source": "src/repro_torch/csrc/paged_decode_attention.cu",
             "replaces": "src/repro/kernels/paged_decode_attention.py:331",
-            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound, "bound_by": by, "library_ms": lib_ms}
+            "max_abs_err": err, "ms": ms, "ms_min": lo, "ms_max": hi,
+            "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
+            "library_ms": lib_ms}
 
 
 def check_lse(torch, gen):
@@ -355,8 +455,8 @@ def check_lse(torch, gen):
             if shards == 2 and q_dt == torch.bfloat16:
                 timed = (calls, err)
     calls, err = timed
-    ms = cuda_ms(lambda: [pa.paged_decode_attention_lse(*a)
-                          for a in calls]) / 2
+    ms, lo, hi = spread_ms(lambda: [pa.paged_decode_attention_lse(*a)
+                                    for a in calls], per=2)
     plain_ms = cuda_ms(lambda: [pa.paged_decode_attention_lse_ref(*a)
                                 for a in calls]) / 2
     # yardstick: SDPA over each stripe's owned keys gathered into a dense,
@@ -383,15 +483,16 @@ def check_lse(torch, gen):
         qq, kd, vd, attn_mask=m) for qq, kd, vd, m in sdpa]) / 2
     bound, by = bound_of(n_bytes // 2, flops // 2, "bf16")
     print(f"paged_decode_attention_lse bf16 B={B} H={H} K={K} D={D}, 2 "
-          f"stripes of {n_blocks // 2} blocks, per launch: kernel {ms:.4f} "
-          f"ms, plain {plain_ms:.4f} ms, sdpa over the gathered owned keys "
+          f"stripes of {n_blocks // 2} blocks, per launch: kernel "
+          f"{spread(ms, lo, hi)}, plain {plain_ms:.4f} ms, sdpa over the gathered owned keys "
           f"{lib_ms:.4f} ms (o only, no lse), bound {bound:.4f} ms ({by}: "
           f"{n_bytes // 2} B, {flops // 2} flop)", flush=True)
     return {"name": "paged_decode_attention_lse", "route": "cuda",
             "source": "src/repro_torch/csrc/paged_decode_attention.cu",
             "replaces": "src/repro/kernels/paged_decode_attention.py:180",
-            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound, "bound_by": by, "library_ms": lib_ms}
+            "max_abs_err": err, "ms": ms, "ms_min": lo, "ms_max": hi,
+            "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
+            "library_ms": lib_ms}
 
 
 def bound_of(n_bytes: int, flops: int, peak: str) -> tuple[float, str]:
@@ -459,8 +560,8 @@ def check_prefill(torch, gen):
                     timed = (args, err)
     (q, kp, vp, tables, starts), err = timed
     C, H, K = q.shape[1], q.shape[2], kp.shape[2]
-    ms = cuda_ms(lambda: ppa.paged_prefill_attention(q, kp, vp, tables,
-                                                     starts))
+    ms, lo, hi = spread_ms(lambda: ppa.paged_prefill_attention(
+        q, kp, vp, tables, starts))
     plain_ms = cuda_ms(lambda: ppa.paged_prefill_attention_ref(
         q, kp, vp, tables, starts))
     # yardstick: SDPA with a boolean mask over the same keys gathered into
@@ -486,14 +587,16 @@ def check_prefill(torch, gen):
     flops = 4 * D * H * seen
     bound, by = bound_of(n_bytes, flops, "bf16")
     print(f"paged_prefill_attention bf16 B={B} C={C} H={H} K={K} D={D} "
-          f"starts={st}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+          f"starts={st}: kernel {spread(ms, lo, hi)}, plain {plain_ms:.4f} "
+          f"ms, "
           f"sdpa-dense {lib_ms:.4f} ms, bound {bound:.4f} ms ({by}: "
           f"{n_bytes} B, {flops} flop)", flush=True)
     return {"name": "paged_prefill_attention", "route": "cuda",
             "source": "src/repro_torch/csrc/paged_prefill_attention.cu",
             "replaces": "src/repro/kernels/paged_decode_attention.py:255",
-            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound, "bound_by": by, "library_ms": lib_ms}
+            "max_abs_err": err, "ms": ms, "ms_min": lo, "ms_max": hi,
+            "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
+            "library_ms": lib_ms}
 
 
 def check_dense(torch, gen):
@@ -527,9 +630,36 @@ def check_dense(torch, gen):
                 if (q_dt, kv_dt, H, S) == (torch.bfloat16, torch.bfloat16,
                                            32, 2048):
                     timed = (args, err)
+    # hymba-1.5b's ring (4 slots, 25/5 heads, D=64, W=1024), positions
+    # clamped to the ring's last slot as the model clamps them, against the
+    # ring decode's plain version (o rounded to the ring's dtype), from a
+    # generator of its own
+    g9 = torch.Generator(device="cuda").manual_seed(9)
+    ring_pos = torch.tensor([1990, 1400, 1000, 200], dtype=torch.int32,
+                            device="cuda")
+    clamped = ring_pos.clamp(max=1023)
+    for name, q_dt, kv_dt in _pairs(torch):
+        qr = torch.randn(B, 25, 64, generator=g9, device="cuda", dtype=q_dt)
+        kr, vr = (torch.randn(B, 1024, 5, 64, generator=g9, device="cuda",
+                              dtype=kv_dt) for _ in range(2))
+        held(f"decode_attention over a ring q={q_dt} cache={kv_dt} B={B} "
+             f"H=25 K=5 D=64 W=1024 positions {ring_pos.tolist()} clamped "
+             f"to {clamped.tolist()} (hymba)",
+             da.decode_attention(qr, kr, vr, clamped),
+             da.swa_decode_ref(qr, kr, vr, clamped), name)
+        if q_dt == kv_dt == torch.bfloat16:
+            ring = (qr, kr, vr)
+    qr, kr, vr = ring
+    keys = int((clamped.long() + 1).sum().item())
+    r_bound, r_by = bound_of(2 * keys * 5 * 64 * 2 + 2 * B * 25 * 64 * 2
+                             + 4 * B, 4 * 64 * 25 * keys, "bf16")
+    ring_ms = spread_ms(lambda: da.decode_attention(qr, kr, vr, clamped))
+    print(f"reading: decode_attention over hymba's ring bf16 B={B} H=25 K=5 "
+          f"D=64 W=1024 keys={keys}: kernel {spread(*ring_ms)}, bound "
+          f"{r_bound:.4f} ms ({r_by})", flush=True)
     (q, k, v, pos), err = timed
     H, S, K = q.shape[1], k.shape[1], k.shape[2]
-    ms = cuda_ms(lambda: da.decode_attention(q, k, v, pos))
+    ms, lo, hi = spread_ms(lambda: da.decode_attention(q, k, v, pos))
     plain_ms = cuda_ms(lambda: da.flash_decode_ref(q, k, v, pos))
     # yardstick: SDPA with a boolean mask over the cache's (B, K, S, D)
     # transposed view
@@ -544,14 +674,16 @@ def check_dense(torch, gen):
     flops = 4 * D * H * keys
     bound, by = bound_of(n_bytes, flops, "bf16")
     print(f"decode_attention bf16 B={B} H={H} K={K} D={D} S={S} "
-          f"keys={keys}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+          f"keys={keys}: kernel {spread(ms, lo, hi)}, plain {plain_ms:.4f} "
+          f"ms, "
           f"sdpa {lib_ms:.4f} ms, bound {bound:.4f} ms ({by}: {n_bytes} B, "
           f"{flops} flop)", flush=True)
     return {"name": "decode_attention", "route": "cuda",
             "source": "src/repro_torch/csrc/decode_attention.cu",
             "replaces": "src/repro/kernels/decode_attention.py:70",
-            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound, "bound_by": by, "library_ms": lib_ms}
+            "max_abs_err": err, "ms": ms, "ms_min": lo, "ms_max": hi,
+            "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
+            "library_ms": lib_ms}
 
 
 def held_scaled(label: str, got, want, name: str) -> float:
@@ -796,7 +928,8 @@ def check_int8(torch, gen):
 # ---------------------------------------------------------------------------
 
 def kernel_wrappers() -> dict:
-    """Every kernel wrapper of the port by name; each counts its launches."""
+    """Every kernel wrapper of the port by name; each counts its launches
+    (kernel 1's also those of its window form that band, ``banded``)."""
     from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import int8_matmul as i8
@@ -813,12 +946,20 @@ def kernel_wrappers() -> dict:
 
 
 def reset_launches() -> None:
-    for fn in kernel_wrappers().values():
+    wrappers = kernel_wrappers()
+    for fn in wrappers.values():
         fn.launches = 0
+    wrappers["flash_attention"].banded = 0
 
 
 def read_launches() -> dict:
-    return {name: fn.launches for name, fn in kernel_wrappers().items()}
+    """Launches by kernel; ``flash_attention_window`` counts the launches
+    of kernel 1 that band (0 < window < S), which ``flash_attention``
+    counts too."""
+    wrappers = kernel_wrappers()
+    out = {name: fn.launches for name, fn in wrappers.items()}
+    out["flash_attention_window"] = wrappers["flash_attention"].banded
+    return out
 
 
 def plain_load(vocab: int) -> list:
@@ -1118,6 +1259,13 @@ def serve_paths(torch, model, params) -> dict:
 # phase 3: teacher-forced logits, kernels vs plain versions on one card
 # ---------------------------------------------------------------------------
 
+def _decode_ref(q, k, v, positions, *, scale=None, ring=False):
+    """``ops.decode_attention``'s CPU choice, taken for CUDA tensors."""
+    from repro_torch.kernels import decode_attention as da
+    ref = da.swa_decode_ref if ring else da.flash_decode_ref
+    return ref(q, k, v, positions, scale=scale)
+
+
 class plain_versions:
     """Within the block, ``ops`` sends CUDA tensors to the plain versions
     (the ones each kernel is held against); ``as`` gives the ``ops``
@@ -1138,7 +1286,7 @@ class plain_versions:
         ops.paged_decode_attention_lse = pa.paged_decode_attention_lse_ref
         ops.paged_prefill_attention = ppa.paged_prefill_attention_ref
         ops.paged_verify_attention = ppa.paged_prefill_attention_ref
-        ops.decode_attention = da.flash_decode_ref
+        ops.decode_attention = _decode_ref
         ops.rwkv6_wkv = wkv.rwkv6_wkv_ref
         ops.int8_matmul = i8.int8_matmul_ref
         ops.int8_matmul_quantized = i8.int8_matmul_quantized_ref
@@ -2031,6 +2179,204 @@ def granite_phases(torch) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 7: full-width hymba-1.5b through the slot pool
+# ---------------------------------------------------------------------------
+
+def hymba_load(vocab: int) -> list:
+    """Four of ``plain_load``'s prompts (16-200 tokens), then four long
+    prompts of 1000, 1400, 1700 and 1990 tokens, 32 new tokens each: the
+    1000-token request's ring wraps while it decodes, the others' prefills
+    band (S > window 1024)."""
+    import numpy as np
+    rng = np.random.default_rng(7)
+    return plain_load(vocab)[:4] + [
+        ([int(t) for t in rng.integers(0, vocab, n)], 32)
+        for n in (1000, 1400, 1700, 1990)]
+
+
+def hymba_model(torch):
+    """Full-width hymba-1.5b in bf16 from seed 0; checks the parameter
+    count: the config's, plus what its formula leaves out of each Mamba
+    branch (``w_bcdt``'s and ``w_dt``'s dt-rank columns and rows, ``a_log``
+    and ``d_skip``, less one vector it counts)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model, local_plan
+    from repro_torch.models import ssm as SS
+    cfg = get_config("hymba-1.5b")
+    model = build_model(cfg, local_plan(param_dtype=torch.bfloat16))
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    leaves = list(_leaves(params))
+    n = sum(t.numel() for t in leaves)
+    di, dtr = cfg.d_inner, SS._dt_rank(cfg)
+    extra = cfg.num_layers * (2 * dtr * di + cfg.ssm_state * di + di)
+    ring = 2 * min(cfg.window, 2048) * cfg.n_kv_heads * cfg.head_dim * 2 \
+        * cfg.num_layers
+    state = cfg.num_layers * ((cfg.conv_width - 1) * di * 2
+                              + di * cfg.ssm_state * 4)
+    print(f"hymba-1.5b full width: {cfg.num_layers} layers d_model "
+          f"{cfg.d_model} heads {cfg.n_heads}/{cfg.n_kv_heads} x "
+          f"{cfg.head_dim}, window {cfg.window}, d_ff {cfg.d_ff}, vocab "
+          f"{cfg.vocab_size}, Mamba d_inner {di} state {cfg.ssm_state} conv "
+          f"{cfg.conv_width} dt rank {dtr}; {n} params ({cfg.param_count()} "
+          f"+ {extra}), {sum(t.numel() * t.element_size() for t in leaves) / 2**30:.2f} "
+          f"GiB in bf16, init {time.perf_counter() - t0:.1f} s; per slot a "
+          f"ring of {ring} B and {state} B of Mamba state", flush=True)
+    if n != cfg.param_count() + extra:
+        fail(f"hymba-1.5b parameter count {n} != {cfg.param_count()} + "
+             f"{extra}")
+    return model, params
+
+
+def serve_hymba(torch, model, params) -> dict:
+    """``hymba_load`` through the slot pool (hymba cannot serve paged):
+    every request completes; kernel 1 launches once per layer and prefill,
+    in its window form (banded) for each prompt longer than the window;
+    kernel 5 once per layer and decode step; no other attention kernel."""
+    cfg, L = model.cfg, model.cfg.num_layers
+    load = hymba_load(cfg.vocab_size)
+    run = serve(torch, model, params, "slots (paged=None)", load,
+                ("flash_attention", "flash_attention_window",
+                 "decode_attention"), paged=None)
+    st, la = run["stats"], run["launches"]
+    banded = L * sum(len(p) > cfg.window for p, _ in load)
+    others = {n: la[n] for n in ATTENTION + ("rwkv6_wkv", "int8_matmul")
+              if n not in ("flash_attention", "decode_attention")}
+    print(f"hymba checks: flash_attention launches={la['flash_attention']} "
+          f"({L} x {st.prefill_batches} prefills = "
+          f"{L * st.prefill_batches}), of them banded="
+          f"{la['flash_attention_window']} ({L} x "
+          f"{banded // L} prompts longer than the window = {banded}); "
+          f"decode_attention launches={la['decode_attention']} ({L} x "
+          f"{st.decode_syncs} decode steps = {L * st.decode_syncs}); other "
+          f"kernels {others} (all 0)", flush=True)
+    if (la["flash_attention"] != L * st.prefill_batches
+            or st.prefill_batches != len(load)
+            or la["flash_attention_window"] != banded
+            or la["decode_attention"] != L * st.decode_syncs
+            or any(others.values())):
+        fail("hymba: the kernels did not launch as the slot path runs them")
+    return la
+
+
+def _hymba_slots(torch, model, cache, dtype):
+    """A slot cache of ``dtype`` (ring 1024 wide at max_seq 2048) holding
+    a B-row prefill's cache as ``CachePool.insert`` places it: a ring from
+    a prompt shorter than the window fills a prefix of the slot, a full
+    ring and the Mamba state the whole slot."""
+    B = cache["attn"]["k"].shape[1]
+    slots = model.init_cache(B, 2048, dtype=dtype, device=model.device)
+    for part, leaves in cache.items():
+        for name, src in leaves.items():
+            dst = slots[part][name]
+            dst[:, :, :src.shape[2]] = src.to(dst.dtype)
+    return slots
+
+
+def teacher_forced_hymba(torch, model, params):
+    """Teacher-forced checks of full-width hymba-1.5b.
+
+    Kernels against plain versions on the card: a 1536-token prefill of
+    two prompts (kernel 1's window form) and one slot decode step from
+    copies of one slot cache filled by the kernels' prefill (kernel 5 over
+    the ring), checked at ``TOL["f32"]`` in an f32 compute plan over an
+    f32 cache (bf16 weights), read in the serving bf16 plan.  Carry
+    across the wrap, through the kernels, in the f32 plan: prefill of the
+    first 1000 tokens of a 1064-token prompt, then the remaining 64
+    teacher-forced one decode step each (the ring wraps at 1024), against
+    the prefill of all 1064 tokens, at ``TOL["f32"]``."""
+    from repro_torch.models import build_model, local_plan
+    vocab, dev = model.cfg.vocab_size, model.device
+    gen = torch.Generator(device=dev).manual_seed(11)
+    tokens = torch.randint(0, vocab, (2, 1536), generator=gen, device=dev,
+                           dtype=torch.int32)
+    ok = True
+    f32 = build_model(model.cfg, local_plan(param_dtype=torch.bfloat16,
+                                            compute_dtype=torch.float32))
+    for plan, m, cdt in (("f32", f32, torch.float32),
+                         ("bf16", model, torch.bfloat16)):
+        lk, ck = m.prefill(params, tokens)
+        with plain_versions():
+            lp, _ = m.prefill(params, tokens)
+        slots = _hymba_slots(torch, m, ck, cdt)
+        del ck
+        nxt = lk[:, :vocab].argmax(-1).to(torch.int32)
+        pos = torch.full((2,), tokens.shape[1], dtype=torch.int32,
+                         device=dev)
+        copy = _clone(slots)
+        dk, _ = m.decode_step(params, slots, nxt, pos)
+        with plain_versions():
+            dp, _ = m.decode_step(params, copy, nxt, pos)
+        del slots, copy
+        tol = TOL["f32"] if plan == "f32" else None
+        what = f"hymba {plan} plan"
+        agree = logits_agree(torch, vocab, f"{what} prefill 1536 (window "
+                             f"form), kernel vs plain", lk, lp, tol)
+        agree &= logits_agree(torch, vocab, f"{what} slot decode at 1536 "
+                              f"(ring), kernel vs plain", dk, dp, tol)
+        if plan == "f32":
+            ok &= agree
+        else:
+            print(f"  ({what}: a reading, not a check)", flush=True)
+        torch.cuda.empty_cache()
+    head, total = 1000, 1064
+    prompt = tokens[:, :total].contiguous()
+    want, _ = f32.prefill(params, prompt)
+    _, cache = f32.prefill(params, prompt[:, :head])
+    slots = _hymba_slots(torch, f32, cache, torch.float32)
+    del cache
+    for t in range(head, total):
+        got, _ = f32.decode_step(params, slots, prompt[:, t].contiguous(),
+                                 torch.full((2,), t, dtype=torch.int32,
+                                            device=dev))
+    del slots
+    ok &= logits_agree(torch, vocab, f"hymba f32 plan prefill {head} + "
+                       f"{total - head} decode steps across the ring's wrap "
+                       f"vs prefill {total}", got, want, TOL["f32"])
+    torch.cuda.empty_cache()
+    if not ok:
+        fail("teacher-forced hymba-1.5b disagrees (f32 plan)")
+
+
+def hymba_calls(torch, model, params) -> dict:
+    """One request's prefill (1536 tokens; the slot pool prefills one
+    request at a time) and one slot decode step over 4 slots at positions
+    1990, 1400, 1000 and 200 (three rings wrapped)."""
+    dev = model.device
+    tokens = torch.randint(0, model.cfg.vocab_size, (1, 1536), device=dev,
+                           dtype=torch.int32,
+                           generator=torch.Generator(device=dev).manual_seed(12))
+    slots = model.init_cache(4, 2048, device=dev)
+    tok = tokens[0, :4].contiguous()
+    pos = torch.tensor([1990, 1400, 1000, 200], dtype=torch.int32,
+                       device=dev)
+    return {
+        "prefill": ("1 prompt of 1536 tokens (window form)",
+                    lambda: model.prefill(params, tokens), 1, "prefill"),
+        "slot": (f"4 slots at positions {pos.tolist()}",
+                 lambda: model.decode_step(params, slots, tok, pos), 1,
+                 "step"),
+    }
+
+
+def hymba_phases(torch) -> dict:
+    """Phase 7; returns the serve run's launches."""
+    model, params = hymba_model(torch)
+    launches = serve_hymba(torch, model, params)
+    teacher_forced_hymba(torch, model, params)
+    calls = hymba_calls(torch, model, params)
+    walls = {name: host_walls(torch, fn, per, reps=3)
+             for name, (_, fn, per, _) in calls.items()}
+    for name, (label, fn, per, unit) in calls.items():
+        trace(torch, f"{name} profile hymba-1.5b bf16, {label}", fn,
+              walls[name], per=per, unit=unit)
+    del model, params, calls
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2061,7 +2407,9 @@ def main() -> int:
     dtypes = {"bf16": torch.bfloat16, "f32": torch.float32}
     # kernels 4 and 6 last, in the order they came: the earlier kernels
     # draw the inputs they drew before
-    entries = [check_flash(torch, dtypes, gen), check_paged(torch, gen),
+    entries = [check_flash(torch, dtypes, gen), check_flash_window(torch,
+                                                                  dtypes),
+               check_paged(torch, gen),
                check_prefill(torch, gen), check_dense(torch, gen),
                check_wkv(torch, gen), check_lse(torch, gen),
                check_int8(torch, gen)]
@@ -2117,13 +2465,20 @@ def main() -> int:
     # phase 6: rwkv6-3b went at the end of phase 5
     for name, n in granite_phases(torch).items():
         launches[name] += n
+    print(f"phase 6 done at {time.perf_counter() - t_start:.1f} s",
+          flush=True)
+
+    # phase 7: granite's variants went at the end of phase 6
+    for name, n in hymba_phases(torch).items():
+        launches[name] += n
     for e in entries:
         e["launches"] = launches[e["name"]]
     print(f"all phases done at {time.perf_counter() - t_start:.1f} s",
           flush=True)
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
-            "ms", "call_ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+            "ms", "ms_min", "ms_max", "call_ms", "plain_ms", "bound_ms",
+            "bound_by", "library_ms")
     print(json.dumps({"kernels": [{k: e[k] for k in keys if k in e}
                                   for e in entries]}))
     print(card)          # name, power limit: nvidia-smi's own line

@@ -1,7 +1,10 @@
-// Causal GQA flash attention (forward) for Hopper (sm_90a): prompt prefill.
+// Causal GQA flash attention (forward) for Hopper (sm_90a): prompt prefill,
+// over all earlier keys or, with a window W > 0, over the W latest
+// (sliding-window attention: key k is seen by query q iff q - W < k <= q).
 //
 // Replaces the Pallas TPU kernel src/repro/kernels/flash_attention.py:79
-// (flash_attention; kernel body _flash_kernel, :27).
+// (flash_attention; kernel body _flash_kernel, :27), causal form, with and
+// without its window.
 //
 // What bounds it on the H100: the least time is bytes below S ~ 1200 and
 // operations above.  Causal attention does 4*D flops per (query, key) pair
@@ -10,13 +13,21 @@
 // byte (989 TFLOP/s over 3.35 TB/s) near S = 1200.  This first kernel runs
 // on the CUDA cores (f32 FMA, ~67 TFLOP/s at best), so in practice it is
 // bound by operations at every prompt length the engine serves; wgmma
-// tiles are later work.
+// tiles are later work.  With a window W the pairs are S*W - W*(W-1)/2
+// (for S > W): the work grows as S*W, not S^2.
 //
 // Design.  On the TPU the grid is (B, H, q block, k block) with the k axis
 // walked in order, carrying (m, l, acc) in VMEM scratch.  Here one CTA owns
 // one 64-row query tile of one (batch, head) and loops over 32-key tiles
 // itself, stopping at the diagonal: tiles strictly above it are never read
-// (the reference's @pl.when skip).  Four threads share a query row; each
+// (the reference's @pl.when skip).  With a window the loop starts at the
+// tile holding key q0 - W + 1, the first key the CTA's first row sees:
+// tiles wholly before every row's window are never read either (the
+// reference's second skip).  Later rows of the tile see fewer of those
+// leading keys, so a row can meet whole tiles outside its window while its
+// running max is still the finite sentinel -1e30; a masked key therefore
+// adds exactly 0 to l and acc (p is set to 0, not exp(s - m), which would
+// be exp(0) = 1 there).  Four threads share a query row; each
 // holds a quarter of q and of the f32 accumulator in registers, with the
 // head dim interleaved (d = c + 4*i) so the shared-memory reads of a key or
 // value row are conflict-free.  Partial dot products meet by two warp
@@ -50,7 +61,8 @@ template <typename T, int D>
 __global__ void __launch_bounds__(THREADS)
 flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
              const T* __restrict__ v, T* __restrict__ o, int H, int K, int S,
-             Strides qs, Strides ks_, Strides vs_, Strides os, float scale) {
+             int window, Strides qs, Strides ks_, Strides vs_, Strides os,
+             float scale) {
   constexpr int DPT = D / TPR;        // head dims per thread
   constexpr int VEC = Vec<T>::N;
   constexpr int VPR = D / VEC;        // 16-byte vectors per key row
@@ -79,7 +91,9 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const T* kb = k + b * ks_.b + kh * ks_.h;
   const T* vb = v + b * vs_.b + kh * vs_.h;
   const int k_end = min(S, q0 + BQ);  // later keys are above the diagonal
-  for (int k0 = 0; k0 < k_end; k0 += BK) {
+  // with a window, earlier keys are outside every row's window
+  const int k_begin = window > 0 ? max(0, q0 - window + 1) / BK * BK : 0;
+  for (int k0 = k_begin; k0 < k_end; k0 += BK) {
     __syncthreads();                  // the previous tile's readers are done
     for (int i = tid; i < BK * VPR; i += THREADS) {
       const int t = i / VPR;
@@ -104,6 +118,7 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
     __syncthreads();
 
     float s[BK];
+    unsigned live = 0u;               // bit t: key k0 + t is seen by the row
     float m_tile = NEG_INF;
 #pragma unroll
     for (int t = 0; t < BK; ++t) {
@@ -112,7 +127,10 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
       for (int i = 0; i < DPT; ++i) part += qr[i] * ks[t][c + TPR * i];
       part += __shfl_xor_sync(0xffffffffu, part, 1);
       part += __shfl_xor_sync(0xffffffffu, part, 2);
-      s[t] = (k0 + t <= qpos) ? part * scale : NEG_INF;
+      const int kpos = k0 + t;
+      const bool seen = kpos <= qpos && (window <= 0 || kpos > qpos - window);
+      live |= (unsigned)seen << t;
+      s[t] = seen ? part * scale : NEG_INF;
       m_tile = fmaxf(m_tile, s[t]);
     }
     const float m_new = fmaxf(m, m_tile);
@@ -122,7 +140,7 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
     float l_tile = 0.f;
 #pragma unroll
     for (int t = 0; t < BK; ++t) {
-      const float p = expf(s[t] - m_new);
+      const float p = (live >> t & 1u) ? expf(s[t] - m_new) : 0.f;
       l_tile += p;
       const float pv = round_to<T>(p);
 #pragma unroll
@@ -142,25 +160,25 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 template <typename T, int D>
 int launch(const void* q, const void* k, const void* v, void* o, int B, int H,
-           int K, int S, Strides qs, Strides ks, Strides vs, Strides os,
-           float scale, cudaStream_t stream) {
+           int K, int S, int window, Strides qs, Strides ks, Strides vs,
+           Strides os, float scale, cudaStream_t stream) {
   const dim3 grid((S + BQ - 1) / BQ, H, B);
   flash_kernel<T, D><<<grid, THREADS, 0, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), H, K, S, qs, ks, vs, os,
-      scale);
+      static_cast<const T*>(v), static_cast<T*>(o), H, K, S, window, qs, ks,
+      vs, os, scale);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
 int dispatch_d(const void* q, const void* k, const void* v, void* o, int B,
-               int H, int K, int S, int D, Strides qs, Strides ks, Strides vs,
-               Strides os, float scale, cudaStream_t stream) {
+               int H, int K, int S, int D, int W, Strides qs, Strides ks,
+               Strides vs, Strides os, float scale, cudaStream_t stream) {
   switch (D) {
-    case 16: return launch<T, 16>(q, k, v, o, B, H, K, S, qs, ks, vs, os, scale, stream);
-    case 32: return launch<T, 32>(q, k, v, o, B, H, K, S, qs, ks, vs, os, scale, stream);
-    case 64: return launch<T, 64>(q, k, v, o, B, H, K, S, qs, ks, vs, os, scale, stream);
-    case 128: return launch<T, 128>(q, k, v, o, B, H, K, S, qs, ks, vs, os, scale, stream);
+    case 16: return launch<T, 16>(q, k, v, o, B, H, K, S, W, qs, ks, vs, os, scale, stream);
+    case 32: return launch<T, 32>(q, k, v, o, B, H, K, S, W, qs, ks, vs, os, scale, stream);
+    case 64: return launch<T, 64>(q, k, v, o, B, H, K, S, W, qs, ks, vs, os, scale, stream);
+    case 128: return launch<T, 128>(q, k, v, o, B, H, K, S, W, qs, ks, vs, os, scale, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -168,21 +186,24 @@ int dispatch_d(const void* q, const void* k, const void* v, void* o, int B,
 }  // namespace
 
 // q/o (B, H, S, D), k/v (B, K, S, D), each given by its (B, H, S) element
-// strides with a unit stride on D.  Returns the cudaError_t of the launch.
+// strides with a unit stride on D; window 0 attends every earlier key, a
+// window W > 0 the W latest.  Returns the cudaError_t of the launch.
 extern "C" int flash_attention(
     const void* q, const void* k, const void* v, void* o, int B, int H, int K,
-    int S, int D, long long q_sb, long long q_sh, long long q_ss,
+    int S, int D, int window, long long q_sb, long long q_sh, long long q_ss,
     long long k_sb, long long k_sh, long long k_ss, long long v_sb,
     long long v_sh, long long v_ss, long long o_sb, long long o_sh,
     long long o_ss, float scale, int dtype, void* stream) {
   if (B == 0 || S == 0) return 0;
-  if (K <= 0 || H % K != 0) return (int)cudaErrorInvalidValue;
+  if (K <= 0 || H % K != 0 || window < 0) return (int)cudaErrorInvalidValue;
   const Strides qs{q_sb, q_sh, q_ss}, ks{k_sb, k_sh, k_ss},
       vs{v_sb, v_sh, v_ss}, os{o_sb, o_sh, o_ss};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == DT_BF16)
-    return dispatch_d<bf16>(q, k, v, o, B, H, K, S, D, qs, ks, vs, os, scale, s);
+    return dispatch_d<bf16>(q, k, v, o, B, H, K, S, D, window, qs, ks, vs, os,
+                            scale, s);
   if (dtype == DT_F32)
-    return dispatch_d<float>(q, k, v, o, B, H, K, S, D, qs, ks, vs, os, scale, s);
+    return dispatch_d<float>(q, k, v, o, B, H, K, S, D, window, qs, ks, vs,
+                             os, scale, s);
   return (int)cudaErrorInvalidValue;
 }

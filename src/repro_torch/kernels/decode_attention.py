@@ -14,7 +14,13 @@ Two plain versions, one per parity target:
   on the slot path, ``models/attention.py::_flash_decode_core``: it rounds
   the unnormalised ``exp(s - m)`` to v's dtype and divides by the f32 sum
   afterwards.  The dispatcher (``ops.decode_attention``) takes this one on
-  the CPU, so the slot engine is token-exact with the reference there.
+  the CPU, so the slot engine is token-exact with the reference there;
+- ``swa_decode_ref`` mirrors the sliding-window ring decode,
+  ``models/attention.py::_swa_decode``, whose mask ``slot <= position or
+  position >= W`` is ``slot <= min(position, W - 1)``: the model passes
+  positions clamped so, and the kernel runs unchanged.  It rounds the
+  normalised P to v's dtype, and the output as well (the reference's PV
+  product is in v's dtype); the dispatcher takes it for ``ring=True``.
 """
 from __future__ import annotations
 
@@ -74,6 +80,18 @@ def flash_decode_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     num = torch.einsum("bhs,bshd->bhd", pexp.to(v.dtype).float(), ve.float())
     o = num / pexp.sum(dim=-1).clamp_min(1e-30)[..., None]
     return o.to(q.dtype)
+
+
+def swa_decode_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   positions: torch.Tensor, *,
+                   scale: float | None = None) -> torch.Tensor:
+    """Plain decode over a sliding window's ring cache, rounded as
+    ``models/attention.py::_swa_decode`` rounds: P normalised, then
+    rounded to v's dtype, and o rounded to v's dtype before q's.
+    ``positions`` are the lanes' positions clamped to the ring's last
+    slot, ``min(position, W - 1)``."""
+    o = decode_attention_ref(q, k, v, positions, scale=scale)
+    return o.to(v.dtype).to(q.dtype)
 
 
 @functools.cache

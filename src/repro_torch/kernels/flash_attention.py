@@ -1,9 +1,11 @@
-"""Causal GQA flash attention (prompt prefill): the CUDA kernel's wrapper
-and its plain PyTorch version.
+"""Causal GQA flash attention (prompt prefill), over every earlier key or,
+with ``window`` W > 0, over the W latest (query q sees key k iff
+q - W < k <= q): the CUDA kernel's wrapper and its plain PyTorch version.
 
 The kernel (``csrc/flash_attention.cu``) replaces the Pallas TPU kernel
-``repro/kernels/flash_attention.py::flash_attention``.  Layout follows the
-reference: q (B, H, S, D), k/v (B, K, S, D), head h reading KV head h*K//H.
+``repro/kernels/flash_attention.py::flash_attention`` (its causal form,
+with and without ``window``).  Layout follows the reference: q (B, H, S,
+D), k/v (B, K, S, D), head h reading KV head h*K//H.
 Both functions accept any strides with a unit stride on D, so the model
 passes ``x.transpose(1, 2)`` views of its (B, S, H, D) activations and no
 transpose copy is made; the kernel's output keeps q's layout.
@@ -23,12 +25,21 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (16, 32, 64, 128)   # instantiated in csrc/flash_attention.cu
 
 
+def _check_window(window: int) -> None:
+    if window < 0:
+        raise ValueError(f"flash_attention: window must be >= 0 (0 = no "
+                         f"window), got {window}")
+
+
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                        scale: float | None = None) -> torch.Tensor:
+                        scale: float | None = None,
+                        window: int = 0) -> torch.Tensor:
     """Plain version (port of ``kernels/ref.py::flash_attention_ref``,
-    causal).  The normalised P is rounded to v's dtype before PV, as the
-    reference model's ``_attn_block`` does (the kernel rounds the
-    unnormalised exponentials instead); at f32 that is the identity."""
+    causal, with its ``window``).  The normalised P is rounded to v's
+    dtype before PV, as the reference model's ``_attn_block`` does (the
+    kernel rounds the unnormalised exponentials instead); at f32 that is
+    the identity."""
+    _check_window(window)
     B, H, S, D = q.shape
     K = k.shape[1]
     scale = scale if scale is not None else 1.0 / math.sqrt(D)
@@ -36,6 +47,8 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     ve = v.repeat_interleave(H // K, dim=1)
     s = torch.einsum("bhqd,bhkd->bhqk", q.float(), ke.float()) * scale
     mask = torch.ones(S, S, dtype=torch.bool, device=q.device).tril()
+    if window:
+        mask = mask.triu(1 - window)      # k > q - window
     s = torch.where(mask, s, NEG_INF)
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bhqk,bhkd->bhqd", p.to(v.dtype).float(), ve.float())
@@ -45,7 +58,7 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 @functools.cache
 def _kernel():
     fn = build.library("flash_attention").flash_attention
-    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
+    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
                    + [ctypes.c_longlong] * 12
                    + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
     fn.restype = ctypes.c_int
@@ -83,21 +96,27 @@ def _check(q, k, v) -> None:
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    scale: float | None = None) -> torch.Tensor:
+                    scale: float | None = None,
+                    window: int = 0) -> torch.Tensor:
     """Launch the CUDA kernel: q (B, H, S, D), k/v (B, K, S, D), one dtype
-    (bf16 or f32), all on the current CUDA device -> o, laid out like q."""
+    (bf16 or f32), all on the current CUDA device -> o, laid out like q.
+    ``launches`` counts every launch, ``banded`` those whose window is
+    narrower than the sequence (0 < window < S), the ones that mask."""
+    _check_window(window)
     _check(q, k, v)
     B, H, S, D = q.shape
     scale = scale if scale is not None else 1.0 / math.sqrt(D)
     out = torch.empty_like(q)
     err = _kernel()(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        B, H, k.shape[1], S, D, *q.stride()[:3], *k.stride()[:3],
+        B, H, k.shape[1], S, D, window, *q.stride()[:3], *k.stride()[:3],
         *v.stride()[:3], *out.stride()[:3], scale, _DTYPES[q.dtype],
         torch.cuda.current_stream(q.device).cuda_stream)
     build.check(err, "flash_attention")
     flash_attention.launches += 1
+    flash_attention.banded += 0 < window < S
     return out
 
 
 flash_attention.launches = 0
+flash_attention.banded = 0

@@ -30,11 +30,12 @@ def _on_cpu(*tensors: torch.Tensor) -> bool:
                      f"on the CPU or all on CUDA")
 
 
-def flash_attention(q, k, v, *, scale=None):
-    """Causal GQA attention: q (B, H, S, D), k/v (B, K, S, D), any strides."""
+def flash_attention(q, k, v, *, scale=None, window=0):
+    """Causal GQA attention: q (B, H, S, D), k/v (B, K, S, D), any strides;
+    with ``window`` W > 0 over the W latest keys only."""
     if _on_cpu(q, k, v):
-        return _flash.flash_attention_ref(q, k, v, scale=scale)
-    return _flash.flash_attention(q, k, v, scale=scale)
+        return _flash.flash_attention_ref(q, k, v, scale=scale, window=window)
+    return _flash.flash_attention(q, k, v, scale=scale, window=window)
 
 
 def paged_decode_attention(q, k_pool, v_pool, block_tables, positions, *,
@@ -79,11 +80,15 @@ def paged_verify_attention(q, k_pool, v_pool, block_tables, positions, *,
                                            positions, scale=scale)
 
 
-def decode_attention(q, k, v, positions, *, scale=None):
+def decode_attention(q, k, v, positions, *, scale=None, ring=False):
     """One-token attention over a contiguous (B, S, K, D) cache, rounded
-    as the slot model path rounds (``flash_decode_ref`` on the CPU)."""
+    as the slot model path rounds (``flash_decode_ref`` on the CPU).  With
+    ``ring`` the cache is a sliding window's ring, positions clamped to its
+    last slot by the caller, and the CPU takes ``swa_decode_ref``, which
+    rounds as the reference's ring decode does; the kernel is the same."""
     if _on_cpu(q, k, v, positions):
-        return _dense.flash_decode_ref(q, k, v, positions, scale=scale)
+        ref = _dense.swa_decode_ref if ring else _dense.flash_decode_ref
+        return ref(q, k, v, positions, scale=scale)
     return _dense.decode_attention(q, k, v, positions, scale=scale)
 
 

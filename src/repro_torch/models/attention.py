@@ -1,4 +1,5 @@
-"""GQA attention (port of the dense-GQA parts of ``repro.models.attention``).
+"""GQA attention (port of the dense-GQA and sliding-window parts of
+``repro.models.attention``).
 
 Projections keep the reference layouts (``w_q (d, H, hd)``, ``w_k``/``w_v
 (d, K, hd)``, ``w_o (H, hd, d)``) and run as plain matmuls.  Where the
@@ -9,6 +10,11 @@ tensors, their plain versions for CPU tensors.  Caches and pools are
 written in place.  Under a sharded plan the paged decode step walks the
 pool stripe by stripe (``_paged_decode_core``, the reference's per-rank
 body) and merges the stripes with ``combine_lse``.
+
+Sliding-window attention (``attn_kind="swa"``, hymba) runs its prefill
+through the window form of the flash kernel (the reference's three
+branches of ``swa_attention`` are one function) and keeps a ring cache of
+the ``W = min(window, S)`` latest keys, position p in slot p % W.
 """
 from __future__ import annotations
 
@@ -69,12 +75,27 @@ def _out_proj(o: torch.Tensor, w_o: torch.Tensor) -> torch.Tensor:
 # GQA forward (prefill)
 # ---------------------------------------------------------------------------
 
+def _swa(cfg: ArchConfig) -> bool:
+    return cfg.attn_kind == "swa" and bool(cfg.window)
+
+
+def _ring(t: torch.Tensor, window: int) -> torch.Tensor:
+    """The ring of the ``W = min(window, S)`` latest positions of t
+    (B, S, ...): slot p % W holds position p, for p in [S - W, S)."""
+    S = t.shape[1]
+    W = min(window, S)
+    return torch.roll(t[:, S - W:], shifts=(S - W) % W, dims=1)
+
+
 def gqa_forward(p: dict, x: torch.Tensor, positions: torch.Tensor,
                 cfg: ArchConfig, plan: ShardPlan, *, want_cache: bool):
-    """Causal GQA. x: (B, S, d) -> (out (B, S, d), cache | None); the cache
-    holds this layer's un-rounded k/v (B, S, K, hd) in the compute dtype."""
-    if cfg.attn_kind != "gqa" or not cfg.causal:
-        raise NotImplementedError(f"{cfg.name}: only causal GQA is ported "
+    """Causal GQA, over a sliding window for ``attn_kind="swa"``.
+    x: (B, S, d) -> (out (B, S, d), cache | None); the cache holds this
+    layer's un-rounded k/v in the compute dtype, (B, S, K, hd), or for
+    the window its ring (B, min(window, S), K, hd)."""
+    if cfg.attn_kind not in ("gqa", "swa") or not cfg.causal:
+        raise NotImplementedError(f"{cfg.name}: only causal GQA and "
+                                  f"sliding-window attention are ported "
                                   f"(attn_kind={cfg.attn_kind!r})")
     dt = plan.compute_dtype
     q = _project(x, p["w_q"].to(dt))
@@ -85,11 +106,16 @@ def gqa_forward(p: dict, x: torch.Tensor, positions: torch.Tensor,
         k = L.rms_norm(k, p["k_norm"])
     q = L.apply_rope(q, positions, cfg.rope_theta)
     k = L.apply_rope(k, positions, cfg.rope_theta)
-    cache = {"k": k, "v": v} if want_cache else None
+    window = cfg.window if _swa(cfg) else 0
+    cache = None
+    if want_cache:
+        cache = {"k": _ring(k, window), "v": _ring(v, window)} if window \
+            else {"k": k, "v": v}
     # (B, H, S, hd) views of the (B, S, H, hd) activations: no copies
     o = ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
                             v.transpose(1, 2),
-                            scale=1.0 / math.sqrt(cfg.head_dim))
+                            scale=1.0 / math.sqrt(cfg.head_dim),
+                            window=window)
     return _out_proj(o.transpose(1, 2), p["w_o"].to(dt)), cache
 
 
@@ -141,18 +167,41 @@ def gqa_prefill_paged(p: dict, x: torch.Tensor, cache: dict,
 # slot decode (contiguous per-lane cache)
 # ---------------------------------------------------------------------------
 
+def _swa_decode(q, k_new, v_new, cache: dict, positions: torch.Tensor, *,
+                scale: float) -> torch.Tensor:
+    """Ring-buffer sliding-window decode (the reference's ``_swa_decode``):
+    write the new token's KV at slot ``position % W`` (in place), then
+    attend over every filled slot.  The reference's mask, ``slot <=
+    position or position >= W``, is ``slot <= min(position, W - 1)``, and
+    softmax does not depend on the order of the slots, so the dense decode
+    kernel runs on the ring with the positions clamped so."""
+    W = cache["k"].shape[1]
+    rows = torch.arange(q.shape[0], device=q.device)
+    slot = (positions % W).long()
+    for name, new in (("k", k_new), ("v", v_new)):
+        cache[name][rows, slot] = new.to(cache[name].dtype)
+    return ops.decode_attention(q, cache["k"], cache["v"],
+                                positions.clamp(max=W - 1), scale=scale,
+                                ring=True)
+
+
 def gqa_decode(p: dict, x: torch.Tensor, cache: dict,
                positions: torch.Tensor, cfg: ArchConfig, plan: ShardPlan):
     """Slot-cache decode step (``_flash_decode_core`` on one device): write
     the new token's KV at ``positions`` (in place; a position outside the
-    cache keeps the old row), then attend over keys 0..position.
+    cache keeps the old row), then attend over keys 0..position.  For a
+    sliding window the cache is its ring (``_swa_decode``).
     x: (B, d); cache leaves (B, S, K, hd) -> (out (B, d), cache)."""
-    if cfg.attn_kind == "mla" or (cfg.attn_kind == "swa" and cfg.window):
-        raise NotImplementedError(f"{cfg.name}: only the dense GQA slot "
-                                  f"decode is ported "
+    if cfg.attn_kind == "mla":
+        raise NotImplementedError(f"{cfg.name}: only the dense GQA and "
+                                  f"sliding-window slot decodes are ported "
                                   f"(attn_kind={cfg.attn_kind!r})")
     dt = plan.compute_dtype
     q, k_new, v_new = _decode_qkv(p, x, positions, cfg, plan)
+    if _swa(cfg):
+        o = _swa_decode(q, k_new, v_new, cache, positions,
+                        scale=1.0 / math.sqrt(cfg.head_dim))
+        return _out_proj(o, p["w_o"].to(dt)), cache
     S = cache["k"].shape[1]
     rows = torch.arange(x.shape[0], device=x.device)
     write = ((positions >= 0) & (positions < S))[:, None, None]
@@ -298,13 +347,14 @@ def init_paged_attn_cache(cfg: ArchConfig, plan: ShardPlan, n_blocks: int,
 
 def init_attn_cache(cfg: ArchConfig, plan: ShardPlan, batch: int,
                     seq_len: int, dtype=torch.bfloat16, device="cuda") -> dict:
-    """Per-layer (unstacked) slot cache of the dense GQA families:
-    k/v (batch, seq_len, K, hd).  The MLA latent and SWA ring caches are
-    not ported yet."""
-    if cfg.attn_kind == "mla" or (cfg.attn_kind == "swa" and cfg.window):
-        raise NotImplementedError(f"{cfg.name}: only the dense GQA slot "
-                                  f"cache is ported "
+    """Per-layer (unstacked) slot cache: k/v (batch, seq_len, K, hd), or
+    for a sliding window its ring (batch, min(window, seq_len), K, hd).
+    The MLA latent cache is not ported yet."""
+    if cfg.attn_kind == "mla":
+        raise NotImplementedError(f"{cfg.name}: only the dense GQA and "
+                                  f"sliding-window slot caches are ported "
                                   f"(attn_kind={cfg.attn_kind!r})")
-    shape = (batch, seq_len, cfg.n_kv_heads, cfg.head_dim)
+    width = min(cfg.window, seq_len) if _swa(cfg) else seq_len
+    shape = (batch, width, cfg.n_kv_heads, cfg.head_dim)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}

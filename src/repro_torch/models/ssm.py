@@ -1,5 +1,16 @@
-"""RWKV6 (Finch) time-mix and channel-mix (port of the RWKV half of
-``repro.models.ssm``; the mamba branch waits for the hybrid family).
+"""State-space and linear-recurrence layers (port of ``repro.models.ssm``):
+Mamba, the selective SSM of hymba's parallel branch, and RWKV6 (Finch)
+time-mix and channel-mix.
+
+Mamba runs in plain torch, as the reference leaves it to XLA.  Where the
+reference scans chunks of the sequence (a chunk of 256 halved until it
+divides S, so a prime S runs S chunks of one step) with an associative
+scan inside each, the port runs one log-depth doubling scan over the whole
+sequence, ~4 device ops per level: the same recurrence h_t = a_t h_{t-1} +
+b_t, summed in another order.  Its (B, S, d_inner, state) f32 operands
+live one layer at a time.
+
+RWKV6:
 
 Parameters keep the reference's layouts (``w_r (d, H, hd)``, ``w_o (H, hd,
 d)``, ``lora_a (5, d, 32)``, ...), so a JAX ``Model.init`` tree carries over
@@ -34,6 +45,134 @@ def _normal(shape, std, *, generator, dtype, device):
     w = torch.empty(shape, dtype=torch.float32, device=device)
     w.normal_(0.0, std, generator=generator)
     return w.to(dtype)
+
+
+# ===========================================================================
+# Mamba (selective SSM) — the parallel branch of hymba
+# ===========================================================================
+
+def _dt_rank(cfg: ArchConfig) -> int:
+    return max(16, cfg.d_model // 16)
+
+
+def init_mamba(cfg: ArchConfig, plan: ShardPlan, *,
+               generator: torch.Generator, device="cuda") -> dict:
+    d, di, n = cfg.d_model, cfg.d_inner, cfg.ssm_state
+    dtr, dt = _dt_rank(cfg), plan.param_dtype
+    kw = dict(generator=generator, dtype=dt, device=device)
+    a = torch.arange(1, n + 1, dtype=torch.float32, device=device)
+    return {
+        "w_in": L.dense_init((d, 2, di), **kw),     # x branch + gate z
+        "conv_w": _normal((cfg.conv_width, di), 0.1, **kw),
+        "w_bcdt": L.dense_init((di, dtr + 2 * n), **kw),
+        "w_dt": L.dense_init((dtr, di), **kw),
+        "dt_bias": torch.full((di,), -4.6, dtype=dt, device=device),
+        "a_log": torch.log(a).repeat(di, 1).to(dt),
+        "d_skip": torch.ones(di, dtype=dt, device=device),
+        "w_out": L.dense_init((di, d), **kw),
+    }
+
+
+def _causal_conv(x: torch.Tensor, w: torch.Tensor,
+                 x_prev: torch.Tensor | None = None):
+    """Depthwise causal conv over time.  x (B, S, di); w (cw, di);
+    ``x_prev`` (B, cw - 1, di) the left context (zeros if None).  Returns
+    (y (B, S, di), new left context (B, cw - 1, di)); dtypes promote as in
+    JAX."""
+    cw, S = w.shape[0], x.shape[1]
+    if x_prev is None:
+        x_prev = torch.zeros(x.shape[0], cw - 1, x.shape[2], dtype=x.dtype,
+                             device=x.device)
+    dt = torch.promote_types(x_prev.dtype, x.dtype)
+    xp = torch.cat([x_prev.to(dt), x.to(dt)], dim=1)
+    y = sum(xp[:, i:i + S] * w[i] for i in range(cw))
+    return y, xp[:, -(cw - 1):]
+
+
+def _softplus(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.softplus``, log(1 + e^x) at every x (torch's
+    ``F.softplus`` returns x itself above its threshold of 20)."""
+    return torch.logaddexp(x, torch.zeros_like(x))
+
+
+def _selective_scan(a: torch.Tensor, b: torch.Tensor,
+                    h0: torch.Tensor | None) -> torch.Tensor:
+    """h_t = a_t * h_{t-1} + b_t over axis 1 of a, b (B, S, di, n) f32, from
+    h0 (B, di, n) (zeros if None): a doubling scan, log2(S) levels, each
+    combining every element with the one k before it, (a1, b1) then (a2,
+    b2) -> (a1 a2, a2 b1 + b2).  Overwrites a and b; returns h (B, S, di,
+    n), which is b."""
+    if h0 is not None:
+        b[:, 0] += a[:, 0] * h0
+    S, k = a.shape[1], 1
+    while k < S:
+        b[:, k:] += a[:, k:] * b[:, :-k]
+        if 2 * k < S:
+            a[:, k:] = a[:, k:] * a[:, :-k]
+        k *= 2
+    return b
+
+
+def mamba_forward(p: dict, x: torch.Tensor, cfg: ArchConfig,
+                  plan: ShardPlan, state: dict | None = None, *,
+                  out_state: dict | None = None):
+    """x (B, S, d) -> (y (B, S, d), new state {"conv" (B, cw - 1, di) in
+    the promoted dtype of the old one and the compute dtype, "ssm" (B, di,
+    n) f32}).  With ``out_state`` (which may be ``state``) the new state
+    is written there, in place."""
+    dt = plan.compute_dtype
+    B, S, d = x.shape
+    di, n, dtr = cfg.d_inner, cfg.ssm_state, _dt_rank(cfg)
+    xz = (x @ p["w_in"].to(dt).reshape(d, 2 * di)).view(B, S, 2, di)
+    xin, z = xz[:, :, 0], xz[:, :, 1]
+    conv_prev = state["conv"] if state is not None else None
+    xc, conv_new = _causal_conv(xin, p["conv_w"].to(dt), conv_prev)
+    xc = F.silu(xc.float()).to(dt)
+    dt_lo, Bs, Cs = (xc @ p["w_bcdt"].to(dt)).split([dtr, n, n], dim=-1)
+    delta = _softplus((dt_lo @ p["w_dt"].to(dt)).float()
+                      + p["dt_bias"].float())              # (B, S, di)
+    A = -torch.exp(p["a_log"].float())                    # (di, n)
+    h0 = state["ssm"].float() if state is not None else None
+    a = torch.exp(delta[..., None] * A)                   # (B, S, di, n)
+    b = delta[..., None] * Bs[:, :, None, :].float() * xc[..., None].float()
+    del delta
+    h = _selective_scan(a, b, h0)
+    del a
+    y = torch.einsum("bsin,bsn->bsi", h, Cs.float())
+    y = (y + xc.float() * p["d_skip"].float()).to(dt)
+    y = y * F.silu(z.float()).to(dt)
+    out = y @ p["w_out"].to(dt)
+    new_state = {"conv": conv_new, "ssm": h[:, -1]}
+    if out_state is not None:
+        for name, t in new_state.items():
+            new_state[name] = out_state[name].copy_(t)
+    return out, new_state
+
+
+def mamba_decode(p: dict, x: torch.Tensor, state: dict, cfg: ArchConfig,
+                 plan: ShardPlan, *, out_state: dict | None = None):
+    """x (B, d), one token per row; state {"conv" (B, cw - 1, di), "ssm"
+    (B, di, n)} -> (y (B, d), new state, written into ``out_state`` when
+    given)."""
+    y, new_state = mamba_forward(p, x[:, None], cfg, plan, state,
+                                 out_state=out_state)
+    return y[:, 0], new_state
+
+
+def init_mamba_state(cfg: ArchConfig, plan: ShardPlan, batch: int,
+                     dtype=torch.bfloat16, device="cuda") -> dict:
+    """One layer's Mamba state: the conv's left context in ``dtype`` and
+    the SSM state in f32."""
+    di = cfg.d_inner
+    return {"conv": torch.zeros(batch, cfg.conv_width - 1, di, dtype=dtype,
+                                device=device),
+            "ssm": torch.zeros(batch, di, cfg.ssm_state, dtype=torch.float32,
+                               device=device)}
+
+
+# ===========================================================================
+# RWKV6 (Finch): data-dependent decay, token-shift, wkv recurrence
+# ===========================================================================
 
 
 def init_rwkv_tmix(cfg: ArchConfig, plan: ShardPlan, *,

@@ -1,12 +1,14 @@
-"""Model assembly for the dense GQA, MoE and RWKV6 families (port of those
-parts of ``repro.models.transformer``).
+"""Model assembly for the dense GQA, MoE, RWKV6 and hybrid (hymba:
+sliding-window attention beside Mamba) families (port of those parts of
+``repro.models.transformer``).
 
 Parameters are the reference's dict tree with layers stacked on a leading L
 axis (``transformer.py:534-535``), so a JAX ``Model.init`` tree carries over
 by copy (``repro_torch.convert``).  The reference scans the stacked layers
 with ``lax.scan``; here a Python loop walks per-layer views.  Decode,
 chunked prefill and cache writes update the paged pool or the slot cache
-(for RWKV6, the recurrent state) in place instead of returning a new one.
+(for RWKV6 and Mamba, the recurrent state) in place instead of returning a
+new one.
 """
 from __future__ import annotations
 
@@ -35,14 +37,15 @@ def _norm_init(cfg: ArchConfig, dt, device) -> dict:
 
 def _ported(cfg: ArchConfig) -> bool:
     """The blocks this module ports, on token inputs with RMSNorm: causal
-    GQA + a gated MLP or a MoE layer of gated experts, and RWKV6 time-mix +
-    channel-mix."""
+    GQA + a gated MLP or a MoE layer of gated experts; RWKV6 time-mix +
+    channel-mix; and the hybrid block, sliding-window attention beside
+    Mamba + a gated MLP."""
     if cfg.norm_kind != "rms" or cfg.input_kind != "tokens":
         return False
     if cfg.rwkv:
         return cfg.mlp_kind == "rwkv_cmix"
-    return (cfg.attn_kind == "gqa" and cfg.causal
-            and cfg.family != "hybrid" and cfg.mlp_kind == "glu")
+    attn = "swa" if cfg.family == "hybrid" else "gqa"
+    return cfg.attn_kind == attn and cfg.causal and cfg.mlp_kind == "glu"
 
 
 # ---------------------------------------------------------------------------
@@ -61,6 +64,9 @@ def init_layer(cfg: ArchConfig, plan: ShardPlan, *,
                                      device=device)
         return p
     p["attn"] = A.init_gqa(cfg, plan, generator=generator, device=device)
+    if cfg.family == "hybrid":
+        p["mamba"] = S.init_mamba(cfg, plan, generator=generator,
+                                  device=device)
     if cfg.n_experts:
         p["moe"] = M.init_moe(cfg, plan, generator=generator, device=device)
     else:
@@ -99,9 +105,14 @@ def block_forward(x, lp: dict, positions, cfg: ArchConfig, plan: ShardPlan,
     h = _norm(x, lp["norm1"], cfg)
     attn_out, attn_cache = A.gqa_forward(lp["attn"], h, positions, cfg, plan,
                                          want_cache=want_cache)
-    x = x + attn_out
+    cache = {"attn": attn_cache}
+    if cfg.family == "hybrid":
+        mamba_out, cache["mamba"] = S.mamba_forward(lp["mamba"], h, cfg, plan)
+        x = x + 0.5 * (attn_out + mamba_out)
+    else:
+        x = x + attn_out
     x = x + _mlp(_norm(x, lp["norm2"], cfg), lp, cfg, plan)
-    return x, ({"attn": attn_cache} if want_cache else None)
+    return x, (cache if want_cache else None)
 
 
 def block_prefill_paged(x, lp: dict, lc: dict, starts, lengths,
@@ -120,7 +131,8 @@ def block_prefill_paged(x, lp: dict, lc: dict, starts, lengths,
 def block_decode(x, lp: dict, lc: dict, positions, cfg: ArchConfig,
                  plan: ShardPlan):
     """Slot-cache decode block, x (B, d); lc holds this layer's cache (for
-    RWKV6 its recurrent state), written in place."""
+    RWKV6 its recurrent state; for the hybrid block the ring and the Mamba
+    state), written in place."""
     if cfg.rwkv:
         x3 = x[:, None]
         y, _ = S.rwkv_tmix_forward(lp["tmix"], _norm(x3, lp["norm1"], cfg),
@@ -130,11 +142,16 @@ def block_decode(x, lp: dict, lc: dict, positions, cfg: ArchConfig,
                                    cfg, plan, lc["cmix"], out_state=lc["cmix"])
         return (x3 + y)[:, 0], lc
     h = _norm(x, lp["norm1"], cfg)
-    attn_out, attn_cache = A.gqa_decode(lp["attn"], h, lc["attn"], positions,
-                                        cfg, plan)
-    x = x + attn_out
+    attn_out, _ = A.gqa_decode(lp["attn"], h, lc["attn"], positions, cfg,
+                               plan)
+    if cfg.family == "hybrid":
+        mamba_out, _ = S.mamba_decode(lp["mamba"], h, lc["mamba"], cfg, plan,
+                                      out_state=lc["mamba"])
+        x = x + 0.5 * (attn_out + mamba_out)
+    else:
+        x = x + attn_out
     x = x + _mlp(_norm(x, lp["norm2"], cfg), lp, cfg, plan)
-    return x, {"attn": attn_cache}
+    return x, lc
 
 
 def block_decode_paged(x, lp: dict, lc: dict, positions, block_tables,
@@ -159,8 +176,8 @@ def _layer(tree: dict, i: int) -> dict:
 # ---------------------------------------------------------------------------
 
 class Model:
-    """One dense GQA, MoE or RWKV6 architecture bound to a plan and a
-    device."""
+    """One dense GQA, MoE, RWKV6 or hybrid architecture bound to a plan and
+    a device."""
 
     def __init__(self, cfg: ArchConfig, plan: ShardPlan, device="cuda"):
         if not _ported(cfg):
@@ -296,20 +313,26 @@ class Model:
             cache
 
     def decode_step(self, params, cache, tokens, positions):
-        """One token per slot over the contiguous slot cache, or for RWKV6
-        the slots' recurrent state, updated in place (the WKV kernel writes
-        its final state over the pool's).  tokens/positions: (B,) int32.
+        """One token per slot over the contiguous slot cache (for a sliding
+        window its ring), and for RWKV6 and Mamba the slots' recurrent
+        state, updated in place (the WKV kernel writes its final state over
+        the pool's).  tokens/positions: (B,) int32.
 
-        The reference returns the new RWKV state in the compute dtype, so
-        a pool's shift leaves in another dtype (bf16 under an f32 plan)
-        are replaced by compute-dtype copies at the first step, in
-        ``cache`` itself."""
+        The reference returns the new RWKV shift state in the compute
+        dtype and the new Mamba conv state in the dtype promoted from the
+        pool's and the compute dtype, so a pool's leaf in another dtype
+        (bf16 under an f32 plan) is replaced by a copy in that dtype at the
+        first step, in ``cache`` itself."""
         cfg, plan = self.cfg, self.plan
-        if cfg.rwkv:
-            for part in ("tmix", "cmix"):
-                leaf = cache[part]["shift"]
-                if leaf.dtype != plan.compute_dtype:
-                    cache[part]["shift"] = leaf.to(plan.compute_dtype)
+        leaves = [(cache[part], "shift") for part in ("tmix", "cmix")] \
+            if cfg.rwkv else []
+        if cfg.family == "hybrid":
+            leaves.append((cache["mamba"], "conv"))
+        for tree, name in leaves:
+            want = plan.compute_dtype if cfg.rwkv else torch.promote_types(
+                tree[name].dtype, plan.compute_dtype)
+            if tree[name].dtype != want:
+                tree[name] = tree[name].to(want)
         x = self._embed_inputs(params, tokens)
         for i in range(cfg.num_layers):
             x, _ = block_decode(x, _layer(params["layers"], i),
@@ -376,15 +399,20 @@ class Model:
     def init_cache(self, batch: int, seq_len: int, dtype=torch.bfloat16,
                    device="cuda") -> dict:
         """Layer-stacked slot cache on ``device`` (the slot pool passes the
-        model's): leaves (L, batch, seq_len, K, hd); for RWKV6 the
+        model's): leaves (L, batch, seq_len, K, hd), for a sliding window
+        its ring (L, batch, min(window, seq_len), K, hd); for RWKV6 the
         recurrent state, ``{"tmix": {"shift", "wkv"}, "cmix": {"shift"}}``
-        with leaves (L, batch, ...), the WKV state in f32."""
+        with leaves (L, batch, ...), the WKV state in f32; the hybrid
+        family adds ``"mamba": {"conv", "ssm"}``, the SSM state in f32."""
         cfg, plan = self.cfg, self.plan
         if cfg.rwkv:
             one = S.init_rwkv_state(cfg, plan, batch, dtype, device="meta")
         else:
             one = {"attn": A.init_attn_cache(cfg, plan, batch, seq_len, dtype,
                                              device="meta")}
+            if cfg.family == "hybrid":
+                one["mamba"] = S.init_mamba_state(cfg, plan, batch, dtype,
+                                                  device="meta")
         return L.tree_map(lambda a: torch.zeros((cfg.num_layers,) + a.shape,
                                                 dtype=a.dtype, device=device),
                           one)

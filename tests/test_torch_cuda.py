@@ -711,3 +711,112 @@ def test_smoke_moe_model_kernel_path_matches_plain_path(gen, quantize):
         ops.flash_attention, ops.paged_decode_attention = saved
     torch.testing.assert_close(lk, lp, atol=1e-4, rtol=0)
     torch.testing.assert_close(dk, dp, atol=1e-4, rtol=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,H,K,S,D,window", [
+    (2, 4, 2, 256, 32, 1), (2, 4, 2, 256, 32, 16), (1, 4, 2, 200, 64, 33),
+    (1, 8, 2, 300, 64, 64), (2, 4, 4, 130, 16, 1000),
+    (1, 25, 5, 2048, 64, 1024),
+])
+def test_flash_window_kernel_matches_plain(gen, dtype, B, H, K, S, D, window):
+    """Kernel 1's window form: windows below the 32- and 64-row tiles, not
+    a multiple of either, past S, and hymba's (25/5 heads, window 1024 at
+    S = 2048); ``banded`` counts only 0 < window < S."""
+    q = torch.randn(B, S, H, D, generator=gen, device="cuda", dtype=dtype)
+    k = torch.randn(B, S, K, D, generator=gen, device="cuda", dtype=dtype)
+    v = torch.randn(B, S, K, D, generator=gen, device="cuda", dtype=dtype)
+    args = (q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2))
+    before = fa.flash_attention.launches, fa.flash_attention.banded
+    o = fa.flash_attention(*args, window=window)
+    assert fa.flash_attention.launches == before[0] + 1
+    assert fa.flash_attention.banded == before[1] + (window < S)
+    assert_close(o, fa.flash_attention_ref(*args, window=window), dtype)
+    if window >= S:                                 # the causal kernel's
+        assert torch.equal(o, fa.flash_attention(*args))
+
+
+def test_flash_window_wrapper_refuses_negative_window(gen):
+    q = torch.zeros(1, 2, 16, 32, device="cuda")
+    before = fa.flash_attention.launches
+    with pytest.raises(ValueError, match="window"):
+        fa.flash_attention(q, q, q, window=-1)
+    assert fa.flash_attention.launches == before
+
+
+@pytest.mark.parametrize("q_dt,kv_dt", [
+    (torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16),
+    (torch.float32, torch.bfloat16)])
+def test_decode_kernel_on_a_ring_matches_plain(gen, q_dt, kv_dt):
+    """Kernel 5 over hymba's ring (4 lanes, 25/5 heads, W = 1024) with the
+    positions clamped to the ring's last slot as the model clamps them,
+    against ``swa_decode_ref`` (which rounds o to the ring's dtype: the
+    f32-over-bf16 pair is held at the bf16 tolerance)."""
+    B, H, K, W, D = 4, 25, 5, 1024, 64
+    q = torch.randn(B, H, D, generator=gen, device="cuda", dtype=q_dt)
+    k = torch.randn(B, W, K, D, generator=gen, device="cuda", dtype=kv_dt)
+    v = torch.randn(B, W, K, D, generator=gen, device="cuda", dtype=kv_dt)
+    pos = torch.tensor([1990, 1400, 1000, 200], dtype=torch.int32,
+                       device="cuda").clamp(max=W - 1)
+    assert_close(da.decode_attention(q, k, v, pos),
+                 da.swa_decode_ref(q, k, v, pos), kv_dt)
+
+
+def test_smoke_hybrid_model_kernel_path_matches_plain_path(gen):
+    """hymba's smoke model at f32 over an f32 pool: prefills past the
+    window (kernel 1's window form) and inside it, then decode steps over
+    the ring across its wrap (kernel 5), through the kernels vs the plain
+    versions, both on the card."""
+    cfg = get_config("hymba-1.5b").smoke_config()
+    m = build_model(cfg, local_plan(param_dtype=torch.float32,
+                                    compute_dtype=torch.float32))
+    p = m.init(torch.Generator(device="cuda").manual_seed(0))
+    tokens = torch.randint(0, cfg.vocab_size, (2, 40), generator=gen,
+                           device="cuda", dtype=torch.int32)
+
+    def run():
+        long, _ = m.prefill(p, tokens)
+        short, cache = m.prefill(p, tokens[:, :12])
+        pool = m.init_cache(2, 64, dtype=torch.float32)
+        for part, leaves in cache.items():
+            for name, leaf in leaves.items():
+                pool[part][name][:, :, :leaf.shape[2]] = leaf
+        for t in range(12, 40):
+            step, _ = m.decode_step(p, pool, tokens[:, t].contiguous(),
+                                    torch.full((2,), t, dtype=torch.int32,
+                                               device="cuda"))
+        return long, short, step
+
+    before = (fa.flash_attention.launches, fa.flash_attention.banded,
+              da.decode_attention.launches)
+    got = run()
+    L = cfg.num_layers
+    assert fa.flash_attention.launches == before[0] + 2 * L
+    assert fa.flash_attention.banded == before[1] + L
+    assert da.decode_attention.launches == before[2] + 28 * L
+    saved = ops.flash_attention, ops.decode_attention
+    ops.flash_attention = fa.flash_attention_ref
+    ops.decode_attention = lambda *a, ring=False, **kw: \
+        (da.swa_decode_ref if ring else da.flash_decode_ref)(*a, **kw)
+    try:
+        want = run()
+    finally:
+        ops.flash_attention, ops.decode_attention = saved
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, atol=1e-4, rtol=0)
+    # decode across the wrap equals the longer prefill
+    torch.testing.assert_close(got[2], got[0], atol=1e-4, rtol=0)
+
+
+def test_serve_cli_hymba_on_cuda_matches_cpu(gen):
+    """hymba's serve CLI on the card runs kernels 1 (window form: its
+    prompts of 4-23 tokens pass the smoke window of 16) and 5 in slot mode
+    and prints the same dict as on the CPU."""
+    from repro_torch.launch import serve
+    argv = ["--arch", "hymba-1.5b", "--smoke", "--requests", "4",
+            "--max-new", "6"]
+    fa.flash_attention.launches = da.decode_attention.launches = 0
+    got = serve.main(argv)
+    assert fa.flash_attention.launches > 0 and da.decode_attention.launches
+    assert got["mode"] == "slots"
+    assert got == serve.main(argv + ["--device", "cpu"])

@@ -90,7 +90,8 @@ def test_every_kernel_source_is_built():
     layers.embed_init, layers.rope_freqs, layers.mlp_init, TA.init_gqa,
     TA.kv_index, TA.init_paged_attn_cache, TA.init_attn_cache,
     Model.init_cache, TS.init_rwkv_tmix, TS.init_rwkv_cmix,
-    TS.init_rwkv_state, TM.init_moe, EngineSpec.build,
+    TS.init_rwkv_state, TM.init_moe, TS.init_mamba, TS.init_mamba_state,
+    EngineSpec.build,
 ], ids=lambda f: f.__qualname__)
 def test_entry_points_default_to_cuda(fn):
     assert inspect.signature(fn).parameters["device"].default == "cuda"
@@ -126,7 +127,8 @@ DISPATCH = {
     "paged_verify_attention": (prefill_mod, "paged_verify_attention",
                                ("paged_prefill_attention_ref",), 5),
     "decode_attention": (dense_mod, "decode_attention",
-                         ("decode_attention_ref", "flash_decode_ref"), 4),
+                         ("decode_attention_ref", "flash_decode_ref",
+                          "swa_decode_ref"), 4),
     "rwkv6_wkv": (wkv_mod, "rwkv6_wkv", ("rwkv6_wkv_ref",), 6),
     "int8_matmul": (i8_mod, "int8_matmul", ("int8_matmul_ref",), 4),
     "int8_matmul_quantized": (i8_mod, "int8_matmul_quantized",
@@ -157,6 +159,29 @@ def test_dispatcher_sends_cuda_tensors_to_the_kernel(monkeypatch, name):
     args = [_FakeCuda() for _ in range(n_args)]
     assert getattr(ops, name)(*args) == "kernel"
     assert len(calls) == 1
+
+
+@pytest.mark.parametrize("name,kw", [("flash_attention", {"window": 16}),
+                                     ("decode_attention", {"ring": True})],
+                         ids=["flash_window", "decode_ring"])
+def test_dispatcher_sends_cuda_tensors_to_the_kernel_in_every_form(
+        monkeypatch, name, kw):
+    """The window form of kernel 1 and the ring decode of kernel 5 launch
+    the kernel for CUDA tensors, as their plain forms do."""
+    mod, wrapper, plains, n_args = DISPATCH[name]
+    calls = []
+    monkeypatch.setattr(mod, wrapper,
+                        lambda *a, **k: calls.append(k) or "kernel")
+
+    def plain(*a, **k):
+        raise AssertionError("a CUDA tensor reached the plain version")
+
+    for ref in plains:
+        monkeypatch.setattr(mod, ref, plain)
+    assert getattr(ops, name)(*[_FakeCuda() for _ in range(n_args)],
+                              **kw) == "kernel"
+    assert len(calls) == 1
+    assert calls[0].get("window") == kw.get("window")   # passed through
 
 
 @pytest.mark.parametrize("devices", [("cpu", "meta"), ("meta", "meta")])
@@ -192,6 +217,8 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     q = torch.zeros(1, 2, 16, 32)
     with pytest.raises(ValueError):
         flash_mod.flash_attention(q, q, q)
+    with pytest.raises(ValueError):
+        flash_mod.flash_attention(q, q, q, window=4)
     pool = torch.zeros(3, 8, 2, 32)
     tab = torch.zeros(1, 2, dtype=torch.int32)
     with pytest.raises(ValueError):
@@ -220,6 +247,7 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     with pytest.raises(ValueError):
         i8_mod.int8_matmul_quantized(torch.ones(4, 32), torch.ones(32, 4))
     assert flash_mod.flash_attention.launches == 0
+    assert flash_mod.flash_attention.banded == 0
     assert paged_mod.paged_decode_attention.launches == 0
     assert paged_mod.paged_decode_attention_lse.launches == 0
     assert prefill_mod.paged_prefill_attention.launches == 0
@@ -271,6 +299,26 @@ def test_rwkv_model_runs_plain_version_on_cpu_without_counting():
     assert logits.shape == (2, 128) and torch.isfinite(logits).all()
     assert cache["tmix"]["wkv"].abs().sum() > 0     # written in place
     assert wkv_mod.rwkv6_wkv.launches == 0
+
+
+def test_hybrid_model_runs_plain_versions_on_cpu_without_counting():
+    """hymba's smoke model on the CPU: a prefill past the window (kernel
+    1's window form) and a ring decode (kernel 5) through the plain
+    versions, the Mamba state written in place, and no launch counted."""
+    m = Model(get_config("hymba-1.5b").smoke_config(), local_plan(),
+              device="cpu")
+    p = m.init(torch.Generator().manual_seed(0))
+    logits, cache = m.prefill(p, torch.zeros(1, 40, dtype=torch.int32))
+    assert logits.shape == (1, 128) and torch.isfinite(logits).all()
+    assert cache["attn"]["k"].shape[2] == 16             # the ring
+    pool = m.init_cache(2, 64, device="cpu")
+    logits, _ = m.decode_step(p, pool, torch.zeros(2, dtype=torch.int32),
+                              torch.tensor([40, 0], dtype=torch.int32))
+    assert logits.shape == (2, 128) and torch.isfinite(logits).all()
+    assert pool["mamba"]["ssm"].abs().sum() > 0          # written in place
+    assert flash_mod.flash_attention.launches == 0
+    assert flash_mod.flash_attention.banded == 0
+    assert dense_mod.decode_attention.launches == 0
 
 
 @pytest.mark.parametrize("quantize", [False, True])

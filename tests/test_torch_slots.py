@@ -205,12 +205,11 @@ def test_gqa_decode_matches_reference(models):
         np.testing.assert_array_equal(_np(tc[name]), _np(jc[name]))
 
 
-@pytest.mark.parametrize("kind", [dict(attn_kind="mla"),
-                                  dict(attn_kind="swa", window=8)],
-                         ids=["mla", "swa"])
+@pytest.mark.parametrize("kind", [dict(attn_kind="mla")], ids=["mla"])
 def test_unported_slot_caches_raise(models, kind):
-    """The MLA latent and SWA ring caches are not ported: the slot cache
-    and the slot decode refuse them instead of serving a dense cache."""
+    """The MLA latent cache is not ported: the slot cache and the slot
+    decode refuse it instead of serving a dense cache.  (The SWA ring is
+    ported: tests/test_torch_hymba.py.)"""
     _, _, tm, tp = models
     cfg = tm.cfg.replace(**kind)
     with pytest.raises(NotImplementedError):
