@@ -15,12 +15,16 @@ Builds the hand-written CUDA kernels from ``src/repro_torch/csrc`` (one
    the int8 GEMM, kernel 6, bit-exact at the reference's test shapes,
    granite's expert shapes, a ragged and a large shape, in both output
    types; for kernel 1's window form, hymba-1.5b's prefill shape and edge
-   windows at small S; for kernel 5, also hymba's ring with its positions
+   windows at small S; for its bidirectional form, hubert-xlarge's shape
+   (S = 1000, D = 80) and edge cases at small and ragged S, GQA and
+   windows; kernel 1 at head dims 80, 96 and 256, causal and
+   bidirectional; for kernel 5, also hymba's ring with its positions
    clamped to the ring's last slot), and times kernel, plain version and a
    PyTorch library call beside each where one exists (the library call is
    a yardstick only; the port never calls it).  Kernels 1-5 and kernel
-   1's window form are timed five times (20 calls each): median, min and
-   max;
+   1's window and bidirectional forms are timed five times (20 calls
+   each): median, min and max; kernel 1 causal at D = 80, 96 and 256 at
+   S = 2048 is a reading;
 2. serves full-width llama2-7b (random weights from a seeded generator)
    through the ``Engine`` on five paths, each with every launch count set
    to 0 just before and read just after: the paged pool with whole-prompt
@@ -82,6 +86,17 @@ Builds the hand-written CUDA kernels from ``src/repro_torch/csrc`` (one
    1000-token prefill plus 64 decode steps across the ring's wrap against
    the 1064-token prefill (f32 plan); traces of one 1536-token prefill and
    one slot decode step at positions 1990/1400/1000/200.
+8. frees hymba and runs full-width hubert-xlarge's encoder forward
+   (random bf16 weights from a seeded generator; 48 layers of
+   bidirectional attention at head dim 80, LayerNorm, a GELU MLP) on 4
+   clips of 1000 frame embeddings: ``Model.logits`` with every launch
+   count set to 0 just before and read just after (kernel 1 once per
+   layer, every launch bidirectional, no other kernel; finite logits of
+   (4, 1000, 504)), ``Model.prefill`` (its last-frame logits against the
+   forward's, its (48, 4, 1000, 16, 80) cache), the whole forward through
+   the kernels against the plain versions in an f32 compute plan (held
+   at 1e-4 of max |logit|) and in bf16 (a reading), and a trace of one
+   forward with kernel 1's share of the device time.
 
 Any failed check exits non-zero.  The last line is the result JSON; the
 lines before it list every kernel with its launches, error and times, and
@@ -307,6 +322,105 @@ def check_flash_window(torch, dtypes):
             "max_abs_err": err, "ms": ms, "ms_min": lo, "ms_max": hi,
             "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
             "library_ms": lib_ms}
+
+
+def check_flash_bidirectional(torch, dtypes):
+    """Kernel 1's bidirectional form (``causal=False``) against its plain
+    version: hubert-xlarge's shape (B=4, H=K=16, S=1000, D=80: 24 pad keys
+    in the last 32-key tile, which every row must mask itself), then edge
+    cases at small S (1; 31 and 33 about the 32-key tile; 64), GQA (H=8,
+    K=2), windows 1, 16 and >= S, bf16 and f32, from a generator of its
+    own so the other checks' inputs stay as drawn.  A window >= S must give
+    the unwindowed output bit for bit.  Times the main shape in bf16
+    beside its plain version and SDPA (``is_causal=False``; a yardstick
+    only)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+    g = torch.Generator(device="cuda").manual_seed(17)
+    main = (4, 16, 16, 1000, 80, 0)
+    shapes = [main] + [(2, 8, 2, S, 80, 0) for S in (1, 31, 33, 64, 1000)] \
+        + [(2, 8, 2, 200, 64, w) for w in (1, 16, 200, 1000)] \
+        + [(1, 16, 16, 1000, 80, 16)]
+    timed = None
+    for name, dt in dtypes.items():
+        for B, H, K, S, D, W in shapes:
+            q, k, v = (torch.randn(B, S, n, D, generator=g, device="cuda",
+                                   dtype=dt).transpose(1, 2)
+                       for n in (H, K, K))
+            o = fa.flash_attention(q, k, v, causal=False, window=W)
+            err = held(f"flash_attention bidirectional window={W} {name} "
+                       f"B={B} H={H} K={K} S={S} D={D}", o,
+                       fa.flash_attention_ref(q, k, v, causal=False,
+                                              window=W), name)
+            if W >= S and not torch.equal(
+                    o, fa.flash_attention(q, k, v, causal=False)):
+                fail(f"flash_attention bidirectional window={W} >= S={S} "
+                     f"differs from the unwindowed kernel")
+            if name == "bf16" and (B, H, K, S, D, W) == main:
+                timed = (q, k, v, err)
+    q, k, v, err = timed
+    B, H, S, D = q.shape
+    ms, lo, hi = spread_ms(lambda: fa.flash_attention(q, k, v, causal=False))
+    plain_ms = cuda_ms(lambda: fa.flash_attention_ref(q, k, v, causal=False))
+    lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+        q, k, v, is_causal=False))
+    n_bytes = 4 * B * S * H * D * q.element_size()   # q, k, v in, o out
+    flops = 4 * D * B * H * S * S                      # every pair
+    bound, by = bound_of(n_bytes, flops, "bf16")
+    print(f"flash_attention bidirectional bf16 B={B} H={H} S={S} D={D}: "
+          f"kernel {spread(ms, lo, hi)}, plain {plain_ms:.4f} ms, sdpa "
+          f"{lib_ms:.4f} ms, bound {bound:.4f} ms ({by}: {n_bytes} B, "
+          f"{flops} flop; {flops / ms / 1e9:.1f} TFLOP/s)", flush=True)
+    return {"name": "flash_attention_bidirectional", "route": "cuda",
+            "source": "src/repro_torch/csrc/flash_attention.cu",
+            "replaces": "src/repro/kernels/flash_attention.py:79",
+            "max_abs_err": err, "ms": ms, "ms_min": lo, "ms_max": hi,
+            "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
+            "library_ms": lib_ms}
+
+
+def check_flash_head_dims(torch, dtypes) -> None:
+    """Kernel 1 at the head dims past 128 and off the powers of two that
+    registered configs use (80 hubert-xlarge, 96 minicpm3-4b, 256
+    gemma-7b), causal and bidirectional, bf16 and f32, against its plain
+    version at a ragged S with GQA, from a generator of its own.  Readings
+    (not entries of the kernels line): the causal kernel at B=1, H=K=16,
+    S=2048 for each of the three, D=256 (gemma-7b's prefill shape) timed
+    five times, each beside the plain version, SDPA and the bound."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+    g = torch.Generator(device="cuda").manual_seed(18)
+    for name, dt in dtypes.items():
+        for D in (80, 96, 256):
+            for causal in (True, False):
+                q, k, v = (torch.randn(2, 333, n, D, generator=g,
+                                       device="cuda", dtype=dt).transpose(1, 2)
+                           for n in (8, 2, 2))
+                held(f"flash_attention {'causal' if causal else 'bidirectional'}"
+                     f" {name} B=2 H=8 K=2 S=333 D={D}",
+                     fa.flash_attention(q, k, v, causal=causal),
+                     fa.flash_attention_ref(q, k, v, causal=causal), name)
+    B, H, S = 1, 16, 2048
+    for D in (80, 96, 256):
+        q, k, v = (torch.randn(B, S, H, D, generator=g, device="cuda",
+                               dtype=torch.bfloat16).transpose(1, 2)
+                   for _ in range(3))
+        if D == 256:
+            ms, lo, hi = spread_ms(lambda: fa.flash_attention(q, k, v))
+            when = spread(ms, lo, hi)
+        else:
+            ms = cuda_ms(lambda: fa.flash_attention(q, k, v))
+            when = f"{ms:.4f} ms (20 calls)"
+        plain_ms = cuda_ms(lambda: fa.flash_attention_ref(q, k, v))
+        lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True))
+        n_bytes = 4 * B * S * H * D * q.element_size()
+        flops = 4 * D * B * H * S * (S + 1) // 2
+        bound, by = bound_of(n_bytes, flops, "bf16")
+        print(f"reading: flash_attention causal bf16 B={B} H=K={H} S={S} "
+              f"D={D}: kernel {when}, plain {plain_ms:.4f} ms, sdpa "
+              f"{lib_ms:.4f} ms, bound {bound:.4f} ms ({by}: {n_bytes} B, "
+              f"{flops} flop; {flops / ms / 1e9:.1f} TFLOP/s)", flush=True)
 
 
 def _paged_inputs(torch, gen, B, H, K, D, bs, T, q_dt, kv_dt):
@@ -929,7 +1043,8 @@ def check_int8(torch, gen):
 
 def kernel_wrappers() -> dict:
     """Every kernel wrapper of the port by name; each counts its launches
-    (kernel 1's also those of its window form that band, ``banded``)."""
+    (kernel 1's also those of its window form that band, ``banded``, and
+    those of its bidirectional form, ``bidirectional``)."""
     from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import int8_matmul as i8
@@ -950,15 +1065,18 @@ def reset_launches() -> None:
     for fn in wrappers.values():
         fn.launches = 0
     wrappers["flash_attention"].banded = 0
+    wrappers["flash_attention"].bidirectional = 0
 
 
 def read_launches() -> dict:
     """Launches by kernel; ``flash_attention_window`` counts the launches
-    of kernel 1 that band (0 < window < S), which ``flash_attention``
-    counts too."""
+    of kernel 1 that band (0 < window < S), ``flash_attention_bidirectional``
+    those with ``causal=False``; ``flash_attention`` counts both too."""
     wrappers = kernel_wrappers()
     out = {name: fn.launches for name, fn in wrappers.items()}
     out["flash_attention_window"] = wrappers["flash_attention"].banded
+    out["flash_attention_bidirectional"] = \
+        wrappers["flash_attention"].bidirectional
     return out
 
 
@@ -1509,11 +1627,11 @@ def host_walls(torch, fn, per: int, reps: int) -> list:
     return walls
 
 
-def trace(torch, label: str, fn, walls: list, per: int, unit: str) -> None:
+def trace(torch, label: str, fn, walls: list, per: int, unit: str) -> list:
     """Trace one call of ``fn`` with ``torch.profiler``: device busy time,
     the device's idle share against the median of ``walls`` (its host
     wall per step) and the device kernels that take the time, all divided
-    by ``per``."""
+    by ``per``.  Returns the device rows, (device us, count, name)."""
     import statistics
     from torch.profiler import ProfilerActivity, profile
     wall_ms = statistics.median(walls)
@@ -1538,6 +1656,7 @@ def trace(torch, label: str, fn, walls: list, per: int, unit: str) -> None:
     for dev_us, count, key in sorted(rows, reverse=True)[:10]:
         print(f"  {dev_us / 1e3 / per:8.3f} ms/{unit}  {count / per:6.1f}/"
               f"{unit}  {key[:90]}", flush=True)
+    return rows
 
 
 def phase4_calls(torch, model, params, horizon: int = 8) -> dict:
@@ -2377,6 +2496,144 @@ def hymba_phases(torch) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 8: full-width hubert-xlarge's encoder forward
+# ---------------------------------------------------------------------------
+
+def hubert_model(torch):
+    """Full-width hubert-xlarge in bf16 from seed 0; checks the parameter
+    count: the config's, plus what its formula leaves out (the LayerNorm
+    biases and the MLP's two biases)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model, local_plan
+    cfg = get_config("hubert-xlarge")
+    model = build_model(cfg, local_plan(param_dtype=torch.bfloat16))
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    leaves = list(_leaves(params))
+    n = sum(t.numel() for t in leaves)
+    d, L = cfg.d_model, cfg.num_layers
+    extra = (2 * L + 1) * d + L * (cfg.d_ff + d)
+    print(f"hubert-xlarge full width: {L} layers d_model {d} heads "
+          f"{cfg.n_heads}/{cfg.n_kv_heads} x {cfg.head_dim}, d_ff "
+          f"{cfg.d_ff}, vocab {cfg.vocab_size}, bidirectional, LayerNorm, "
+          f"GELU MLP, frame-embedding inputs; {n} params "
+          f"({cfg.param_count()} + {extra}), "
+          f"{sum(t.numel() * t.element_size() for t in leaves) / 2**30:.2f} "
+          f"GiB in bf16, init {time.perf_counter() - t0:.1f} s", flush=True)
+    if n != cfg.param_count() + extra:
+        fail(f"hubert-xlarge parameter count {n} != {cfg.param_count()} + "
+             f"{extra}")
+    return model, params
+
+
+def hubert_frames(torch, model):
+    """4 clips of 1000 frames of frame embeddings (20 s of audio at
+    HuBERT's 20 ms frame stride; the CNN frontend is a stub in the
+    reference too), N(0, 1) in f32 from seed 13."""
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    return torch.randn(4, 1000, model.cfg.d_model, generator=gen,
+                       device="cuda")
+
+
+def hubert_forward(torch, model, params, frames) -> dict:
+    """``Model.logits`` through the kernels with every launch count set to
+    0 just before and read just after: per-frame logits (4, 1000, 504),
+    finite; kernel 1 once per layer, every launch bidirectional, no other
+    attention kernel.  Then ``Model.prefill``: its last-frame logits
+    against the forward's, its cache (L, 4, 1000, K, hd)."""
+    cfg, L = model.cfg, model.cfg.num_layers
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    logits = model.logits(params, frames)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    la = read_launches()
+    others = {n: la[n] for n in ATTENTION + ("rwkv6_wkv", "int8_matmul")
+              if n != "flash_attention"}
+    shape = (frames.shape[0], frames.shape[1], cfg.vocab_size)
+    finite = bool(torch.isfinite(logits).all())
+    print(f"hubert forward: logits {tuple(logits.shape)} (want {shape}), "
+          f"finite={finite}, max|logit| {logits.float().abs().max().item():.3f}"
+          f", {wall * 1e3:.1f} ms host wall; flash_attention launches="
+          f"{la['flash_attention']} ({L} layers), of them bidirectional="
+          f"{la['flash_attention_bidirectional']}, banded="
+          f"{la['flash_attention_window']}; other kernels {others} (all 0)",
+          flush=True)
+    if tuple(logits.shape) != shape or not finite:
+        fail("hubert: the forward's logits are not finite of the expected "
+             "shape")
+    if (la["flash_attention"] != L or la["flash_attention_bidirectional"] != L
+            or la["flash_attention_window"] or any(others.values())):
+        fail("hubert: the forward did not launch kernel 1's bidirectional "
+             "form once per layer and nothing else")
+    last, cache = model.prefill(params, frames)
+    want = (L, frames.shape[0], frames.shape[1], cfg.n_kv_heads,
+            cfg.head_dim)
+    shapes = {n: tuple(t.shape) for n, t in cache["attn"].items()}
+    print(f"hubert prefill: cache {shapes} (want k and v {want})",
+          flush=True)
+    if set(cache) != {"attn"} or any(sh != want for sh in shapes.values()) \
+            or set(shapes) != {"k", "v"}:
+        fail("hubert: prefill's cache is not (L, B, S, K, hd) k and v")
+    del cache
+    if not logits_agree(torch, cfg.vocab_size, "hubert prefill last frame "
+                        "vs logits[:, -1]", last, logits[:, -1]):
+        fail("hubert: prefill's last-frame logits differ from the forward's")
+    torch.cuda.empty_cache()
+    return la, logits
+
+
+def hubert_kernel_vs_plain(torch, model, params, frames, logits) -> None:
+    """The whole forward through the kernels against the plain versions on
+    the card: in an f32 compute plan (bf16 weights, TF32 off) held at 1e-4
+    of max |logit|; in the serving bf16 plan a reading (max error, argmax
+    per frame)."""
+    from repro_torch.models import build_model, local_plan
+    vocab = model.cfg.vocab_size
+    f32 = build_model(model.cfg, local_plan(param_dtype=torch.bfloat16,
+                                            compute_dtype=torch.float32))
+    lk = f32.logits(params, frames).reshape(-1, vocab)
+    with plain_versions():
+        lp = f32.logits(params, frames).reshape(-1, vocab)
+    scale = max(1.0, lp.abs().max().item())
+    ok = logits_agree(torch, vocab, "hubert f32 plan forward (4 x 1000 "
+                      "frames), kernel vs plain", lk, lp, 1e-4 * scale)
+    del lk, lp
+    with plain_versions():
+        lp = model.logits(params, frames).reshape(-1, vocab)
+    _reading(torch, vocab, "hubert bf16 plan forward (4 x 1000 frames), "
+             "kernel vs plain", logits.reshape(-1, vocab), lp)
+    del lp
+    torch.cuda.empty_cache()
+    if not ok:
+        fail("hubert-xlarge forward: kernel and plain versions disagree "
+             "(f32 plan)")
+
+
+def hubert_phases(torch) -> dict:
+    """Phase 8; returns the forward's launches."""
+    model, params = hubert_model(torch)
+    frames = hubert_frames(torch, model)
+    launches, logits = hubert_forward(torch, model, params, frames)
+    hubert_kernel_vs_plain(torch, model, params, frames, logits)
+    del logits
+    fwd = lambda: model.logits(params, frames)  # noqa: E731
+    walls = host_walls(torch, fwd, 1, reps=3)
+    rows = trace(torch, "forward profile hubert-xlarge bf16, 4 clips of "
+                 "1000 frames", fwd, walls, per=1, unit="forward")
+    busy = sum(r[0] for r in rows)
+    flash = sum(r[0] for r in rows if "flash_kernel" in r[2])
+    print(f"hubert forward trace: kernel 1 {flash / 1e3:.3f} ms of "
+          f"{busy / 1e3:.3f} ms device busy, share "
+          + (f"{flash / busy:.3f}" if busy else "not measured"), flush=True)
+    del model, params, frames
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2409,10 +2666,12 @@ def main() -> int:
     # draw the inputs they drew before
     entries = [check_flash(torch, dtypes, gen), check_flash_window(torch,
                                                                   dtypes),
+               check_flash_bidirectional(torch, dtypes),
                check_paged(torch, gen),
                check_prefill(torch, gen), check_dense(torch, gen),
                check_wkv(torch, gen), check_lse(torch, gen),
                check_int8(torch, gen)]
+    check_flash_head_dims(torch, dtypes)
     print(f"phase 1 done at {time.perf_counter() - t_start:.1f} s",
           flush=True)
 
@@ -2470,6 +2729,12 @@ def main() -> int:
 
     # phase 7: granite's variants went at the end of phase 6
     for name, n in hymba_phases(torch).items():
+        launches[name] += n
+    print(f"phase 7 done at {time.perf_counter() - t_start:.1f} s",
+          flush=True)
+
+    # phase 8: hymba went at the end of phase 7
+    for name, n in hubert_phases(torch).items():
         launches[name] += n
     for e in entries:
         e["launches"] = launches[e["name"]]

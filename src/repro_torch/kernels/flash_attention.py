@@ -1,10 +1,12 @@
-"""Causal GQA flash attention (prompt prefill), over every earlier key or,
-with ``window`` W > 0, over the W latest (query q sees key k iff
-q - W < k <= q): the CUDA kernel's wrapper and its plain PyTorch version.
+"""GQA flash attention (prompt prefill, and the encoder's forward): the
+CUDA kernel's wrapper and its plain PyTorch version.  Query q sees key k
+iff ``k <= q`` when ``causal`` (every key when not) and, with ``window``
+W > 0, ``k > q - W``: the reference's two flags, independent.
 
 The kernel (``csrc/flash_attention.cu``) replaces the Pallas TPU kernel
-``repro/kernels/flash_attention.py::flash_attention`` (its causal form,
-with and without ``window``).  Layout follows the reference: q (B, H, S,
+``repro/kernels/flash_attention.py::flash_attention`` in every form:
+causal or bidirectional, with and without ``window``, at every head dim a
+registered config uses.  Layout follows the reference: q (B, H, S,
 D), k/v (B, K, S, D), head h reading KV head h*K//H.
 Both functions accept any strides with a unit stride on D, so the model
 passes ``x.transpose(1, 2)`` views of its (B, S, H, D) activations and no
@@ -22,7 +24,7 @@ from repro_torch.kernels import build
 
 NEG_INF = -1e30
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_HEAD_DIMS = (16, 32, 64, 128)   # instantiated in csrc/flash_attention.cu
+_HEAD_DIMS = (16, 32, 64, 80, 96, 128, 256)  # csrc/flash_attention.cu's
 
 
 def _check_window(window: int) -> None:
@@ -32,13 +34,13 @@ def _check_window(window: int) -> None:
 
 
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                        scale: float | None = None,
+                        scale: float | None = None, causal: bool = True,
                         window: int = 0) -> torch.Tensor:
-    """Plain version (port of ``kernels/ref.py::flash_attention_ref``,
-    causal, with its ``window``).  The normalised P is rounded to v's
-    dtype before PV, as the reference model's ``_attn_block`` does (the
-    kernel rounds the unnormalised exponentials instead); at f32 that is
-    the identity."""
+    """Plain version (port of ``kernels/ref.py::flash_attention_ref``, its
+    mask built from ``causal`` and ``window`` as there).  The normalised P
+    is rounded to v's dtype before PV, as the reference model's
+    ``_attn_block`` does (the kernel rounds the unnormalised exponentials
+    instead); at f32 that is the identity."""
     _check_window(window)
     B, H, S, D = q.shape
     K = k.shape[1]
@@ -46,7 +48,9 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     ke = k.repeat_interleave(H // K, dim=1)
     ve = v.repeat_interleave(H // K, dim=1)
     s = torch.einsum("bhqd,bhkd->bhqk", q.float(), ke.float()) * scale
-    mask = torch.ones(S, S, dtype=torch.bool, device=q.device).tril()
+    mask = torch.ones(S, S, dtype=torch.bool, device=q.device)
+    if causal:
+        mask = mask.tril()                # k <= q
     if window:
         mask = mask.triu(1 - window)      # k > q - window
     s = torch.where(mask, s, NEG_INF)
@@ -58,7 +62,7 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 @functools.cache
 def _kernel():
     fn = build.library("flash_attention").flash_attention
-    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
+    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
                    + [ctypes.c_longlong] * 12
                    + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
     fn.restype = ctypes.c_int
@@ -96,12 +100,13 @@ def _check(q, k, v) -> None:
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    scale: float | None = None,
+                    scale: float | None = None, causal: bool = True,
                     window: int = 0) -> torch.Tensor:
     """Launch the CUDA kernel: q (B, H, S, D), k/v (B, K, S, D), one dtype
     (bf16 or f32), all on the current CUDA device -> o, laid out like q.
     ``launches`` counts every launch, ``banded`` those whose window is
-    narrower than the sequence (0 < window < S), the ones that mask."""
+    narrower than the sequence (0 < window < S), the ones that mask, and
+    ``bidirectional`` those with ``causal=False``."""
     _check_window(window)
     _check(q, k, v)
     B, H, S, D = q.shape
@@ -109,14 +114,17 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     out = torch.empty_like(q)
     err = _kernel()(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        B, H, k.shape[1], S, D, window, *q.stride()[:3], *k.stride()[:3],
-        *v.stride()[:3], *out.stride()[:3], scale, _DTYPES[q.dtype],
+        B, H, k.shape[1], S, D, int(causal), window, *q.stride()[:3],
+        *k.stride()[:3], *v.stride()[:3], *out.stride()[:3], scale,
+        _DTYPES[q.dtype],
         torch.cuda.current_stream(q.device).cuda_stream)
     build.check(err, "flash_attention")
     flash_attention.launches += 1
     flash_attention.banded += 0 < window < S
+    flash_attention.bidirectional += not causal
     return out
 
 
 flash_attention.launches = 0
 flash_attention.banded = 0
+flash_attention.bidirectional = 0

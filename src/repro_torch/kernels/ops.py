@@ -30,12 +30,15 @@ def _on_cpu(*tensors: torch.Tensor) -> bool:
                      f"on the CPU or all on CUDA")
 
 
-def flash_attention(q, k, v, *, scale=None, window=0):
-    """Causal GQA attention: q (B, H, S, D), k/v (B, K, S, D), any strides;
-    with ``window`` W > 0 over the W latest keys only."""
+def flash_attention(q, k, v, *, scale=None, causal=True, window=0):
+    """GQA attention: q (B, H, S, D), k/v (B, K, S, D), any strides; over
+    keys k <= q when ``causal`` (every key when not) and, with ``window``
+    W > 0, keys k > q - W only."""
     if _on_cpu(q, k, v):
-        return _flash.flash_attention_ref(q, k, v, scale=scale, window=window)
-    return _flash.flash_attention(q, k, v, scale=scale, window=window)
+        return _flash.flash_attention_ref(q, k, v, scale=scale, causal=causal,
+                                          window=window)
+    return _flash.flash_attention(q, k, v, scale=scale, causal=causal,
+                                  window=window)
 
 
 def paged_decode_attention(q, k_pool, v_pool, block_tables, positions, *,

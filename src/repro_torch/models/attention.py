@@ -1,5 +1,5 @@
-"""GQA attention (port of the dense-GQA and sliding-window parts of
-``repro.models.attention``).
+"""GQA attention (port of the dense-GQA, sliding-window and encoder parts
+of ``repro.models.attention``).
 
 Projections keep the reference layouts (``w_q (d, H, hd)``, ``w_k``/``w_v
 (d, K, hd)``, ``w_o (H, hd, d)``) and run as plain matmuls.  Where the
@@ -15,6 +15,10 @@ Sliding-window attention (``attn_kind="swa"``, hymba) runs its prefill
 through the window form of the flash kernel (the reference's three
 branches of ``swa_attention`` are one function) and keeps a ring cache of
 the ``W = min(window, S)`` latest keys, position p in slot p % W.
+
+Bidirectional attention (``causal=False``, hubert) runs through the flash
+kernel's bidirectional form, where the reference runs ``encoder_attention``
+(``_attn_block`` over query chunks, which do not change the numbers).
 """
 from __future__ import annotations
 
@@ -89,13 +93,14 @@ def _ring(t: torch.Tensor, window: int) -> torch.Tensor:
 
 def gqa_forward(p: dict, x: torch.Tensor, positions: torch.Tensor,
                 cfg: ArchConfig, plan: ShardPlan, *, want_cache: bool):
-    """Causal GQA, over a sliding window for ``attn_kind="swa"``.
+    """Causal GQA, over a sliding window for ``attn_kind="swa"``, or
+    bidirectional for ``causal=False`` (the reference's encoder branch).
     x: (B, S, d) -> (out (B, S, d), cache | None); the cache holds this
     layer's un-rounded k/v in the compute dtype, (B, S, K, hd), or for
     the window its ring (B, min(window, S), K, hd)."""
-    if cfg.attn_kind not in ("gqa", "swa") or not cfg.causal:
-        raise NotImplementedError(f"{cfg.name}: only causal GQA and "
-                                  f"sliding-window attention are ported "
+    if cfg.attn_kind not in ("gqa", "swa"):
+        raise NotImplementedError(f"{cfg.name}: only GQA and sliding-window "
+                                  f"attention are ported "
                                   f"(attn_kind={cfg.attn_kind!r})")
     dt = plan.compute_dtype
     q = _project(x, p["w_q"].to(dt))
@@ -115,7 +120,7 @@ def gqa_forward(p: dict, x: torch.Tensor, positions: torch.Tensor,
     o = ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
                             v.transpose(1, 2),
                             scale=1.0 / math.sqrt(cfg.head_dim),
-                            window=window)
+                            causal=cfg.causal, window=window)
     return _out_proj(o.transpose(1, 2), p["w_o"].to(dt)), cache
 
 

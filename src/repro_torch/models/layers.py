@@ -50,6 +50,17 @@ def rms_norm(x: torch.Tensor, weight: torch.Tensor, *, eps: float = 1e-6,
     return (x * w).to(dtype)
 
 
+def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, *,
+               eps: float = 1e-5) -> torch.Tensor:
+    """LayerNorm in f32: the mean, then the variance of ``x - mu``."""
+    dtype = x.dtype
+    x = x.float()
+    mu = x.mean(dim=-1, keepdim=True)
+    var = (x - mu).square().mean(dim=-1, keepdim=True)
+    y = (x - mu) * torch.rsqrt(var + eps)
+    return (y * weight.float() + bias.float()).to(dtype)
+
+
 # ---------------------------------------------------------------------------
 # rotary position embeddings
 # ---------------------------------------------------------------------------
@@ -98,6 +109,26 @@ def mlp_init(d_model: int, d_ff: int, *, generator: torch.Generator,
         "w_gate": dense_init((d_model, d_ff), **kw),
         "w_up": dense_init((d_model, d_ff), **kw),
         "w_down": dense_init((d_ff, d_model), **kw),
+    }
+
+
+def gelu_mlp(x: torch.Tensor, p: dict) -> torch.Tensor:
+    """Plain 2-layer GELU MLP (HuBERT / classic transformer encoders):
+    tanh-approximate GELU in f32, biases added in the compute dtype."""
+    dtype = x.dtype
+    h = x @ p["w_in"].to(dtype) + p["b_in"].to(dtype)
+    h = F.gelu(h.float(), approximate="tanh").to(dtype)
+    return h @ p["w_out"].to(dtype) + p["b_out"].to(dtype)
+
+
+def gelu_mlp_init(d_model: int, d_ff: int, *, generator: torch.Generator,
+                  dtype=torch.float32, device="cuda") -> dict:
+    kw = dict(generator=generator, dtype=dtype, device=device)
+    return {
+        "w_in": dense_init((d_model, d_ff), **kw),
+        "b_in": torch.zeros(d_ff, dtype=dtype, device=device),
+        "w_out": dense_init((d_ff, d_model), **kw),
+        "b_out": torch.zeros(d_model, dtype=dtype, device=device),
     }
 
 

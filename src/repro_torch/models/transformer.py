@@ -1,5 +1,6 @@
-"""Model assembly for the dense GQA, MoE, RWKV6 and hybrid (hymba:
-sliding-window attention beside Mamba) families (port of those parts of
+"""Model assembly for the dense GQA, MoE, RWKV6, hybrid (hymba:
+sliding-window attention beside Mamba) and encoder (hubert: bidirectional
+attention over frame embeddings) families (port of those parts of
 ``repro.models.transformer``).
 
 Parameters are the reference's dict tree with layers stacked on a leading L
@@ -27,19 +28,29 @@ NEG_INF = -1e30
 
 
 def _norm(x, w, cfg: ArchConfig):
+    if cfg.norm_kind == "layer":
+        return L.layer_norm(x, w["scale"], w["bias"])
     return L.rms_norm(x, w["scale"], plus_one=cfg.norm_plus_one)
 
 
 def _norm_init(cfg: ArchConfig, dt, device) -> dict:
     fill = torch.zeros if cfg.norm_plus_one else torch.ones
-    return {"scale": fill(cfg.d_model, dtype=dt, device=device)}
+    p = {"scale": fill(cfg.d_model, dtype=dt, device=device)}
+    if cfg.norm_kind == "layer":
+        p["bias"] = torch.zeros(cfg.d_model, dtype=dt, device=device)
+    return p
 
 
 def _ported(cfg: ArchConfig) -> bool:
-    """The blocks this module ports, on token inputs with RMSNorm: causal
+    """The blocks this module ports.  On token inputs with RMSNorm: causal
     GQA + a gated MLP or a MoE layer of gated experts; RWKV6 time-mix +
     channel-mix; and the hybrid block, sliding-window attention beside
-    Mamba + a gated MLP."""
+    Mamba + a gated MLP.  On frame embeddings with LayerNorm: the encoder
+    block, bidirectional GQA + a two-layer GELU MLP."""
+    if cfg.family == "encoder":
+        return (cfg.input_kind == "embeds" and cfg.norm_kind == "layer"
+                and cfg.attn_kind == "gqa" and not cfg.causal
+                and cfg.mlp_kind == "gelu2" and not cfg.tie_embeddings)
     if cfg.norm_kind != "rms" or cfg.input_kind != "tokens":
         return False
     if cfg.rwkv:
@@ -69,6 +80,9 @@ def init_layer(cfg: ArchConfig, plan: ShardPlan, *,
                                   device=device)
     if cfg.n_experts:
         p["moe"] = M.init_moe(cfg, plan, generator=generator, device=device)
+    elif cfg.mlp_kind == "gelu2":
+        p["mlp"] = L.gelu_mlp_init(cfg.d_model, cfg.d_ff, generator=generator,
+                                   dtype=dt, device=device)
     else:
         p["mlp"] = L.mlp_init(cfg.d_model, cfg.d_ff, generator=generator,
                               dtype=dt, device=device)
@@ -80,13 +94,16 @@ def init_layer(cfg: ArchConfig, plan: ShardPlan, *,
 # ---------------------------------------------------------------------------
 
 def _mlp(h, lp: dict, cfg: ArchConfig, plan: ShardPlan):
-    """The block's feed-forward, the MoE layer or the gated MLP, on
-    (B, S, d) or on the decode blocks' one token per row (B, d)."""
+    """The block's feed-forward, the MoE layer, the two-layer GELU MLP or
+    the gated MLP, on (B, S, d) or on the decode blocks' one token per row
+    (B, d)."""
     if cfg.n_experts:
         if h.dim() == 2:
             return M.moe_ffn(lp["moe"], h[:, None], cfg, plan)[:, 0]
         return M.moe_ffn(lp["moe"], h, cfg, plan)
     w = {k: v.to(plan.compute_dtype) for k, v in lp["mlp"].items()}
+    if cfg.mlp_kind == "gelu2":
+        return L.gelu_mlp(h, w)
     return L.glu_mlp(h, w, activation=cfg.activation)
 
 
@@ -176,8 +193,8 @@ def _layer(tree: dict, i: int) -> dict:
 # ---------------------------------------------------------------------------
 
 class Model:
-    """One dense GQA, MoE, RWKV6 or hybrid architecture bound to a plan and
-    a device."""
+    """One dense GQA, MoE, RWKV6, hybrid or encoder architecture bound to a
+    plan and a device."""
 
     def __init__(self, cfg: ArchConfig, plan: ShardPlan, device="cuda"):
         if not _ported(cfg):
@@ -201,8 +218,10 @@ class Model:
         cfg, plan, dev = self.cfg, self.plan, self.device
         dt = plan.param_dtype
         kw = dict(generator=generator, device=dev)
-        p = {"embed": L.embed_init((cfg.vocab_size, cfg.d_model), dtype=dt,
-                                   **kw)}
+        p = {}
+        if cfg.input_kind == "tokens":   # frame embeddings need no table
+            p["embed"] = L.embed_init((cfg.vocab_size, cfg.d_model), dtype=dt,
+                                      **kw)
         first = init_layer(cfg, plan, **kw)
         layers = L.tree_map(
             lambda a: torch.empty((cfg.num_layers,) + a.shape, dtype=a.dtype,
@@ -224,8 +243,13 @@ class Model:
 
     # ----- embedding / trunk / head -----
     def _embed_inputs(self, params, inputs):
+        """Token ids through the embedding table, or frame embeddings
+        (B, S, d) cast to the compute dtype."""
         cfg, dt = self.cfg, self.plan.compute_dtype
-        x = L.take_embedding(params["embed"], inputs).to(dt)
+        if cfg.input_kind == "embeds":
+            x = inputs.to(dt)
+        else:
+            x = L.take_embedding(params["embed"], inputs).to(dt)
         if cfg.embed_scale:
             x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=dt,
                                  device=x.device)
@@ -255,8 +279,14 @@ class Model:
         B, S = x.shape[:2]
         return torch.arange(S, device=x.device)[None, :].expand(B, S)
 
+    def _no_decode(self) -> None:
+        if self.cfg.input_kind == "embeds":
+            raise ValueError(f"{self.cfg.name} is encoder-only: no decode "
+                             f"step")
+
     def logits(self, params, inputs):
-        """Full-sequence logits (small inputs / tests only)."""
+        """Full-sequence logits: the encoder's forward (frames in, per-frame
+        logits out); for the decoders small inputs / tests only."""
         x = self._embed_inputs(params, inputs)
         x, _ = self._trunk(params, x, self._positions(x), want_cache=False)
         return self._head(params, x)
@@ -323,6 +353,7 @@ class Model:
         pool's and the compute dtype, so a pool's leaf in another dtype
         (bf16 under an f32 plan) is replaced by a copy in that dtype at the
         first step, in ``cache`` itself."""
+        self._no_decode()
         cfg, plan = self.cfg, self.plan
         leaves = [(cache[part], "shift") for part in ("tmix", "cmix")] \
             if cfg.rwkv else []
@@ -344,6 +375,7 @@ class Model:
                           block_tables):
         """One token per lane over the paged pool (updated in place).
         tokens/positions: (B,) int32; block_tables: (B, T) int32."""
+        self._no_decode()
         cfg, plan = self.cfg, self.plan
         x = self._embed_inputs(params, tokens)
         for i in range(cfg.num_layers):
@@ -372,6 +404,7 @@ class Model:
         bool, last_logits (B, V_pad), (tokens, positions, active, budgets),
         cache)``; token [i, b] is valid iff emitted[i, b].
         """
+        self._no_decode()
         V = self.cfg.vocab_size
         logits = torch.zeros(tokens.shape[0], params["embed"].shape[0],
                              dtype=self.plan.compute_dtype,

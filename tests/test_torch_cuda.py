@@ -820,3 +820,92 @@ def test_serve_cli_hymba_on_cuda_matches_cpu(gen):
     assert fa.flash_attention.launches > 0 and da.decode_attention.launches
     assert got["mode"] == "slots"
     assert got == serve.main(argv + ["--device", "cpu"])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,H,K,S,D,window", [
+    (2, 4, 2, 1, 16, 0), (2, 4, 2, 31, 16, 0), (2, 4, 2, 33, 32, 0),
+    (1, 8, 2, 64, 64, 0), (4, 16, 16, 1000, 80, 0), (2, 8, 2, 1000, 80, 0),
+    (2, 4, 2, 33, 32, 1), (2, 4, 2, 200, 64, 16), (1, 8, 2, 1000, 80, 100),
+    (2, 4, 2, 31, 16, 1000),
+])
+def test_flash_bidirectional_kernel_matches_plain(gen, dtype, B, H, K, S, D,
+                                                  window):
+    """Kernel 1's bidirectional form: S of one row, below and just past
+    the 32-key tile, and hubert's 1000 frames (24 pad keys in the last
+    tile, which every row must mask itself); GQA; windows below the tiles,
+    inside S and past it.  ``bidirectional`` counts the launch; ``banded``
+    only when 0 < window < S."""
+    q = torch.randn(B, S, H, D, generator=gen, device="cuda", dtype=dtype)
+    k = torch.randn(B, S, K, D, generator=gen, device="cuda", dtype=dtype)
+    v = torch.randn(B, S, K, D, generator=gen, device="cuda", dtype=dtype)
+    args = (q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2))
+    before = (fa.flash_attention.launches, fa.flash_attention.banded,
+              fa.flash_attention.bidirectional)
+    o = fa.flash_attention(*args, causal=False, window=window)
+    assert (fa.flash_attention.launches, fa.flash_attention.banded,
+            fa.flash_attention.bidirectional) == \
+        (before[0] + 1, before[1] + (0 < window < S), before[2] + 1)
+    assert_close(o, fa.flash_attention_ref(*args, causal=False,
+                                           window=window), dtype)
+    if window >= S:                          # the unwindowed kernel's
+        assert torch.equal(o, fa.flash_attention(*args, causal=False))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("D", [16, 32, 64, 80, 96, 128, 256])
+def test_flash_kernel_at_every_head_dim(gen, dtype, causal, D):
+    """Every head dim kernel 1 is built for: the smoke configs' 16, the
+    registered configs' 64, 80 (hubert), 96 (minicpm3), 128 and 256 (gemma,
+    16-key tiles), at a ragged S with GQA."""
+    B, H, K, S = 2, 4, 2, 97
+    q = torch.randn(B, S, H, D, generator=gen, device="cuda", dtype=dtype)
+    k = torch.randn(B, S, K, D, generator=gen, device="cuda", dtype=dtype)
+    v = torch.randn(B, S, K, D, generator=gen, device="cuda", dtype=dtype)
+    args = (q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2))
+    assert_close(fa.flash_attention(*args, causal=causal),
+                 fa.flash_attention_ref(*args, causal=causal), dtype)
+
+
+def test_flash_wrapper_refuses_other_head_dims(gen):
+    before = fa.flash_attention.launches, fa.flash_attention.bidirectional
+    for D in (8, 48, 112, 512):
+        q = torch.zeros(1, 2, 16, D, device="cuda")
+        with pytest.raises(ValueError, match="head dim"):
+            fa.flash_attention(q, q, q, causal=False)
+    assert (fa.flash_attention.launches,
+            fa.flash_attention.bidirectional) == before
+
+
+def test_smoke_encoder_model_kernel_path_matches_plain_path(gen):
+    """hubert's smoke model at f32: per-frame logits and a prefill over
+    ragged frame counts through kernel 1's bidirectional form vs through
+    the plain versions, both on the card; one bidirectional launch per
+    layer and forward, no other kernel."""
+    cfg = get_config("hubert-xlarge").smoke_config()
+    m = build_model(cfg, local_plan(param_dtype=torch.float32,
+                                    compute_dtype=torch.float32))
+    p = m.init(torch.Generator(device="cuda").manual_seed(0))
+    frames = torch.randn(3, 45, cfg.d_model, generator=gen, device="cuda")
+
+    def run():
+        logits = m.logits(p, frames)
+        last, cache = m.prefill(p, frames[:, :33])
+        return logits, last, cache["attn"]["k"]
+
+    before = (fa.flash_attention.launches, fa.flash_attention.bidirectional,
+              da.decode_attention.launches)
+    got = run()
+    L = cfg.num_layers
+    assert (fa.flash_attention.launches, fa.flash_attention.bidirectional,
+            da.decode_attention.launches) == \
+        (before[0] + 2 * L, before[1] + 2 * L, before[2])
+    saved = ops.flash_attention
+    ops.flash_attention = fa.flash_attention_ref
+    try:
+        want = run()
+    finally:
+        ops.flash_attention = saved
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, atol=1e-4, rtol=0)

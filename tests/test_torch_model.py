@@ -82,9 +82,9 @@ def test_local_plan_pads_match_reference(name):
 
 
 def test_registry_lists_ported_archs():
-    assert list_archs() == ["granite-moe-3b-a800m", "hymba-1.5b",
-                            "llama2-13b", "llama2-70b", "llama2-7b",
-                            "rwkv6-3b"]
+    assert list_archs() == ["granite-moe-3b-a800m", "hubert-xlarge",
+                            "hymba-1.5b", "llama2-13b", "llama2-70b",
+                            "llama2-7b", "rwkv6-3b"]
     with pytest.raises(KeyError):
         get_config("minicpm3-4b")
 

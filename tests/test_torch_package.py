@@ -87,7 +87,8 @@ def test_every_kernel_source_is_built():
 
 @pytest.mark.parametrize("fn", [
     build_model, Model.__init__, convert.from_jax_params, layers.dense_init,
-    layers.embed_init, layers.rope_freqs, layers.mlp_init, TA.init_gqa,
+    layers.embed_init, layers.rope_freqs, layers.mlp_init,
+    layers.gelu_mlp_init, TA.init_gqa,
     TA.kv_index, TA.init_paged_attn_cache, TA.init_attn_cache,
     Model.init_cache, TS.init_rwkv_tmix, TS.init_rwkv_cmix,
     TS.init_rwkv_state, TM.init_moe, TS.init_mamba, TS.init_mamba_state,
@@ -184,6 +185,25 @@ def test_dispatcher_sends_cuda_tensors_to_the_kernel_in_every_form(
     assert calls[0].get("window") == kw.get("window")   # passed through
 
 
+@pytest.mark.parametrize("window", [0, 16])
+def test_dispatcher_sends_bidirectional_flash_to_the_kernel(monkeypatch,
+                                                           window):
+    """Kernel 1's bidirectional form (with and without a window) launches
+    the kernel for CUDA tensors, its flags passed through."""
+    calls = []
+    monkeypatch.setattr(flash_mod, "flash_attention",
+                        lambda *a, **k: calls.append(k) or "kernel")
+
+    def plain(*a, **k):
+        raise AssertionError("a CUDA tensor reached the plain version")
+
+    monkeypatch.setattr(flash_mod, "flash_attention_ref", plain)
+    assert ops.flash_attention(*[_FakeCuda() for _ in range(3)],
+                               causal=False, window=window) == "kernel"
+    assert len(calls) == 1
+    assert (calls[0]["causal"], calls[0]["window"]) == (False, window)
+
+
 @pytest.mark.parametrize("devices", [("cpu", "meta"), ("meta", "meta")])
 def test_dispatcher_refuses_other_devices(devices):
     q = torch.zeros(1, 2, 4, 8, device=devices[0])
@@ -219,6 +239,8 @@ def test_kernel_wrappers_refuse_cpu_tensors():
         flash_mod.flash_attention(q, q, q)
     with pytest.raises(ValueError):
         flash_mod.flash_attention(q, q, q, window=4)
+    with pytest.raises(ValueError):
+        flash_mod.flash_attention(q, q, q, causal=False)
     pool = torch.zeros(3, 8, 2, 32)
     tab = torch.zeros(1, 2, dtype=torch.int32)
     with pytest.raises(ValueError):
@@ -248,6 +270,7 @@ def test_kernel_wrappers_refuse_cpu_tensors():
         i8_mod.int8_matmul_quantized(torch.ones(4, 32), torch.ones(32, 4))
     assert flash_mod.flash_attention.launches == 0
     assert flash_mod.flash_attention.banded == 0
+    assert flash_mod.flash_attention.bidirectional == 0
     assert paged_mod.paged_decode_attention.launches == 0
     assert paged_mod.paged_decode_attention_lse.launches == 0
     assert prefill_mod.paged_prefill_attention.launches == 0
@@ -319,6 +342,23 @@ def test_hybrid_model_runs_plain_versions_on_cpu_without_counting():
     assert flash_mod.flash_attention.launches == 0
     assert flash_mod.flash_attention.banded == 0
     assert dense_mod.decode_attention.launches == 0
+
+
+def test_encoder_model_runs_plain_versions_on_cpu_without_counting():
+    """hubert's smoke model on the CPU: frame embeddings through kernel
+    1's bidirectional form in its plain version, per-frame logits and a
+    prefill's cache, and no launch counted."""
+    m = Model(get_config("hubert-xlarge").smoke_config(), local_plan(),
+              device="cpu")
+    p = m.init(torch.Generator().manual_seed(0))
+    frames = torch.randn(2, 33, 64, generator=torch.Generator().manual_seed(1))
+    logits = m.logits(p, frames)
+    assert logits.shape == (2, 33, 128) and torch.isfinite(logits).all()
+    last, cache = m.prefill(p, frames)
+    assert torch.equal(last, logits[:, -1])
+    assert cache["attn"]["k"].shape == (2, 2, 33, 2, 16)
+    assert flash_mod.flash_attention.launches == 0
+    assert flash_mod.flash_attention.bidirectional == 0
 
 
 @pytest.mark.parametrize("quantize", [False, True])
