@@ -18,13 +18,15 @@ Builds the hand-written CUDA kernels from ``src/repro_torch/csrc`` (one
    windows at small S; for its bidirectional form, hubert-xlarge's shape
    (S = 1000, D = 80) and edge cases at small and ragged S, GQA and
    windows; kernel 1 at head dims 80, 96 and 256, causal and
-   bidirectional; for kernel 5, also hymba's ring with its positions
+   bidirectional, each bf16 launch on the tensor cores and each f32 one
+   on the CUDA cores; for kernel 5, also hymba's ring with its positions
    clamped to the ring's last slot), and times kernel, plain version and a
    PyTorch library call beside each where one exists (the library call is
    a yardstick only; the port never calls it).  Kernels 1-5 and kernel
    1's window and bidirectional forms are timed five times (20 calls
-   each): median, min and max; kernel 1 causal at D = 80, 96 and 256 at
-   S = 2048 is a reading;
+   each): median, min and max, kernel 1's with its TFLOP/s; kernel 1
+   causal at D = 80, 96 and 256 at S = 2048 is a reading (D = 256,
+   gemma-7b's prefill shape, timed five times);
 2. serves full-width llama2-7b (random weights from a seeded generator)
    through the ``Engine`` on five paths, each with every launch count set
    to 0 just before and read just after: the paged pool with whole-prompt
@@ -36,8 +38,9 @@ Builds the hand-written CUDA kernels from ``src/repro_torch/csrc`` (one
    128-token system prompt, chunks of 128, horizon 8), beside a
    whole-prompt run of the same requests; and the slot pool
    (``paged=False``).  Each checks completion, its counters, that its
-   kernels ran and, on the paged pool, that the free list and refcounts
-   return to their start;
+   kernels ran, that every kernel-1 launch of the bf16 run took the tensor
+   cores and, on the paged pool, that the free list and refcounts return
+   to their start;
 3. compares logits teacher-forced: prefill and one paged decode step,
    one decode step through the block-striped pool at shards 2 and 4
    against the unsharded step (bf16 and f32 compute plans), a two-chunk
@@ -91,9 +94,10 @@ Builds the hand-written CUDA kernels from ``src/repro_torch/csrc`` (one
    bidirectional attention at head dim 80, LayerNorm, a GELU MLP) on 4
    clips of 1000 frame embeddings: ``Model.logits`` with every launch
    count set to 0 just before and read just after (kernel 1 once per
-   layer, every launch bidirectional, no other kernel; finite logits of
-   (4, 1000, 504)), ``Model.prefill`` (its last-frame logits against the
-   forward's, its (48, 4, 1000, 16, 80) cache), the whole forward through
+   layer, every launch bidirectional and on the tensor cores, no other
+   kernel; finite logits of (4, 1000, 504)), ``Model.prefill`` (its
+   last-frame logits against the forward's, its (48, 4, 1000, 16, 80)
+   cache), the whole forward through
    the kernels against the plain versions in an f32 compute plan (held
    at 1e-4 of max |logit|) and in bf16 (a reading), and a trace of one
    forward with kernel 1's share of the device time.
@@ -249,7 +253,8 @@ def check_flash(torch, dtypes, gen):
     print(f"flash_attention bf16 B={B} H={H} S={S} D={D}: kernel "
           f"{spread(ms, lo, hi)}, "
           f"plain {plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, bound {bound:.4f} "
-          f"ms ({by}: {n_bytes} B, {flops} flop)", flush=True)
+          f"ms ({by}: {n_bytes} B, {flops} flop; "
+          f"{flops / ms / 1e9:.1f} TFLOP/s)", flush=True)
     return {"name": "flash_attention", "route": "cuda",
             "source": "src/repro_torch/csrc/flash_attention.cu",
             "replaces": "src/repro/kernels/flash_attention.py:79",
@@ -313,7 +318,8 @@ def check_flash_window(torch, dtypes):
           f"kernel {spread(ms, lo, hi)}, plain {plain_ms:.4f} ms, sdpa with "
           f"a banded mask over expanded K/V {lib_ms:.4f} ms, bound "
           f"{bound:.4f} ms ({by}: {n_bytes} B, {flops} flop, "
-          f"{window_pairs(S, W)} pairs per head); reading: the causal "
+          f"{window_pairs(S, W)} pairs per head; "
+          f"{flops / ms / 1e9:.1f} TFLOP/s); reading: the causal "
           f"kernel at this shape {causal_ms:.4f} ms ({window_pairs(S, S)} "
           f"pairs per head)", flush=True)
     return {"name": "flash_attention_window", "route": "cuda",
@@ -396,9 +402,14 @@ def check_flash_head_dims(torch, dtypes) -> None:
                 q, k, v = (torch.randn(2, 333, n, D, generator=g,
                                        device="cuda", dtype=dt).transpose(1, 2)
                            for n in (8, 2, 2))
+                before = fa.flash_attention.tensor_core
+                o = fa.flash_attention(q, k, v, causal=causal)
+                if fa.flash_attention.tensor_core != before + (name == "bf16"):
+                    fail(f"flash_attention {name} D={D}: the launch did not "
+                         f"take the route of its dtype (bf16: tensor cores, "
+                         f"f32: CUDA cores)")
                 held(f"flash_attention {'causal' if causal else 'bidirectional'}"
-                     f" {name} B=2 H=8 K=2 S=333 D={D}",
-                     fa.flash_attention(q, k, v, causal=causal),
+                     f" {name} B=2 H=8 K=2 S=333 D={D}", o,
                      fa.flash_attention_ref(q, k, v, causal=causal), name)
     B, H, S = 1, 16, 2048
     for D in (80, 96, 256):
@@ -1043,8 +1054,9 @@ def check_int8(torch, gen):
 
 def kernel_wrappers() -> dict:
     """Every kernel wrapper of the port by name; each counts its launches
-    (kernel 1's also those of its window form that band, ``banded``, and
-    those of its bidirectional form, ``bidirectional``)."""
+    (kernel 1's also those of its window form that band, ``banded``, those
+    of its bidirectional form, ``bidirectional``, and those that took the
+    tensor cores, ``tensor_core``: every bf16 launch)."""
     from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import int8_matmul as i8
@@ -1066,18 +1078,34 @@ def reset_launches() -> None:
         fn.launches = 0
     wrappers["flash_attention"].banded = 0
     wrappers["flash_attention"].bidirectional = 0
+    wrappers["flash_attention"].tensor_core = 0
 
 
 def read_launches() -> dict:
     """Launches by kernel; ``flash_attention_window`` counts the launches
     of kernel 1 that band (0 < window < S), ``flash_attention_bidirectional``
-    those with ``causal=False``; ``flash_attention`` counts both too."""
+    those with ``causal=False``, ``flash_attention_tensor_core`` those that
+    took the wgmma kernel; ``flash_attention`` counts all of them too."""
     wrappers = kernel_wrappers()
     out = {name: fn.launches for name, fn in wrappers.items()}
     out["flash_attention_window"] = wrappers["flash_attention"].banded
     out["flash_attention_bidirectional"] = \
         wrappers["flash_attention"].bidirectional
+    out["flash_attention_tensor_core"] = \
+        wrappers["flash_attention"].tensor_core
     return out
+
+
+def tensor_core_route(launches: dict, label: str) -> None:
+    """Fail unless every kernel-1 launch of a bf16 run took the tensor
+    cores."""
+    tc, n = launches["flash_attention_tensor_core"], \
+        launches["flash_attention"]
+    print(f"{label}: kernel 1 on the tensor cores {tc} of {n} launches",
+          flush=True)
+    if tc != n:
+        fail(f"{label}: {n - tc} bf16 launches of kernel 1 did not take the "
+             f"tensor cores")
 
 
 def plain_load(vocab: int) -> list:
@@ -1230,6 +1258,8 @@ def drive(torch, eng, label: str, load: list, need: tuple,
     if missing:
         fail(f"{label}: kernels of the path never launched: {missing} "
              f"({launches})")
+    if model.plan.compute_dtype == torch.bfloat16:
+        tensor_core_route(launches, f"{model.cfg.name} {label}")
     if paged and (len(pool.free_blocks) != free0
                   or len(pool.free_lanes) != lanes0
                   or int(pool.ref[1:].sum()) != 0
@@ -1627,11 +1657,11 @@ def host_walls(torch, fn, per: int, reps: int) -> list:
     return walls
 
 
-def trace(torch, label: str, fn, walls: list, per: int, unit: str) -> list:
+def trace(torch, label: str, fn, walls: list, per: int, unit: str) -> None:
     """Trace one call of ``fn`` with ``torch.profiler``: device busy time,
     the device's idle share against the median of ``walls`` (its host
     wall per step) and the device kernels that take the time, all divided
-    by ``per``.  Returns the device rows, (device us, count, name)."""
+    by ``per``, and kernel 1's time and share where it ran."""
     import statistics
     from torch.profiler import ProfilerActivity, profile
     wall_ms = statistics.median(walls)
@@ -1656,7 +1686,10 @@ def trace(torch, label: str, fn, walls: list, per: int, unit: str) -> list:
     for dev_us, count, key in sorted(rows, reverse=True)[:10]:
         print(f"  {dev_us / 1e3 / per:8.3f} ms/{unit}  {count / per:6.1f}/"
               f"{unit}  {key[:90]}", flush=True)
-    return rows
+    flash = sum(r[0] for r in rows if "flash_kernel" in r[2]) / 1e3 / per
+    if flash:
+        print(f"  kernel 1 (flash_attention) {flash:.3f} ms/{unit}, share "
+              f"{flash / busy_ms:.3f} of device busy", flush=True)
 
 
 def phase4_calls(torch, model, params, horizon: int = 8) -> dict:
@@ -2569,6 +2602,7 @@ def hubert_forward(torch, model, params, frames) -> dict:
             or la["flash_attention_window"] or any(others.values())):
         fail("hubert: the forward did not launch kernel 1's bidirectional "
              "form once per layer and nothing else")
+    tensor_core_route(la, "hubert forward")
     last, cache = model.prefill(params, frames)
     want = (L, frames.shape[0], frames.shape[1], cfg.n_kv_heads,
             cfg.head_dim)
@@ -2622,13 +2656,8 @@ def hubert_phases(torch) -> dict:
     del logits
     fwd = lambda: model.logits(params, frames)  # noqa: E731
     walls = host_walls(torch, fwd, 1, reps=3)
-    rows = trace(torch, "forward profile hubert-xlarge bf16, 4 clips of "
-                 "1000 frames", fwd, walls, per=1, unit="forward")
-    busy = sum(r[0] for r in rows)
-    flash = sum(r[0] for r in rows if "flash_kernel" in r[2])
-    print(f"hubert forward trace: kernel 1 {flash / 1e3:.3f} ms of "
-          f"{busy / 1e3:.3f} ms device busy, share "
-          + (f"{flash / busy:.3f}" if busy else "not measured"), flush=True)
+    trace(torch, "forward profile hubert-xlarge bf16, 4 clips of 1000 "
+          "frames", fwd, walls, per=1, unit="forward")
     del model, params, frames
     torch.cuda.empty_cache()
     return launches

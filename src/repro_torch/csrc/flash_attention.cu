@@ -12,124 +12,172 @@
 // on the lower triangle, 2*D*S^2 per (batch, head), against 8*S*D bytes of
 // bf16 q/k/v/o: S/4 flops per byte, which passes the card's ~295 flops per
 // byte (989 TFLOP/s over 3.35 TB/s) near S = 1200; bidirectional attention
-// sees every pair, twice the flops, and passes it near S = 600.  This
-// first kernel runs on the CUDA cores (f32 FMA, ~67 TFLOP/s at best), so
-// in practice it is bound by operations at every prompt length the engine
-// serves; wgmma tiles are later work.  With a window W the pairs are S*W -
-// W*(W-1)/2 when causal (for S > W): the work grows as S*W, not S^2.
+// sees every pair, twice the flops, and passes it near S = 600.  With a
+// window W the pairs are S*W - W*(W-1)/2 when causal (for S > W): the work
+// grows as S*W, not S^2.  Both products therefore belong on the tensor
+// cores, and the bf16 kernel below runs them there.
 //
-// Design.  On the TPU the grid is (B, H, q block, k block) with the k axis
-// walked in order, carrying (m, l, acc) in VMEM scratch.  Here one CTA owns
-// one 64-row query tile of one (batch, head) and loops over key tiles
-// itself: when causal it stops at the diagonal, so tiles strictly above it
-// are never read (the reference's @pl.when skip); bidirectional it walks
-// to S.  With a window the loop starts at the tile holding key q0 - W + 1,
-// the first key the CTA's first row sees: tiles wholly before every row's
-// window are never read either (the reference's second skip).  Later rows
-// of the tile see fewer of those leading keys, so a row can meet whole
-// tiles outside its window while its running max is still the finite
-// sentinel -1e30; a masked key therefore adds exactly 0 to l and acc (p is
-// set to 0, not exp(s - m), which would be exp(0) = 1 there).  Four threads
-// share a query row; each holds a quarter of q and of the f32 accumulator
-// in registers, with the head dim interleaved (d = c + 4*i) so the
-// shared-memory reads of a key or value row are conflict-free.  Partial
-// dot products meet by two warp shuffles.  The online softmax runs in f32
-// and P is rounded to v's dtype before the PV product, as the reference
-// model's _attn_block does (src/repro/models/attention.py:175); that rounds
-// the normalised softmax, while here the unnormalised exp(s - m) of the
-// running max is rounded.  (The Pallas kernel casts v to f32 at
-// flash_attention.py:53, so its p.astype(v.dtype) does not round.)  q/k/v/o
-// are read and written through their strides, so the model's (B, S, H, D)
-// activations are used in place (no transpose copy); head h reads KV head
-// h*K/H.  The ragged edge is masked instead of asserting S % tile == 0:
-// rows past S are not written, and keys past S are zeros in shared memory
-// that every valid row masks: causal rows by the diagonal, bidirectional
-// rows by their last key S - 1 (a zero key would score 0 and take weight
-// exp(0 - m)).  Each row's bounds kmin < kpos <= kmax are set once, so a
-// key costs the two compares of the causal form in every form.
+// bf16: wgmma tiles fed by TMA (flash_kernel_wgmma).  One CTA owns a
+// 128-row query tile of one (batch, head): two warpgroups of 128 threads,
+// each the 64 rows of one wgmma M.  Q comes by one TMA load and stays in
+// shared memory for the whole key loop.  Key tiles of 64 rows (K and V,
+// each with its own mbarrier) come by TMA into a ring of 2 stages: thread 0
+// issues tile t + 2 into a stage as soon as both warpgroups have left tile
+// t (a __syncthreads), so the next tile's copy overlaps this tile's
+// products.  Per key tile a warpgroup computes
+//   S = Q K^T   wgmma m64n64k16, A = Q and B = the K tile from shared
+//               memory, both K-major as they lie (D contiguous);
+//   the online softmax in f32 on the accumulator fragment (each thread
+//   holds 2 rows x 16 keys; the row max meets over its quad by 2 shuffles,
+//   the row sum stays per thread until the end);
+//   O += P V    wgmma m64nNk16 with A = P from registers (the accumulator
+//               fragment of S is the A fragment of PV, so P is only packed
+//               to bf16 pairs) and B = the V tile from shared memory with
+//               the transpose bit (V is keys x D, D contiguous: MN-major);
+//               N is D in pieces of at most 64 (80 = 64 + 16, 96 = 64 + 32).
+// O is an f32 accumulator of 64 x D per warpgroup in registers, divided by
+// the row sum and written with plain 4-byte stores of the rows below S.
+// P is the unnormalised exp(s - m) of the running max rounded to bf16
+// before PV; the plain version rounds the normalised P instead (as the
+// reference model's _attn_block does, src/repro/models/attention.py:175),
+// a difference within the bf16 tolerance.  (The Pallas kernel casts v to
+// f32 at flash_attention.py:53, so its p.astype(v.dtype) does not round.)
 //
-// Head dims: every D a registered config or smoke config uses, {16, 32, 64,
-// 80, 96, 128, 256}.  A key tile is 32 rows, 16 at D = 256, where the two
-// f32 tiles of 32 rows would take 64 KiB, past the 48 KB of static shared
-// memory a block may hold; 16 rows keep them at 32 KiB and the scores at
-// 16 registers beside q's and the accumulator's 2 x 64.
+// Shared memory layout and swizzle.  Each operand tile is stored as D / E
+// panels of rows x E elements, one TMA box each, E the widest of 64, 32,
+// 16 that divides D: 128-byte swizzle for D in {64, 128, 256} (one, two or
+// four panels), 64-byte for 32 and 96 (one or three), 32-byte for 16 and 80
+// (one or five).  D is never padded with products.  A wgmma descriptor
+// names the panel's swizzle; along D (the K of QK^T) a k16 step that stays
+// inside a panel advances the start address by 32 bytes, one that enters
+// the next panel moves to it; for V the 8-key groups lie 8*E*2 bytes apart
+// (the descriptor's stride offset) and the panels BK*E*2 bytes apart (its
+// leading offset).  Every panel starts on 1024 bytes, so the swizzle phase
+// TMA writes is the one wgmma reads.  The three maps over (D, S, heads, B)
+// are encoded on the host per call from the strides the wrapper passes
+// (cuTensorMapEncodeTiled through cudaGetDriverEntryPoint: no -lcuda), so
+// the model's (B, S, H, D) activations are read in place; rows and keys
+// past S arrive as zeros (TMA's out-of-bounds fill).
+//
+// Masks and skips.  When causal a CTA stops at the diagonal (the
+// reference's @pl.when skip); with a window it starts at the key tile
+// holding q0 - W + 1 (its second skip).  A warpgroup skips a tile that no
+// row of its own sees, and masks per element only a tile that straddles a
+// bound of one of its rows: kmin < kpos <= kmax, kmax = q (causal) or S - 1
+// (bidirectional: a zero-filled key past S would score 0 and take weight
+// exp(0 - m)), kmin = q - W.  A masked key adds exactly 0 (p = 0, not
+// exp(s - m), which is exp(0) = 1 while a row's running max is still the
+// finite sentinel -1e30).  A window >= S changes neither the tiles walked
+// nor the arithmetic of any row below S, so it gives the unwindowed
+// output bit for bit.
+//
+// f32: the CUDA-core kernel (flash_kernel_f32).  Tensor cores in f32 are
+// TF32, ~3 decimal digits, which the f32 compute plans cannot take (they
+// hold kernel against plain at 1e-4 of the logits).  So f32 keeps the
+// first design: 256 threads, 4 per query row over a 64-row tile, f32 FMAs
+// over f32 copies of 32-key tiles (16 at D = 256) in shared memory.  The
+// choice is by dtype alone; nothing falls back from one kernel to the
+// other.
+//
+// Registers and shared memory per instantiation, as ptxas -v reports them
+// for sm_90a (CUDA 12.9), D = 16 / 32 / 64 / 80 / 96 / 128 / 256:
+//   wgmma: 89 / 95 / 112 / 122 / 127 / 128 / 219 registers, no spill but a
+//          100-byte one at D = 128, where __launch_bounds__(256, 2) holds
+//          it to 128 registers for two CTAs an SM (ptxas then serialises
+//          the wgmmas for want of registers); 48 bytes of static shared
+//          memory (the mbarriers) and 768 D + 1024 bytes of dynamic (Q,
+//          two K/V stages, the 1024-byte alignment): 13,312 at D = 16 to
+//          197,632 at D = 256.
+//   f32:   64 / 78 / 117 / 111 / 127 / 128 / 254 registers, no spill;
+//          4,096 / 8,192 / 16,384 / 20,480 / 24,576 / 32,768 / 32,768
+//          bytes of static shared memory.
+#include <cuda.h>
+
 #include "common.cuh"
 
 namespace {
 
 using namespace repro;
 
-constexpr int BQ = 64;                // query rows per CTA
-constexpr int TPR = 4;                // threads per query row
-constexpr int THREADS = BQ * TPR;     // 256
-
 struct Strides {                      // element strides of (B, H, S); D is 1
   long long b, h, s;
 };
 
-template <typename T, int D>
-__global__ void __launch_bounds__(THREADS)
-flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
-             const T* __restrict__ v, T* __restrict__ o, int H, int K, int S,
-             int window, bool causal, Strides qs, Strides ks_, Strides vs_,
-             Strides os, float scale) {
+struct Args {                         // one launch's shape and flags
+  int B, H, K, S, window;
+  bool causal;
+  Strides qs, ks, vs, os;
+  float scale;
+};
+
+// ---------------------------------------------------------------------------
+// f32: CUDA cores
+// ---------------------------------------------------------------------------
+
+constexpr int F32_BQ = 64;                  // query rows per CTA
+constexpr int F32_TPR = 4;                  // threads per query row
+constexpr int F32_THREADS = F32_BQ * F32_TPR;
+
+template <int D>
+__global__ void __launch_bounds__(F32_THREADS)
+flash_kernel_f32(const float* __restrict__ q, const float* __restrict__ k,
+                 const float* __restrict__ v, float* __restrict__ o, int H,
+                 int K, int S, int window, bool causal, Strides qs,
+                 Strides ks_, Strides vs_, Strides os, float scale) {
   constexpr int BK = D > 128 ? 16 : 32;  // keys per tile
-  constexpr int DPT = D / TPR;        // head dims per thread
-  constexpr int VEC = Vec<T>::N;
+  constexpr int DPT = D / F32_TPR;    // head dims per thread
+  constexpr int VEC = Vec<float>::N;
   constexpr int VPR = D / VEC;        // 16-byte vectors per key row
   __shared__ __align__(16) float ks[BK][D];
   __shared__ __align__(16) float vs[BK][D];
 
-  const int q0 = blockIdx.x * BQ;
+  const int q0 = blockIdx.x * F32_BQ;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
   const int kh = (int)((long long)h * K / H);
   const int tid = threadIdx.x;
-  const int row = tid / TPR;
-  const int c = tid % TPR;
+  const int row = tid / F32_TPR;
+  const int c = tid % F32_TPR;
   const int qpos = q0 + row;
   const bool valid = qpos < S;
 
   float qr[DPT], acc[DPT];
-  const T* qp = q + b * qs.b + h * qs.h + (long long)qpos * qs.s;
+  const float* qp = q + b * qs.b + h * qs.h + (long long)qpos * qs.s;
 #pragma unroll
   for (int i = 0; i < DPT; ++i) {
-    qr[i] = valid ? to_f(qp[c + TPR * i]) : 0.f;
+    qr[i] = valid ? qp[c + F32_TPR * i] : 0.f;
     acc[i] = 0.f;
   }
   float m = NEG_INF, l = 0.f;
 
-  const T* kb = k + b * ks_.b + kh * ks_.h;
-  const T* vb = v + b * vs_.b + kh * vs_.h;
+  const float* kb = k + b * ks_.b + kh * ks_.h;
+  const float* vb = v + b * vs_.b + kh * vs_.h;
   // the row sees keys kmin < kpos <= kmax: the causal bound, or the last
   // key (a zero key past S would score 0, not be masked); the window's
   const int kmax = causal ? qpos : S - 1;
   const int kmin = window > 0 ? qpos - window : -1;
   // causal: later keys are above the diagonal
-  const int k_end = causal ? min(S, q0 + BQ) : S;
+  const int k_end = causal ? min(S, q0 + F32_BQ) : S;
   // with a window, earlier keys are outside every row's window
   const int k_begin = window > 0 ? max(0, q0 - window + 1) / BK * BK : 0;
   for (int k0 = k_begin; k0 < k_end; k0 += BK) {
     __syncthreads();                  // the previous tile's readers are done
-    for (int i = tid; i < BK * VPR; i += THREADS) {
+    for (int i = tid; i < BK * VPR; i += F32_THREADS) {
       const int t = i / VPR;
       const int cc = (i - t * VPR) * VEC;
       const int kpos = k0 + t;
       float kv[VEC], vv[VEC];
       if (kpos < S) {
-        Vec<T>::load(kb + (long long)kpos * ks_.s + cc, kv);
-        Vec<T>::load(vb + (long long)kpos * vs_.s + cc, vv);
+        Vec<float>::load(kb + (long long)kpos * ks_.s + cc, kv);
+        Vec<float>::load(vb + (long long)kpos * vs_.s + cc, vv);
       } else {
 #pragma unroll
         for (int j = 0; j < VEC; ++j) kv[j] = vv[j] = 0.f;
       }
-#pragma unroll
-      for (int j = 0; j < VEC; j += 4) {
-        *reinterpret_cast<float4*>(&ks[t][cc + j]) =
-            make_float4(kv[j], kv[j + 1], kv[j + 2], kv[j + 3]);
-        *reinterpret_cast<float4*>(&vs[t][cc + j]) =
-            make_float4(vv[j], vv[j + 1], vv[j + 2], vv[j + 3]);
-      }
+      *reinterpret_cast<float4*>(&ks[t][cc]) =
+          make_float4(kv[0], kv[1], kv[2], kv[3]);
+      *reinterpret_cast<float4*>(&vs[t][cc]) =
+          make_float4(vv[0], vv[1], vv[2], vv[3]);
     }
     __syncthreads();
 
@@ -140,7 +188,7 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int t = 0; t < BK; ++t) {
       float part = 0.f;
 #pragma unroll
-      for (int i = 0; i < DPT; ++i) part += qr[i] * ks[t][c + TPR * i];
+      for (int i = 0; i < DPT; ++i) part += qr[i] * ks[t][c + F32_TPR * i];
       part += __shfl_xor_sync(0xffffffffu, part, 1);
       part += __shfl_xor_sync(0xffffffffu, part, 2);
       const int kpos = k0 + t;
@@ -158,52 +206,503 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int t = 0; t < BK; ++t) {
       const float p = (live >> t & 1u) ? expf(s[t] - m_new) : 0.f;
       l_tile += p;
-      const float pv = round_to<T>(p);
 #pragma unroll
-      for (int i = 0; i < DPT; ++i) acc[i] += pv * vs[t][c + TPR * i];
+      for (int i = 0; i < DPT; ++i) acc[i] += p * vs[t][c + F32_TPR * i];
     }
     l = l * corr + l_tile;
     m = m_new;
   }
 
   if (valid) {
-    T* op = o + b * os.b + h * os.h + (long long)qpos * os.s;
+    float* op = o + b * os.b + h * os.h + (long long)qpos * os.s;
     const float inv = 1.f / fmaxf(l, 1e-30f);
 #pragma unroll
-    for (int i = 0; i < DPT; ++i) op[c + TPR * i] = from_f<T>(acc[i] * inv);
+    for (int i = 0; i < DPT; ++i) op[c + F32_TPR * i] = acc[i] * inv;
   }
 }
 
-struct Args {                         // one launch's shape and flags
-  int B, H, K, S, window;
-  bool causal;
-  Strides qs, ks, vs, os;
-  float scale;
-};
-
-template <typename T, int D>
-int launch(const void* q, const void* k, const void* v, void* o,
-           const Args& a, cudaStream_t stream) {
-  const dim3 grid((a.S + BQ - 1) / BQ, a.H, a.B);
-  flash_kernel<T, D><<<grid, THREADS, 0, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), a.H, a.K, a.S, a.window,
-      a.causal, a.qs, a.ks, a.vs, a.os, a.scale);
+template <int D>
+int launch_f32(const void* q, const void* k, const void* v, void* o,
+               const Args& a, cudaStream_t stream) {
+  const dim3 grid((a.S + F32_BQ - 1) / F32_BQ, a.H, a.B);
+  flash_kernel_f32<D><<<grid, F32_THREADS, 0, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(o), a.H, a.K, a.S,
+      a.window, a.causal, a.qs, a.ks, a.vs, a.os, a.scale);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-int dispatch_d(const void* q, const void* k, const void* v, void* o, int D,
-               const Args& a, cudaStream_t stream) {
+// ---------------------------------------------------------------------------
+// bf16: wgmma tiles fed by TMA
+// ---------------------------------------------------------------------------
+
+constexpr int BQ = 128;               // query rows per CTA: 2 warpgroups
+constexpr int BK = 64;                // keys per tile
+constexpr int NST = 2;                // K/V stages in the ring
+constexpr int THREADS = 256;
+constexpr float LOG2E = 1.4426950408889634f;
+
+template <int D>
+struct Tiles {
+  static constexpr int E = D % 64 == 0 ? 64 : D % 32 == 0 ? 32 : 16;
+  static constexpr int SW = 2 * E;    // bytes per swizzled row of a panel
+  static constexpr int NB = D / E;    // panels per tile
+  static constexpr int MODE = SW == 128 ? 1 : SW == 64 ? 2 : 3;  // desc
+  static constexpr int Q_BYTES = BQ * D * 2;
+  static constexpr int KV_BYTES = BK * D * 2;
+  static constexpr int SMEM = Q_BYTES + NST * 2 * KV_BYTES + 1024;  // + align
+  static constexpr int MIN_BLOCKS = D <= 128 ? 2 : 1;
+  static_assert(D % 16 == 0 && Q_BYTES % 1024 == 0 && KV_BYTES % 1024 == 0,
+                "panels must start on 1024 bytes");
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
+                   "r"(bar),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ bool mbar_try_wait(uint32_t bar, uint32_t phase) {
+  uint32_t done;
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      "selp.u32 %0, 1, 0, p;\n}\n"
+      : "=r"(done)
+      : "r"(bar), "r"(phase)
+      : "memory");
+  return done != 0;
+}
+
+// Wait for the phase of parity ``phase`` to complete.  A copy that never
+// lands (a fault in a tensor map) traps after 2 s instead of hanging the
+// card: the launch then fails with an error the wrapper raises.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t phase) {
+  if (mbar_try_wait(bar, phase)) return;
+  uint64_t t0, t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t0));
+  while (!mbar_try_wait(bar, phase)) {
+    asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+    if (t - t0 > 2000000000ull) __trap();
+  }
+}
+
+// one box of a 4-d tensor map (D, S, heads, B) into shared memory
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         uint32_t bar, int d, int s, int h,
+                                         int b) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(d), "r"(s), "r"(h),
+      "r"(b)
+      : "memory");
+}
+
+// wgmma shared-memory matrix descriptor: start, leading and stride byte
+// offsets (16-byte units), swizzle mode (1: 128B, 2: 64B, 3: 32B)
+__device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo,
+                                         uint32_t sbo, int mode) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | (uint64_t)(lbo >> 4) << 16 |
+         (uint64_t)(sbo >> 4) << 32 | (uint64_t)mode << 62;
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// keep the compiler from moving reads or writes of accumulator registers
+// across an asynchronous wgmma
+template <int N>
+__device__ __forceinline__ void fence_regs(float* d) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+#define R4(i) "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3])
+#define R8(i) R4(i), R4(i + 4)
+
+// d (64 x 64, f32) {=, +=} A (64 x 16) B (16 x 64)^T, both from shared
+// memory, K-major
+__device__ __forceinline__ void wgmma_ss_n64(float* d, uint64_t da,
+                                             uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "
+      "%29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : R8(0), R8(8), R8(16), R8(24)
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// d (64 x N, f32) += A (64 x 16, bf16 pairs in registers) B (16 x N) from
+// shared memory, MN-major (the transpose bit)
+template <int N>
+__device__ __forceinline__ void wgmma_rs(float* d, const uint32_t* a,
+                                         uint64_t db);
+
+template <>
+__device__ __forceinline__ void wgmma_rs<16>(float* d, const uint32_t* a,
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, {%8, %9, %10, %11}, %12, p, 1, 1, "
+      "1;\n}\n"
+      : R8(0)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<32>(float* d, const uint32_t* a,
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : R8(0), R8(8)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<64>(float* d, const uint32_t* a,
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "
+      "%29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : R8(0), R8(8), R8(16), R8(24)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+#undef R8
+#undef R4
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// O[:, N0:] += P V[:, N0:] for one k16 step of keys whose V rows start at
+// ``sv``: wgmma pieces of at most 64 columns, each starting on a panel
+template <int D, int N0>
+__device__ __forceinline__ void pv(float* oacc, const uint32_t* a,
+                                   uint32_t sv) {
+  if constexpr (N0 < D) {
+    using T = Tiles<D>;
+    constexpr int N = D - N0 >= 64 ? 64 : D - N0;
+    static_assert(N0 % T::E == 0, "a piece starts on a panel");
+    wgmma_rs<N>(oacc + N0 / 2, a,
+                desc(sv + N0 / T::E * BK * T::SW, BK * T::SW, 8 * T::SW,
+                     T::MODE));
+    pv<D, N0 + N>(oacc, a, sv);
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(THREADS, Tiles<D>::MIN_BLOCKS)
+flash_kernel_wgmma(const __grid_constant__ CUtensorMap qmap,
+                   const __grid_constant__ CUtensorMap kmap,
+                   const __grid_constant__ CUtensorMap vmap,
+                   bf16* __restrict__ o, Strides os, int H, int K, int S,
+                   int window, bool causal, float scale_log2) {
+  using T = Tiles<D>;
+  constexpr int E = T::E, SW = T::SW, NB = T::NB, MODE = T::MODE;
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ __align__(8) uint64_t bars[1 + 2 * NST];  // q; k, v per stage
+
+  const uint32_t sq = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t skv = sq + T::Q_BYTES;     // stage s: K, then V
+  const uint32_t bar_q = smem_u32(&bars[0]);
+  const uint32_t bar_kv = smem_u32(&bars[1]);  // + 16 s (K), + 16 s + 8 (V)
+
+  const int n_qt = (S + BQ - 1) / BQ;
+  // causal: the longest rows first, so the last wave is the short tiles
+  const int q0 = (causal ? n_qt - 1 - (int)blockIdx.x : (int)blockIdx.x) * BQ;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int kh = (int)((long long)h * K / H);
+  const int tid = threadIdx.x;
+
+  // causal: later keys are above the diagonal; with a window, earlier keys
+  // are outside every row's window
+  const int k_end = causal ? min(S, q0 + BQ) : S;
+  const int k_begin = window > 0 ? max(0, q0 - window + 1) / BK * BK : 0;
+  const int n_tiles = (k_end - k_begin + BK - 1) / BK;
+
+  auto load_kv = [&](int t) {
+    const int s = t % NST;
+    const int k0 = k_begin + t * BK;
+    const uint32_t dk = skv + s * 2 * T::KV_BYTES;
+    const uint32_t bk = bar_kv + 16 * s;
+    mbar_expect(bk, T::KV_BYTES);
+#pragma unroll
+    for (int p = 0; p < NB; ++p)
+      tma_load(dk + p * BK * SW, &kmap, bk, p * E, k0, kh, b);
+    mbar_expect(bk + 8, T::KV_BYTES);
+#pragma unroll
+    for (int p = 0; p < NB; ++p)
+      tma_load(dk + T::KV_BYTES + p * BK * SW, &vmap, bk + 8, p * E, k0, kh,
+               b);
+  };
+
+  if (tid == 0) {
+    mbar_init(bar_q, 1);
+    for (int i = 0; i < 2 * NST; ++i) mbar_init(bar_kv + 8 * i, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (tid == 0) {
+    mbar_expect(bar_q, T::Q_BYTES);
+#pragma unroll
+    for (int p = 0; p < NB; ++p)
+      tma_load(sq + p * BQ * SW, &qmap, bar_q, p * E, q0, h, b);
+    for (int t = 0; t < min(NST, n_tiles); ++t) load_kv(t);
+  }
+
+  const int g = tid / 128;            // warpgroup: rows 64 g .. 64 g + 63
+  const int w = tid % 128 / 32;       // warp: 16 of those rows
+  const int lane = tid % 32;
+  const int rlo = q0 + 64 * g;        // the warpgroup's rows, clamped to S
+  const int rhi = min(rlo + 63, S - 1);
+  const bool rows = rlo < S;
+  // the rows whose keys this warpgroup's tiles are tested against: every
+  // row sees kmin < kpos <= kmax; kmax is nondecreasing in the row, kmin too
+  const int kmax_lo = causal ? rlo : S - 1;
+  const int kmax_hi = causal ? rhi : S - 1;
+  // this thread's rows r0 and r0 + 8 of the accumulator fragments, and its
+  // keys 2 (lane % 4) + {0, 1} of each 8-key column group
+  const int r0 = rlo + 16 * w + lane / 4;
+  const int c0 = 2 * (lane % 4);
+  int kmax[2], kmin[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    kmax[i] = causal ? r0 + 8 * i : S - 1;
+    kmin[i] = window > 0 ? r0 + 8 * i - window : -1;
+  }
+
+  float oacc[D / 2];                  // O: 64 x D per warpgroup
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) oacc[i] = 0.f;
+  float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
+  if (rows) mbar_wait(bar_q, 0);
+
+  for (int t = 0; t < n_tiles; ++t) {
+    const int s = t % NST;
+    const uint32_t ph = (uint32_t)(t / NST) & 1u;
+    const int k0 = k_begin + t * BK;
+    const uint32_t sk = skv + s * 2 * T::KV_BYTES;
+    const uint32_t sv = sk + T::KV_BYTES;
+    const uint32_t bk = bar_kv + 16 * s;
+    // warpgroup-uniform: does any row see a key of the tile; do all rows
+    // see all of them
+    const bool any = rows && k0 <= kmax_hi &&
+                     (window == 0 || k0 + BK - 1 > rlo - window);
+    const bool full = k0 + BK - 1 <= kmax_lo &&
+                      (window == 0 || k0 > rhi - window);
+    if (any) {
+      mbar_wait(bk, ph);
+      float sacc[32];                 // S: 64 x 64 per warpgroup
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const int p = kk * 16 / E;    // the panel, and 32 bytes a k16 step
+        const uint32_t off = kk * 16 % E * 2;
+        const uint64_t da =
+            desc(sq + p * BQ * SW + 64 * g * SW + off, 16, 8 * SW, MODE);
+        const uint64_t db = desc(sk + p * BK * SW + off, 16, 8 * SW, MODE);
+        wgmma_ss_n64(sacc, da, db, kk > 0);
+      }
+      wgmma_commit();
+      wgmma_wait();
+      fence_regs<32>(sacc);
+
+      // online softmax on the fragment: sacc[4 j + 2 i + c] is row r0 + 8 i,
+      // key k0 + 8 j + c0 + c
+      uint32_t live = 0xffffffffu;
+      if (!full) {
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+#pragma unroll
+          for (int i = 0; i < 2; ++i)
+#pragma unroll
+            for (int c = 0; c < 2; ++c) {
+              const int kpos = k0 + 8 * j + c0 + c;
+              if (!(kpos > kmin[i] && kpos <= kmax[i]))
+                live &= ~(1u << (4 * j + 2 * i + c));
+            }
+      }
+      float mt[2] = {NEG_INF, NEG_INF};
+#pragma unroll
+      for (int e = 0; e < 32; ++e) {
+        sacc[e] = (live >> e & 1u) ? sacc[e] * scale_log2 : NEG_INF;
+        mt[e / 2 % 2] = fmaxf(mt[e / 2 % 2], sacc[e]);
+      }
+      float corr[2];
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        mt[i] = fmaxf(mt[i], __shfl_xor_sync(0xffffffffu, mt[i], 1));
+        mt[i] = fmaxf(mt[i], __shfl_xor_sync(0xffffffffu, mt[i], 2));
+        const float m_new = fmaxf(m[i], mt[i]);
+        corr[i] = exp2f(m[i] - m_new);
+        m[i] = m_new;
+        l[i] *= corr[i];
+      }
+#pragma unroll
+      for (int e = 0; e < 32; ++e) {
+        const float p = (live >> e & 1u) ? exp2f(sacc[e] - m[e / 2 % 2]) : 0.f;
+        l[e / 2 % 2] += p;
+        sacc[e] = p;
+      }
+      uint32_t pa[16];                // P as bf16 pairs: the A fragments
+#pragma unroll
+      for (int e = 0; e < 16; ++e) pa[e] = pack_bf16(sacc[2 * e], sacc[2 * e + 1]);
+#pragma unroll
+      for (int e = 0; e < D / 2; ++e) oacc[e] *= corr[e / 2 % 2];
+
+      mbar_wait(bk + 8, ph);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk)
+        pv<D, 0>(oacc, pa + 4 * kk, sv + kk * 16 * SW);
+      wgmma_commit();
+      wgmma_wait();
+      fence_regs<D / 2>(oacc);
+    } else if (tid == 0) {
+      // no row of warpgroup 0 reads this tile: still see its copies land
+      // before the stage is refilled or the CTA exits
+      mbar_wait(bk, ph);
+      mbar_wait(bk + 8, ph);
+    }
+    __syncthreads();                  // both warpgroups are done with stage s
+    if (tid == 0 && t + NST < n_tiles) load_kv(t + NST);
+  }
+
+  float inv[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
+    inv[i] = 1.f / fmaxf(l[i], 1e-30f);
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int r = r0 + 8 * i;
+    if (r >= S) continue;
+    bf16* op = o + b * os.b + h * os.h + (long long)r * os.s + c0;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      *reinterpret_cast<__nv_bfloat162*>(op + 8 * j) = __floats2bfloat162_rn(
+          oacc[4 * j + 2 * i] * inv[i], oacc[4 * j + 2 * i + 1] * inv[i]);
+  }
+}
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(p)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// A 4-d map over (D, S, heads, B) of bf16 with boxes of E x rows, swizzled
+// at 2 E bytes; rows and keys past S read as zeros.  A dimension of size 1
+// takes a stride of 16 bytes: its coordinate is always 0.
+bool tensor_map(CUtensorMap* map, const void* ptr, int D, int S, int heads,
+                int B, Strides st, int E, int rows) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)S,
+                              (cuuint64_t)heads, (cuuint64_t)B};
+  const cuuint64_t strides[3] = {S > 1 ? (cuuint64_t)st.s * 2 : 16,
+                                 heads > 1 ? (cuuint64_t)st.h * 2 : 16,
+                                 B > 1 ? (cuuint64_t)st.b * 2 : 16};
+  const cuuint32_t box[4] = {(cuuint32_t)E, (cuuint32_t)rows, 1, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  const CUtensorMapSwizzle swizzle =
+      E == 64 ? CU_TENSOR_MAP_SWIZZLE_128B
+              : E == 32 ? CU_TENSOR_MAP_SWIZZLE_64B : CU_TENSOR_MAP_SWIZZLE_32B;
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+                const_cast<void*>(ptr), dims, strides, box, unit,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int D>
+int launch_bf16(const void* q, const void* k, const void* v, void* o,
+                const Args& a, cudaStream_t stream) {
+  using T = Tiles<D>;
+  CUtensorMap qm, km, vm;
+  if (!tensor_map(&qm, q, D, a.S, a.H, a.B, a.qs, T::E, BQ) ||
+      !tensor_map(&km, k, D, a.S, a.K, a.B, a.ks, T::E, BK) ||
+      !tensor_map(&vm, v, D, a.S, a.K, a.B, a.vs, T::E, BK))
+    return (int)cudaErrorInvalidValue;
+  // above 48 KB shared memory is dynamic only, and per device: set on
+  // every launch (a host-side attribute, no device work)
+  const cudaError_t err = cudaFuncSetAttribute(
+      flash_kernel_wgmma<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      T::SMEM);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((a.S + BQ - 1) / BQ, a.H, a.B);
+  flash_kernel_wgmma<D><<<grid, THREADS, T::SMEM, stream>>>(
+      qm, km, vm, static_cast<bf16*>(o), a.os, a.H, a.K, a.S, a.window,
+      a.causal, a.scale * LOG2E);
+  return (int)cudaGetLastError();
+}
+
+using LaunchFn = int (*)(const void*, const void*, const void*, void*,
+                         const Args&, cudaStream_t);
+
+// the launcher of dtype ``bf16`` (wgmma) or f32 (CUDA cores) at head dim D
+LaunchFn launcher(bool bf16_, int D) {
   switch (D) {
-    case 16: return launch<T, 16>(q, k, v, o, a, stream);
-    case 32: return launch<T, 32>(q, k, v, o, a, stream);
-    case 64: return launch<T, 64>(q, k, v, o, a, stream);
-    case 80: return launch<T, 80>(q, k, v, o, a, stream);
-    case 96: return launch<T, 96>(q, k, v, o, a, stream);
-    case 128: return launch<T, 128>(q, k, v, o, a, stream);
-    case 256: return launch<T, 256>(q, k, v, o, a, stream);
-    default: return (int)cudaErrorInvalidValue;
+    case 16: return bf16_ ? launch_bf16<16> : launch_f32<16>;
+    case 32: return bf16_ ? launch_bf16<32> : launch_f32<32>;
+    case 64: return bf16_ ? launch_bf16<64> : launch_f32<64>;
+    case 80: return bf16_ ? launch_bf16<80> : launch_f32<80>;
+    case 96: return bf16_ ? launch_bf16<96> : launch_f32<96>;
+    case 128: return bf16_ ? launch_bf16<128> : launch_f32<128>;
+    case 256: return bf16_ ? launch_bf16<256> : launch_f32<256>;
+    default: return nullptr;
   }
 }
 
@@ -212,7 +711,8 @@ int dispatch_d(const void* q, const void* k, const void* v, void* o, int D,
 // q/o (B, H, S, D), k/v (B, K, S, D), each given by its (B, H, S) element
 // strides with a unit stride on D; causal != 0 attends keys k <= q only,
 // causal == 0 every key; window 0 sets no lower bound, a window W > 0 keeps
-// keys k > q - W.  Returns the cudaError_t of the launch.
+// keys k > q - W.  bf16 runs on the tensor cores, f32 on the CUDA cores.
+// Returns the cudaError_t of the launch.
 extern "C" int flash_attention(
     const void* q, const void* k, const void* v, void* o, int B, int H, int K,
     int S, int D, int causal, int window, long long q_sb, long long q_sh,
@@ -221,11 +721,11 @@ extern "C" int flash_attention(
     long long o_sh, long long o_ss, float scale, int dtype, void* stream) {
   if (B == 0 || S == 0) return 0;
   if (K <= 0 || H % K != 0 || window < 0) return (int)cudaErrorInvalidValue;
+  if (dtype != DT_BF16 && dtype != DT_F32) return (int)cudaErrorInvalidValue;
+  const LaunchFn launch = launcher(dtype == DT_BF16, D);
+  if (launch == nullptr) return (int)cudaErrorInvalidValue;
   const Args a{B, H, K, S, window, causal != 0, {q_sb, q_sh, q_ss},
                {k_sb, k_sh, k_ss}, {v_sb, v_sh, v_ss}, {o_sb, o_sh, o_ss},
                scale};
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == DT_BF16) return dispatch_d<bf16>(q, k, v, o, D, a, s);
-  if (dtype == DT_F32) return dispatch_d<float>(q, k, v, o, D, a, s);
-  return (int)cudaErrorInvalidValue;
+  return launch(q, k, v, o, a, static_cast<cudaStream_t>(stream));
 }

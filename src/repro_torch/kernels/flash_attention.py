@@ -6,8 +6,11 @@ W > 0, ``k > q - W``: the reference's two flags, independent.
 The kernel (``csrc/flash_attention.cu``) replaces the Pallas TPU kernel
 ``repro/kernels/flash_attention.py::flash_attention`` in every form:
 causal or bidirectional, with and without ``window``, at every head dim a
-registered config uses.  Layout follows the reference: q (B, H, S,
-D), k/v (B, K, S, D), head h reading KV head h*K//H.
+registered config uses.  bf16 runs on the tensor cores (``wgmma`` tiles
+fed by TMA), f32 on the CUDA cores (tensor cores in f32 would be TF32):
+the route is chosen by dtype alone, never by a retry.  Layout follows
+the reference: q (B, H, S, D), k/v (B, K, S, D), head h reading KV head
+h*K//H.
 Both functions accept any strides with a unit stride on D, so the model
 passes ``x.transpose(1, 2)`` views of its (B, S, H, D) activations and no
 transpose copy is made; the kernel's output keeps q's layout.
@@ -105,8 +108,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """Launch the CUDA kernel: q (B, H, S, D), k/v (B, K, S, D), one dtype
     (bf16 or f32), all on the current CUDA device -> o, laid out like q.
     ``launches`` counts every launch, ``banded`` those whose window is
-    narrower than the sequence (0 < window < S), the ones that mask, and
-    ``bidirectional`` those with ``causal=False``."""
+    narrower than the sequence (0 < window < S), the ones that mask,
+    ``bidirectional`` those with ``causal=False``, and ``tensor_core`` the
+    bf16 launches, which take the ``wgmma`` kernel (f32 takes the
+    CUDA-core one)."""
     _check_window(window)
     _check(q, k, v)
     B, H, S, D = q.shape
@@ -122,9 +127,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     flash_attention.launches += 1
     flash_attention.banded += 0 < window < S
     flash_attention.bidirectional += not causal
+    flash_attention.tensor_core += q.dtype == torch.bfloat16
     return out
 
 
 flash_attention.launches = 0
 flash_attention.banded = 0
 flash_attention.bidirectional = 0
+flash_attention.tensor_core = 0

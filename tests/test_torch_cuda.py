@@ -909,3 +909,69 @@ def test_smoke_encoder_model_kernel_path_matches_plain_path(gen):
         ops.flash_attention = saved
     for g, w in zip(got, want):
         torch.testing.assert_close(g, w, atol=1e-4, rtol=0)
+
+
+# Kernel 1's bf16 route (wgmma tiles fed by TMA): every head dim, both
+# forms, windows below, inside and past S, ragged S about the 64-key and
+# 64/128-row tiles, GQA 8/2 and hymba's 25/5.
+TC_HEADS = ((8, 2), (25, 5))
+TC_SEQS = (1, 63, 65, 97, 1000)
+
+
+@pytest.mark.parametrize("window", [0, 1, 16, 64, 5000])
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "bidir"])
+@pytest.mark.parametrize("D", fa._HEAD_DIMS)
+def test_flash_bf16_runs_on_the_tensor_cores(gen, D, causal, window):
+    """Each bf16 launch counts one ``tensor_core`` launch and matches the
+    plain version; a window >= S gives the unwindowed output bit for
+    bit."""
+    for H, K in TC_HEADS:
+        for S in TC_SEQS:
+            B = 2 if S < 1000 else 1
+            q, k, v = (torch.randn(B, S, n, D, generator=gen, device="cuda",
+                                   dtype=torch.bfloat16).transpose(1, 2)
+                       for n in (H, K, K))
+            before = (fa.flash_attention.launches,
+                      fa.flash_attention.tensor_core)
+            o = fa.flash_attention(q, k, v, causal=causal, window=window)
+            assert (fa.flash_attention.launches,
+                    fa.flash_attention.tensor_core) == \
+                (before[0] + 1, before[1] + 1)
+            assert_close(o, fa.flash_attention_ref(q, k, v, causal=causal,
+                                                   window=window),
+                         torch.bfloat16)
+            if window >= S:
+                assert torch.equal(o, fa.flash_attention(q, k, v,
+                                                         causal=causal))
+
+
+@pytest.mark.parametrize("D", fa._HEAD_DIMS)
+def test_flash_bf16_reads_any_layout(gen, D):
+    """The model's strided (B, S, H, D) views and contiguous (B, H, S, D)
+    copies of the same values give the same output, each laid out like
+    its q."""
+    B, S, H, K = 2, 130, 8, 2
+    views = [torch.randn(B, S, n, D, generator=gen, device="cuda",
+                         dtype=torch.bfloat16).transpose(1, 2)
+             for n in (H, K, K)]
+    copies = [t.contiguous() for t in views]
+    for causal in (True, False):
+        for window in (0, 40):
+            a = fa.flash_attention(*views, causal=causal, window=window)
+            b = fa.flash_attention(*copies, causal=causal, window=window)
+            assert a.stride() == views[0].stride() and b.is_contiguous()
+            assert torch.equal(a, b)
+
+
+def test_flash_f32_stays_on_the_cuda_cores(gen):
+    """f32 launches count as launches and never as ``tensor_core`` ones
+    (tensor cores in f32 would be TF32)."""
+    for D in fa._HEAD_DIMS:
+        q, k, v = (torch.randn(1, 4, 70, D, generator=gen, device="cuda")
+                   for _ in range(3))
+        before = fa.flash_attention.launches, fa.flash_attention.tensor_core
+        o = fa.flash_attention(q, k, v, causal=False, window=16)
+        assert (fa.flash_attention.launches,
+                fa.flash_attention.tensor_core) == (before[0] + 1, before[1])
+        assert_close(o, fa.flash_attention_ref(q, k, v, causal=False,
+                                               window=16), torch.float32)

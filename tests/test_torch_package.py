@@ -32,8 +32,9 @@ PKG = Path(repro_torch.__file__).resolve().parent
 
 
 def _sources():
-    files = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
-    assert len(files) > 10 and (ROOT / "chip_smoke.py").exists()
+    files = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py",
+                                         ROOT / "scripts" / "flash_turns.py"]
+    assert len(files) > 10 and all(f.exists() for f in files[-2:])
     return files
 
 
@@ -204,6 +205,22 @@ def test_dispatcher_sends_bidirectional_flash_to_the_kernel(monkeypatch,
     assert (calls[0]["causal"], calls[0]["window"]) == (False, window)
 
 
+@pytest.mark.parametrize("causal,window", [(True, 0), (True, 5),
+                                           (False, 0), (False, 5)])
+def test_dispatcher_runs_bf16_flash_plain_on_cpu(causal, window):
+    """bf16 CPU tensors (the kernel's tensor-core dtype) go to the plain
+    version, and no launch is counted, ``tensor_core`` included."""
+    g = torch.Generator().manual_seed(3)
+    q, k, v = (torch.randn(2, 9, n, 16, generator=g).to(torch.bfloat16)
+               .transpose(1, 2) for n in (4, 2, 2))
+    got = ops.flash_attention(q, k, v, causal=causal, window=window)
+    assert torch.equal(got, flash_mod.flash_attention_ref(
+        q, k, v, causal=causal, window=window))
+    assert got.dtype == torch.bfloat16
+    assert (flash_mod.flash_attention.launches,
+            flash_mod.flash_attention.tensor_core) == (0, 0)
+
+
 @pytest.mark.parametrize("devices", [("cpu", "meta"), ("meta", "meta")])
 def test_dispatcher_refuses_other_devices(devices):
     q = torch.zeros(1, 2, 4, 8, device=devices[0])
@@ -271,6 +288,7 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     assert flash_mod.flash_attention.launches == 0
     assert flash_mod.flash_attention.banded == 0
     assert flash_mod.flash_attention.bidirectional == 0
+    assert flash_mod.flash_attention.tensor_core == 0
     assert paged_mod.paged_decode_attention.launches == 0
     assert paged_mod.paged_decode_attention_lse.launches == 0
     assert prefill_mod.paged_prefill_attention.launches == 0
@@ -305,6 +323,7 @@ def test_model_runs_plain_versions_on_cpu_without_counting():
         torch.tensor([[1, 4], [5, 2]], dtype=torch.int32))
     assert logits.shape == (2, 128) and torch.isfinite(logits).all()
     assert flash_mod.flash_attention.launches == 0
+    assert flash_mod.flash_attention.tensor_core == 0
     assert prefill_mod.paged_prefill_attention.launches == 0
     assert dense_mod.decode_attention.launches == 0
     assert paged_mod.paged_decode_attention_lse.launches == 0
@@ -341,6 +360,7 @@ def test_hybrid_model_runs_plain_versions_on_cpu_without_counting():
     assert pool["mamba"]["ssm"].abs().sum() > 0          # written in place
     assert flash_mod.flash_attention.launches == 0
     assert flash_mod.flash_attention.banded == 0
+    assert flash_mod.flash_attention.tensor_core == 0
     assert dense_mod.decode_attention.launches == 0
 
 
@@ -359,6 +379,7 @@ def test_encoder_model_runs_plain_versions_on_cpu_without_counting():
     assert cache["attn"]["k"].shape == (2, 2, 33, 2, 16)
     assert flash_mod.flash_attention.launches == 0
     assert flash_mod.flash_attention.bidirectional == 0
+    assert flash_mod.flash_attention.tensor_core == 0
 
 
 @pytest.mark.parametrize("quantize", [False, True])
