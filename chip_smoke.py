@@ -19,8 +19,11 @@ Builds the hand-written CUDA kernels from ``src/repro_torch/csrc`` (one
    (S = 1000, D = 80) and edge cases at small and ragged S, GQA and
    windows; kernel 1 at head dims 80, 96 and 256, causal and
    bidirectional, each bf16 launch on the tensor cores and each f32 one
-   on the CUDA cores; for kernel 5, also hymba's ring with its positions
-   clamped to the ring's last slot), and times kernel, plain version and a
+   on the CUDA cores; kernel 3 at every head dim kernel 1 takes, in every
+   dtype pair, each bf16 launch on the tensor cores and each f32 one on
+   the CUDA cores; for kernel 5, also hymba's ring with its positions
+   clamped to the ring's last slot, timed beside its plain version and
+   SDPA), and times kernel, plain version and a
    PyTorch library call beside each where one exists (the library call is
    a yardstick only; the port never calls it).  Kernels 1-5 and kernel
    1's window and bidirectional forms are timed five times (20 calls
@@ -38,9 +41,9 @@ Builds the hand-written CUDA kernels from ``src/repro_torch/csrc`` (one
    128-token system prompt, chunks of 128, horizon 8), beside a
    whole-prompt run of the same requests; and the slot pool
    (``paged=False``).  Each checks completion, its counters, that its
-   kernels ran, that every kernel-1 launch of the bf16 run took the tensor
-   cores and, on the paged pool, that the free list and refcounts return
-   to their start;
+   kernels ran, that every kernel-1 and every kernel-3 launch of the bf16
+   run took the tensor cores and, on the paged pool, that the free list
+   and refcounts return to their start;
 3. compares logits teacher-forced: prefill and one paged decode step,
    one decode step through the block-striped pool at shards 2 and 4
    against the unsharded step (bf16 and f32 compute plans), a two-chunk
@@ -51,8 +54,9 @@ Builds the hand-written CUDA kernels from ``src/repro_torch/csrc`` (one
 4. traces one whole-prompt prefill, one decode horizon (unsharded and at
    shards 2 and 4), one chunk tick and one slot decode step at the serving
    shape with ``torch.profiler``: host wall time and device busy time per
-   step, the device's idle share, and the device kernels that take the
-   time.  The same decode horizon is also timed on the host clock after
+   step, the device's idle share, the device kernels that take the time,
+   and the time and share of kernels 1, 3 and 5 beside the device ops per
+   step.  The same decode horizon is also timed on the host clock after
    init (plain and under ``torch.inference_mode``) and after each later
    phase, so the drift of the host's clock over the run stands beside the
    trace.
@@ -724,12 +728,51 @@ def check_prefill(torch, gen):
             "library_ms": lib_ms}
 
 
+def check_prefill_head_dims(torch) -> None:
+    """Kernel 3 at every head dim kernel 1 takes, in every dtype pair, at
+    G = 4 (8/2 heads) and granite's G = 3 (24/8), a chunk of 40 over
+    blocks of 16 with one lane at 0, one at 100 and a padded lane, from a
+    generator of its own; each bf16 launch on the tensor cores, each f32
+    one on the CUDA cores."""
+    from repro_torch.kernels import paged_prefill_attention as ppa
+    g = torch.Generator(device="cuda").manual_seed(19)
+    B, C, bs, T = 3, 40, 16, 12
+    for name, q_dt, kv_dt in _pairs(torch):
+        for D in ppa._HEAD_DIMS:
+            for H, K in ((8, 2), (24, 8)):
+                n_blocks = 1 + B * T
+                tables = (torch.randperm(n_blocks - 1, generator=g,
+                                         device="cuda") + 1)[: B * T]
+                tables = tables.reshape(B, T).to(torch.int32)
+                tables[-1] = 0
+                starts = torch.tensor([0, 100, 0], dtype=torch.int32,
+                                      device="cuda")
+                q = torch.randn(B, C, H, D, generator=g, device="cuda",
+                                dtype=q_dt)
+                kp, vp = (torch.randn(n_blocks, bs, K, D, generator=g,
+                                      device="cuda", dtype=kv_dt)
+                          for _ in range(2))
+                args = (q, kp, vp, tables, starts)
+                before = ppa.paged_prefill_attention.tensor_core
+                o = ppa.paged_prefill_attention(*args)
+                if ppa.paged_prefill_attention.tensor_core != \
+                        before + (q_dt == torch.bfloat16):
+                    fail(f"paged_prefill_attention q={q_dt} D={D}: the "
+                         f"launch did not take the route of its dtype (bf16: "
+                         f"tensor cores, f32: CUDA cores)")
+                held(f"paged_prefill_attention q={q_dt} pool={kv_dt} B={B} "
+                     f"C={C} H={H} K={K} D={D} bs={bs} T={T} starts "
+                     f"[0, 100, padded]", o,
+                     ppa.paged_prefill_attention_ref(*args), name)
+
+
 def check_dense(torch, gen):
     """Kernel 5 at the slot path's shapes: 4 slots of max_seq 2048, and a
-    cache length of 1000 that is not a multiple of the 32-key tile.  One
-    lane at the last position, one parked at 0, two ragged.  Held against
+    cache length of 1000 that is not a multiple of a split.  One lane at
+    the last position, one parked at 0, two ragged.  Held against
     ``flash_decode_ref``, the plain version of the slot model path (what
-    the dispatcher takes on the CPU)."""
+    the dispatcher takes on the CPU).  Over hymba's ring, a reading beside
+    its plain version and SDPA."""
     import torch.nn.functional as F
     from repro_torch.kernels import decode_attention as da
     B, D = 4, 128
@@ -779,8 +822,20 @@ def check_dense(torch, gen):
     r_bound, r_by = bound_of(2 * keys * 5 * 64 * 2 + 2 * B * 25 * 64 * 2
                              + 4 * B, 4 * 64 * 25 * keys, "bf16")
     ring_ms = spread_ms(lambda: da.decode_attention(qr, kr, vr, clamped))
+    ring_plain = cuda_ms(lambda: da.swa_decode_ref(qr, kr, vr, clamped))
+    # yardstick: SDPA over the ring's (B, K, W, D) transposed view with a
+    # mask of the live slots, the 5 KV heads shared by 25 query heads
+    rmask = (torch.arange(1024, device="cuda")[None, :]
+             <= clamped[:, None])[:, None, None, :]
+    ring_lib = cuda_ms(lambda: F.scaled_dot_product_attention(
+        qr[:, :, None], kr.transpose(1, 2), vr.transpose(1, 2),
+        attn_mask=rmask, enable_gqa=True))
+    ring_dev = device_ms(torch, lambda: da.decode_attention(qr, kr, vr,
+                                                            clamped))
     print(f"reading: decode_attention over hymba's ring bf16 B={B} H=25 K=5 "
-          f"D=64 W=1024 keys={keys}: kernel {spread(*ring_ms)}, bound "
+          f"D=64 W=1024 keys={keys}: kernel {spread(*ring_ms)}, device "
+          f"{ring_dev:.4f} ms (20 calls held back to back), plain "
+          f"{ring_plain:.4f} ms, sdpa {ring_lib:.4f} ms, bound "
           f"{r_bound:.4f} ms ({r_by})", flush=True)
     (q, k, v, pos), err = timed
     H, S, K = q.shape[1], k.shape[1], k.shape[2]
@@ -798,9 +853,10 @@ def check_dense(torch, gen):
                + 2 * B * H * D * q.element_size() + 4 * B)
     flops = 4 * D * H * keys
     bound, by = bound_of(n_bytes, flops, "bf16")
+    dev = device_ms(torch, lambda: da.decode_attention(q, k, v, pos))
     print(f"decode_attention bf16 B={B} H={H} K={K} D={D} S={S} "
-          f"keys={keys}: kernel {spread(ms, lo, hi)}, plain {plain_ms:.4f} "
-          f"ms, "
+          f"keys={keys}: kernel {spread(ms, lo, hi)}, device {dev:.4f} ms "
+          f"(20 calls held back to back), plain {plain_ms:.4f} ms, "
           f"sdpa {lib_ms:.4f} ms, bound {bound:.4f} ms ({by}: {n_bytes} B, "
           f"{flops} flop)", flush=True)
     return {"name": "decode_attention", "route": "cuda",
@@ -1055,8 +1111,9 @@ def check_int8(torch, gen):
 def kernel_wrappers() -> dict:
     """Every kernel wrapper of the port by name; each counts its launches
     (kernel 1's also those of its window form that band, ``banded``, those
-    of its bidirectional form, ``bidirectional``, and those that took the
-    tensor cores, ``tensor_core``: every bf16 launch)."""
+    of its bidirectional form, ``bidirectional``, and kernels 1's and 3's
+    those that took the tensor cores, ``tensor_core``: every bf16
+    launch)."""
     from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import int8_matmul as i8
@@ -1079,13 +1136,16 @@ def reset_launches() -> None:
     wrappers["flash_attention"].banded = 0
     wrappers["flash_attention"].bidirectional = 0
     wrappers["flash_attention"].tensor_core = 0
+    wrappers["paged_prefill_attention"].tensor_core = 0
 
 
 def read_launches() -> dict:
     """Launches by kernel; ``flash_attention_window`` counts the launches
     of kernel 1 that band (0 < window < S), ``flash_attention_bidirectional``
     those with ``causal=False``, ``flash_attention_tensor_core`` those that
-    took the wgmma kernel; ``flash_attention`` counts all of them too."""
+    took the wgmma kernel; ``flash_attention`` counts all of them too.
+    ``paged_prefill_attention_tensor_core`` counts kernel 3's launches that
+    took its wgmma kernel."""
     wrappers = kernel_wrappers()
     out = {name: fn.launches for name, fn in wrappers.items()}
     out["flash_attention_window"] = wrappers["flash_attention"].banded
@@ -1093,19 +1153,21 @@ def read_launches() -> dict:
         wrappers["flash_attention"].bidirectional
     out["flash_attention_tensor_core"] = \
         wrappers["flash_attention"].tensor_core
+    out["paged_prefill_attention_tensor_core"] = \
+        wrappers["paged_prefill_attention"].tensor_core
     return out
 
 
 def tensor_core_route(launches: dict, label: str) -> None:
-    """Fail unless every kernel-1 launch of a bf16 run took the tensor
-    cores."""
-    tc, n = launches["flash_attention_tensor_core"], \
-        launches["flash_attention"]
-    print(f"{label}: kernel 1 on the tensor cores {tc} of {n} launches",
-          flush=True)
-    if tc != n:
-        fail(f"{label}: {n - tc} bf16 launches of kernel 1 did not take the "
-             f"tensor cores")
+    """Fail unless every kernel-1 and every kernel-3 launch of a bf16 run
+    took the tensor cores."""
+    for num, name in ((1, "flash_attention"), (3, "paged_prefill_attention")):
+        tc, n = launches[f"{name}_tensor_core"], launches[name]
+        print(f"{label}: kernel {num} on the tensor cores {tc} of {n} "
+              f"launches", flush=True)
+        if tc != n:
+            fail(f"{label}: {n - tc} bf16 launches of kernel {num} did not "
+                 f"take the tensor cores")
 
 
 def plain_load(vocab: int) -> list:
@@ -1661,7 +1723,8 @@ def trace(torch, label: str, fn, walls: list, per: int, unit: str) -> None:
     """Trace one call of ``fn`` with ``torch.profiler``: device busy time,
     the device's idle share against the median of ``walls`` (its host
     wall per step) and the device kernels that take the time, all divided
-    by ``per``, and kernel 1's time and share where it ran."""
+    by ``per``, and the time and share of kernels 1, 3 and 5 where they
+    ran."""
     import statistics
     from torch.profiler import ProfilerActivity, profile
     wall_ms = statistics.median(walls)
@@ -1686,10 +1749,17 @@ def trace(torch, label: str, fn, walls: list, per: int, unit: str) -> None:
     for dev_us, count, key in sorted(rows, reverse=True)[:10]:
         print(f"  {dev_us / 1e3 / per:8.3f} ms/{unit}  {count / per:6.1f}/"
               f"{unit}  {key[:90]}", flush=True)
-    flash = sum(r[0] for r in rows if "flash_kernel" in r[2]) / 1e3 / per
-    if flash:
-        print(f"  kernel 1 (flash_attention) {flash:.3f} ms/{unit}, share "
-              f"{flash / busy_ms:.3f} of device busy", flush=True)
+    for label_k, key in (("kernel 1 (flash_attention)", "flash_kernel"),
+                         ("kernel 3 (paged_prefill_attention)",
+                          "paged_prefill_"),
+                         ("kernel 5 (decode_attention)",
+                          "split_decode_kernel")):
+        ms = sum(r[0] for r in rows if key in r[2]) / 1e3 / per
+        n = sum(r[1] for r in rows if key in r[2]) / per
+        if ms:
+            print(f"  {label_k} {ms:.3f} ms/{unit} over {n:.0f} launches, "
+                  f"share {ms / busy_ms:.3f} of device busy, beside "
+                  f"{n_ops:.0f} device ops/{unit}", flush=True)
 
 
 def phase4_calls(torch, model, params, horizon: int = 8) -> dict:
@@ -2701,6 +2771,7 @@ def main() -> int:
                check_wkv(torch, gen), check_lse(torch, gen),
                check_int8(torch, gen)]
     check_flash_head_dims(torch, dtypes)
+    check_prefill_head_dims(torch)
     print(f"phase 1 done at {time.perf_counter() - t_start:.1f} s",
           flush=True)
 

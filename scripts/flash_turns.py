@@ -1,21 +1,29 @@
 #!/usr/bin/env python3
-"""Kernel 1 of two trees, timed in turns on one card: the bf16
-``flash_attention`` of the PyTorch/CUDA port at ``chip_smoke.py``'s four
-phase-1 shapes (llama2-7b causal, hymba-1.5b's window, hubert-xlarge
-bidirectional, gemma-7b's D=256).
+"""Kernels 1, 3 and 5 of two trees, timed in turns on one card: the bf16
+``flash_attention`` (kernel 1) of the PyTorch/CUDA port at
+``chip_smoke.py``'s four phase-1 shapes (llama2-7b causal, hymba-1.5b's
+window, hubert-xlarge bidirectional, gemma-7b's D=256), the bf16
+``paged_prefill_attention`` (kernel 3) at llama2-7b's chunk shape and the
+bf16 ``decode_attention`` (kernel 5) at llama2-7b's slot shape and over
+hymba-1.5b's ring.
 
     python3 scripts/flash_turns.py OTHER_TREE
 
 OTHER_TREE is a checkout of another commit, for instance the parent
 unpacked with ``git archive`` into a directory that ``.gitignore`` lists.
 Four processes run in the order other, this, this, other.  Each puts its
-tree's ``src`` first on ``sys.path``, builds that tree's kernel from its
-own ``csrc`` and times its wrapper at each shape: median, min and max of
-5 runs of CUDA events around 20 calls (after 3 warm-up calls), with the
-largest error against that tree's plain version.  The script prints every
-process's readings, then each shape's medians side by side beside the
-bound (the larger of bytes over 3.35 TB/s and flops over 989 TFLOP/s).
-Needs one CUDA card.
+tree's ``src`` first on ``sys.path``, builds that tree's kernels from its
+own ``csrc`` and times its wrappers at each shape on the same seeded
+inputs: median, min and max of 5 runs of CUDA events around 20 calls
+(after 3 warm-up calls), with the largest error against that tree's plain
+version, and the device time of 20 calls queued behind a spin kernel, so
+that the card runs them back to back (events around calls that are not
+held time the host where a kernel is shorter than its wrapper's host
+work, as kernel 5 over hymba's ring is).  Each process also saves kernel
+1's outputs, and the script prints the largest |other - this| of them at
+each shape (0 when the two trees' kernel 1 computes the same bits).  Then each shape's medians side
+by side, events and device time, beside the bound (the larger of bytes
+over 3.35 TB/s and flops over 989 TFLOP/s).  Needs one CUDA card.
 """
 from __future__ import annotations
 
@@ -23,15 +31,25 @@ import json
 import statistics
 import subprocess
 import sys
+import tempfile
+import time
 from pathlib import Path
 
 THIS = Path(__file__).resolve().parent.parent
-# name: (B, H, K, S, D, causal, window)
-SHAPES = {
+# kernel 1, name: (B, H, K, S, D, causal, window)
+FLASH = {
     "llama2-7b causal": (4, 32, 32, 512, 128, True, 0),
     "hymba-1.5b window": (1, 25, 5, 2048, 64, True, 1024),
     "hubert-xlarge bidirectional": (4, 16, 16, 1000, 80, False, 0),
     "gemma-7b causal D=256": (1, 16, 16, 2048, 256, True, 0),
+}
+# kernel 3: (B, C, H, K, D, bs, T, starts; the last lane padded)
+PREFILL = {"kernel 3 llama2-7b chunk": (4, 128, 32, 32, 128, 16, 128,
+                                        (0, 1100, 515, 0))}
+# kernel 5: (B, H, K, D, S, positions)
+DECODE = {
+    "kernel 5 llama2-7b slots": (4, 32, 32, 128, 2048, (2047, 1500, 545, 0)),
+    "kernel 5 hymba-1.5b ring": (4, 25, 5, 64, 1024, (1023, 1023, 1000, 200)),
 }
 
 
@@ -44,16 +62,40 @@ def pairs(S: int, causal: bool, window: int) -> int:
     return W * (W + 1) // 2 + (S - W) * W
 
 
-def bound_ms(B, H, K, S, D, causal, window) -> tuple[float, int]:
+def bound_ms(n_bytes: int, flops: int) -> float:
+    return max(n_bytes / 3.35e12, flops / 989e12) * 1e3
+
+
+def flash_bound(B, H, K, S, D, causal, window) -> tuple[float, int]:
     n_bytes = 2 * B * S * (H + K) * D * 2            # q, k, v in, o out
     flops = 4 * D * B * H * pairs(S, causal, window)
-    return max(n_bytes / 3.35e12, flops / 989e12) * 1e3, flops
+    return bound_ms(n_bytes, flops), flops
 
 
-def child(src: str) -> None:
+def prefill_bound(B, C, H, K, D, bs, T, starts) -> tuple[float, int]:
+    """Distinct K/V rows the lanes read (the padded lane's are block 0's),
+    q in and o out, the tables' live entries and the starts."""
+    keys = sum(s0 + C for s0 in starts[:-1]) + min(bs, starts[-1] + C)
+    seen = sum(C * s0 + C * (C + 1) // 2 for s0 in starts)
+    n_bytes = (2 * keys * K * D * 2 + 2 * B * C * H * D * 2
+               + 4 * sum(-(-(s0 + C) // bs) for s0 in starts) + 4 * B)
+    flops = 4 * D * H * seen
+    return bound_ms(n_bytes, flops), flops
+
+
+def decode_bound(B, H, K, D, S, positions) -> tuple[float, int]:
+    keys = sum(p + 1 for p in positions)
+    n_bytes = 2 * keys * K * D * 2 + 2 * B * H * D * 2 + 4 * B
+    flops = 4 * D * H * keys
+    return bound_ms(n_bytes, flops), flops
+
+
+def child(src: str, save: str) -> None:
     sys.path.insert(0, src)
     import torch
+    from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import paged_prefill_attention as ppa
 
     def cuda_ms(fn, iters=20):
         for _ in range(3):
@@ -68,54 +110,119 @@ def child(src: str) -> None:
         end.synchronize()
         return start.elapsed_time(end) / iters
 
-    out = {}
-    for name, (B, H, K, S, D, causal, window) in SHAPES.items():
+    def held_ms(fn, iters=20):
+        # the spin (torch.cuda._sleep, doubled until it outlasts the host's
+        # queueing) holds the card until all calls are queued
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        cycles = int(2 * (time.perf_counter() - t0) * 2e9) + 2_000_000
+        torch.cuda.synchronize()
+        for _ in range(6):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            torch.cuda._sleep(cycles)
+            start.record()
+            for _ in range(iters):
+                fn()
+            end.record()
+            held = not start.query()
+            end.synchronize()
+            if held:
+                return start.elapsed_time(end) / iters
+            cycles *= 2
+        raise RuntimeError("the card ran the calls before all were queued")
+
+    def timed(kernel, plain):
+        err = (kernel().float() - plain().float()).abs().max()
+        runs = [cuda_ms(kernel) for _ in range(5)]
+        return {"ms": statistics.median(runs), "min": min(runs),
+                "max": max(runs), "dev": held_ms(kernel), "err": err.item()}
+
+    out, saved = {}, {}
+    bf16 = torch.bfloat16
+    for name, (B, H, K, S, D, causal, window) in FLASH.items():
         g = torch.Generator(device="cuda").manual_seed(0)
         q, k, v = (torch.randn(B, S, n, D, generator=g, device="cuda",
-                               dtype=torch.bfloat16).transpose(1, 2)
+                               dtype=bf16).transpose(1, 2)
                    for n in (H, K, K))
         kw = {"causal": causal, "window": window}
-        err = (fa.flash_attention(q, k, v, **kw).float()
-               - fa.flash_attention_ref(q, k, v, **kw).float()).abs().max()
-        runs = [cuda_ms(lambda: fa.flash_attention(q, k, v, **kw))
-                for _ in range(5)]
-        out[name] = {"ms": statistics.median(runs), "min": min(runs),
-                     "max": max(runs), "err": err.item()}
+        saved[name] = fa.flash_attention(q, k, v, **kw).cpu()
+        out[name] = timed(lambda: fa.flash_attention(q, k, v, **kw),
+                          lambda: fa.flash_attention_ref(q, k, v, **kw))
+    for name, (B, C, H, K, D, bs, T, starts) in PREFILL.items():
+        g = torch.Generator(device="cuda").manual_seed(0)
+        n_blocks = 1 + B * T
+        tables = (torch.randperm(n_blocks - 1, generator=g, device="cuda")
+                  + 1)[: B * T].reshape(B, T).to(torch.int32)
+        tables[-1] = 0
+        st = torch.tensor(starts, dtype=torch.int32, device="cuda")
+        q = torch.randn(B, C, H, D, generator=g, device="cuda", dtype=bf16)
+        kp, vp = (torch.randn(n_blocks, bs, K, D, generator=g, device="cuda",
+                              dtype=bf16) for _ in range(2))
+        args = (q, kp, vp, tables, st)
+        out[name] = timed(lambda: ppa.paged_prefill_attention(*args),
+                          lambda: ppa.paged_prefill_attention_ref(*args))
+    for name, (B, H, K, D, S, positions) in DECODE.items():
+        g = torch.Generator(device="cuda").manual_seed(0)
+        q = torch.randn(B, H, D, generator=g, device="cuda", dtype=bf16)
+        k, v = (torch.randn(B, S, K, D, generator=g, device="cuda",
+                            dtype=bf16) for _ in range(2))
+        pos = torch.tensor(positions, dtype=torch.int32, device="cuda")
+        out[name] = timed(lambda: da.decode_attention(q, k, v, pos),
+                          lambda: da.flash_decode_ref(q, k, v, pos))
+    torch.save(saved, save)
     print("TURN " + json.dumps(out), flush=True)
 
 
 def main(argv: list[str]) -> int:
-    if len(argv) == 2 and argv[0] == "--child":
-        child(argv[1])
+    if len(argv) == 3 and argv[0] == "--child":
+        child(argv[1], argv[2])
         return 0
     if len(argv) != 1:
         print(__doc__, file=sys.stderr)
         return 2
+    import torch
     other = Path(argv[0]).resolve()
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
                           text=True, timeout=60, check=True).stdout.strip()
     print(f"card: {card}", flush=True)
-    turns = []
-    for label, tree in (("other", other), ("this", THIS), ("this", THIS),
-                        ("other", other)):
-        run = subprocess.run([sys.executable, __file__, "--child",
-                              str(tree / "src")], capture_output=True,
-                             text=True, timeout=900)
-        lines = [ln for ln in run.stdout.splitlines()
-                 if ln.startswith("TURN ")]
-        if run.returncode or not lines:
-            print(run.stdout[-4000:], run.stderr[-4000:], file=sys.stderr)
-            return 1
-        turns.append((label, json.loads(lines[0][5:])))
-        print(f"{label} ({tree}): {lines[0][5:]}", flush=True)
-    for name, shape in SHAPES.items():
-        bound, flops = bound_ms(*shape)
+    turns, outputs = [], []
+    with tempfile.TemporaryDirectory() as tmp:
+        for i, (label, tree) in enumerate((("other", other), ("this", THIS),
+                                           ("this", THIS),
+                                           ("other", other))):
+            save = str(Path(tmp) / f"turn{i}.pt")
+            run = subprocess.run([sys.executable, __file__, "--child",
+                                  str(tree / "src"), save],
+                                 capture_output=True, text=True, timeout=900)
+            lines = [ln for ln in run.stdout.splitlines()
+                     if ln.startswith("TURN ")]
+            if run.returncode or not lines:
+                print(run.stdout[-4000:], run.stderr[-4000:], file=sys.stderr)
+                return 1
+            turns.append((label, json.loads(lines[0][5:])))
+            outputs.append((label, torch.load(save)))
+            print(f"{label} ({tree}): {lines[0][5:]}", flush=True)
+    shapes = {**{n: flash_bound(*s) for n, s in FLASH.items()},
+              **{n: prefill_bound(*s) for n, s in PREFILL.items()},
+              **{n: decode_bound(*s) for n, s in DECODE.items()}}
+    for name, (bound, flops) in shapes.items():
         cells = ", ".join(
             f"{label} {t[name]['ms']:.4f} ({t[name]['min']:.4f}-"
-            f"{t[name]['max']:.4f}; {flops / t[name]['ms'] / 1e9:.1f} "
-            f"TFLOP/s; err {t[name]['err']:.3e})" for label, t in turns)
-        print(f"{name} {shape}: {cells}; bound {bound:.4f} ms", flush=True)
+            f"{t[name]['max']:.4f}; device {t[name]['dev']:.4f}; "
+            f"{flops / t[name]['ms'] / 1e9:.1f} TFLOP/s; err "
+            f"{t[name]['err']:.3e})" for label, t in turns)
+        print(f"{name}: {cells}; bound {bound:.4f} ms", flush=True)
+    for name in FLASH:
+        diff = max((a[name].float() - b[name].float()).abs().max().item()
+                   for (la, a) in outputs for (lb, b) in outputs
+                   if la == "other" and lb == "this")
+        print(f"kernel 1 {name}: max |other - this| = {diff:.3e}"
+              f"{'' if diff == 0 else ' (outputs differ)'}", flush=True)
     return 0
 
 

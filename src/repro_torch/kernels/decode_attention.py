@@ -21,6 +21,11 @@ Two plain versions, one per parity target:
   positions clamped so, and the kernel runs unchanged.  It rounds the
   normalised P to v's dtype, and the output as well (the reference's PV
   product is in v's dtype); the dispatcher takes it for ``ring=True``.
+
+The kernel splits each lane's keys into pieces of ``split_plan``'s length
+and merges the pieces' partials inside the same launch;
+``split_decode_ref`` is that arithmetic in plain PyTorch (per-split
+partials, then the merge), with the split length as an argument.
 """
 from __future__ import annotations
 
@@ -82,6 +87,38 @@ def flash_decode_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return o.to(q.dtype)
 
 
+def split_decode_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     positions: torch.Tensor, split: int, *,
+                     scale: float | None = None) -> torch.Tensor:
+    """The kernel's split-and-merge arithmetic in plain PyTorch: split i
+    of a lane owns keys ``[i * split, (i + 1) * split)`` of its ``0 ..
+    positions``; each split keeps ``m_i = max s`` (-1e30 when it holds no
+    key), ``l_i = sum exp(s - m_i)`` and ``acc_i = sum round(exp(s - m_i))
+    v`` (rounded to v's dtype), and the merge is ``o = sum e^{m_i - M}
+    acc_i / max(sum e^{m_i - M} l_i, 1e-30)``, M the largest m_i: an empty
+    split adds exactly 0."""
+    B, H, D = q.shape
+    S = k.shape[1]
+    n = -(-S // split)
+    ve = v.repeat_interleave(H // v.shape[2], dim=2).float()
+    s = _scores(q, k, positions, scale)
+    mask = (torch.arange(S, device=q.device)[None, None, :]
+            <= positions[:, None, None]).expand(B, H, S)
+    pad = n * split - S
+    s = torch.nn.functional.pad(s, (0, pad), value=NEG_INF).view(B, H, n, split)
+    mask = torch.nn.functional.pad(mask, (0, pad)).view(B, H, n, split)
+    ve = torch.nn.functional.pad(ve, (0, 0, 0, 0, 0, pad)).view(
+        B, n, split, H, D)
+    m = s.max(dim=-1).values                                  # (B, H, n)
+    p = torch.where(mask, torch.exp(s - m[..., None]), 0.0)
+    l_i = p.sum(dim=-1)
+    acc = torch.einsum("bhnt,bnthd->bhnd", p.to(v.dtype).float(), ve)
+    w = torch.exp(m - m.max(dim=-1, keepdim=True).values)
+    o = ((w[..., None] * acc).sum(dim=2)
+         / (w * l_i).sum(dim=-1).clamp_min(1e-30)[..., None])
+    return o.to(q.dtype)
+
+
 def swa_decode_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                    positions: torch.Tensor, *,
                    scale: float | None = None) -> torch.Tensor:
@@ -94,14 +131,53 @@ def swa_decode_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return o.to(v.dtype).to(q.dtype)
 
 
+# CTAs wanted per launch: two per SM of an H100 (132 SMs)
+_MIN_CTAS = 2 * 132
+_MAX_HEADS = 8        # query heads per CTA (csrc/decode_attention.cu MAX_G)
+_MAX_SPLITS = 256     # splits per lane (csrc/decode_attention.cu MAX_SPLITS)
+
+
+def split_plan(B: int, H: int, K: int, S: int) -> tuple[int, int, int]:
+    """``(L, splits, head_groups)`` for a launch over (B, S, K, D) with H
+    query heads, from shapes alone (never from positions, which stay on
+    the card): L is the largest power of two >= 32 for which
+    ``B * K * head_groups * ceil(S / L)`` is still >= two CTAs per SM, or
+    32 when none is, and stops growing once one split holds all S keys;
+    past 8192 keys it grows further to keep at most 256 splits."""
+    G = H // K
+    groups = -(-G // min(G, _MAX_HEADS))
+    pairs = B * K * groups
+    L = 32
+    while L < S and pairs * -(-S // (2 * L)) >= _MIN_CTAS:
+        L *= 2
+    while -(-S // L) > _MAX_SPLITS:
+        L *= 2
+    return L, -(-S // L), groups
+
+
 @functools.cache
 def _kernel():
     fn = build.library("decode_attention").decode_attention
-    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
+    fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 6
                    + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
                       ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
+
+
+# one int32 ticket counter per (lane, KV head, head group), zero between
+# launches (the kernel's last CTA of each resets its own), kept per device
+# and stream so that launches queued on two streams never share one
+_TICKETS: dict[tuple[int, int], torch.Tensor] = {}
+
+
+def _tickets(device: torch.device, stream: int, n: int) -> torch.Tensor:
+    key = (device.index, stream)
+    buf = _TICKETS.get(key)
+    if buf is None or buf.numel() < n:
+        buf = torch.zeros(max(n, 1024), dtype=torch.int32, device=device)
+        _TICKETS[key] = buf
+    return buf
 
 
 def _check(q, k, v, positions) -> None:
@@ -121,9 +197,10 @@ def _check(q, k, v, positions) -> None:
         raise ValueError(f"decode_attention: shapes q {tuple(q.shape)} "
                          f"k {tuple(k.shape)} v {tuple(v.shape)}")
     B, H, D = q.shape
-    if k.shape[0] != B or k.shape[3] != D or H % k.shape[2] or D % 8:
+    if k.shape[0] != B or k.shape[3] != D or H % k.shape[2] or D % 8 \
+            or D > 512:
         raise ValueError(f"decode_attention: q {tuple(q.shape)} does not fit "
-                         f"the cache {tuple(k.shape)}")
+                         f"the cache {tuple(k.shape)} (D % 8 == 0, D <= 512)")
     if positions.shape != (B,):
         raise ValueError(f"decode_attention: positions "
                          f"{tuple(positions.shape)} for {B} lanes")
@@ -137,16 +214,23 @@ def _check(q, k, v, positions) -> None:
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      positions: torch.Tensor, *,
                      scale: float | None = None) -> torch.Tensor:
-    """Launch the CUDA kernel (all tensors on the current CUDA device)."""
+    """Launch the CUDA kernel (all tensors on the current CUDA device):
+    one launch, its splits merged inside it."""
     _check(q, k, v, positions)
     B, H, D = q.shape
     S, K = k.shape[1], k.shape[2]
     scale = scale if scale is not None else 1.0 / math.sqrt(D)
+    L, splits, groups = split_plan(B, H, K, S)
+    per_cta = min(H // K, _MAX_HEADS) * (D + 2)
+    part = torch.empty(B * K * groups * splits * per_cta,
+                       dtype=torch.float32, device=q.device)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    tickets = _tickets(q.device, stream, B * K * groups)
     out = torch.empty_like(q)
     err = _kernel()(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), positions.data_ptr(),
-        out.data_ptr(), B, H, K, D, S, scale, _DTYPES[q.dtype],
-        _DTYPES[k.dtype], torch.cuda.current_stream(q.device).cuda_stream)
+        out.data_ptr(), part.data_ptr(), tickets.data_ptr(), B, H, K, D, S,
+        L, scale, _DTYPES[q.dtype], _DTYPES[k.dtype], stream)
     build.check(err, "decode_attention")
     decode_attention.launches += 1
     return out

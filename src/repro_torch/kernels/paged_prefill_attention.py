@@ -9,6 +9,10 @@ block_tables (B, T) int32 (unused slots hold the parking block 0); starts
 (B,) int32 -> o (B, C, H, D) in q's dtype.  Key kpos is visible to query c
 iff ``kpos <= starts[b] + c``.
 
+bf16 q over a bf16 pool runs on the tensor cores (``wgmma`` tiles over a
+gathered K/V ring), f32 q on the CUDA cores (tensor cores in f32 would be
+TF32): the route is chosen by dtype alone, never by a retry.
+
 ``paged_verify_attention`` (speculative verify: the current token plus its
 drafts at ``positions + i``) is the same kernel with ``starts = positions``,
 as in the reference; it has no kernel of its own.
@@ -29,7 +33,7 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # bf16 pool is the reference's f32 plan (the pool is always bf16 there)
 _PAIRS = {(torch.bfloat16, torch.bfloat16), (torch.float32, torch.float32),
           (torch.float32, torch.bfloat16)}
-_HEAD_DIMS = (16, 32, 64, 128)   # instantiated in the .cu source
+_HEAD_DIMS = (16, 32, 64, 80, 96, 128, 256)   # instantiated in the .cu source
 
 
 def paged_prefill_attention_ref(q: torch.Tensor, k_pool: torch.Tensor,
@@ -103,9 +107,9 @@ def _check(q, k_pool, v_pool, block_tables, starts) -> None:
         raise ValueError(f"paged_prefill_attention: tables "
                          f"{tuple(block_tables.shape)} starts "
                          f"{tuple(starts.shape)} for {B} lanes")
-    if k_pool.data_ptr() % 16 or v_pool.data_ptr() % 16:
-        raise ValueError("paged_prefill_attention: pools must start on 16 "
-                         "bytes")
+    if q.data_ptr() % 16 or k_pool.data_ptr() % 16 or v_pool.data_ptr() % 16:
+        raise ValueError("paged_prefill_attention: q and the pools must "
+                         "start on 16 bytes")
     if q.device.index != torch.cuda.current_device():
         raise ValueError(f"paged_prefill_attention: q on {q.device}, current "
                          f"device is cuda:{torch.cuda.current_device()}")
@@ -115,7 +119,9 @@ def paged_prefill_attention(q: torch.Tensor, k_pool: torch.Tensor,
                             v_pool: torch.Tensor, block_tables: torch.Tensor,
                             starts: torch.Tensor, *,
                             scale: float | None = None) -> torch.Tensor:
-    """Launch the CUDA kernel (all tensors on the current CUDA device)."""
+    """Launch the CUDA kernel (all tensors on the current CUDA device).
+    ``launches`` counts every launch, ``tensor_core`` the bf16 ones, which
+    take the ``wgmma`` kernel (f32 q takes the CUDA-core one)."""
     _check(q, k_pool, v_pool, block_tables, starts)
     B, C, H, D = q.shape
     n_blocks, bs, K, _ = k_pool.shape
@@ -129,10 +135,12 @@ def paged_prefill_attention(q: torch.Tensor, k_pool: torch.Tensor,
         torch.cuda.current_stream(q.device).cuda_stream)
     build.check(err, "paged_prefill_attention")
     paged_prefill_attention.launches += 1
+    paged_prefill_attention.tensor_core += q.dtype == torch.bfloat16
     return out
 
 
 paged_prefill_attention.launches = 0
+paged_prefill_attention.tensor_core = 0
 
 
 def paged_verify_attention(q: torch.Tensor, k_pool: torch.Tensor,

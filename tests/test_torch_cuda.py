@@ -975,3 +975,118 @@ def test_flash_f32_stays_on_the_cuda_cores(gen):
                 fa.flash_attention.tensor_core) == (before[0] + 1, before[1])
         assert_close(o, fa.flash_attention_ref(q, k, v, causal=False,
                                                window=16), torch.float32)
+
+
+# Kernel 5 split over the key axis and merged in the same launch: every
+# dtype pair, G query heads per KV head from 1 to 12 (12 takes two head
+# groups of CTAs), head dims 64/80/128/256, caches of 1 to 2048 keys, and
+# lanes at the split edges of ``split_plan``'s length L: positions 0,
+# L - 1, L, S - 1 and one drawn.
+@pytest.mark.parametrize("q_dt,kv_dt", [
+    (torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16),
+    (torch.float32, torch.bfloat16)])
+@pytest.mark.parametrize("D", [64, 80, 128, 256])
+@pytest.mark.parametrize("G", [1, 3, 5, 8, 12])
+def test_decode_kernel_at_split_edges(gen, q_dt, kv_dt, D, G):
+    K = 2
+    H = G * K
+    dt = max(q_dt, kv_dt, key=TOL.get)
+    for S in (1, 31, 1000, 2048):
+        L, splits, _ = da.split_plan(5, H, K, S)
+        pos = torch.tensor([S - 1, 0, min(L - 1, S - 1), min(L, S - 1),
+                            S // 3], dtype=torch.int32, device="cuda")
+        q = torch.randn(5, H, D, generator=gen, device="cuda", dtype=q_dt)
+        k, v = (torch.randn(5, S, K, D, generator=gen, device="cuda",
+                            dtype=kv_dt) for _ in range(2))
+        before = da.decode_attention.launches
+        o = da.decode_attention(q, k, v, pos)
+        assert da.decode_attention.launches == before + 1
+        assert not o.isnan().any(), (S, L, splits)
+        assert_close(o, da.flash_decode_ref(q, k, v, pos), dt)
+        assert_close(o, da.split_decode_ref(q, k, v, pos, L), dt)
+        if S <= 1024:
+            assert_close(o.to(kv_dt).to(q_dt), da.swa_decode_ref(q, k, v, pos),
+                         dt)
+
+
+def test_decode_kernel_back_to_back_shapes_reset_the_tickets(gen):
+    """Launches of different shapes queued back to back on one stream,
+    then the first shape again: each matches its plain version, and every
+    ticket counter is 0 once the card is done (the last CTA of each
+    (lane, KV head) resets its own)."""
+    shapes = [(4, 32, 32, 128, 2048), (4, 25, 5, 64, 1024),
+              (3, 24, 8, 64, 300), (4, 32, 32, 128, 2048)]
+    runs = []
+    for B, H, K, D, S in shapes:
+        q = torch.randn(B, H, D, generator=gen, device="cuda",
+                        dtype=torch.bfloat16)
+        k, v = (torch.randn(B, S, K, D, generator=gen, device="cuda",
+                            dtype=torch.bfloat16) for _ in range(2))
+        pos = torch.randint(0, S, (B,), generator=gen, device="cuda",
+                            dtype=torch.int32)
+        runs.append(((q, k, v, pos), da.decode_attention(q, k, v, pos)))
+    torch.cuda.synchronize()
+    for args, o in runs:
+        assert_close(o, da.flash_decode_ref(*args), torch.bfloat16)
+    assert all(int(t.abs().sum()) == 0 for t in da._TICKETS.values())
+
+
+def _prefill_inputs(gen, B, C, H, K, D, bs, T, q_dt, kv_dt, starts):
+    """Scrambled tables over the pool, the given starts; the last lane is
+    padded (a table of zeros, start 0) when ``starts`` ends in None."""
+    n_blocks = 1 + B * T
+    tables = (torch.randperm(n_blocks - 1, generator=gen, device="cuda")
+              + 1)[: B * T].reshape(B, T).to(torch.int32)
+    if starts[-1] is None:
+        tables[-1] = 0
+        starts = [*starts[:-1], 0]
+    st = torch.tensor(starts, dtype=torch.int32, device="cuda")
+    q = torch.randn(B, C, H, D, generator=gen, device="cuda", dtype=q_dt)
+    kp, vp = (torch.randn(n_blocks, bs, K, D, generator=gen, device="cuda",
+                          dtype=kv_dt) for _ in range(2))
+    return q, kp, vp, tables, st
+
+
+# Kernel 3's bf16 route (wgmma tiles over a gathered K/V ring): every head
+# dim, G = 1, 3, 4, 8 (3 does not divide the 128-row tile), block sizes
+# 8/16/32, chunks of 1 to 128 tokens, starts on and off the 64-key tile's
+# edges, and a padded lane.
+@pytest.mark.parametrize("bs", [8, 16, 32])
+@pytest.mark.parametrize("D", ppa._HEAD_DIMS)
+def test_paged_prefill_bf16_runs_on_the_tensor_cores(gen, D, bs):
+    T = 320 // bs
+    for G in (1, 3, 4, 8):
+        H, K = 2 * G, 2
+        for C in (1, 16, 100, 128):
+            top = T * bs - C
+            starts = [0, 64, min(63, top), min(191, top), None]
+            q, kp, vp, tables, st = _prefill_inputs(
+                gen, 5, C, H, K, D, bs, T, torch.bfloat16, torch.bfloat16,
+                starts)
+            before = (ppa.paged_prefill_attention.launches,
+                      ppa.paged_prefill_attention.tensor_core)
+            o = ppa.paged_prefill_attention(q, kp, vp, tables, st)
+            assert (ppa.paged_prefill_attention.launches,
+                    ppa.paged_prefill_attention.tensor_core) == \
+                (before[0] + 1, before[1] + 1)
+            assert_close(o, ppa.paged_prefill_attention_ref(q, kp, vp,
+                                                            tables, st),
+                         torch.bfloat16)
+
+
+@pytest.mark.parametrize("kv_dt", [torch.float32, torch.bfloat16])
+def test_paged_prefill_f32_stays_on_the_cuda_cores(gen, kv_dt):
+    """f32 q (over an f32 or a bf16 pool) at every head dim counts as a
+    launch and never as a ``tensor_core`` one, and holds the tolerance of
+    its lowest precision."""
+    for D in ppa._HEAD_DIMS:
+        q, kp, vp, tables, st = _prefill_inputs(
+            gen, 3, 40, 8, 2, D, 16, 12, torch.float32, kv_dt, [0, 100, None])
+        before = (ppa.paged_prefill_attention.launches,
+                  ppa.paged_prefill_attention.tensor_core)
+        o = ppa.paged_prefill_attention(q, kp, vp, tables, st)
+        assert (ppa.paged_prefill_attention.launches,
+                ppa.paged_prefill_attention.tensor_core) == \
+            (before[0] + 1, before[1])
+        assert_close(o, ppa.paged_prefill_attention_ref(q, kp, vp, tables, st),
+                     max(torch.float32, kv_dt, key=TOL.get))

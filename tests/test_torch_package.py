@@ -289,6 +289,7 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     assert flash_mod.flash_attention.banded == 0
     assert flash_mod.flash_attention.bidirectional == 0
     assert flash_mod.flash_attention.tensor_core == 0
+    assert prefill_mod.paged_prefill_attention.tensor_core == 0
     assert paged_mod.paged_decode_attention.launches == 0
     assert paged_mod.paged_decode_attention_lse.launches == 0
     assert prefill_mod.paged_prefill_attention.launches == 0
@@ -324,6 +325,7 @@ def test_model_runs_plain_versions_on_cpu_without_counting():
     assert logits.shape == (2, 128) and torch.isfinite(logits).all()
     assert flash_mod.flash_attention.launches == 0
     assert flash_mod.flash_attention.tensor_core == 0
+    assert prefill_mod.paged_prefill_attention.tensor_core == 0
     assert prefill_mod.paged_prefill_attention.launches == 0
     assert dense_mod.decode_attention.launches == 0
     assert paged_mod.paged_decode_attention_lse.launches == 0
@@ -361,6 +363,7 @@ def test_hybrid_model_runs_plain_versions_on_cpu_without_counting():
     assert flash_mod.flash_attention.launches == 0
     assert flash_mod.flash_attention.banded == 0
     assert flash_mod.flash_attention.tensor_core == 0
+    assert prefill_mod.paged_prefill_attention.tensor_core == 0
     assert dense_mod.decode_attention.launches == 0
 
 
@@ -380,6 +383,7 @@ def test_encoder_model_runs_plain_versions_on_cpu_without_counting():
     assert flash_mod.flash_attention.launches == 0
     assert flash_mod.flash_attention.bidirectional == 0
     assert flash_mod.flash_attention.tensor_core == 0
+    assert prefill_mod.paged_prefill_attention.tensor_core == 0
 
 
 @pytest.mark.parametrize("quantize", [False, True])
