@@ -10,9 +10,13 @@ Builds the hand-written CUDA kernels from ``src/repro_torch/csrc`` (one
    serving paths' shapes, in every (query, cache) dtype pair the kernel is
    built for (for the WKV recurrence: f32 and bf16 r/k/v, at the decode,
    prefill, ragged and state-carry shapes; for the per-stripe decode,
-   kernel 4, each stripe of a pool split 2 and 4 ways, and the stripes
-   merged by ``combine_lse`` against kernel 2 over the whole pool; for
-   the int8 GEMM, kernel 6, bit-exact at the reference's test shapes,
+   kernel 4, each stripe of a pool split 2 and 4 ways, the stripes
+   merged by ``combine_lse`` against kernel 2 over the whole pool, and a
+   stripe that owns no block of a lane (lse -1e30 and o 0 exactly); for
+   kernel 2, lanes at its split's edges, on block edges and parked, and
+   llama2-7b's served step (4 lanes at 230/180/120/40) timed by events
+   and device time beside SDPA; for the int8 GEMM, kernel 6, bit-exact
+   at the reference's test shapes,
    granite's expert shapes, a ragged and a large shape, in both output
    types; for kernel 1's window form, hymba-1.5b's prefill shape and edge
    windows at small S; for its bidirectional form, hubert-xlarge's shape
@@ -55,7 +59,7 @@ Builds the hand-written CUDA kernels from ``src/repro_torch/csrc`` (one
    shards 2 and 4), one chunk tick and one slot decode step at the serving
    shape with ``torch.profiler``: host wall time and device busy time per
    step, the device's idle share, the device kernels that take the time,
-   and the time and share of kernels 1, 3 and 5 beside the device ops per
+   and the time and share of kernels 1-5 beside the device ops per
    step.  The same decode horizon is also timed on the host clock after
    init (plain and under ``torch.inference_mode``) and after each later
    phase, so the drift of the host's clock over the run stands beside the
@@ -106,9 +110,10 @@ Builds the hand-written CUDA kernels from ``src/repro_torch/csrc`` (one
    at 1e-4 of max |logit|) and in bf16 (a reading), and a trace of one
    forward with kernel 1's share of the device time.
 
-Any failed check exits non-zero.  The last line is the result JSON; the
-lines before it list every kernel with its launches, error and times, and
-the card's name and power limit as ``nvidia-smi`` prints them.
+At the end, every ticket counter of the split kernels (2, 4 and 5) must
+be 0.  Any failed check exits non-zero.  The last line is the result
+JSON; the lines before it list every kernel with its launches, error and
+times, and the card's name and power limit as ``nvidia-smi`` prints them.
 """
 from __future__ import annotations
 
@@ -454,7 +459,6 @@ def _paged_inputs(torch, gen, B, H, K, D, bs, T, q_dt, kv_dt):
 
 
 def check_paged(torch, gen):
-    import torch.nn.functional as F
     from repro_torch.kernels import paged_decode_attention as pa
     bf16, f32 = torch.bfloat16, torch.float32
     B, D, bs, T = 8, 128, 16, 128
@@ -490,29 +494,32 @@ def check_paged(torch, gen):
              f"D=64 bs={bs} T={T} positions 230/180/120/40 (granite)",
              pa.paged_decode_attention(q, kp, vp, tables, pos),
              pa.paged_decode_attention_ref(q, kp, vp, tables, pos), name)
+    # lanes at the edges of the plan's split L (L - 1, L, L + 1), on block
+    # edges, at the table's last key, and parked (position 0 over a table
+    # row of zeros: key 0 of the parking block), from a generator of its own
+    g8 = torch.Generator(device="cuda").manual_seed(8)
+    L = pa.paged_split_plan(B, 32, 32, T, bs)[0]
+    edges = [L - 1, L, L + 1, T * bs - 1, bs - 1, bs, 3 * L + bs, 0]
+    for name, q_dt, kv_dt in _pairs(torch):
+        q, kp, vp, tables, _ = _paged_inputs(torch, g8, len(edges), 32, 32,
+                                             D, bs, T, q_dt, kv_dt)
+        tables[-1] = 0
+        pos = torch.tensor(edges, dtype=torch.int32, device="cuda")
+        held(f"paged_decode_attention q={q_dt} pool={kv_dt} H=K=32 D={D} "
+             f"bs={bs} T={T} positions {edges} (split L={L} edges, block "
+             f"edges, a parked lane)",
+             pa.paged_decode_attention(q, kp, vp, tables, pos),
+             pa.paged_decode_attention_ref(q, kp, vp, tables, pos), name)
+    served_paged(torch, g8)
     (q, kp, vp, tables, pos), err = timed
     H, K = q.shape[1], kp.shape[2]
     ms, lo, hi = spread_ms(
         lambda: pa.paged_decode_attention(q, kp, vp, tables, pos))
     plain_ms = cuda_ms(
         lambda: pa.paged_decode_attention_ref(q, kp, vp, tables, pos))
-    # yardstick: SDPA over the same keys gathered into a dense, masked
-    # (B, H, T*bs, D) cache (the gather itself is not timed)
-    kd = kp[tables].reshape(B, T * bs, K, D).transpose(1, 2)
-    vd = vp[tables].reshape(B, T * bs, K, D).transpose(1, 2)
-    mask = (torch.arange(T * bs, device="cuda")[None, :]
-            <= pos[:, None])[:, None, None, :]
-    lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
-        q[:, :, None], kd, vd, attn_mask=mask))
-    keys = int((pos.long() + 1).sum().item())
-    live_blocks = int(((pos.long() + bs) // bs).sum().item())
-    n_bytes = (2 * keys * K * D * kp.element_size()     # K and V of live keys
-               + 2 * B * H * D * q.element_size()       # q in, o out
-               + 4 * live_blocks + 4 * B)               # table ids, positions
-    flops = 4 * D * H * keys
-    bound = max(n_bytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS["bf16"]) * 1e3
-    by = "bytes" if n_bytes / HBM_BYTES_PER_S > flops / PEAK_FLOPS["bf16"] \
-        else "operations"
+    lib_ms, n_bytes, flops = paged_yardstick(torch, q, kp, vp, tables, pos)
+    bound, by = bound_of(n_bytes, flops, "bf16")
+    keys = flops // (4 * D * H)
     print(f"paged_decode_attention bf16 B={B} H={H} K={K} D={D} keys={keys}: "
           f"kernel {spread(ms, lo, hi)}, plain {plain_ms:.4f} ms, sdpa-dense "
           f"{lib_ms:.4f} ms, bound {bound:.4f} ms ({by}: {n_bytes} B, "
@@ -523,6 +530,59 @@ def check_paged(torch, gen):
             "max_abs_err": err, "ms": ms, "ms_min": lo, "ms_max": hi,
             "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
             "library_ms": lib_ms}
+
+
+def paged_yardstick(torch, q, kp, vp, tables, pos) -> tuple[float, int, int]:
+    """(SDPA ms, bytes, flops) of one kernel-2 call: SDPA over the same
+    keys gathered into a dense, masked (B, H, T*bs, D) cache (the gather
+    itself is not timed), and what the call must move and compute: K and
+    V of the live keys, q in and o out, the live blocks' table ids and
+    the positions; 4 D flops per live key and query head."""
+    import torch.nn.functional as F
+    B, H, D = q.shape
+    bs, K = kp.shape[1], kp.shape[2]
+    T = tables.shape[1]
+    kd = kp[tables].reshape(B, T * bs, K, D).transpose(1, 2)
+    vd = vp[tables].reshape(B, T * bs, K, D).transpose(1, 2)
+    mask = (torch.arange(T * bs, device="cuda")[None, :]
+            <= pos[:, None])[:, None, None, :]
+    lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+        q[:, :, None], kd, vd, attn_mask=mask))
+    keys = int((pos.long() + 1).sum().item())
+    live_blocks = int(((pos.long() + bs) // bs).sum().item())
+    n_bytes = (2 * keys * K * D * kp.element_size()
+               + 2 * B * H * D * q.element_size() + 4 * live_blocks + 4 * B)
+    return lib_ms, n_bytes, 4 * D * H * keys
+
+
+def served_paged(torch, gen) -> None:
+    """Kernel 2 at llama2-7b's served decode step (4 lanes at positions
+    230/180/120/40 over a table of 128 blocks of 16): held against its
+    plain version, timed by CUDA events and by device time (``device_ms``:
+    events around wrapper calls that are not held time the host here)
+    beside the plain version, SDPA over the gathered dense cache and the
+    bound."""
+    from repro_torch.kernels import paged_decode_attention as pa
+    B, H, K, D, bs, T = 4, 32, 32, 128, 16, 128
+    q, kp, vp, tables, _ = _paged_inputs(torch, gen, B, H, K, D, bs, T,
+                                         torch.bfloat16, torch.bfloat16)
+    pos = torch.tensor([230, 180, 120, 40], dtype=torch.int32, device="cuda")
+    args = (q, kp, vp, tables, pos)
+    held(f"paged_decode_attention bf16 B={B} H=K={H} D={D} bs={bs} T={T} "
+         f"positions 230/180/120/40 (served step)",
+         pa.paged_decode_attention(*args), pa.paged_decode_attention_ref(*args),
+         "bf16")
+    ms, lo, hi = spread_ms(lambda: pa.paged_decode_attention(*args))
+    dev = device_ms(torch, lambda: pa.paged_decode_attention(*args))
+    plain_ms = cuda_ms(lambda: pa.paged_decode_attention_ref(*args))
+    lib_ms, n_bytes, flops = paged_yardstick(torch, *args)
+    bound, by = bound_of(n_bytes, flops, "bf16")
+    keys = flops // (4 * D * H)
+    print(f"paged_decode_attention bf16 served step B={B} H=K={H} D={D} "
+          f"keys={keys} (split L={pa.paged_split_plan(B, H, K, T, bs)[0]}): "
+          f"kernel {spread(ms, lo, hi)}, device {dev:.4f} ms, plain "
+          f"{plain_ms:.4f} ms, sdpa-dense {lib_ms:.4f} ms, bound "
+          f"{bound:.4f} ms ({by}: {n_bytes} B)", flush=True)
 
 
 def check_lse(torch, gen):
@@ -583,6 +643,7 @@ def check_lse(torch, gen):
                  name)
             if shards == 2 and q_dt == torch.bfloat16:
                 timed = (calls, err)
+    lse_empty_stripe(torch, n_blocks)
     calls, err = timed
     ms, lo, hi = spread_ms(lambda: [pa.paged_decode_attention_lse(*a)
                                     for a in calls], per=2)
@@ -622,6 +683,62 @@ def check_lse(torch, gen):
             "max_abs_err": err, "ms": ms, "ms_min": lo, "ms_max": hi,
             "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
             "library_ms": lib_ms}
+
+
+def lse_empty_stripe(torch, n_blocks: int) -> None:
+    """Kernel 4 where a stripe owns no block of a lane: lane 1's table is
+    blocks 1-128, all in stripe 0 at 2 and 4 stripes, so every other
+    stripe must give that lane lse = -1e30 and o = 0 exactly (every split
+    of its walk empty); the other lanes as in ``check_lse``.  Per stripe
+    against the plain version, and the stripes merged against kernel 2,
+    from a generator of its own."""
+    from repro_torch.kernels import paged_decode_attention as pa
+    B, H, K, D, bs, T = 8, 32, 32, 128, 16, 128
+    g9 = torch.Generator(device="cuda").manual_seed(9)
+    for name, q_dt, kv_dt in (("bf16", torch.bfloat16, torch.bfloat16),
+                              ("bf16", torch.float32, torch.bfloat16)):
+        perm = torch.randperm(n_blocks - 1, generator=g9, device="cuda") + 1
+        tables = perm[: B * T].reshape(B, T).to(torch.int32)
+        tables[1] = torch.arange(1, T + 1, dtype=torch.int32, device="cuda")
+        pos = torch.randint(0, T * bs, (B,), generator=g9, device="cuda",
+                            dtype=torch.int32)
+        pos[0], pos[1] = T * bs - 1, 1000
+        q = torch.randn(B, H, D, generator=g9, device="cuda", dtype=q_dt)
+        kp, vp = (torch.randn(n_blocks, bs, K, D, generator=g9,
+                              device="cuda", dtype=kv_dt) for _ in range(2))
+        for shards in (2, 4):
+            nb_loc = n_blocks // shards
+            os_, lses = [], []
+            for r in range(shards):
+                local = tables - r * nb_loc
+                owned = ((local >= 0) & (local < nb_loc)).to(torch.int32)
+                args = (q, kp[r * nb_loc:(r + 1) * nb_loc],
+                        vp[r * nb_loc:(r + 1) * nb_loc],
+                        local.clamp(0, nb_loc - 1), pos, owned)
+                o, lse = pa.paged_decode_attention_lse(*args)
+                o_ref, lse_ref = pa.paged_decode_attention_lse_ref(*args)
+                what = (f"paged_decode_attention_lse q={q_dt} pool={kv_dt} "
+                        f"stripe {r}/{shards}, lane 1 owned by stripe 0 only")
+                held(f"{what} o", o, o_ref, name)
+                empty = lse_ref == -1e30
+                if bool(empty[1].all()) != (r > 0):
+                    fail(f"{what}: setup, lane 1's rows empty "
+                         f"{bool(empty[1].all())}")
+                lse_err = ((lse - lse_ref)[~empty].abs().max().item()
+                           if bool((~empty).any()) else 0.0)
+                if (not torch.equal(lse == -1e30, empty) or lse_err > 1e-4
+                        or not bool((o[empty] == 0).all())):
+                    fail(f"{what}: lse or the empty rows' o disagree (lse "
+                         f"err {lse_err:.3e})")
+                print(f"{what}: lse max_abs_err={lse_err:.3e} tol=1e-04, "
+                      f"{int(empty.sum())} (lane, head) rows with no key: "
+                      f"lse -1e30 and o 0 exactly", flush=True)
+                os_.append(o)
+                lses.append(lse)
+            held(f"combine_lse of {shards} kernel-4 stripes (lane 1 in "
+                 f"stripe 0 only) vs paged_decode_attention q={q_dt}",
+                 pa.combine_lse(torch.stack(os_), torch.stack(lses)),
+                 pa.paged_decode_attention(q, kp, vp, tables, pos), name)
 
 
 def bound_of(n_bytes: int, flops: int, peak: str) -> tuple[float, str]:
@@ -1723,8 +1840,7 @@ def trace(torch, label: str, fn, walls: list, per: int, unit: str) -> None:
     """Trace one call of ``fn`` with ``torch.profiler``: device busy time,
     the device's idle share against the median of ``walls`` (its host
     wall per step) and the device kernels that take the time, all divided
-    by ``per``, and the time and share of kernels 1, 3 and 5 where they
-    ran."""
+    by ``per``, and the time and share of kernels 1-5 where they ran."""
     import statistics
     from torch.profiler import ProfilerActivity, profile
     wall_ms = statistics.median(walls)
@@ -1750,8 +1866,12 @@ def trace(torch, label: str, fn, walls: list, per: int, unit: str) -> None:
         print(f"  {dev_us / 1e3 / per:8.3f} ms/{unit}  {count / per:6.1f}/"
               f"{unit}  {key[:90]}", flush=True)
     for label_k, key in (("kernel 1 (flash_attention)", "flash_kernel"),
+                         ("kernel 2 (paged_decode_attention)",
+                          "paged_decode_split_kernel"),
                          ("kernel 3 (paged_prefill_attention)",
                           "paged_prefill_"),
+                         ("kernel 4 (paged_decode_attention_lse)",
+                          "paged_decode_lse_split_kernel"),
                          ("kernel 5 (decode_attention)",
                           "split_decode_kernel")):
         ms = sum(r[0] for r in rows if key in r[2]) / 1e3 / per
@@ -2840,6 +2960,14 @@ def main() -> int:
         e["launches"] = launches[e["name"]]
     print(f"all phases done at {time.perf_counter() - t_start:.1f} s",
           flush=True)
+
+    # kernels 2, 4 and 5 share per-device, per-stream ticket counters that
+    # every launch leaves at 0
+    from repro_torch.kernels import decode_attention as da
+    torch.cuda.synchronize()
+    if any(int(t.abs().sum()) for t in da._TICKETS.values()):
+        fail("split kernels' ticket counters are not 0 after the run")
+    print(f"ticket counters: {len(da._TICKETS)} buffers, all 0", flush=True)
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "ms_min", "ms_max", "call_ms", "plain_ms", "bound_ms",

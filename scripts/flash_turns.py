@@ -1,13 +1,23 @@
 #!/usr/bin/env python3
-"""Kernels 1, 3 and 5 of two trees, timed in turns on one card: the bf16
+"""Kernels 1-5 of two trees, timed in turns on one card: the bf16
 ``flash_attention`` (kernel 1) of the PyTorch/CUDA port at
 ``chip_smoke.py``'s four phase-1 shapes (llama2-7b causal, hymba-1.5b's
 window, hubert-xlarge bidirectional, gemma-7b's D=256), the bf16
+``paged_decode_attention`` (kernel 2) at llama2-7b's phase-1 shape and at
+its served decode step (4 lanes at 230/180/120/40), the bf16
+``paged_decode_attention_lse`` (kernel 4) per launch over 2 stripes at
+the phase-1 shape and over 2 and 4 stripes at the served step, the bf16
 ``paged_prefill_attention`` (kernel 3) at llama2-7b's chunk shape and the
 bf16 ``decode_attention`` (kernel 5) at llama2-7b's slot shape and over
 hymba-1.5b's ring.
 
     python3 scripts/flash_turns.py OTHER_TREE
+    python3 scripts/flash_turns.py --sweep
+
+With ``--sweep``, this tree alone times kernels 2 and 4 at each of their
+shapes with the split length forced to 64, 128, 256 and 512 keys and at
+``paged_split_plan``'s own, events and device time beside the bound: the
+readings the plan's rule was chosen from.
 
 OTHER_TREE is a checkout of another commit, for instance the parent
 unpacked with ``git archive`` into a directory that ``.gitignore`` lists.
@@ -19,11 +29,13 @@ inputs: median, min and max of 5 runs of CUDA events around 20 calls
 version, and the device time of 20 calls queued behind a spin kernel, so
 that the card runs them back to back (events around calls that are not
 held time the host where a kernel is shorter than its wrapper's host
-work, as kernel 5 over hymba's ring is).  Each process also saves kernel
-1's outputs, and the script prints the largest |other - this| of them at
-each shape (0 when the two trees' kernel 1 computes the same bits).  Then each shape's medians side
-by side, events and device time, beside the bound (the larger of bytes
-over 3.35 TB/s and flops over 989 TFLOP/s).  Needs one CUDA card.
+work, as kernel 5 over hymba's ring is).  Each process also saves kernels
+1 and 5's outputs, and the script prints the largest |other - this| of
+them at each shape (0 when the two trees compute the same bits).  Then
+each shape's medians side by side, events and device time, beside the
+bound (the larger of bytes over 3.35 TB/s and flops over 989 TFLOP/s;
+for kernels 2 and 4 the bytes of the keys these inputs make live, the
+owned ones for kernel 4).  Needs one CUDA card.
 """
 from __future__ import annotations
 
@@ -46,6 +58,25 @@ FLASH = {
 # kernel 3: (B, C, H, K, D, bs, T, starts; the last lane padded)
 PREFILL = {"kernel 3 llama2-7b chunk": (4, 128, 32, 32, 128, 16, 128,
                                         (0, 1100, 515, 0))}
+# kernel 2: (B, H, K, D, bs, T, positions); kernel 4, timed per launch
+# over all stripes: (B, H, K, D, bs, T, n_blocks, stripes, positions).
+# Scrambled tables over the whole pool, drawn from seed 0
+PHASE1_POS = (2047, 1500, 1100, 700, 300, 1900, 50, 1000)
+SERVED_POS = (230, 180, 120, 40)
+PAGED = {
+    "kernel 2 llama2-7b phase 1": (8, 32, 32, 128, 16, 128, PHASE1_POS),
+    "kernel 2 llama2-7b served": (4, 32, 32, 128, 16, 128, SERVED_POS),
+    "kernel 2 granite served": (4, 24, 8, 64, 16, 128, SERVED_POS),
+}
+STRIPED = {
+    "kernel 4 llama2-7b phase 1, 2 stripes": (8, 32, 32, 128, 16, 128, 1028,
+                                              2, PHASE1_POS),
+    "kernel 4 llama2-7b served, 2 stripes": (4, 32, 32, 128, 16, 128, 516, 2,
+                                             SERVED_POS),
+    "kernel 4 llama2-7b served, 4 stripes": (4, 32, 32, 128, 16, 128, 516, 4,
+                                             SERVED_POS),
+}
+SWEEP = (64, 128, 256, 512)
 # kernel 5: (B, H, K, D, S, positions)
 DECODE = {
     "kernel 5 llama2-7b slots": (4, 32, 32, 128, 2048, (2047, 1500, 545, 0)),
@@ -90,13 +121,15 @@ def decode_bound(B, H, K, D, S, positions) -> tuple[float, int]:
     return bound_ms(n_bytes, flops), flops
 
 
-def child(src: str, save: str) -> None:
-    sys.path.insert(0, src)
-    import torch
-    from repro_torch.kernels import decode_attention as da
-    from repro_torch.kernels import flash_attention as fa
-    from repro_torch.kernels import paged_prefill_attention as ppa
+def card() -> str:
+    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True, timeout=60, check=True).stdout.strip()
 
+
+def timers(torch):
+    """(cuda_ms, held_ms): CUDA events around 20 calls after 3 warm-up
+    calls, and the device time of 20 calls held behind a spin kernel."""
     def cuda_ms(fn, iters=20):
         for _ in range(3):
             fn()
@@ -135,11 +168,25 @@ def child(src: str, save: str) -> None:
             cycles *= 2
         raise RuntimeError("the card ran the calls before all were queued")
 
-    def timed(kernel, plain):
+    return cuda_ms, held_ms
+
+
+def child(src: str, save: str) -> None:
+    sys.path.insert(0, src)
+    import torch
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import paged_decode_attention as pa
+    from repro_torch.kernels import paged_prefill_attention as ppa
+
+    cuda_ms, held_ms = timers(torch)
+
+    def timed(kernel, plain, per=1):
         err = (kernel().float() - plain().float()).abs().max()
-        runs = [cuda_ms(kernel) for _ in range(5)]
+        runs = [cuda_ms(kernel) / per for _ in range(5)]
         return {"ms": statistics.median(runs), "min": min(runs),
-                "max": max(runs), "dev": held_ms(kernel), "err": err.item()}
+                "max": max(runs), "dev": held_ms(kernel) / per,
+                "err": err.item()}
 
     out, saved = {}, {}
     bf16 = torch.bfloat16
@@ -171,25 +218,115 @@ def child(src: str, save: str) -> None:
         k, v = (torch.randn(B, S, K, D, generator=g, device="cuda",
                             dtype=bf16) for _ in range(2))
         pos = torch.tensor(positions, dtype=torch.int32, device="cuda")
+        saved[name] = da.decode_attention(q, k, v, pos).cpu()
         out[name] = timed(lambda: da.decode_attention(q, k, v, pos),
                           lambda: da.flash_decode_ref(q, k, v, pos))
+    for name, (B, H, K, D, bs, T, positions) in PAGED.items():
+        args, n_bytes, flops = paged_inputs(torch, B, H, K, D, bs, T,
+                                            1 + B * T, 1, positions)[0]
+        out[name] = timed(lambda: pa.paged_decode_attention(*args),
+                          lambda: pa.paged_decode_attention_ref(*args))
+        out[name]["bound"] = bound_ms(n_bytes, flops)
+    for name, (B, H, K, D, bs, T, nb, stripes, positions) in STRIPED.items():
+        calls = paged_inputs(torch, B, H, K, D, bs, T, nb, stripes, positions)
+        out[name] = timed(
+            lambda: stripes_of(pa.paged_decode_attention_lse, calls),
+            lambda: stripes_of(pa.paged_decode_attention_lse_ref, calls),
+            per=stripes)
+        out[name]["bound"] = bound_ms(sum(c[1] for c in calls) // stripes,
+                                      sum(c[2] for c in calls) // stripes)
     torch.save(saved, save)
     print("TURN " + json.dumps(out), flush=True)
+
+
+def paged_inputs(torch, B, H, K, D, bs, T, n_blocks, stripes, positions):
+    """Seeded bf16 inputs of kernel 2 (stripes = 1) or of kernel 4 per
+    stripe of a pool of ``n_blocks`` split ``stripes`` ways: a list of
+    (args, bytes, flops), the bytes the K/V of the keys each call's walk
+    visits, q in, o (and lse) out, the table ids, owned flags and
+    positions it reads."""
+    g = torch.Generator(device="cuda").manual_seed(0)
+    bf16 = torch.bfloat16
+    tables = (torch.randperm(n_blocks - 1, generator=g, device="cuda")
+              + 1)[: B * T].reshape(B, T).to(torch.int32)
+    pos = torch.tensor(positions, dtype=torch.int32, device="cuda")
+    q = torch.randn(B, H, D, generator=g, device="cuda", dtype=bf16)
+    kp, vp = (torch.randn(n_blocks, bs, K, D, generator=g, device="cuda",
+                          dtype=bf16) for _ in range(2))
+    seen = torch.arange(T, device="cuda")[None, :] * bs <= pos[:, None]
+    if stripes == 1:
+        blocks = int(seen.sum())
+        keys = sum(p + 1 for p in positions)
+        n_bytes = (2 * keys * K * D * 2 + 2 * B * H * D * 2 + 4 * blocks
+                   + 4 * B)
+        return [((q, kp, vp, tables, pos), n_bytes, 4 * D * H * keys)]
+    nb_loc = n_blocks // stripes
+    calls = []
+    for r in range(stripes):
+        local = tables - r * nb_loc
+        owned = ((local >= 0) & (local < nb_loc)).to(torch.int32)
+        live = ((torch.arange(T * bs, device="cuda")[None, :] <= pos[:, None])
+                & (owned != 0).repeat_interleave(bs, dim=1))
+        keys = int(live.sum())
+        n_bytes = (2 * keys * K * D * 2 + 2 * B * H * D * 2 + 4 * B * H
+                   + 4 * (int(seen.sum()) + int((seen & (owned != 0)).sum())
+                          + B))
+        calls.append(((q, kp[r * nb_loc:(r + 1) * nb_loc],
+                       vp[r * nb_loc:(r + 1) * nb_loc],
+                       local.clamp(0, nb_loc - 1), pos, owned), n_bytes,
+                      4 * D * H * keys))
+    return calls
+
+
+def stripes_of(fn, calls):
+    """``fn`` over every stripe's inputs; the outputs (o of each) stacked."""
+    import torch
+    return torch.stack([fn(*args)[0] for args, _, _ in calls])
+
+
+def sweep() -> int:
+    """Kernels 2 and 4 of this tree at forced split lengths and at the
+    plan's, per launch: events (median of 5 x 20 calls) and device time."""
+    sys.path.insert(0, str(THIS / "src"))
+    import torch
+    from repro_torch.kernels import paged_decode_attention as pa
+    from repro_torch.kernels import build
+    build.build_all()
+    print(f"card: {card()}", flush=True)
+    cuda_ms, held_ms = timers(torch)
+    shapes = [(n, *s[:6], 1 + s[0] * s[5], 1, s[6]) for n, s in PAGED.items()]
+    shapes += [(n, *s) for n, s in STRIPED.items()]
+    for name, B, H, K, D, bs, T, nb, stripes, positions in shapes:
+        calls = paged_inputs(torch, B, H, K, D, bs, T, nb, stripes, positions)
+        bound = bound_ms(sum(c[1] for c in calls) // stripes,
+                         sum(c[2] for c in calls) // stripes)
+        plan = pa.paged_split_plan(B, H, K, T, bs, stripes > 1)[0]
+        cells = []
+        for split in (*SWEEP, plan):
+            def run(split=split):
+                return [pa._launch(*args, split=split) for args, _, _ in calls]
+            runs = [cuda_ms(run) / stripes for _ in range(5)]
+            cells.append(f"L={split}{' (plan)' if split == plan else ''} "
+                         f"{statistics.median(runs):.4f} ({min(runs):.4f}-"
+                         f"{max(runs):.4f}; device "
+                         f"{held_ms(run) / stripes:.4f})")
+        print(f"sweep {name}: {', '.join(cells)}; bound {bound:.4f} ms",
+              flush=True)
+    return 0
 
 
 def main(argv: list[str]) -> int:
     if len(argv) == 3 and argv[0] == "--child":
         child(argv[1], argv[2])
         return 0
+    if argv == ["--sweep"]:
+        return sweep()
     if len(argv) != 1:
         print(__doc__, file=sys.stderr)
         return 2
     import torch
     other = Path(argv[0]).resolve()
-    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                           "--format=csv,noheader"], capture_output=True,
-                          text=True, timeout=60, check=True).stdout.strip()
-    print(f"card: {card}", flush=True)
+    print(f"card: {card()}", flush=True)
     turns, outputs = [], []
     with tempfile.TemporaryDirectory() as tmp:
         for i, (label, tree) in enumerate((("other", other), ("this", THIS),
@@ -210,18 +347,23 @@ def main(argv: list[str]) -> int:
     shapes = {**{n: flash_bound(*s) for n, s in FLASH.items()},
               **{n: prefill_bound(*s) for n, s in PREFILL.items()},
               **{n: decode_bound(*s) for n, s in DECODE.items()}}
+    shapes.update({n: (turns[0][1][n]["bound"], None)
+                   for n in (*PAGED, *STRIPED)})
     for name, (bound, flops) in shapes.items():
+        def rate(t):
+            return ("" if flops is None else
+                    f"; {flops / t[name]['ms'] / 1e9:.1f} TFLOP/s")
         cells = ", ".join(
             f"{label} {t[name]['ms']:.4f} ({t[name]['min']:.4f}-"
-            f"{t[name]['max']:.4f}; device {t[name]['dev']:.4f}; "
-            f"{flops / t[name]['ms'] / 1e9:.1f} TFLOP/s; err "
-            f"{t[name]['err']:.3e})" for label, t in turns)
+            f"{t[name]['max']:.4f}; device {t[name]['dev']:.4f}"
+            f"{rate(t)}; err {t[name]['err']:.3e})"
+            for label, t in turns)
         print(f"{name}: {cells}; bound {bound:.4f} ms", flush=True)
-    for name in FLASH:
+    for name in (*FLASH, *DECODE):
         diff = max((a[name].float() - b[name].float()).abs().max().item()
                    for (la, a) in outputs for (lb, b) in outputs
                    if la == "other" and lb == "this")
-        print(f"kernel 1 {name}: max |other - this| = {diff:.3e}"
+        print(f"{name}: max |other - this| = {diff:.3e}"
               f"{'' if diff == 0 else ' (outputs differ)'}", flush=True)
     return 0
 

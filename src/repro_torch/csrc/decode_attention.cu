@@ -5,428 +5,84 @@
 // Replaces the Pallas TPU kernel src/repro/kernels/decode_attention.py:70
 // (decode_attention; kernel body _decode_kernel, :26).
 //
-// What bounds it on the H100: bytes.  Each key costs 2*D elements of K/V
-// read for 4*D flops per query head, so at G query heads per KV head the
-// kernel does 2*G flops per bf16 byte, far under the ~295 flops/byte at
-// which the card's bf16 tensor cores would become the limit: it stays on
-// the CUDA cores.  The least time is the K/V bytes of the live keys
-// (0 .. position) over 3.35 TB/s, so the design is about keeping enough
-// of those bytes in flight on all 132 SMs.
+// What bounds it on the H100: bytes (the K/V of the live keys 0 ..
+// position over 3.35 TB/s; split_decode.cuh says why).
 //
 // Design: flash-decoding, split over the key axis and merged inside the
-// same launch.  On the TPU the grid is (lane, key block of 512) with the
-// key axis walked in order and (m, l, acc) in VMEM scratch.  Here the grid
-// is (splits, K * head groups, B): split s of a (lane, KV head) owns keys
-// [s*L, (s+1)*L) of the lane's 0 .. min(position, S - 1).  The split length
-// L is chosen by the wrapper from shapes only (B, K, S: the largest power
-// of two >= 32 that still gives >= 2 CTAs per SM; at most 256 splits),
-// never from positions, which stay on the card.  A split wholly past the
-// position records an empty partial (m = -1e30, l = 0, acc = 0) and takes
-// its ticket at once.
-//
-// Inside a CTA, K/V tiles of TK keys (~16 KB of K a tile: 64 keys at
-// D = 128 in bf16) stay in the cache's dtype in shared memory, copied with
-// 16-byte cp.async into a ring of 2 stages, so the next tile's copy
-// overlaps this tile's arithmetic.  A group of LPK lanes owns a whole key:
-// lane j holds 16-byte chunks j, j + LPK, ... of the row, so a score is
-// reduced over D by shuffles inside a warp and never across warps; the
-// shuffle steps are unrolled (a step past the group adds 0), and a group
-// scores 8 / GB keys at once, so the chains of several keys and heads
-// overlap.  The G query heads of the KV head (up to 8 per CTA; a larger G
-// takes several head groups) share each staged row: each lane keeps its
-// chunks of the G queries and of the G accumulators in registers, and GQA
-// is never expanded.  Each key group runs its own online softmax (m, l,
-// acc) over the keys it owns, one rescale per batch of keys; the
-// unnormalised exp(s - m) is rounded to the cache's dtype before PV while
-// l sums the unrounded values, as the reference model's _flash_decode_core
-// does (models/attention.py:484-491), here per key group and split, the
-// rounding point the sharded core also has.  At the split's end the key
-// groups merge in shared memory (one warp per head) and the split writes
-// its partial (m, l, acc[D]) per query head to f32 scratch the wrapper
-// allocates.
-//
-// The merge.  Every CTA, after its partial is written, fences and takes a
-// ticket with atomicAdd on its (lane, KV head, head group) counter; the CTA
-// that draws the last ticket reads all partials back through L2 (ld.cg;
-// the splits' weights into shared memory, one warp per head) and writes
-// o = sum_i e^{m_i - M} acc_i / max(sum_i e^{m_i - M} l_i, 1e-30).  An
-// empty split has l = 0 and acc = 0, so it adds exactly 0.  The last CTA
-// resets its counter to 0, so the counters stay zero between launches and
-// need no memset: the wrapper keeps them in one zeroed buffer per device
-// and stream.  A launch that faults leaves the context unusable
-// and counters are lost with it; a launch that is refused never touched
-// them.  One launch per call, no second pass.
+// same launch, the body in split_decode.cuh.  On the TPU the grid is
+// (lane, key block of 512) with the key axis walked in order and (m, l,
+// acc) in VMEM scratch.  Here the grid is (splits, K * head groups, B):
+// split s of a (lane, KV head) owns keys [s*L, (s+1)*L) of the lane's 0 ..
+// min(position, S - 1), L chosen by the wrapper from shapes only (B, K, S:
+// the largest power of two >= 32 that still gives >= 2 CTAs per SM; at
+// most 256 splits).  The walk is the lane's row of the cache (DenseWalk);
+// the unnormalised exp(s - m) is rounded to the cache's dtype before PV,
+// as the reference model's _flash_decode_core does.
 //
 // Parked lanes (position 0) read key 0 of their row.  Any S, any D % 8 ==
 // 0 up to 512, every (q, cache) dtype pair of the wrapper's _PAIRS.
-#include "common.cuh"
+#include "split_decode.cuh"
 
 namespace {
 
 using namespace repro;
+using namespace repro::split;
 
-constexpr int THREADS = 128;      // 4 warps
-constexpr int NST = 2;            // K/V stages in the ring
-constexpr int MAX_G = 8;          // query heads per CTA
-constexpr int MAX_SPLITS = 256;   // the last CTA's weights in shared memory
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
-                   static_cast<uint32_t>(__cvta_generic_to_shared(dst))),
-               "l"(src)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// the sum over a key group of ``lpk`` lanes (a power of two <= 32, the
-// groups aligned on it): every step runs, those that would cross into
-// the next group add nothing, so the steps unroll
-__device__ __forceinline__ float group_sum(float x, int lpk) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) {
-    const float y = __shfl_xor_sync(0xffffffffu, x, o);
-    x += o < lpk ? y : 0.f;
+// keys 0 .. min(position, S - 1) of lane b's row of a (B, S, K, D) cache
+struct DenseWalk {
+  const int* positions;
+  int S, K, D;
+  __device__ int begin(int b, int, int, int*) const {
+    return min(positions[b] + 1, S);
   }
-  return x;
-}
-
-struct Shape {
-  int H, K, D, S, L, splits, groups;   // groups: head groups per KV head
-  float scale;
+  __device__ size_t row(int b, int w, int, const int*) const {
+    return ((size_t)b * S + w) * K * D;
+  }
 };
 
-// GB: query heads a lane holds (>= the CTA's), NCH: 16-byte chunks of a
-// row per lane
 template <typename QT, typename KT, int GB, int NCH>
 __global__ void __launch_bounds__(THREADS)
 split_decode_kernel(const QT* __restrict__ q, const KT* __restrict__ k,
                     const KT* __restrict__ v, const int* __restrict__ positions,
                     QT* __restrict__ out, float* __restrict__ part,
-                    int* __restrict__ tickets, Shape a, int TK, int LPK) {
-  constexpr int VEC = Vec<KT>::N;     // elements per 16-byte chunk
-  constexpr int KB = 8 / GB;          // keys a group scores at once
-  const int split = blockIdx.x;
-  const int kh = blockIdx.y / a.groups;
-  const int hg = blockIdx.y % a.groups;
-  const int b = blockIdx.z;
-  const int tid = threadIdx.x;
-  const int warp = tid / 32, lane = tid % 32;
-  const int G = a.H / a.K;
-  const int HPC = min(G, MAX_G);      // heads per CTA (the last group may
-  const int h0 = kh * G + hg * HPC;   // hold fewer)
-  const int gc = min(HPC, G - hg * HPC);
-  const int D = a.D;
-  const int CPR = D / VEC;            // chunks per key row
-  const int NG = THREADS / LPK;       // key groups
-  const int grp = tid / LPK;
-  const int j = tid % LPK;            // lane within the key group
-  const int pair = (b * a.K + kh) * a.groups + hg;
-  // partial i of this pair: HPC x (m, l) then HPC x D of acc
-  const size_t pstride = (size_t)HPC * (D + 2);
-  float* mine = part + ((size_t)pair * a.splits + split) * pstride;
-
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __shared__ int ticket;
-
-  const int n_keys = min(positions[b] + 1, a.S);     // keys 0 .. pos
-  const int lo = split * a.L;
-  const int hi = min(lo + a.L, n_keys);
-
-  if (lo < hi) {
-    KT* ring = reinterpret_cast<KT*>(smem_raw);      // [NST][2][TK][D]
-    const size_t stage = (size_t)2 * TK * D;
-    const KT* kb = k + ((size_t)b * a.S * a.K + kh) * D;
-    const KT* vb = v + ((size_t)b * a.S * a.K + kh) * D;
-    const size_t row_stride = (size_t)a.K * D;       // between keys
-    const int n_tiles = (hi - lo + TK - 1) / TK;
-
-    auto load_tile = [&](int t) {
-      KT* ks = ring + (size_t)(t % NST) * stage;
-      KT* vs = ks + (size_t)TK * D;
-      const int t0 = lo + t * TK;
-      const int n = min(TK, hi - t0);
-      for (int i = tid; i < n * CPR; i += THREADS) {
-        const int r = i / CPR;
-        const int c = (i - r * CPR) * VEC;
-        const size_t src = (size_t)(t0 + r) * row_stride + c;
-        cp_async16(ks + r * D + c, kb + src);
-        cp_async16(vs + r * D + c, vb + src);
-      }
-    };
-
-    // this lane's chunks of the CTA's query heads, in f32
-    float qr[GB][NCH * VEC], acc[GB][NCH * VEC], m[GB], l[GB];
-#pragma unroll
-    for (int g = 0; g < GB; ++g) {
-      m[g] = NEG_INF;
-      l[g] = 0.f;
-#pragma unroll
-      for (int n = 0; n < NCH; ++n) {
-        const int c = j + n * LPK;
-#pragma unroll
-        for (int e = 0; e < VEC; ++e) {
-          acc[g][n * VEC + e] = 0.f;
-          qr[g][n * VEC + e] =
-              (g < gc && c < CPR)
-                  ? to_f(q[((size_t)b * a.H + h0 + g) * D + c * VEC + e])
-                  : 0.f;
-        }
-      }
-    }
-
-#pragma unroll
-    for (int t = 0; t < NST - 1; ++t) {
-      if (t < n_tiles) load_tile(t);
-      cp_async_commit();
-    }
-    // the warp's first key group
-    const int grp0 = warp * (32 / min(LPK, 32));
-    for (int t = 0; t < n_tiles; ++t) {
-      if (t + NST - 1 < n_tiles) load_tile(t + NST - 1);
-      cp_async_commit();
-      cp_async_wait<NST - 1>();
-      __syncthreads();                 // tile t has landed for every thread
-
-      const KT* ks = ring + (size_t)(t % NST) * stage;
-      const KT* vs = ks + (size_t)TK * D;
-      const int n = min(TK, hi - (lo + t * TK));
-      // a group takes keys grp + NG * i of the tile, KB at a time; every
-      // lane of a warp runs the shuffles, and a key past the tile's end
-      // updates nothing
-      for (int i0 = 0; grp0 + NG * i0 < n; i0 += KB) {
-        float s[GB][KB];
-#pragma unroll
-        for (int kb2 = 0; kb2 < KB; ++kb2) {
-          const int r = grp + NG * (i0 + kb2);
-          float kc[NCH * VEC];
-#pragma unroll
-          for (int c = 0; c < NCH; ++c) {
-            const int ch = j + c * LPK;
-            if (r < n && ch < CPR) {
-              Vec<KT>::load(ks + r * D + ch * VEC, kc + c * VEC);
-            } else {
-#pragma unroll
-              for (int e = 0; e < VEC; ++e) kc[c * VEC + e] = 0.f;
-            }
-          }
-#pragma unroll
-          for (int g = 0; g < GB; ++g) {
-            float d = 0.f;
-#pragma unroll
-            for (int e = 0; e < NCH * VEC; ++e) d += qr[g][e] * kc[e];
-            s[g][kb2] = d;
-          }
-        }
-#pragma unroll
-        for (int g = 0; g < GB; ++g)
-#pragma unroll
-          for (int kb2 = 0; kb2 < KB; ++kb2)
-            s[g][kb2] = group_sum(s[g][kb2], LPK) * a.scale;
-        // online softmax over the batch: one rescale per head (uniform in
-        // the group: every lane holds the same scores)
-        float p[GB][KB];
-#pragma unroll
-        for (int g = 0; g < GB; ++g) {
-          float mx = NEG_INF;
-#pragma unroll
-          for (int kb2 = 0; kb2 < KB; ++kb2)
-            if (grp + NG * (i0 + kb2) < n) mx = fmaxf(mx, s[g][kb2]);
-          if (mx > m[g]) {
-            const float corr = expf(m[g] - mx);
-            l[g] *= corr;
-#pragma unroll
-            for (int e = 0; e < NCH * VEC; ++e) acc[g][e] *= corr;
-            m[g] = mx;
-          }
-#pragma unroll
-          for (int kb2 = 0; kb2 < KB; ++kb2) {
-            p[g][kb2] = grp + NG * (i0 + kb2) < n ? expf(s[g][kb2] - m[g])
-                                                  : 0.f;
-            l[g] += p[g][kb2];
-          }
-        }
-#pragma unroll
-        for (int kb2 = 0; kb2 < KB; ++kb2) {
-          const int r = grp + NG * (i0 + kb2);
-          if (r >= n) continue;
-#pragma unroll
-          for (int c = 0; c < NCH; ++c) {
-            const int ch = j + c * LPK;
-            if (ch >= CPR) continue;
-            float vc[VEC];
-            Vec<KT>::load(vs + r * D + ch * VEC, vc);
-#pragma unroll
-            for (int g = 0; g < GB; ++g) {
-              const float pr = round_to<KT>(p[g][kb2]);
-#pragma unroll
-              for (int e = 0; e < VEC; ++e)
-                acc[g][c * VEC + e] += pr * vc[e];
-            }
-          }
-        }
-      }
-      __syncthreads();                 // stage t % NST is free again
-    }
-    cp_async_wait<0>();                // nothing in flight into the ring
-
-    // merge the key groups in shared memory (the ring is free now):
-    // gm[g][grp] = (m, l), then the group's weight; ga[grp][g][D]
-    float* gm = reinterpret_cast<float*>(smem_raw);
-    float* ga = gm + 2 * NG * GB;
-#pragma unroll
-    for (int g = 0; g < GB; ++g) {
-      if (j == 0) {
-        gm[2 * (g * NG + grp)] = m[g];
-        gm[2 * (g * NG + grp) + 1] = l[g];
-      }
-#pragma unroll
-      for (int c = 0; c < NCH; ++c) {
-        const int ch = j + c * LPK;
-        if (ch >= CPR) continue;
-#pragma unroll
-        for (int e = 0; e < VEC; ++e)
-          ga[((size_t)grp * GB + g) * D + ch * VEC + e] = acc[g][c * VEC + e];
-      }
-    }
-    __syncthreads();
-    // one warp per head: the split's max and sum, and each group's weight
-    for (int g = warp; g < gc; g += THREADS / 32) {
-      float M = NEG_INF;
-      for (int i = lane; i < NG; i += 32) M = fmaxf(M, gm[2 * (g * NG + i)]);
-      M = warp_max(M);
-      float L = 0.f;
-      for (int i = lane; i < NG; i += 32) {
-        const float w = expf(gm[2 * (g * NG + i)] - M);
-        gm[2 * (g * NG + i)] = w;
-        L += w * gm[2 * (g * NG + i) + 1];
-      }
-      L = warp_sum(L);
-      if (lane == 0) {
-        mine[2 * g] = M;
-        mine[2 * g + 1] = L;
-      }
-    }
-    __syncthreads();
-    for (int i = tid; i < gc * D; i += THREADS) {
-      const int g = i / D;
-      const int d = i - g * D;
-      float o = 0.f;
-      for (int r = 0; r < NG; ++r)
-        o += gm[2 * (g * NG + r)] * ga[((size_t)r * GB + g) * D + d];
-      mine[2 * HPC + i] = o;
-    }
-  } else {
-    // an empty split: weight 0 in the merge, and nothing that can be NaN
-    for (int i = tid; i < 2 * gc; i += THREADS)
-      mine[i] = i % 2 == 0 ? NEG_INF : 0.f;
-    for (int i = tid; i < gc * D; i += THREADS) mine[2 * HPC + i] = 0.f;
-  }
-
-  // the ticket: every writer's partial is visible device-wide before the
-  // counter moves
-  __threadfence();
-  __syncthreads();
-  if (tid == 0) ticket = atomicAdd(&tickets[pair], 1);
-  __syncthreads();
-  if (ticket != a.splits - 1) return;
-  __threadfence();
-
-  // the last CTA merges: one warp per head reads the splits' (m, l)
-  // through L2 into shared memory as weights, then every thread sums its
-  // outputs' accumulators, the loads of one output independent
-  const float* all = part + (size_t)pair * a.splits * pstride;
-  float* wts = reinterpret_cast<float*>(smem_raw);   // [gc][splits]
-  __shared__ float inv_l[MAX_G];
-  __syncthreads();                     // the group merge's reads are done
-  for (int g = warp; g < gc; g += THREADS / 32) {
-    float M = NEG_INF;
-    for (int s = lane; s < a.splits; s += 32)
-      M = fmaxf(M, __ldcg(all + s * pstride + 2 * g));
-    M = warp_max(M);
-    float L = 0.f;
-    for (int s = lane; s < a.splits; s += 32) {
-      const float w = expf(__ldcg(all + s * pstride + 2 * g) - M);
-      wts[g * a.splits + s] = w;
-      L += w * __ldcg(all + s * pstride + 2 * g + 1);
-    }
-    L = warp_sum(L);
-    if (lane == 0) inv_l[g] = 1.f / fmaxf(L, 1e-30f);
-  }
-  __syncthreads();
-  for (int i = tid; i < gc * D; i += THREADS) {
-    const int g = i / D;
-    const float* w = wts + g * a.splits;
-    float o = 0.f;
-#pragma unroll 8
-    for (int s = 0; s < a.splits; ++s)
-      o += w[s] * __ldcg(all + s * pstride + 2 * HPC + i);
-    out[((size_t)b * a.H + h0 + g) * D + i - g * D] = from_f<QT>(o * inv_l[g]);
-  }
-  if (tid == 0) tickets[pair] = 0;     // ready for the next launch
+                    int* __restrict__ tickets, Shape a, int S, int TK,
+                    int LPK) {
+  split_decode<QT, KT, GB, NCH, true, false>(
+      q, k, v, out, nullptr, part, tickets, a, TK, LPK,
+      DenseWalk{positions, S, a.K, a.D});
 }
 
-// keys per tile: ~16 KB of K (and of V) a stage, 16 to 64 keys
-int tile_keys(int D, int el) {
-  int tk = 64;
-  while (tk > 16 && tk * D * el > 16384) tk /= 2;
-  return tk;
-}
+struct Args {
+  const void *q, *k, *v;
+  const int* positions;
+  void* out;
+  float* part;
+  int* tickets;
+  int B, S;
+  Shape a;
+  cudaStream_t stream;
+};
 
-template <typename QT, typename KT, int GB, int NCH>
-int launch(const void* q, const void* k, const void* v, const int* positions,
-           void* out, float* part, int* tickets, int B, const Shape& a,
-           cudaStream_t stream) {
-  constexpr int VEC = Vec<KT>::N;
-  const int cpr = a.D / VEC;
-  int lpk = 1;                         // lanes per key: a power of two
-  while (lpk < cpr && lpk < 32) lpk *= 2;
-  const int tk = tile_keys(a.D, (int)sizeof(KT));
-  const int ng = THREADS / lpk;
-  const size_t ring = (size_t)NST * 2 * tk * a.D * sizeof(KT);
-  const size_t merge = sizeof(float) * ((size_t)2 * ng * GB
-                                        + (size_t)ng * GB * a.D);
-  const size_t weights = sizeof(float) * (size_t)GB * a.splits;
-  size_t smem = ring > merge ? ring : merge;
-  smem = smem > weights ? smem : weights;
-  auto kern = split_decode_kernel<QT, KT, GB, NCH>;
-  // above 48 KB shared memory is dynamic only, and per device: set on every
-  // launch (a host-side attribute, no device work)
-  const cudaError_t e = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e != cudaSuccess) return (int)e;
-  kern<<<dim3(a.splits, a.K * a.groups, B), THREADS, smem, stream>>>(
-      static_cast<const QT*>(q), static_cast<const KT*>(k),
-      static_cast<const KT*>(v), positions, static_cast<QT*>(out), part,
-      tickets, a, tk, lpk);
-  return (int)cudaGetLastError();
-}
-
-using LaunchFn = int (*)(const void*, const void*, const void*, const int*,
-                         void*, float*, int*, int, const Shape&,
-                         cudaStream_t);
-
-// the instantiation holding >= hpc heads and D / VEC chunks a row
 template <typename QT, typename KT>
-LaunchFn pick(int hpc, int D) {
-  constexpr int VEC = Vec<KT>::N;
-  const int nch = (D / VEC + 31) / 32;
-#define REPRO_G(NCH)                                                   \
-  hpc <= 1 ? &launch<QT, KT, 1, NCH> : hpc <= 2 ? &launch<QT, KT, 2, NCH> \
-  : hpc <= 4 ? &launch<QT, KT, 4, NCH> : &launch<QT, KT, 8, NCH>
-  if (nch <= 1) return REPRO_G(1);
-  if (nch <= 2) return REPRO_G(2);
-  if constexpr (VEC == 4) {
-    if (nch <= 4) return REPRO_G(4);
+struct Dense {
+  template <int GB, int NCH>
+  static int run(Args x) {
+    const Launch ln = launch_shape<KT, GB>(x.a.D, x.a.splits);
+    x.a.ids_off = (int)ln.smem;
+    auto kern = split_decode_kernel<QT, KT, GB, NCH>;
+    // above 48 KB shared memory is dynamic only, and per device: set on
+    // every launch (a host-side attribute, no device work)
+    const cudaError_t e = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)ln.smem);
+    if (e != cudaSuccess) return (int)e;
+    kern<<<dim3(x.a.splits, x.a.K * x.a.groups, x.B), THREADS, ln.smem,
+           x.stream>>>(
+        static_cast<const QT*>(x.q), static_cast<const KT*>(x.k),
+        static_cast<const KT*>(x.v), x.positions, static_cast<QT*>(x.out),
+        x.part, x.tickets, x.a, x.S, ln.tk, ln.lpk);
+    return (int)cudaGetLastError();
   }
-#undef REPRO_G
-  return nullptr;
-}
+};
 
 }  // namespace
 
@@ -442,19 +98,23 @@ extern "C" int decode_attention(const void* q, const void* k, const void* v,
                                 int S, int L, float scale, int q_dtype,
                                 int kv_dtype, void* stream) {
   if (B == 0) return 0;
-  if (K <= 0 || H % K != 0 || D % 8 != 0 || D <= 0 || D > 512 || S <= 0 ||
+  if (K <= 0 || H % K != 0 || D % 8 != 0 || D <= 0 || D > MAX_D || S <= 0 ||
       L <= 0 || (S + L - 1) / L > MAX_SPLITS)
     return (int)cudaErrorInvalidValue;
   const int G = H / K;
   const int hpc = G < MAX_G ? G : MAX_G;
-  const Shape a{H, K, D, S, L, (S + L - 1) / L, (G + hpc - 1) / hpc, scale};
-  LaunchFn fn = nullptr;
-  if (q_dtype == DT_BF16 && kv_dtype == DT_BF16) fn = pick<bf16, bf16>(hpc, D);
+  const Args x{q, k, v, positions, out, static_cast<float*>(part),
+               static_cast<int*>(tickets), B, S,
+               Shape{H, K, D, L, (S + L - 1) / L, (G + hpc - 1) / hpc, 0,
+                     scale},
+               static_cast<cudaStream_t>(stream)};
+  int (*fn)(Args) = nullptr;
+  if (q_dtype == DT_BF16 && kv_dtype == DT_BF16)
+    fn = pick<Dense<bf16, bf16>, Vec<bf16>::N>(hpc, D);
   else if (q_dtype == DT_F32 && kv_dtype == DT_F32)
-    fn = pick<float, float>(hpc, D);
+    fn = pick<Dense<float, float>, Vec<float>::N>(hpc, D);
   else if (q_dtype == DT_F32 && kv_dtype == DT_BF16)
-    fn = pick<float, bf16>(hpc, D);
+    fn = pick<Dense<float, bf16>, Vec<bf16>::N>(hpc, D);
   if (fn == nullptr) return (int)cudaErrorInvalidValue;
-  return fn(q, k, v, positions, out, static_cast<float*>(part),
-            static_cast<int*>(tickets), B, a, static_cast<cudaStream_t>(stream));
+  return fn(x);
 }

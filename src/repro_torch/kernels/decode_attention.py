@@ -25,7 +25,8 @@ Two plain versions, one per parity target:
 The kernel splits each lane's keys into pieces of ``split_plan``'s length
 and merges the pieces' partials inside the same launch;
 ``split_decode_ref`` is that arithmetic in plain PyTorch (per-split
-partials, then the merge), with the split length as an argument.
+partials, then the merge: ``split_merge``, which kernels 2 and 4's split
+versions share), with the split length as an argument.
 """
 from __future__ import annotations
 
@@ -87,35 +88,52 @@ def flash_decode_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return o.to(q.dtype)
 
 
+def split_merge(s: torch.Tensor, live: torch.Tensor, walk: torch.Tensor,
+                ve: torch.Tensor, split: int, p_dtype=None):
+    """The split kernels' arithmetic (kernels 2, 4 and 5) in plain PyTorch.
+    s (B, H, N) f32 scores; live (B, N) the keys a lane's walk visits;
+    walk (B, N) their positions on the walk; ve (B, N, H, D) f32 values.
+    Split i holds the live keys at walk positions ``[i * split, (i + 1) *
+    split)`` and keeps ``m_i = max s`` (-1e30 when it holds no key), ``l_i
+    = sum exp(s - m_i)`` and ``acc_i = sum p v`` with p = exp(s - m_i),
+    rounded to ``p_dtype`` where one is given; the merge is ``o = sum e^{m_i
+    - M} acc_i / max(sum e^{m_i - M} l_i, 1e-30)``, M the largest m_i, and
+    ``lse = M + log(sum e^{m_i - M} l_i)`` (-1e30 where no split holds a
+    key): an empty split adds exactly 0.  Returns (o, lse) in f32."""
+    N = s.shape[-1]
+    n = -(-N // split)
+    ids = torch.arange(n, device=s.device)
+    mask = live[:, None, :] & (walk[:, None, :] // split == ids[:, None])
+    mask = mask[:, None]                                    # (B, 1, n, N)
+    sm = torch.where(mask, s[:, :, None, :], NEG_INF)       # (B, H, n, N)
+    m = sm.max(dim=-1).values                               # (B, H, n)
+    p = torch.where(mask, torch.exp(sm - m[..., None]), 0.0)
+    l_i = p.sum(dim=-1)
+    if p_dtype is not None:
+        p = p.to(p_dtype).float()
+    acc = torch.einsum("bhnt,bthd->bhnd", p, ve)
+    M = m.max(dim=-1, keepdim=True).values
+    w = torch.exp(m - M)
+    denom = (w * l_i).sum(dim=-1)
+    o = (w[..., None] * acc).sum(dim=2) / denom.clamp_min(1e-30)[..., None]
+    lse = torch.where(denom > 0, M[..., 0] + torch.log(denom.clamp_min(1e-30)),
+                      NEG_INF)
+    return o, lse
+
+
 def split_decode_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      positions: torch.Tensor, split: int, *,
                      scale: float | None = None) -> torch.Tensor:
-    """The kernel's split-and-merge arithmetic in plain PyTorch: split i
+    """Kernel 5's split-and-merge arithmetic in plain PyTorch: split i
     of a lane owns keys ``[i * split, (i + 1) * split)`` of its ``0 ..
-    positions``; each split keeps ``m_i = max s`` (-1e30 when it holds no
-    key), ``l_i = sum exp(s - m_i)`` and ``acc_i = sum round(exp(s - m_i))
-    v`` (rounded to v's dtype), and the merge is ``o = sum e^{m_i - M}
-    acc_i / max(sum e^{m_i - M} l_i, 1e-30)``, M the largest m_i: an empty
-    split adds exactly 0."""
-    B, H, D = q.shape
+    positions``, and ``split_merge`` merges the splits with p rounded to
+    v's dtype before PV."""
     S = k.shape[1]
-    n = -(-S // split)
-    ve = v.repeat_interleave(H // v.shape[2], dim=2).float()
-    s = _scores(q, k, positions, scale)
-    mask = (torch.arange(S, device=q.device)[None, None, :]
-            <= positions[:, None, None]).expand(B, H, S)
-    pad = n * split - S
-    s = torch.nn.functional.pad(s, (0, pad), value=NEG_INF).view(B, H, n, split)
-    mask = torch.nn.functional.pad(mask, (0, pad)).view(B, H, n, split)
-    ve = torch.nn.functional.pad(ve, (0, 0, 0, 0, 0, pad)).view(
-        B, n, split, H, D)
-    m = s.max(dim=-1).values                                  # (B, H, n)
-    p = torch.where(mask, torch.exp(s - m[..., None]), 0.0)
-    l_i = p.sum(dim=-1)
-    acc = torch.einsum("bhnt,bnthd->bhnd", p.to(v.dtype).float(), ve)
-    w = torch.exp(m - m.max(dim=-1, keepdim=True).values)
-    o = ((w[..., None] * acc).sum(dim=2)
-         / (w * l_i).sum(dim=-1).clamp_min(1e-30)[..., None])
+    ve = v.repeat_interleave(q.shape[1] // v.shape[2], dim=2).float()
+    keys = torch.arange(S, device=q.device)[None, :]
+    live = keys <= positions[:, None]
+    o, _ = split_merge(_scores(q, k, positions, scale), live,
+                       keys.expand_as(live), ve, split, v.dtype)
     return o.to(q.dtype)
 
 
@@ -133,8 +151,8 @@ def swa_decode_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 # CTAs wanted per launch: two per SM of an H100 (132 SMs)
 _MIN_CTAS = 2 * 132
-_MAX_HEADS = 8        # query heads per CTA (csrc/decode_attention.cu MAX_G)
-_MAX_SPLITS = 256     # splits per lane (csrc/decode_attention.cu MAX_SPLITS)
+_MAX_HEADS = 8        # query heads per CTA (csrc/split_decode.cuh MAX_G)
+_MAX_SPLITS = 256     # splits per lane (csrc/split_decode.cuh MAX_SPLITS)
 
 
 def split_plan(B: int, H: int, K: int, S: int) -> tuple[int, int, int]:
@@ -167,7 +185,8 @@ def _kernel():
 
 # one int32 ticket counter per (lane, KV head, head group), zero between
 # launches (the kernel's last CTA of each resets its own), kept per device
-# and stream so that launches queued on two streams never share one
+# and stream so that launches queued on two streams never share one;
+# kernels 2 and 4 (paged_decode_attention.py) use the same buffers
 _TICKETS: dict[tuple[int, int], torch.Tensor] = {}
 
 

@@ -1090,3 +1090,210 @@ def test_paged_prefill_f32_stays_on_the_cuda_cores(gen, kv_dt):
             (before[0] + 1, before[1])
         assert_close(o, ppa.paged_prefill_attention_ref(q, kp, vp, tables, st),
                      max(torch.float32, kv_dt, key=TOL.get))
+
+
+# Kernels 2 and 4 split over each lane's walk through its table and merged
+# in the same launch: every dtype pair, GQA 8/2, 24/8, 25/5 and MHA, block
+# sizes 8/16/32, T * bs not a multiple of the split, and lanes at the
+# split edges L - 1, L, L + 1, on block edges, at the last key and parked
+# (position 0, a table of zeros: key 0 of the parking block).
+def _edge_inputs(gen, H, K, D, bs, T, L, q_dt, kv_dt, n_blocks=None):
+    top = T * bs - 1
+    pos = [min(p, top) for p in (L - 1, L, L + 1, top, bs - 1, bs, 2 * bs + 1,
+                                 0)]
+    B = len(pos)
+    n_blocks = n_blocks or 1 + B * T
+    tables = (torch.randperm(n_blocks - 1, generator=gen, device="cuda")
+              + 1)[: B * T].reshape(B, T).to(torch.int32)
+    tables[-1] = 0
+    q = torch.randn(B, H, D, generator=gen, device="cuda", dtype=q_dt)
+    kp, vp = (torch.randn(n_blocks, bs, K, D, generator=gen, device="cuda",
+                          dtype=kv_dt) for _ in range(2))
+    return q, kp, vp, tables, torch.tensor(pos, dtype=torch.int32,
+                                           device="cuda")
+
+
+PAGED_HEADS = [(8, 2, 64), (24, 8, 64), (25, 5, 64), (32, 32, 128),
+               (16, 2, 256)]
+
+
+@pytest.mark.parametrize("q_dt,kv_dt", [
+    (torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16),
+    (torch.float32, torch.bfloat16)])
+@pytest.mark.parametrize("H,K,D", PAGED_HEADS)
+@pytest.mark.parametrize("bs", [8, 16, 32])
+def test_paged_decode_kernel_at_split_edges(gen, q_dt, kv_dt, H, K, D, bs):
+    """Kernel 2 at ``paged_split_plan``'s split (through the wrapper, one
+    launch a call) and at forced splits of one and two blocks, 64 and 256
+    keys, against its one-pass plain version and its split plain version
+    at the same split."""
+    T = 200 // bs + 1                        # T * bs: 208 or 224 keys
+    dt = max(q_dt, kv_dt, key=TOL.get)
+    L, _, _ = pa.paged_split_plan(8, H, K, T, bs)
+    assert L % bs == 0
+    for split in sorted({L, bs, 2 * bs, 64 if 64 % bs == 0 else bs, 256}):
+        args = _edge_inputs(gen, H, K, D, bs, T, split, q_dt, kv_dt)
+        if split == L:
+            before = pa.paged_decode_attention.launches
+            o = pa.paged_decode_attention(*args)
+            assert pa.paged_decode_attention.launches == before + 1
+        else:
+            o = pa._launch(*args, split=split)
+        assert not o.float().isnan().any(), split
+        assert_close(o, pa.paged_decode_attention_ref(*args), dt)
+        assert_close(o, pa.split_paged_decode_ref(*args, split), dt)
+
+
+def _owned(tables, n_blocks, r, shards):
+    nb_loc = n_blocks // shards
+    local = tables - r * nb_loc
+    owned = ((local >= 0) & (local < nb_loc)).to(torch.int32)
+    return local.clamp(0, nb_loc - 1), owned
+
+
+@pytest.mark.parametrize("q_dt,kv_dt", [
+    (torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16),
+    (torch.float32, torch.bfloat16)])
+@pytest.mark.parametrize("H,K,D", PAGED_HEADS)
+@pytest.mark.parametrize("bs", [8, 16, 32])
+def test_paged_decode_lse_kernel_at_split_edges(gen, q_dt, kv_dt, H, K, D,
+                                                bs):
+    """Kernel 4 per stripe at the split edges of ``_edge_inputs``, with
+    lane 1's blocks all in stripe 0 (stripe 1 owns none of them: o = 0 and
+    lse = -1e30 exactly, every split of it empty) and lane 0's later
+    splits empty; against the one-pass and the split plain versions, and
+    the stripes' ``combine_lse`` against kernel 2."""
+    T = 200 // bs + 1
+    dt = max(q_dt, kv_dt, key=TOL.get)
+    L, _, _ = pa.paged_split_plan(8, H, K, T, bs)
+    n_blocks = 2 * (8 * T + 1)
+    q, kp, vp, tables, pos = _edge_inputs(gen, H, K, D, bs, T, L, q_dt,
+                                          kv_dt, n_blocks)
+    tables[1] = torch.arange(1, T + 1, dtype=torch.int32, device="cuda")
+    nb_loc = n_blocks // 2
+    os_, lses = [], []
+    for r in range(2):
+        local, owned = _owned(tables, n_blocks, r, 2)
+        args = (q, kp[r * nb_loc:(r + 1) * nb_loc],
+                vp[r * nb_loc:(r + 1) * nb_loc], local, pos, owned)
+        before = pa.paged_decode_attention_lse.launches
+        o, lse = pa.paged_decode_attention_lse(*args)
+        assert pa.paged_decode_attention_lse.launches == before + 1
+        o_ref, lse_ref = pa.paged_decode_attention_lse_ref(*args)
+        so, slse = pa.split_paged_decode_lse_ref(*args, L)
+        empty = lse_ref == -1e30
+        assert torch.equal(lse == -1e30, empty)
+        assert torch.equal(slse == -1e30, empty)
+        assert (o[empty] == 0).all()
+        if r == 1:
+            assert empty[1].all()
+        assert_close(o, o_ref, dt)
+        assert_close(o, so, dt)
+        torch.testing.assert_close(lse[~empty], lse_ref[~empty], atol=1e-4,
+                                   rtol=0)
+        os_.append(o)
+        lses.append(lse)
+    assert_close(pa.combine_lse(torch.stack(os_), torch.stack(lses)),
+                 pa.paged_decode_attention_ref(q, kp, vp, tables, pos), dt)
+
+
+def test_split_kernels_leave_the_tickets_at_zero(gen):
+    """Kernels 2, 4 and 5 queued back to back on one stream at several
+    shapes, each at its plan's split and at forced ones: every output
+    matches its plain version and every ticket counter is 0 once the card
+    is done."""
+    runs = []
+    for H, K, D, bs, T, split in ((32, 32, 128, 16, 128, None),
+                                  (24, 8, 64, 16, 20, 16),
+                                  (25, 5, 64, 8, 30, None),
+                                  (8, 2, 64, 32, 9, 64)):
+        args = _edge_inputs(gen, H, K, D, bs, T, split or 64,
+                            torch.bfloat16, torch.bfloat16)
+        runs.append(("2", args, pa._launch(*args, split=split)))
+        local, owned = _owned(args[3], args[1].shape[0] // 2 * 2, 0, 2)
+        nb = args[1].shape[0] // 2
+        lse_args = (args[0], args[1][:nb], args[2][:nb], local, args[4],
+                    owned)
+        runs.append(("4", lse_args, pa._launch(*lse_args, split=split)))
+        q = args[0]
+        k = torch.randn(q.shape[0], 300, K, D, generator=gen, device="cuda",
+                        dtype=torch.bfloat16)
+        d_args = (q, k, k.flip(1).contiguous(), args[4].clamp(max=299))
+        runs.append(("5", d_args, da.decode_attention(*d_args)))
+    torch.cuda.synchronize()
+    for kind, args, got in runs:
+        if kind == "2":
+            assert_close(got, pa.paged_decode_attention_ref(*args),
+                         torch.bfloat16)
+        elif kind == "4":
+            o_ref, lse_ref = pa.paged_decode_attention_lse_ref(*args)
+            assert_close(got[0], o_ref, torch.bfloat16)
+            assert torch.equal(got[1] == -1e30, lse_ref == -1e30)
+        else:
+            assert_close(got, da.flash_decode_ref(*args), torch.bfloat16)
+    assert all(int(t.abs().sum()) == 0 for t in da._TICKETS.values())
+
+
+def test_paged_decode_kernels_on_two_streams(gen):
+    """Kernels 2 and 4 launched on two streams at once, each stream with
+    its own ticket counters: both match their plain versions, and the
+    counters of both streams are 0 afterwards."""
+    args = _edge_inputs(gen, 32, 32, 128, 16, 128, 256, torch.bfloat16,
+                        torch.bfloat16)
+    local, owned = _owned(args[3], args[1].shape[0] // 2 * 2, 1, 2)
+    nb = args[1].shape[0] // 2
+    lse_args = (args[0], args[1][nb:2 * nb], args[2][nb:2 * nb], local,
+                args[4], owned)
+    s1, s2 = torch.cuda.Stream(), torch.cuda.Stream()
+    torch.cuda.synchronize()
+    outs = []
+    for _ in range(4):
+        with torch.cuda.stream(s1):
+            outs.append(("2", pa.paged_decode_attention(*args)))
+        with torch.cuda.stream(s2):
+            outs.append(("4", pa.paged_decode_attention_lse(*lse_args)))
+    torch.cuda.synchronize()
+    want2 = pa.paged_decode_attention_ref(*args)
+    want4, lse4 = pa.paged_decode_attention_lse_ref(*lse_args)
+    for kind, got in outs:
+        if kind == "2":
+            assert_close(got, want2, torch.bfloat16)
+        else:
+            assert_close(got[0], want4, torch.bfloat16)
+            assert torch.equal(got[1] == -1e30, lse4 == -1e30)
+    keys = [(torch.cuda.current_device(), s.cuda_stream) for s in (s1, s2)]
+    assert all(k in da._TICKETS for k in keys)
+    assert all(int(da._TICKETS[k].abs().sum()) == 0 for k in keys)
+
+
+def test_paged_decode_wrapper_call_is_one_launch(gen):
+    """One call of either wrapper puts exactly one kernel on the card (its
+    splits merged inside it; no second pass), and the wrapper refuses a
+    head dim above 512."""
+    from torch.profiler import ProfilerActivity, profile
+    args = _edge_inputs(gen, 32, 32, 128, 16, 128, 256, torch.bfloat16,
+                        torch.bfloat16)
+    local, owned = _owned(args[3], args[1].shape[0] // 2 * 2, 0, 2)
+    nb = args[1].shape[0] // 2
+    lse_args = (args[0], args[1][:nb], args[2][:nb], local, args[4], owned)
+    pa.paged_decode_attention(*args)
+    pa.paged_decode_attention_lse(*lse_args)
+    torch.cuda.synchronize()
+    for fn, a, name in ((pa.paged_decode_attention, args,
+                         "paged_decode_split_kernel"),
+                        (pa.paged_decode_attention_lse, lse_args,
+                         "paged_decode_lse_split_kernel")):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn(*a)
+            torch.cuda.synchronize()
+        kernels = [e for e in prof.events()
+                   if e.device_type.name == "CUDA"
+                   and "memset" not in e.name.lower()
+                   and "memcpy" not in e.name.lower()]
+        assert [name in e.name for e in kernels] == [True], \
+            [e.name for e in kernels]
+    big = torch.zeros(1, 2, 520, device="cuda")
+    pool = torch.zeros(2, 8, 2, 520, device="cuda")
+    one = torch.zeros(1, 1, dtype=torch.int32, device="cuda")
+    with pytest.raises(ValueError):
+        pa.paged_decode_attention(big, pool, pool, one, one[0])
