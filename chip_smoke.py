@@ -18,7 +18,9 @@ Builds the hand-written CUDA kernels from ``src/repro_torch/csrc`` (one
    and device time beside SDPA; for the int8 GEMM, kernel 6, bit-exact
    at the reference's test shapes,
    granite's expert shapes, a ragged and a large shape, in both output
-   types; for kernel 1's window form, hymba-1.5b's prefill shape and edge
+   types, with each shape's split plan and route (wgmma at 4096^3,
+   split-K at granite's gate/up shape); kernel 7 also at head dims 48
+   and 96; for kernel 1's window form, hymba-1.5b's prefill shape and edge
    windows at small S; for its bidirectional form, hubert-xlarge's shape
    (S = 1000, D = 80) and edge cases at small and ragged S, GQA and
    windows; kernel 1 at head dims 80, 96 and 256, causal and
@@ -110,8 +112,8 @@ Builds the hand-written CUDA kernels from ``src/repro_torch/csrc`` (one
    at 1e-4 of max |logit|) and in bf16 (a reading), and a trace of one
    forward with kernel 1's share of the device time.
 
-At the end, every ticket counter of the split kernels (2, 4 and 5) must
-be 0.  Any failed check exits non-zero.  The last line is the result
+At the end, every ticket counter of the split kernels (2, 4, 5 and 6)
+must be 0.  Any failed check exits non-zero.  The last line is the result
 JSON; the lines before it list every kernel with its launches, error and
 times, and the card's name and power limit as ``nvidia-smi`` prints them.
 """
@@ -1027,13 +1029,21 @@ def wkv_bound(B: int, T: int, H: int, D: int, el: int, state_in: bool):
     return bound, by, n_bytes, flops
 
 
+def wkv_grid(wkv, B: int, T: int, H: int, D: int) -> str:
+    """``wkv_plan``'s launch shape of one call, as printed."""
+    jc, q = wkv.wkv_plan(B, H, D)
+    return (f"plan JC={jc} Q={q}: {B * H * (D // jc)} CTAs of {jc * q} + 32 "
+            f"threads")
+
+
 def check_wkv(torch, gen):
     """Kernel 7 at rwkv6-3b's serving shapes (H=40, D=64): a slot decode
     step (4 slots, T=1, from a random state), a prefill (B=1, T=200, zero
     state) and a ragged T=37, with f32 and with bf16 r/k/v (w, u and the
     state are f32 in both); then state carry: 120 + 80 steps against 200,
     and eight one-step calls written over their own state against the
-    plain version's one call of eight.
+    plain version's one call of eight; then the decode and prefill shapes
+    at head dims 48 and 96.  Each line names ``wkv_plan``'s grid.
 
     The state sums ~1/(1 - w) steps (~400 at the init decay), so |y|
     reaches the hundreds and an absolute f32 bound of 1e-4 would measure
@@ -1051,7 +1061,8 @@ def check_wkv(torch, gen):
             y, s = wkv.rwkv6_wkv(*args)
             y_ref, s_ref = wkv.rwkv6_wkv_ref(*args)
             what = (f"rwkv6_wkv {label} r/k/v={dt} B={B} T={T} H={H} D={D} "
-                    f"s0={'zero' if zero else 'random'}")
+                    f"s0={'zero' if zero else 'random'} "
+                    f"{wkv_grid(wkv, B, T, H, D)}")
             err = held_scaled(f"{what} y", y, y_ref, name)
             held_scaled(f"{what} state", s, s_ref, "f32")
             if name == "bf16":
@@ -1074,6 +1085,20 @@ def check_wkv(torch, gen):
                 f"T=8")
         held_scaled(f"{what} y", torch.cat(ys, 1), y8, name)
         held_scaled(f"{what} state", state, s8, "f32")
+    # the head dims rwkv6-3b does not use, at its decode and prefill shapes
+    # (from a generator of their own: the inputs above stay as they were)
+    gen_d = torch.Generator(device="cuda").manual_seed(48)
+    for Dx in (48, 96):
+        for name, dt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+            for label, B, T, zero in (("decode", 4, 1, False),
+                                      ("prefill", 1, 200, True)):
+                args = _wkv_inputs(torch, gen_d, B, T, H, Dx, dt, zero)
+                y, s = wkv.rwkv6_wkv(*args)
+                y_ref, s_ref = wkv.rwkv6_wkv_ref(*args)
+                what = (f"rwkv6_wkv {label} r/k/v={dt} B={B} T={T} H={H} "
+                        f"D={Dx} {wkv_grid(wkv, B, T, H, Dx)}")
+                held_scaled(f"{what} y", y, y_ref, name)
+                held_scaled(f"{what} state", s, s_ref, "f32")
     rows = {}
     for label, ((r, k, v, w, u, s0), err) in timed.items():
         B, T = r.shape[:2]
@@ -1135,7 +1160,11 @@ def int8_bound(M: int, K: int, N: int, out_bytes: int):
 def check_int8(torch, gen):
     """Kernel 6 against its plain version, bit for bit (integer sums are
     exact and the f32 epilogue is the same sequence of operations), at
-    ``INT8_SHAPES`` in both output types; ``ops.int8_matmul_quantized``
+    ``INT8_SHAPES`` in both output types, each with ``int8_split_plan``'s
+    grid and the route its launch took (failing unless 4096^3 ran whole
+    and (256, 1536, 512) split over K; the ``wgmma`` counter equals the
+    launches by construction, the kernel having no other route, so only
+    the split half of the route tells anything); ``ops.int8_matmul_quantized``
     on f32 operands against quantize + plain (bit-exact) and against the
     f32 GEMM (relative error < 0.02, the reference's
     ``test_int8_quantized_matmul_error_bound``).  Each shape timed with
@@ -1145,7 +1174,7 @@ def check_int8(torch, gen):
     1536, 512), the path's."""
     from repro_torch.kernels import int8_matmul as i8
     from repro_torch.kernels import ops
-    rows, errs = {}, {}
+    rows, errs, routes = {}, {}, {}
     for M, K, N in INT8_SHAPES:
         x_q = torch.randint(-127, 128, (M, K), generator=gen, device="cuda",
                             dtype=torch.int32).to(torch.int8)
@@ -1154,8 +1183,17 @@ def check_int8(torch, gen):
         sx = 0.01 + 0.09 * torch.rand(M, 1, generator=gen, device="cuda")
         sw = 0.01 + 0.09 * torch.rand(1, N, generator=gen, device="cuda")
         args = (x_q, w_q, sx, sw)
+        splits, k_split = i8.int8_split_plan(M, N, K)
         for dt in (torch.bfloat16, torch.float32):
+            before = (i8.int8_matmul.wgmma, i8.int8_matmul.split)
             got = i8.int8_matmul(*args, out_dtype=dt)
+            route = ("wgmma" if i8.int8_matmul.wgmma > before[0] else "none") \
+                + (", split-K" if i8.int8_matmul.split > before[1] else "")
+            routes[(M, K, N)] = route
+            print(f"int8_matmul M={M} K={K} N={N} out={dt}: plan splits="
+                  f"{splits} k_split={k_split} (grid {-(-N // 128)} x "
+                  f"{-(-M // 128)} x {splits} CTAs), route {route}",
+                  flush=True)
             want = i8.int8_matmul_ref(*args, out_dtype=dt)
             err = (got.float() - want.float()).abs().max().item()
             same = torch.equal(got, want)
@@ -1198,6 +1236,16 @@ def check_int8(torch, gen):
               f"{plain_ms:.4f} ms, torch._int_mm + scales {lib}, bound "
               f"{bound:.5f} ms ({by}: {n_bytes} B, {n_ops} int8 ops)",
               flush=True)
+    # the routes the plan is for: the square GEMM (256 output tiles) whole,
+    # granite's gate/up shape (8 output tiles) split over K; "wgmma" is in
+    # both because every launch counts there (the kernel's one route)
+    for shape, need in (((4096, 4096, 4096), "wgmma"),
+                        ((256, 1536, 512), "wgmma, split-K")):
+        ok = routes[shape] == need
+        print(f"int8_matmul M, K, N = {shape}: route {routes[shape]}, need "
+              f"{need} {'ok' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            fail(f"int8_matmul {shape} took {routes[shape]}, not {need}")
     x = torch.randn(128, 256, generator=gen, device="cuda")
     w = torch.randn(256, 128, generator=gen, device="cuda")
     got = ops.int8_matmul_quantized(x, w)
@@ -2961,8 +3009,8 @@ def main() -> int:
     print(f"all phases done at {time.perf_counter() - t_start:.1f} s",
           flush=True)
 
-    # kernels 2, 4 and 5 share per-device, per-stream ticket counters that
-    # every launch leaves at 0
+    # kernels 2, 4, 5 and 6 share per-device, per-stream ticket counters
+    # that every launch leaves at 0
     from repro_torch.kernels import decode_attention as da
     torch.cuda.synchronize()
     if any(int(t.abs().sum()) for t in da._TICKETS.values()):

@@ -16,8 +16,11 @@ hymba-1.5b's ring.
 
 With ``--sweep``, this tree alone times kernels 2 and 4 at each of their
 shapes with the split length forced to 64, 128, 256 and 512 keys and at
-``paged_split_plan``'s own, events and device time beside the bound: the
-readings the plan's rule was chosen from.
+``paged_split_plan``'s own, events and device time beside the bound;
+kernel 6 at each of its shapes with K split 1, 2, 3, 4, 6, 8 and 12 ways
+beside ``int8_split_plan``'s; and kernel 7 at its two shapes at every
+instantiated (JC, Q) of head dim 64 beside ``wkv_plan``'s, by device
+time: the readings the plans' rules were chosen from.
 
 OTHER_TREE is a checkout of another commit, for instance the parent
 unpacked with ``git archive`` into a directory that ``.gitignore`` lists.
@@ -30,12 +33,15 @@ version, and the device time of 20 calls queued behind a spin kernel, so
 that the card runs them back to back (events around calls that are not
 held time the host where a kernel is shorter than its wrapper's host
 work, as kernel 5 over hymba's ring is).  Each process also saves kernels
-1 and 5's outputs, and the script prints the largest |other - this| of
-them at each shape (0 when the two trees compute the same bits).  Then
+1, 5 and 6's outputs, and the script prints the largest |other - this| of
+them at each shape (0 when the two trees compute the same bits; kernel 6
+must give 0).  Then
 each shape's medians side by side, events and device time, beside the
 bound (the larger of bytes over 3.35 TB/s and flops over 989 TFLOP/s;
 for kernels 2 and 4 the bytes of the keys these inputs make live, the
-owned ones for kernel 4).  Needs one CUDA card.
+owned ones for kernel 4; for kernel 6 ops over 1979 TOP/s of int8, for
+kernel 7 flops over 67 TFLOP/s of f32, as chip_smoke.py bounds them).
+Needs one CUDA card.
 """
 from __future__ import annotations
 
@@ -77,6 +83,17 @@ STRIPED = {
                                              SERVED_POS),
 }
 SWEEP = (64, 128, 256, 512)
+# kernel 6: (M, K, N), bf16 out
+INT8 = {f"kernel 6 int8 {m}x{k}x{n}": (m, k, n)
+        for m, k, n in ((256, 1536, 512), (200, 1536, 520),
+                        (4096, 4096, 4096))}
+INT8_SPLITS = (1, 2, 3, 4, 6, 8, 12)
+# kernel 7: (B, T, H, D), bf16 r/k/v
+WKV = {"kernel 7 rwkv6-3b prefill": (1, 200, 40, 64),
+       "kernel 7 rwkv6-3b decode": (4, 1, 40, 64)}
+WKV_PAIRS = ((64, 2), (32, 2), (16, 2), (64, 4), (32, 4), (16, 4), (8, 4),
+             (32, 8), (16, 8), (8, 8), (4, 8), (16, 16), (8, 16), (4, 16),
+             (2, 16))
 # kernel 5: (B, H, K, D, S, positions)
 DECODE = {
     "kernel 5 llama2-7b slots": (4, 32, 32, 128, 2048, (2047, 1500, 545, 0)),
@@ -119,6 +136,50 @@ def decode_bound(B, H, K, D, S, positions) -> tuple[float, int]:
     n_bytes = 2 * keys * K * D * 2 + 2 * B * H * D * 2 + 4 * B
     flops = 4 * D * H * keys
     return bound_ms(n_bytes, flops), flops
+
+
+def int8_bound(M, K, N) -> tuple[float, int]:
+    """x, w, the scales read once, bf16 out written once; 2 M N K int8
+    operations at 1979 TOP/s."""
+    n_bytes = M * K + K * N + 4 * (M + N) + 2 * M * N
+    ops = 2 * M * N * K
+    return max(n_bytes / 3.35e12, ops / 1979e12) * 1e3, ops
+
+
+def wkv_bound(B, T, H, D) -> tuple[float, int]:
+    """bf16 r/k/v and f32 w read, bf16 y written, u read, the state read
+    (when T == 1: the decode step's) and written; 5 flops an entry and 5 a
+    row per step at 67 TFLOP/s of f32 (chip_smoke.py's wkv_bound)."""
+    state_in = T == 1
+    n_bytes = (B * T * H * D * (4 * 2 + 4) + H * D * 4
+               + (1 + state_in) * B * H * D * D * 4)
+    flops = 5 * B * T * H * D * D + 5 * B * T * H * D
+    return max(n_bytes / 3.35e12, flops / 67e12) * 1e3, flops
+
+
+def int8_inputs(torch, M, K, N):
+    g = torch.Generator(device="cuda").manual_seed(0)
+    x = torch.randint(-127, 128, (M, K), generator=g, device="cuda",
+                      dtype=torch.int32).to(torch.int8)
+    w = torch.randint(-127, 128, (K, N), generator=g, device="cuda",
+                      dtype=torch.int32).to(torch.int8)
+    sx = 0.01 + 0.09 * torch.rand(M, 1, generator=g, device="cuda")
+    sw = 0.01 + 0.09 * torch.rand(1, N, generator=g, device="cuda")
+    return x, w, sx, sw
+
+
+def wkv_inputs(torch, B, T, H, D):
+    """bf16 r/k/v, w around rwkv6-3b's init decay, u; a random f32 state
+    for a decode step (T == 1), none (zeros) for a prefill."""
+    g = torch.Generator(device="cuda").manual_seed(0)
+    r, k, v = (torch.randn(B, T, H, D, generator=g, device="cuda",
+                           dtype=torch.bfloat16) for _ in range(3))
+    w = torch.exp(-torch.exp(-6.0 + torch.randn(B, T, H, D, generator=g,
+                                                 device="cuda")))
+    u = 0.1 * torch.randn(H, D, generator=g, device="cuda")
+    s0 = torch.randn(B, H, D, D, generator=g, device="cuda") if T == 1 \
+        else None
+    return r, k, v, w, u, s0
 
 
 def card() -> str:
@@ -176,8 +237,10 @@ def child(src: str, save: str) -> None:
     import torch
     from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import int8_matmul as i8
     from repro_torch.kernels import paged_decode_attention as pa
     from repro_torch.kernels import paged_prefill_attention as ppa
+    from repro_torch.kernels import rwkv6_wkv as wkv
 
     cuda_ms, held_ms = timers(torch)
 
@@ -235,6 +298,23 @@ def child(src: str, save: str) -> None:
             per=stripes)
         out[name]["bound"] = bound_ms(sum(c[1] for c in calls) // stripes,
                                       sum(c[2] for c in calls) // stripes)
+    for name, (M, K, N) in INT8.items():
+        args = int8_inputs(torch, M, K, N)
+        saved[name] = i8.int8_matmul(*args).cpu()
+        out[name] = timed(lambda: i8.int8_matmul(*args),
+                          lambda: i8.int8_matmul_ref(*args))
+    for name, (B, T, H, D) in WKV.items():
+        r, k, v, w, u, s0 = wkv_inputs(torch, B, T, H, D)
+        # the error against the plain version from the same state; then
+        # the timed calls write their state in place, as the slot pool's
+        # decode does
+        err = (wkv.rwkv6_wkv(r, k, v, w, u, s0)[0].float()
+               - wkv.rwkv6_wkv_ref(r, k, v, w, u, s0)[0].float()).abs().max()
+
+        def call():
+            return wkv.rwkv6_wkv(r, k, v, w, u, s0, s_out=s0)[0]
+        out[name] = timed(call, call)
+        out[name]["err"] = err.item()
     torch.save(saved, save)
     print("TURN " + json.dumps(out), flush=True)
 
@@ -286,7 +366,9 @@ def stripes_of(fn, calls):
 
 def sweep() -> int:
     """Kernels 2 and 4 of this tree at forced split lengths and at the
-    plan's, per launch: events (median of 5 x 20 calls) and device time."""
+    plan's, per launch: events (median of 5 x 20 calls) and device time;
+    kernel 6 at forced K splits and kernel 7 at forced (JC, Q), beside
+    their plans', by device time."""
     sys.path.insert(0, str(THIS / "src"))
     import torch
     from repro_torch.kernels import paged_decode_attention as pa
@@ -312,6 +394,36 @@ def sweep() -> int:
                          f"{held_ms(run) / stripes:.4f})")
         print(f"sweep {name}: {', '.join(cells)}; bound {bound:.4f} ms",
               flush=True)
+    from repro_torch.kernels import int8_matmul as i8
+    from repro_torch.kernels import rwkv6_wkv as wkv
+    for name, (M, K, N) in INT8.items():
+        args = int8_inputs(torch, M, K, N)
+        plan = i8.int8_split_plan(M, N, K)
+        cells, seen = [], set()
+        for want in INT8_SPLITS:
+            k_split = i8._k_split(K, want)
+            splits = -(-K // k_split)
+            if splits in seen:
+                continue
+            seen.add(splits)
+            ms = held_ms(lambda: i8._launch(*args, torch.bfloat16, splits,
+                                            k_split))
+            cells.append(f"splits={splits}"
+                         f"{' (plan)' if splits == plan[0] else ''} "
+                         f"{ms:.4f}")
+        print(f"sweep {name}: device ms {', '.join(cells)}; bound "
+              f"{int8_bound(M, K, N)[0]:.5f} ms", flush=True)
+    for name, (B, T, H, D) in WKV.items():
+        r, k, v, w, u, s0 = wkv_inputs(torch, B, T, H, D)
+        plan = wkv.wkv_plan(B, H, D)
+        cells = []
+        for jc, q in WKV_PAIRS:
+            ms = held_ms(lambda: wkv._launch(r, k, v, w, u, s0, s0, jc, q))
+            cells.append(f"JC={jc} Q={q}"
+                         f"{' (plan)' if (jc, q) == plan else ''} "
+                         f"{ms:.4f}")
+        print(f"sweep {name}: device ms {', '.join(cells)}; bound "
+              f"{wkv_bound(B, T, H, D)[0]:.5f} ms", flush=True)
     return 0
 
 
@@ -349,6 +461,8 @@ def main(argv: list[str]) -> int:
               **{n: decode_bound(*s) for n, s in DECODE.items()}}
     shapes.update({n: (turns[0][1][n]["bound"], None)
                    for n in (*PAGED, *STRIPED)})
+    shapes.update({n: int8_bound(*s) for n, s in INT8.items()})
+    shapes.update({n: wkv_bound(*s) for n, s in WKV.items()})
     for name, (bound, flops) in shapes.items():
         def rate(t):
             return ("" if flops is None else
@@ -359,7 +473,7 @@ def main(argv: list[str]) -> int:
             f"{rate(t)}; err {t[name]['err']:.3e})"
             for label, t in turns)
         print(f"{name}: {cells}; bound {bound:.4f} ms", flush=True)
-    for name in (*FLASH, *DECODE):
+    for name in (*FLASH, *DECODE, *INT8):
         diff = max((a[name].float() - b[name].float()).abs().max().item()
                    for (la, a) in outputs for (lb, b) in outputs
                    if la == "other" and lb == "this")

@@ -21,6 +21,9 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD = CSRC.parent / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+# streaming multiprocessors of the H100 SXM the sm_90a build targets: the
+# number of CTAs the split plans (kernels 5, 6 and 7) fill
+SMS = 132
 SOURCES = ("flash_attention", "paged_decode_attention",
            "paged_prefill_attention", "decode_attention", "rwkv6_wkv",
            "int8_matmul")

@@ -149,8 +149,8 @@ def swa_decode_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return o.to(v.dtype).to(q.dtype)
 
 
-# CTAs wanted per launch: two per SM of an H100 (132 SMs)
-_MIN_CTAS = 2 * 132
+# CTAs wanted per launch: two per SM
+_MIN_CTAS = 2 * build.SMS
 _MAX_HEADS = 8        # query heads per CTA (csrc/split_decode.cuh MAX_G)
 _MAX_SPLITS = 256     # splits per lane (csrc/split_decode.cuh MAX_SPLITS)
 

@@ -10,9 +10,13 @@ state S is carried over time::
 r/k/v (B, T, H, D) in f32 or bf16, w (B, T, H, D) f32 decay in (0, 1),
 u (H, D) f32, s0 (B, H, D, D) f32 or None for a zero state -> y (B, T, H, D)
 in r's dtype and the final state (B, H, D, D) f32.  Any T (the Pallas
-kernel asserts ``T % block_t == 0``); D in {16, 32, 64, 128}.  With
+kernel asserts ``T % block_t == 0``); any D % 16 == 0 up to 128.  With
 ``s_out`` the final state is written there, and ``s_out`` may be ``s0``:
-the slot pool's decode updates its state in place.
+the slot pool's decode updates its state in place.  The kernel splits the
+state's columns over CTAs and each column's rows over lanes of a warp, as
+``wkv_plan`` says from the shapes; y's sums have one order whatever the
+split (``rwkv6_wkv_split_ref``), so a call of T steps and T calls of one
+give the same bits.
 
 The plain version ports the oracle ``kernels/ref.py::rwkv6_wkv_ref``: a
 loop over time in f32, y cast to r's dtype once.  The reference model's
@@ -23,13 +27,45 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import threading
 
 import torch
 
 from repro_torch.kernels import build
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIMS = (16, 32, 64, 128)
+HEAD_DIMS = (16, 32, 48, 64, 80, 96, 112, 128)
+# lanes a column of S splits over, per head dim: 16 rows a lane at
+# rwkv6-3b's D = 64 (flash_turns.py --sweep), about 8 elsewhere (not
+# swept).  The kernel instantiates these, and Q = 2, 8 and 16 at D = 64
+# for the sweep
+_LANES = {16: 2, 32: 4, 48: 4, 64: 4, 80: 8, 96: 8, 112: 8, 128: 8}
+_CTA_LANES = 128        # stepping lanes a CTA the plan starts from
+# rows of a block of S's column (csrc row_block) and partials of y_j's sum
+# (csrc parts: the largest power of two up to 16 dividing the blocks)
+_ROW_BLOCK = {d: 2 if d in (80, 112) else 4 for d in HEAD_DIMS}
+_PARTS = {16: 4, 32: 8, 48: 4, 64: 16, 80: 8, 96: 8, 112: 8, 128: 16}
+
+
+@functools.lru_cache(maxsize=256)
+def wkv_plan(B: int, H: int, D: int) -> tuple[int, int]:
+    """``(JC, Q)`` of a launch over B * H heads of D, from shapes alone: Q
+    lanes a column of S (``_LANES``), JC columns a CTA, the largest power
+    of two dividing D with JC * Q <= 128 stepping lanes, halved (down to
+    one warp) while the grid of B * H * (D / JC) CTAs would leave more
+    than half the card's SMs idle.  Each CTA's producer warp copies its
+    heads' whole rows, so wide CTAs that leave some SMs idle beat narrow
+    ones that fill them: at rwkv6-3b's prefill (40 heads) 80 CTAs of 32
+    columns beat 160 of 16.  A call of any length takes the same plan,
+    and Q changes which lanes add y's partials, never the order they are
+    added in, so the plan changes no bits either way."""
+    q = _LANES[D]
+    jc = 1
+    while 2 * jc * q <= _CTA_LANES and D % (2 * jc) == 0:
+        jc *= 2
+    while jc * q > 32 and B * H * (D // jc) < build.SMS // 2:
+        jc //= 2
+    return jc, q
 
 
 def rwkv6_wkv_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -55,80 +91,156 @@ def rwkv6_wkv_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return y.to(r.dtype), (s if s_out is None else s_out.copy_(s))
 
 
+def rwkv6_wkv_split_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        w: torch.Tensor, u: torch.Tensor,
+                        s0: torch.Tensor | None = None, *, q: int):
+    """The kernel's arithmetic in plain torch (for the tests), as ``q``
+    lanes a column hold it: per step c_t = sum_i r_i u_i k_i once; the
+    rows in blocks of ``_ROW_BLOCK[D]``, block b in partial b mod P (P =
+    ``_PARTS[D]``), each partial summed over its blocks in order; lane g
+    holding the partials p = g (mod q) adds them as a butterfly (levels
+    P/2 .. q), then the q lanes add theirs (levels q/2 .. 1); y_j is that
+    sum plus v_j c_t, and the state updated as the plain version does.
+    The products are rounded before they are added (the kernel fuses
+    them), so the order is the kernel's, not its bits; the additions, and
+    so the result, are the same for every ``q`` dividing P.  Returns (y,
+    s) as ``rwkv6_wkv_ref``."""
+    B, T, H, D = r.shape
+    V, P = _ROW_BLOCK[D], _PARTS[D]
+    if P % q:
+        raise ValueError(f"rwkv6_wkv_split_ref: q={q} does not divide the "
+                         f"{P} partials of head dim {D}")
+    L = P // q
+    s = torch.zeros(B, H, D, D, dtype=torch.float32, device=r.device) \
+        if s0 is None else s0.float()
+    uf = u.float()[None]
+    ys = []
+    for t in range(T):
+        rt, kt, vt, wt = (a[:, t].float() for a in (r, k, v, w))
+        c = (rt * uf * kt).sum(-1)
+        # (B, H, M, P, V, D): block m * P + p's row e of every column
+        prod = (rt[..., :, None] * s).view(B, H, D // (V * P), P, V, D)
+        part = torch.zeros(B, H, P, D, dtype=torch.float32, device=r.device)
+        for m in range(prod.shape[2]):
+            for e in range(V):
+                part = part + prod[:, :, m, :, e]
+        lanes = part.view(B, H, L, q, D)        # partial a * q + g
+        o = L // 2
+        while o:                                # levels P/2 .. q
+            lanes = lanes[:, :, :o] + lanes[:, :, o:2 * o]
+            o //= 2
+        y = lanes[:, :, 0]                      # (B, H, q, D)
+        o = q // 2
+        while o:                                # levels q/2 .. 1
+            y = y + y[:, :, torch.arange(q, device=r.device) ^ o]
+            o //= 2
+        ys.append(y[:, :, 0] + vt * c[..., None])
+        s = wt[..., :, None] * s + kt[..., :, None] * vt[..., None, :]
+    y = torch.stack(ys, dim=1) if ys \
+        else r.new_zeros(r.shape, dtype=torch.float32)
+    return y.to(r.dtype), s
+
+
 @functools.cache
 def _kernel():
     fn = build.library("rwkv6_wkv").rwkv6_wkv
-    fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 4
-                   + [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p])
+    fn.argtypes = [ctypes.c_void_p] * 10
     fn.restype = ctypes.c_int
     return fn
 
 
+# the launch's shape, plan, dtype and strides, one array a thread (the C
+# call reads it before it returns), filled by one slice assignment: the
+# ctypes call then converts 10 arguments, not 31
+_LOCAL = threading.local()
+
+
+def _params():
+    arr = getattr(_LOCAL, "params", None)
+    if arr is None:
+        arr = _LOCAL.params = (ctypes.c_longlong * 19)()
+        _LOCAL.address = ctypes.addressof(arr)
+    return arr, _LOCAL.address
+
+
 def _check(r, k, v, w, u, s0, s_out) -> None:
-    named = [("r", r), ("k", k), ("v", v), ("w", w), ("u", u)]
-    named += [(n, t) for n, t in (("s0", s0), ("s_out", s_out))
-              if t is not None]
+    dev = r.device
+    if dev.type != "cuda":
+        raise ValueError(f"rwkv6_wkv: r must be on a CUDA device, got {dev}")
+    named = [("k", k), ("v", v), ("w", w), ("u", u)]
+    if s0 is not None:
+        named.append(("s0", s0))
+    if s_out is not None:
+        named.append(("s_out", s_out))
     for name, t in named:
-        if not t.is_cuda or t.device != r.device:
+        if t.device != dev:
             raise ValueError(f"rwkv6_wkv: {name} must be on r's CUDA device, "
                              f"got {t.device}")
-    if r.device.index != torch.cuda.current_device():
-        raise ValueError(f"rwkv6_wkv: r on {r.device}, current device is "
+    if dev.index != torch.cuda.current_device():
+        raise ValueError(f"rwkv6_wkv: r on {dev}, current device is "
                          f"cuda:{torch.cuda.current_device()}")
-    if r.dtype not in _DTYPES or k.dtype != r.dtype or v.dtype != r.dtype:
-        raise TypeError(f"rwkv6_wkv: r/k/v {r.dtype}/{k.dtype}/{v.dtype}: "
+    dt = r.dtype
+    if dt not in _DTYPES or k.dtype != dt or v.dtype != dt:
+        raise TypeError(f"rwkv6_wkv: r/k/v {dt}/{k.dtype}/{v.dtype}: "
                         f"need one of f32 or bf16")
-    for name, t in named[3:]:
+    for name, t in named[2:]:
         if t.dtype != torch.float32:
             raise TypeError(f"rwkv6_wkv: {name} must be f32, got {t.dtype}")
-    if r.dim() != 4 or any(t.shape != r.shape for t in (k, v, w)):
-        raise ValueError(f"rwkv6_wkv: r/k/v/w shapes {tuple(r.shape)} "
+    shape = r.shape
+    if len(shape) != 4 or k.shape != shape or v.shape != shape \
+            or w.shape != shape:
+        raise ValueError(f"rwkv6_wkv: r/k/v/w shapes {tuple(shape)} "
                          f"{tuple(k.shape)} {tuple(v.shape)} {tuple(w.shape)}")
-    B, T, H, D = r.shape
+    B, T, H, D = shape
     if D not in HEAD_DIMS:
         raise ValueError(f"rwkv6_wkv: head dim {D} not in {HEAD_DIMS}")
     if u.shape != (H, D):
         raise ValueError(f"rwkv6_wkv: u {tuple(u.shape)} for {H} heads of {D}")
-    for name, t in named[5:]:
+    for name, t in named[4:]:
         if t.shape != (B, H, D, D):
             raise ValueError(f"rwkv6_wkv: {name} {tuple(t.shape)}, need "
                              f"{(B, H, D, D)}")
-    for name, t in named[:4]:
+    for name, t in (("r", r), ("k", k), ("v", v), ("w", w)):
         if t.stride(-1) != 1:
             raise ValueError(f"rwkv6_wkv: {name}'s head dim must be "
                              f"contiguous")
-    for name, t in named[4:]:
+    for name, t in named[3:]:
         if not t.is_contiguous():
             raise ValueError(f"rwkv6_wkv: {name} must be contiguous")
-    if s0 is not None and s_out is not None \
-            and s0.data_ptr() != s_out.data_ptr():
-        lo = max(s0.data_ptr(), s_out.data_ptr())
-        hi = min(s0.data_ptr(), s_out.data_ptr()) + 4 * s0.numel()
-        if lo < hi:
+    if s0 is not None and s_out is not None:
+        a, b = s0.data_ptr(), s_out.data_ptr()
+        if a != b and max(a, b) < min(a, b) + 4 * s0.numel():
             raise ValueError("rwkv6_wkv: s_out overlaps s0 without being it")
+
+
+def _launch(r, k, v, w, u, s0, s_out, jc: int, q: int):
+    """One launch at a given (JC, Q) (the wrapper's plan, or the sweep's)."""
+    B, T, H, D = r.shape
+    y = torch.empty_like(r, memory_format=torch.contiguous_format)
+    if s_out is None:
+        s_out = torch.empty(B, H, D, D, dtype=torch.float32, device=r.device)
+    params, address = _params()
+    params[:] = (B, T, H, D, jc, q, _DTYPES[r.dtype], *r.stride()[:3],
+                 *k.stride()[:3], *v.stride()[:3], *w.stride()[:3])
+    err = _kernel()(
+        r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(), u.data_ptr(),
+        None if s0 is None else s0.data_ptr(), s_out.data_ptr(), y.data_ptr(),
+        address, torch.cuda.current_stream(r.device).cuda_stream)
+    build.check(err, "rwkv6_wkv")
+    rwkv6_wkv.launches += 1
+    return y, s_out
 
 
 def rwkv6_wkv(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               w: torch.Tensor, u: torch.Tensor,
               s0: torch.Tensor | None = None, *,
               s_out: torch.Tensor | None = None):
-    """Launch the CUDA kernel (all tensors on the current CUDA device).
-    Returns (y, s); s is ``s_out`` when given (which may be ``s0``)."""
+    """Launch the CUDA kernel (all tensors on the current CUDA device),
+    split as ``wkv_plan`` says.  Returns (y, s); s is ``s_out`` when given
+    (which may be ``s0``)."""
     _check(r, k, v, w, u, s0, s_out)
-    B, T, H, D = r.shape
-    y = torch.empty(r.shape, dtype=r.dtype, device=r.device)
-    if s_out is None:
-        s_out = torch.empty(B, H, D, D, dtype=torch.float32, device=r.device)
-    strides = (ctypes.c_longlong * 12)(
-        *(s for t in (r, k, v, w) for s in t.stride()[:3]))
-    err = _kernel()(
-        r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(), u.data_ptr(),
-        None if s0 is None else s0.data_ptr(), s_out.data_ptr(), y.data_ptr(),
-        B, T, H, D, ctypes.cast(strides, ctypes.c_void_p), _DTYPES[r.dtype],
-        torch.cuda.current_stream(r.device).cuda_stream)
-    build.check(err, "rwkv6_wkv")
-    rwkv6_wkv.launches += 1
-    return y, s_out
+    B, _, H, D = r.shape
+    return _launch(r, k, v, w, u, s0, s_out, *wkv_plan(B, H, D))
 
 
 rwkv6_wkv.launches = 0

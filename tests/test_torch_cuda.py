@@ -432,9 +432,10 @@ def test_wkv_wrapper_raises_on_bad_input(gen):
         args = dict(r=r, k=k, v=v, w=w, u=u, s0=s0) | kw
         with pytest.raises((ValueError, TypeError)):
             wkv.rwkv6_wkv(**args)
-    r48 = torch.randn(2, 5, 3, 48, device="cuda")
-    with pytest.raises(ValueError):
-        wkv.rwkv6_wkv(r48, r48, r48, r48.abs(), torch.zeros(3, 48,
+    for d in (40, 144):                              # D % 16 != 0, D > 128
+        rd = torch.randn(2, 5, 3, d, device="cuda")
+        with pytest.raises(ValueError):
+            wkv.rwkv6_wkv(rd, rd, rd, rd.abs(), torch.zeros(3, d,
                                                             device="cuda"))
     flat = torch.zeros(2 * 3 * 32 * 32 + 32, device="cuda")
     with pytest.raises(ValueError):                 # s_out overlaps s0
@@ -1297,3 +1298,163 @@ def test_paged_decode_wrapper_call_is_one_launch(gen):
     one = torch.zeros(1, 1, dtype=torch.int32, device="cuda")
     with pytest.raises(ValueError):
         pa.paged_decode_attention(big, pool, pool, one, one[0])
+
+
+# ---------------------------------------------------------------------------
+# kernels 6 and 7 as redesigned for Hopper: int8 wgmma with split-K merged
+# in the same launch; the WKV state split over columns (CTAs) and rows
+# (lanes)
+# ---------------------------------------------------------------------------
+
+def _i8_counts():
+    f = i8.int8_matmul
+    return f.launches, f.wgmma, f.split
+
+
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("N", [520, 516, 522])
+@pytest.mark.parametrize("splits", [1, 2, 3, 4, 12])
+def test_int8_matmul_ragged_n_at_every_split(gen, N, splits, out_dtype):
+    """N = 520 (8-byte copies of w), 516 (4-byte), 522 (single bytes), K
+    split 1-12 ways (the last CTA of each tile merging the others' int32
+    partials): bit-exact, every launch on wgmma, the split counted, every
+    ticket back to 0."""
+    M, K = 200, 1536
+    args = _int8_inputs(gen, M, K, N)
+    k_split = i8._k_split(K, splits)
+    n = -(-K // k_split)
+    before = _i8_counts()
+    out = i8._launch(*args, out_dtype, n, k_split)
+    torch.cuda.synchronize()
+    assert _i8_counts() == (before[0] + 1, before[1] + 1,
+                            before[2] + (n > 1))
+    assert torch.equal(out, i8.int8_matmul_ref(*args, out_dtype=out_dtype))
+    assert all(int(t.abs().sum()) == 0 for t in da._TICKETS.values())
+
+
+@pytest.mark.parametrize("offset", [1, 4, 8])
+@pytest.mark.parametrize("splits", [1, 3])
+def test_int8_matmul_misaligned_operands(gen, offset, splits):
+    """x and w starting 1, 4 or 8 bytes past a 16-byte boundary (single
+    bytes, 4-byte or 8-byte copies for both) at one split and three."""
+    M, K, N = 130, 1024, 264
+    x_q, w_q, sx, sw = _int8_inputs(gen, M, K, N)
+    xs = torch.empty(x_q.numel() + 16, dtype=torch.int8, device="cuda")
+    ws = torch.empty(w_q.numel() + 16, dtype=torch.int8, device="cuda")
+    xs[offset:offset + x_q.numel()] = x_q.reshape(-1)
+    ws[offset:offset + w_q.numel()] = w_q.reshape(-1)
+    xm = xs[offset:offset + x_q.numel()].view(M, K)
+    wm = ws[offset:offset + w_q.numel()].view(K, N)
+    assert xm.data_ptr() % 16 == offset
+    k_split = i8._k_split(K, splits)
+    for dt in (torch.float32, torch.bfloat16):
+        got = i8._launch(xm, wm, sx, sw, dt, -(-K // k_split), k_split)
+        assert torch.equal(got, i8.int8_matmul_ref(x_q, w_q, sx, sw,
+                                                   out_dtype=dt))
+
+
+def test_int8_matmul_sums_past_2_24_at_every_split(gen):
+    """Every product 127 * 127 over K = 4096 (sums past 2**24, rounded to
+    f32 once): bit-exact whole and split 2, 4 and 32 ways."""
+    M, K, N = 256, 4096, 136
+    x_q = torch.full((M, K), -127, dtype=torch.int8, device="cuda")
+    w_q = torch.full((K, N), -127, dtype=torch.int8, device="cuda")
+    x_q[::3] = 127
+    sx = torch.full((M, 1), 0.37, device="cuda")
+    sw = torch.full((1, N), 1.3, device="cuda")
+    for splits in (1, 2, 4, 32):
+        k_split = i8._k_split(K, splits)
+        for dt in (torch.float32, torch.bfloat16):
+            assert torch.equal(
+                i8._launch(x_q, w_q, sx, sw, dt, -(-K // k_split), k_split),
+                i8.int8_matmul_ref(x_q, w_q, sx, sw, out_dtype=dt))
+
+
+@pytest.mark.parametrize("M,K,N", [(256, 1536, 512), (2048, 1024, 2048),
+                                   (1, 1536, 512), (256, 100, 512)])
+def test_int8_matmul_routes_follow_the_plan(gen, M, K, N):
+    """The wrapper's launch takes wgmma always and split-K exactly when
+    ``int8_split_plan`` splits: granite's gate/up shape (8 tiles, 4
+    splits) and one row do, 256 tiles and K below two blocks do not."""
+    args = _int8_inputs(gen, M, K, N)
+    splits = i8.int8_split_plan(M, N, K)[0]
+    before = _i8_counts()
+    out = i8.int8_matmul(*args)
+    torch.cuda.synchronize()
+    assert _i8_counts() == (before[0] + 1, before[1] + 1,
+                            before[2] + (splits > 1))
+    assert (splits > 1) == ((M, K, N) in ((256, 1536, 512), (1, 1536, 512)))
+    assert torch.equal(out, i8.int8_matmul_ref(*args))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", [16, 32, 48, 64, 80, 96, 112, 128])
+@pytest.mark.parametrize("T", [1, 31, 33, 200])
+def test_wkv_kernel_at_every_head_dim(gen, dtype, D, T):
+    """Every head dim the kernel takes, at T across its tiles (16-64 steps
+    of double-buffered r/k/v/w) and groups of Q steps, from a random state
+    (T < 200) and a zero one (T = 200), and written in place."""
+    B, H = (1, 5) if T == 200 else (2, 3)
+    args = _wkv_inputs(gen, B, T, H, D, dtype, zero_state=T == 200)
+    before = wkv.rwkv6_wkv.launches
+    y, s = wkv.rwkv6_wkv(*args)
+    assert wkv.rwkv6_wkv.launches == before + 1
+    y_ref, s_ref = wkv.rwkv6_wkv_ref(*args)
+    assert_wkv_close(y, y_ref, dtype)
+    assert_wkv_close(s, s_ref, torch.float32)
+    if args[5] is not None:
+        state = args[5].clone()
+        y2, s2 = wkv.rwkv6_wkv(*args[:5], state, s_out=state)
+        assert s2 is state
+        torch.testing.assert_close(y2, y, atol=0, rtol=0)
+        torch.testing.assert_close(state, s, atol=0, rtol=0)
+
+
+# the (D, Q) pairs csrc/rwkv6_wkv.cu instantiates
+WKV_LANES = {16: (2,), 32: (4,), 48: (4,), 64: (2, 4, 8, 16), 80: (8,),
+             96: (8,), 112: (8,), 128: (8,)}
+
+
+def _wkv_column_counts(D, q):
+    """One warp's columns a CTA, and the most (a power of two dividing D,
+    at most 256 lanes)."""
+    jc = 32 // q
+    top = jc
+    while 2 * top * q <= 256 and D % (2 * top) == 0:
+        top *= 2
+    return sorted({jc, top})
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", sorted(WKV_LANES))
+def test_wkv_kernel_bits_do_not_depend_on_the_plan(gen, dtype, D):
+    """Every instantiated lane count (and the columns a CTA beside it)
+    gives the same y and s bit for bit, staged (T = 8, 37) and unstaged
+    (T = 1, 4; T = 0 hands s0 back), and the wrapper's plan gives those
+    bits too."""
+    for T in (0, 1, 4, 8, 37):
+        args = _wkv_inputs(gen, 2, T, 3, D, dtype)
+        runs = [wkv._launch(*args, None, jc, q)
+                for q in WKV_LANES[D] for jc in _wkv_column_counts(D, q)]
+        runs.append(wkv.rwkv6_wkv(*args))
+        for y, s in runs[1:]:
+            assert torch.equal(y, runs[0][0]) and torch.equal(s, runs[0][1])
+        if T == 0:
+            assert runs[0][0].shape == args[0].shape
+            assert torch.equal(runs[0][1], args[5])
+
+
+@pytest.mark.parametrize("jc,q", [(64, 2), (32, 2), (16, 2), (64, 4),
+                                  (32, 4), (8, 4), (32, 8), (16, 8), (4, 8),
+                                  (16, 16), (2, 16)])
+@pytest.mark.parametrize("B,T,H", [(1, 200, 40), (4, 1, 40), (1, 1, 1),
+                                   (3, 37, 7)])
+def test_wkv_kernel_at_grid_edges(gen, jc, q, B, T, H):
+    """rwkv6-3b's head dim at every instantiated lane count and columns a
+    CTA from one warp (JC * Q = 32) to 256 lanes, at grids of B*H*(D/JC)
+    from 1 CTA to 640, in bf16."""
+    args = _wkv_inputs(gen, B, T, H, 64, torch.bfloat16, zero_state=T == 200)
+    y, s = wkv._launch(*args, None, jc, q)
+    y_ref, s_ref = wkv.rwkv6_wkv_ref(*args)
+    assert_wkv_close(y, y_ref, torch.bfloat16)
+    assert_wkv_close(s, s_ref, torch.float32)
