@@ -49,7 +49,19 @@ Builds the hand-written CUDA kernels from ``src/repro_torch/csrc`` (one
    (``paged=False``).  Each checks completion, its counters, that its
    kernels ran, that every kernel-1 and every kernel-3 launch of the bf16
    run took the tensor cores and, on the paged pool, that the free list
-   and refcounts return to their start;
+   and refcounts return to their start.  Every engine runs its decode
+   horizon, chunk tick and slot step as CUDA graphs (``graphs=True``, the
+   default): each run checks that its programs replayed.  The horizon-8,
+   shards-2, chunked and slot runs are repeated with ``graphs=False`` in
+   the same call, and each pair must give identical streams, counters and
+   launch counts (``same_as_eager``).  Then sampled traffic
+   (``sampled_load``: ``plain_load``'s prompts, every other one at
+   temperature 0.8 and top-k 40 under a seed of its own): captured at
+   horizons 8 and 1 and eager at horizon 8, the same streams, the greedy
+   requests those of the greedy horizon-8 run; and with and without a
+   pool small enough to preempt, the same streams in an f32 compute plan
+   (in bf16 a reading: a recomputed prefill's logits differ from the
+   decode's in the last bits).  Every run prints its decode tok/s;
 3. compares logits teacher-forced: prefill and one paged decode step,
    one decode step through the block-striped pool at shards 2 and 4
    against the unsharded step (bf16 and f32 compute plans), a two-chunk
@@ -62,30 +74,39 @@ Builds the hand-written CUDA kernels from ``src/repro_torch/csrc`` (one
    shape with ``torch.profiler``: host wall time and device busy time per
    step, the device's idle share, the device kernels that take the time,
    and the time and share of kernels 1-5 beside the device ops per
-   step.  The same decode horizon is also timed on the host clock after
+   step, each decode horizon, the chunk tick and the slot step both eager
+   and as replays of a captured graph (with its capture time: first step
+   and warm-up, record, end and instantiate).  The same decode horizon is
+   also timed on the host clock after
    init (plain and under ``torch.inference_mode``) and after each later
    phase, so the drift of the host's clock over the run stands beside the
    trace.
 5. frees llama2-7b and runs phases 2-4 for full-width rwkv6-3b (random
    weights from a seeded generator) on the slot pool: the same requests
    served with every WKV launch counted (32 per prefill and per decode
-   step) and no attention kernel run; a prefill and a slot decode step
+   step) and no attention kernel run, captured and eager; the sampled
+   traffic captured and eager (equal; the greedy requests those of the
+   greedy run); a prefill and a slot decode step
    teacher-forced through the kernel and through its plain version, and
    prefill of a prompt's head plus one decode step per remaining token
    against prefill of the whole prompt (the state carried through the
-   model); traces of one prefill and one slot decode step.
+   model); traces of one prefill and one slot decode step (eager and
+   captured).
 6. frees rwkv6-3b and serves full-width granite-moe-3b-a800m (random bf16
    weights from a seeded generator) and its int8-expert variant (the same
    draws, quantized) through the paged pool: horizon 1 and 8 on the full
    variant (identical greedy streams), and a horizon-8 run that switches
    to the int8 variant with ``set_variant`` after two steps (every
-   request completes, one swap, every in-flight request preempted); each
+   request completes, one swap, every in-flight request preempted),
+   captured and eager (equal: the swap drops the full variant's graphs
+   and the int8 variant's are captured anew); each
    variant's prefill and paged decode step teacher-forced through the
    kernels and the plain versions, and the int8 variant's logits against
    the full variant's (a reading: the quality cost of the knob); kernel 6
    through ``ops.int8_matmul_quantized`` on the tokens that layer 0 of a
    prefill routes to one expert, with that expert's dequantized weights;
-   traces of one prefill and one decode step per variant.
+   traces of one prefill and one decode step per variant (the step eager
+   and captured).
 
 7. frees granite and serves full-width hymba-1.5b (random bf16 weights
    from a seeded generator; sliding-window attention, window 1024, beside
@@ -93,12 +114,14 @@ Builds the hand-written CUDA kernels from ``src/repro_torch/csrc`` (one
    2's prompts and four of 1000-1990 tokens, every request completing,
    kernel 1 once per layer and prefill (in its window form for each prompt
    longer than the window), kernel 5 once per layer and decode step over
-   the ring, no other attention kernel; a 1536-token prefill and one slot
+   the ring, no other attention kernel, captured and eager (equal); a
+   1536-token prefill and one slot
    decode step teacher-forced through the kernels and the plain versions
    (checked in an f32 compute plan over an f32 cache, read in bf16); a
    1000-token prefill plus 64 decode steps across the ring's wrap against
    the 1064-token prefill (f32 plan); traces of one 1536-token prefill and
-   one slot decode step at positions 1990/1400/1000/200.
+   one slot decode step at positions 1990/1400/1000/200 (eager and
+   captured).
 8. frees hymba and runs full-width hubert-xlarge's encoder forward
    (random bf16 weights from a seeded generator; 48 layers of
    bidirectional attention at head dim 80, LayerNorm, a GELU MLP) on 4
@@ -112,8 +135,10 @@ Builds the hand-written CUDA kernels from ``src/repro_torch/csrc`` (one
    at 1e-4 of max |logit|) and in bf16 (a reading), and a trace of one
    forward with kernel 1's share of the device time.
 
-At the end, every ticket counter of the split kernels (2, 4, 5 and 6)
-must be 0.  Any failed check exits non-zero.  The last line is the result
+The launch counts are per launch whether the launch ran eagerly or as a
+node of a replayed graph: a capture records each wrapper's count and
+every replay adds it (``serving.graphs``).  At the end, every ticket
+counter of the split kernels (2, 4, 5 and 6) must be 0.  Any failed check exits non-zero.  The last line is the result
 JSON; the lines before it list every kernel with its launches, error and
 times, and the card's name and power limit as ``nvidia-smi`` prints them.
 """
@@ -1408,8 +1433,8 @@ def drive(torch, eng, label: str, load: list, need: tuple,
     from types import SimpleNamespace
     from repro_torch.serving import PagedCachePool, Request
     model, stats, pool = eng.model, eng.stats, eng.pool
-    reqs = [Request(prompt=p, max_new_tokens=m, arrival_s=0.0)
-            for p, m in load]
+    reqs = [Request(prompt=p, max_new_tokens=m, arrival_s=0.0, **kw)
+            for p, m, *rest in load for kw in (rest[0] if rest else {},)]
     for r in reqs:
         eng.submit(r)
     paged = isinstance(pool, PagedCachePool)
@@ -1444,9 +1469,11 @@ def drive(torch, eng, label: str, load: list, need: tuple,
     # scheduler steps end on the decode readback; steps that also admitted
     # or advanced a prefill are among them
     step_ms = sorted(t * 1e3 / horizon for t in run.step_times)
+    progs = list(eng.programs.values())
     out = {"streams": streams, "stats": run, "launches": launches,
            "wall": wall, "steps": steps, "shards": shards,
-           "in_flight": in_flight,
+           "in_flight": in_flight, "tok_s": run.decode_tokens / wall,
+           "captured": eng.captured,
            "shared_block_hits": getattr(pool, "shared_block_hits", 0),
            "pending_share_waits": getattr(pool, "pending_share_waits", 0),
            "peak_blocks": seen["peak"] if paged else 0,
@@ -1476,8 +1503,21 @@ def drive(torch, eng, label: str, load: list, need: tuple,
           + (f" set_variant({swap[1]!r}) after {swap[0]} steps with "
              f"{in_flight} in flight, variant_swaps={run.variant_swaps}"
              if swap else ""), flush=True)
+    captures = sum(pr.captures for pr in progs)
+    replays = sum(pr.replays for pr in progs)
+    print(f"  {label} step programs ({'CUDA graphs' if eng.captured else 'eager, graphs=False'}): "
+          + "; ".join(f"{pr.name}: {pr.captures} captures, {pr.replays} "
+                      f"replays" + "".join(
+                          f", capture {w:.3f} + {r:.3f} + {i:.3f} s "
+                          f"(first step and warm-up, record, end and "
+                          f"instantiate)" for w, r, i in pr.capture_s)
+                      for pr in progs), flush=True)
+    if eng.captured and (not captures or not replays):
+        fail(f"{label}: the captured engine replayed no graph")
+    if not eng.captured and captures:
+        fail(f"{label}: graphs=False captured a graph")
     if len(run.completed) != len(load) or any(
-            len(s) != m for s, (_, m) in zip(streams, load)):
+            len(s) != ld[1] for s, ld in zip(streams, load)):
         fail(f"{label}: not every request completed its budget")
     if any(not 0 <= t < model.cfg.vocab_size for s in streams for t in s):
         fail(f"{label}: token outside the vocabulary")
@@ -1499,6 +1539,115 @@ def drive(torch, eng, label: str, load: list, need: tuple,
 
 def same_streams(a: list, b: list) -> int:
     return sum(x == y for x, y in zip(a, b))
+
+
+def same_as_eager(cap: dict, eager: dict, label: str) -> None:
+    """Fail unless a captured run (the default, ``graphs=True``) and its
+    ``graphs=False`` twin on the same weights and requests agree: streams,
+    every ``EngineStats`` counter, the pool's shared-block hits and
+    pending-share waits, and every kernel's launch count.  Prints both
+    runs' decode tok/s."""
+    if not cap["captured"] or eager["captured"]:
+        fail(f"{label}: the twin runs are not captured and eager")
+    n = len(cap["streams"])
+    same = same_streams(cap["streams"], eager["streams"])
+    counters = [k for k in COUNTERS
+                if getattr(cap["stats"], k) != getattr(eager["stats"], k)]
+    counters += [k for k in ("shared_block_hits", "pending_share_waits")
+                 if cap[k] != eager[k]]
+    launches = {k: (cap["launches"][k], eager["launches"][k])
+                for k in cap["launches"]
+                if cap["launches"][k] != eager["launches"][k]}
+    print(f"{label}, captured vs eager: {same}/{n} streams equal, counters "
+          f"differing {counters} (none), launch counts differing {launches} "
+          f"(none); decode tok/s {cap['tok_s']:.1f} captured, "
+          f"{eager['tok_s']:.1f} eager ({cap['tok_s'] / eager['tok_s']:.2f}x"
+          f"), wall {cap['wall']:.3f} / {eager['wall']:.3f} s", flush=True)
+    if same != n or counters or launches:
+        fail(f"{label}: the captured run differs from the eager one")
+
+
+def sampled_load(vocab: int) -> list:
+    """``plain_load``'s requests, the odd ones sampled at temperature 0.8
+    and top-k 40 with seeds of their own (100 + i), the even ones greedy:
+    (prompt, max_new, request kwargs)."""
+    return [(p, m, dict(temperature=0.8, top_k=40, seed=100 + i)
+             if i % 2 else {}) for i, (p, m) in enumerate(plain_load(vocab))]
+
+
+def greedy_lanes_equal(sampled: dict, greedy: dict, label: str) -> None:
+    """Fail unless the greedy requests of a mixed run (the even ones of
+    ``sampled_load``) produced the streams of an all-greedy run."""
+    pairs = list(zip(sampled["streams"], greedy["streams"]))[::2]
+    same = sum(a == b for a, b in pairs)
+    diff = sum(a != b for a, b in
+               list(zip(sampled["streams"], greedy["streams"]))[1::2])
+    print(f"{label}: greedy requests {same}/{len(pairs)} streams equal to "
+          f"the all-greedy run's; sampled requests differ from greedy in "
+          f"{diff}/{len(pairs)}", flush=True)
+    if same != len(pairs):
+        fail(f"{label}: a greedy request's stream changed beside sampled "
+             f"ones")
+    if not diff:
+        fail(f"{label}: no sampled request left the greedy stream")
+
+
+def preempting(torch, model, params, load: list, label: str) -> list:
+    """``load`` captured at horizon 8 in a pool that holds every request
+    (no preemption) and in one three quarters the size of its fullest
+    point (preemption: requests recomputed by prefill mid-stream).
+    Returns both runs and the number of streams they share."""
+    paged = ("flash_attention", "paged_decode_attention")
+    big = serve(torch, model, params, f"{label} horizon=8", load, paged,
+                horizon=8)
+    small = max(big["peak_blocks"] * 3 // 4, 16)
+    tight = serve(torch, model, params, f"{label} horizon=8, a pool of "
+                  f"{small} blocks", load, paged, horizon=8, n_blocks=small)
+    n = same_streams(big["streams"], tight["streams"])
+    print(f"llama2-7b {label}: {n}/8 streams equal with and without "
+          f"preemption; preemptions {big['stats'].preemptions} (0) in the "
+          f"first pool, {tight['stats'].preemptions} (> 0) in {small} "
+          f"blocks", flush=True)
+    if big["stats"].preemptions or not tight["stats"].preemptions:
+        fail(f"{label}: the large pool preempted or the small one did not")
+    return [big, tight], n
+
+
+def serve_sampled(torch, model, params, greedy: dict) -> list:
+    """``sampled_load`` through the paged pool: captured at horizon 8 and
+    1 and eager (``graphs=False``) at horizon 8, which must give the same
+    streams, the greedy requests those of ``greedy`` (the all-greedy
+    horizon-8 run).  The keys depend only on (seed, sequence index), so
+    preemption cannot change a draw; a preempted request's context is
+    recomputed by prefill, whose bf16 logits differ from the decode's in
+    the last bits (other kernels, other GEMM shapes), so in bf16 the
+    streams with and without preemption are a reading, and the check runs
+    in an f32 compute plan on the same weights (the paths agree there to
+    ~1e-6), where they must be equal."""
+    from repro_torch.models import build_model, local_plan
+    paged = ("flash_attention", "paged_decode_attention")
+    load = sampled_load(model.cfg.vocab_size)
+    (h8, tight), n = preempting(torch, model, params, load, "sampled")
+    h1 = serve(torch, model, params, "sampled horizon=1", load, paged,
+               horizon=1)
+    eager = serve(torch, model, params, "sampled horizon=8 eager", load,
+                  paged, horizon=8, graphs=False)
+    same_as_eager(h8, eager, "llama2-7b sampled horizon=8")
+    n1 = same_streams(h8["streams"], h1["streams"])
+    print(f"llama2-7b sampled: {n1}/8 streams at horizon 8 equal to "
+          f"horizon 1's; with and without preemption in bf16 {n}/8 (a "
+          f"reading)", flush=True)
+    if n1 != 8:
+        fail("sampled streams differ between horizon 8 and horizon 1")
+    greedy_lanes_equal(h8, greedy, "llama2-7b sampled horizon=8")
+    f32 = build_model(model.cfg, local_plan(param_dtype=torch.bfloat16,
+                                            compute_dtype=torch.float32),
+                      device=model.device)
+    runs, n = preempting(torch, f32, params, load, "sampled (f32 plan)")
+    if n != 8:
+        fail("sampled streams (f32 plan) differ with and without "
+             "preemption")
+    return [h8, tight, h1, eager] + runs
 
 
 def serve_sharded(torch, model, params, load: list, ref: dict) -> list:
@@ -1529,6 +1678,19 @@ def serve_sharded(torch, model, params, load: list, ref: dict) -> list:
     eng.params = params          # one copy of the weights on the card
     torch.cuda.empty_cache()
     runs = []
+    # the eager twin of the shards=2 run: the engine EngineSpec builds, on
+    # the same weights, with graphs=False
+    from repro_torch.models import build_model
+    from repro_torch.serving import Engine, EngineKnobs, serving_plan
+    eager = Engine(build_model(cfg, serving_plan(
+        2, param_dtype=model.plan.param_dtype), device=model.device), params,
+        max_seq=2048, n_slots=4, knobs=EngineKnobs(max_batch=4), paged=True,
+        block_size=16, n_blocks=n_blocks, horizon=8, graphs=False)
+    runs.append(drive(torch, eager, "EngineSpec shards=2 horizon=8 eager",
+                      load, ("flash_attention",
+                             "paged_decode_attention_lse")))
+    del eager
+    torch.cuda.empty_cache()
     for n in (2, 4):
         if n == 4:
             eng.set_shards(4)
@@ -1557,6 +1719,8 @@ def serve_sharded(torch, model, params, load: list, ref: dict) -> list:
                  f"the load")
         if len(run["stripe_blocks"]) != n or min(run["stripe_blocks"]) == 0:
             fail(f"shards={n}: a stripe held no live block")
+        if n == 2:
+            same_as_eager(run, runs[0], "llama2-7b EngineSpec shards=2")
         runs.append(run)
     del eng
     torch.cuda.empty_cache()
@@ -1576,6 +1740,10 @@ def serve_paths(torch, model, params) -> dict:
     if runs[0]["streams"] != runs[1]["streams"]:
         fail("greedy streams differ between horizon 1 and horizon 8")
     print("greedy streams identical at horizon 1 and 8", flush=True)
+    eager = serve(torch, model, params, "horizon=8 eager", load, paged,
+                  horizon=8, graphs=False)
+    same_as_eager(runs[1], eager, "llama2-7b horizon=8")
+    runs += [eager] + serve_sampled(torch, model, params, runs[1])
     runs += serve_sharded(torch, model, params, load, runs[1])
 
     sys_load = system_prompt_load(vocab)
@@ -1603,6 +1771,13 @@ def serve_paths(torch, model, params) -> dict:
     if chunked["launches"]["paged_prefill_attention"] != want_launches:
         fail("chunked: paged_prefill_attention did not launch once per "
              "layer and chunk tick")
+    chunked_eager = serve(torch, model, params, "chunked prefill_chunk=128 "
+                          "prefix_share horizon=8 eager", sys_load,
+                          ("paged_prefill_attention",
+                           "paged_decode_attention"),
+                          horizon=8, prefill_chunk=128, prefix_share=True,
+                          graphs=False)
+    same_as_eager(chunked, chunked_eager, "llama2-7b chunked")
     whole = serve(torch, model, params, "whole-prompt, same requests, "
                   "horizon=8", sys_load, paged, horizon=8)
     print(f"chunked vs whole-prompt on the same weights: "
@@ -1623,8 +1798,12 @@ def serve_paths(torch, model, params) -> dict:
     if slots["launches"]["decode_attention"] != want:
         fail("slots: decode_attention did not launch once per layer and "
              "decode step")
+    slots_eager = serve(torch, model, params, "slots (paged=False) eager",
+                        load, ("flash_attention", "decode_attention"),
+                        paged=False, graphs=False)
+    same_as_eager(slots, slots_eager, "llama2-7b slots")
     total = {}
-    for run in runs + [chunked, whole, slots]:
+    for run in runs + [chunked, chunked_eager, whole, slots, slots_eager]:
         for name, n in run["launches"].items():
             total[name] = total.get(name, 0) + n
     return total
@@ -1930,6 +2109,62 @@ def trace(torch, label: str, fn, walls: list, per: int, unit: str) -> None:
                   f"{n_ops:.0f} device ops/{unit}", flush=True)
 
 
+def replayed(prog, inputs: dict, steps: int = 0):
+    """A call that fills the step program ``prog``'s static inputs from
+    ``inputs`` (copies on the card) and runs it: a horizon of ``steps``
+    runs (``run_horizon``), else one.  Captured, its first call captures
+    and every later one replays; ``fn.program`` is ``prog``."""
+    from repro_torch.serving import graphs as G
+
+    def fn():
+        for name, t in inputs.items():
+            prog.bufs[name].copy_(t)
+        if steps:
+            G.run_horizon(prog, steps)
+        else:
+            prog.run()
+
+    fn.program = prog
+    return fn
+
+
+def captured_horizon(torch, model, params, cache, inputs: dict,
+                     horizon: int, sampled: bool = False):
+    """The decode horizon of ``inputs`` (tokens, positions, tables,
+    active, budgets, eos) as replays of one captured step; ``sampled``
+    draws every lane at temperature 0.8 and top-k 40."""
+    from repro_torch.serving import graphs as G
+    B, T = inputs["tables"].shape
+    prog = G.horizon_program(model, lambda: (params, cache), B, T,
+                             max_len=2048, sampled=sampled, capture=True,
+                             stream=torch.cuda.Stream())
+    if sampled:
+        G.set_sampling(prog.bufs, [0.8] * B, [40] * B, list(range(B)))
+    return replayed(prog, inputs, horizon)
+
+
+def captured_slot(torch, model, params, slots, tok, pos):
+    """One slot decode step (and each slot's argmax) as a captured
+    program."""
+    from repro_torch.serving import graphs as G
+    prog = G.slot_program(model, lambda: (params, slots), tok.shape[0],
+                          sampled=False, capture=True,
+                          stream=torch.cuda.Stream())
+    return replayed(prog, {"tokens": tok, "positions": pos})
+
+
+def capture_times(calls: dict, model_name: str) -> None:
+    """Print each captured phase-4 program's capture time: the first step
+    with the warm-up, the recording, and capture end with instantiation."""
+    for name, (_, fn, _, _) in calls.items():
+        prog = getattr(fn, "program", None)
+        for w, r, i in getattr(prog, "capture_s", ()):
+            print(f"{name} {model_name} capture: first step and warm-up "
+                  f"{w * 1e3:.1f} ms, record {r * 1e3:.1f} ms, end and "
+                  f"instantiate {i * 1e3:.1f} ms; replays "
+                  f"{prog.replays}", flush=True)
+
+
 def phase4_calls(torch, model, params, horizon: int = 8) -> dict:
     """The serving shape's device calls, as closures over their inputs:
     one bucketed prefill (4 prompts of 40-230 tokens in a 256 bucket), one
@@ -1938,7 +2173,10 @@ def phase4_calls(torch, model, params, horizon: int = 8) -> dict:
     a multiple of both, the lanes' blocks spread over the stripes), one
     chunk tick (4 rows at start 128 past a shared head, tails of 128, 100,
     37 and 5 tokens in a chunk of 128) and one slot decode step (4 slots
-    of 2048 at the same positions)."""
+    of 2048 at the same positions); each decode horizon, the chunk tick
+    and the slot step also as replays of a captured CUDA graph (the
+    serving engine's default)."""
+    from repro_torch.serving import graphs as G
     from repro_torch.models import build_model
     from repro_torch.serving import PagedCachePool, serving_plan
     B, dev = 4, model.device
@@ -1965,29 +2203,56 @@ def phase4_calls(torch, model, params, horizon: int = 8) -> dict:
             params, pool.cache, tok, lens, tables, active, budgets, eos,
             num_steps=horizon, max_len=2048)
 
-    sharded = {
-        f"decode shards={n}": (
-            f"{B} lanes at positions {lengths}, horizon={horizon}, {n} "
-            f"stripes of {516 // n} blocks",
-            decode(build_model(model.cfg, serving_plan(
-                n, param_dtype=model.plan.param_dtype), device=dev)),
+    lanes = {"tokens": tok, "positions": lens, "tables": tables,
+             "active": active, "budgets": budgets, "eos": eos}
+    sharded = {}
+    for n in (2, 4):
+        m = build_model(model.cfg, serving_plan(
+            n, param_dtype=model.plan.param_dtype), device=dev)
+        label = (f"{B} lanes at positions {lengths}, horizon={horizon}, "
+                 f"{n} stripes of {516 // n} blocks")
+        sharded[f"decode shards={n}"] = (label, decode(m), horizon, "step")
+        sharded[f"decode shards={n} captured"] = (
+            label + ", replays of one captured step",
+            captured_horizon(torch, m, params, pool.cache, lanes, horizon),
             horizon, "step")
-        for n in (2, 4)}
+    chunk_prog = G.chunk_program(model, lambda: (params, pool.cache), B, 128,
+                                 T, capture=True, stream=torch.cuda.Stream())
     return {
         "prefill": (f"{B} prompts of {lengths} tokens in a 256 bucket",
                     lambda: model.prefill_ragged(params, tokens, lens), 1,
                     "prefill"),
         "decode": (f"{B} lanes at positions {lengths}, horizon={horizon}",
                    decode(model), horizon, "step"),
+        "decode captured": (f"{B} lanes at positions {lengths}, horizon="
+                            f"{horizon}, replays of one captured step",
+                            captured_horizon(torch, model, params,
+                                             pool.cache, lanes, horizon),
+                            horizon, "step"),
+        "decode sampled captured": (
+            f"{B} lanes at positions {lengths}, horizon={horizon}, every "
+            f"lane sampled (temperature 0.8, top-k 40), replays of one "
+            f"captured step", captured_horizon(
+                torch, model, params, pool.cache, lanes, horizon, True),
+            horizon, "step"),
         **sharded,
         "chunk": (f"{B} rows at start 128, takes {takes.tolist()} in a "
                   f"chunk of 128",
                   lambda: model.prefill_chunk_paged(
                       params, pool.cache, chunk, starts, takes, tables), 1,
                   "tick"),
+        "chunk captured": (f"{B} rows at start 128, takes {takes.tolist()} "
+                           f"in a chunk of 128, a captured tick",
+                           replayed(chunk_prog, {
+                               "tokens": chunk, "starts": starts,
+                               "lens": takes, "tables": tables}), 1, "tick"),
         "slot": (f"{B} slots of 2048 at positions {lengths}",
                  lambda: model.decode_step(params, slots, tok, lens), 1,
                  "step"),
+        "slot captured": (f"{B} slots of 2048 at positions {lengths}, a "
+                          f"captured step", captured_slot(
+                              torch, model, params, slots, tok, lens), 1,
+                          "step"),
     }
 
 
@@ -2011,6 +2276,7 @@ def where_time_goes(torch, calls: dict) -> None:
     for name, (label, fn, per, unit) in calls.items():
         trace(torch, f"{name} profile llama2-7b bf16, {label}", fn,
               walls[name], per=per, unit=unit)
+    capture_times(calls, "llama2-7b")
 
 
 # ---------------------------------------------------------------------------
@@ -2026,10 +2292,22 @@ def serve_rwkv(torch, model, params) -> dict:
     """``plain_load``'s requests through the slot pool (rwkv6-3b cannot
     serve paged): every request completes, the WKV kernel launches once
     per layer for every prefill and every decode step, and no attention
-    kernel runs."""
+    kernel runs; the captured run equals its eager twin.  Then
+    ``sampled_load`` captured and eager: equal, and its greedy requests
+    those of the greedy run.  Returns the launches summed over the runs."""
     L = model.cfg.num_layers
-    run = serve(torch, model, params, "slots (paged=None)",
-                plain_load(model.cfg.vocab_size), ("rwkv6_wkv",), paged=None)
+    load = plain_load(model.cfg.vocab_size)
+    run = serve(torch, model, params, "slots (paged=None)", load,
+                ("rwkv6_wkv",), paged=None)
+    eager = serve(torch, model, params, "slots (paged=None) eager", load,
+                  ("rwkv6_wkv",), paged=None, graphs=False)
+    same_as_eager(run, eager, "rwkv6-3b slots")
+    load = sampled_load(model.cfg.vocab_size)
+    sampled = [serve(torch, model, params, f"sampled slots{tag}", load,
+                     ("rwkv6_wkv",), paged=None, graphs=not tag)
+               for tag in ("", " eager")]
+    same_as_eager(*sampled, "rwkv6-3b sampled slots")
+    greedy_lanes_equal(sampled[0], run, "rwkv6-3b sampled slots")
     st, launches = run["stats"], run["launches"]
     want = L * (st.prefill_batches + st.decode_syncs)
     print(f"rwkv checks: rwkv6_wkv launches={launches['rwkv6_wkv']} ({L} x "
@@ -2041,7 +2319,11 @@ def serve_rwkv(torch, model, params) -> dict:
              "decode step")
     if any(launches[n] for n in ATTENTION):
         fail("rwkv: an attention kernel ran on an attention-free model")
-    return launches
+    total = dict(launches)
+    for other in [eager] + sampled:
+        for name, n in other["launches"].items():
+            total[name] += n
+    return total
 
 
 def _clone(tree):
@@ -2210,6 +2492,8 @@ def rwkv_phase4_calls(torch, model, params) -> dict:
                     lambda: model.prefill(params, tokens), 1, "prefill"),
         "slot": ("4 slots", lambda: model.decode_step(params, slots, tok,
                                                       pos), 1, "step"),
+        "slot captured": ("4 slots, a captured step", captured_slot(
+            torch, model, params, slots, tok, pos), 1, "step"),
     }
 
 
@@ -2247,6 +2531,7 @@ def rwkv_phases(torch) -> dict:
     for name, (label, fn, per, unit) in calls.items():
         trace(torch, f"{name} profile rwkv6-3b bf16, {label}", fn,
               walls[name], per=per, unit=unit)
+    capture_times(calls, "rwkv6-3b")
     del model, params, calls
     torch.cuda.empty_cache()
     return launches
@@ -2330,6 +2615,15 @@ def serve_granite(torch, variants) -> dict:
                  swap=(2, "int8"))
     del eng
     torch.cuda.empty_cache()
+    eng = Engine(model, params, max_seq=2048, n_slots=4,
+                 knobs=EngineKnobs(max_batch=4), block_size=16, horizon=8,
+                 graphs=False)
+    eng.add_variant("int8", *variants["int8"])
+    swap_eager = drive(torch, eng, "horizon=8, full then int8, eager", load,
+                       paged, swap=(2, "int8"))
+    del eng
+    torch.cuda.empty_cache()
+    same_as_eager(swap, swap_eager, "granite full then int8")
     st = swap["stats"]
     print(f"granite swap checks: variant_swaps={st.variant_swaps} (1), "
           f"preemptions={st.preemptions} (>= {swap['in_flight']} in flight "
@@ -2340,14 +2634,14 @@ def serve_granite(torch, variants) -> dict:
             or st.preemptions < swap["in_flight"]:
         fail("granite: set_variant did not swap once, preempting every "
              "request in flight")
-    for run in runs + [swap]:
+    for run in runs + [swap, swap_eager]:
         st, la = run["stats"], run["launches"]
         if (la["flash_attention"] != L * st.prefill_batches
                 or la["paged_decode_attention"] != L * run["steps"]):
             fail(f"granite: kernels 1/2 did not launch once per layer and "
                  f"prefill batch / decode step ({la})")
     total = {}
-    for run in runs + [swap]:
+    for run in runs + [swap, swap_eager]:
         for name, n in run["launches"].items():
             total[name] = total.get(name, 0) + n
     return total
@@ -2545,6 +2839,13 @@ def granite_calls(torch, model, params, name: str) -> dict:
                                params, pool.cache, tok, lens, tables, active,
                                budgets, eos, num_steps=8, max_len=2048),
                            8, "step"),
+        f"decode {name} captured": (
+            f"{B} lanes at positions {lengths}, horizon=8, replays of one "
+            f"captured step", captured_horizon(
+                torch, model, params, pool.cache,
+                {"tokens": tok, "positions": lens, "tables": tables,
+                 "active": active, "budgets": budgets, "eos": eos}, 8),
+            8, "step"),
     }
 
 
@@ -2564,6 +2865,7 @@ def granite_phases(torch) -> dict:
     for name, (label, fn, per, unit) in calls.items():
         trace(torch, f"{name} profile granite-moe-3b-a800m bf16, {label}",
               fn, walls[name], per=per, unit=unit)
+    capture_times(calls, "granite-moe-3b-a800m")
     del variants, calls
     torch.cuda.empty_cache()
     return launches
@@ -2627,9 +2929,12 @@ def serve_hymba(torch, model, params) -> dict:
     kernel 5 once per layer and decode step; no other attention kernel."""
     cfg, L = model.cfg, model.cfg.num_layers
     load = hymba_load(cfg.vocab_size)
-    run = serve(torch, model, params, "slots (paged=None)", load,
-                ("flash_attention", "flash_attention_window",
-                 "decode_attention"), paged=None)
+    need = ("flash_attention", "flash_attention_window", "decode_attention")
+    run = serve(torch, model, params, "slots (paged=None)", load, need,
+                paged=None)
+    eager = serve(torch, model, params, "slots (paged=None) eager", load,
+                  need, paged=None, graphs=False)
+    same_as_eager(run, eager, "hymba-1.5b slots")
     st, la = run["stats"], run["launches"]
     banded = L * sum(len(p) > cfg.window for p, _ in load)
     others = {n: la[n] for n in ATTENTION + ("rwkv6_wkv", "int8_matmul")
@@ -2648,7 +2953,7 @@ def serve_hymba(torch, model, params) -> dict:
             or la["decode_attention"] != L * st.decode_syncs
             or any(others.values())):
         fail("hymba: the kernels did not launch as the slot path runs them")
-    return la
+    return {name: n + eager["launches"][name] for name, n in la.items()}
 
 
 def _hymba_slots(torch, model, cache, dtype):
@@ -2748,6 +3053,9 @@ def hymba_calls(torch, model, params) -> dict:
         "slot": (f"4 slots at positions {pos.tolist()}",
                  lambda: model.decode_step(params, slots, tok, pos), 1,
                  "step"),
+        "slot captured": (f"4 slots at positions {pos.tolist()}, a captured "
+                          f"step", captured_slot(torch, model, params, slots,
+                                                 tok, pos), 1, "step"),
     }
 
 
@@ -2762,6 +3070,7 @@ def hymba_phases(torch) -> dict:
     for name, (label, fn, per, unit) in calls.items():
         trace(torch, f"{name} profile hymba-1.5b bf16, {label}", fn,
               walls[name], per=per, unit=unit)
+    capture_times(calls, "hymba-1.5b")
     del model, params, calls
     torch.cuda.empty_cache()
     return launches

@@ -10,6 +10,10 @@ with ``lax.scan``; here a Python loop walks per-layer views.  Decode,
 chunked prefill and cache writes update the paged pool or the slot cache
 (for RWKV6 and Mamba, the recurrent state) in place instead of returning a
 new one.
+
+The sampling helpers (``lane_keys`` .. ``sample_from_dist``) are the
+reference's, on ``repro_torch.models.prng``'s copy of ``jax.random``'s
+threefry: the same seeds give the same keys, draws and tokens.
 """
 from __future__ import annotations
 
@@ -21,6 +25,7 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
 from repro_torch.models import moe as M
+from repro_torch.models import prng
 from repro_torch.models import ssm as S
 from repro_torch.models.sharding import ShardPlan
 
@@ -186,6 +191,74 @@ def block_decode_paged(x, lp: dict, lc: dict, positions, block_tables,
 def _layer(tree: dict, i: int) -> dict:
     """Views of layer ``i`` of a layer-stacked tree."""
     return L.tree_map(lambda a: a[i], tree)
+
+
+# ---------------------------------------------------------------------------
+# sampling
+# ---------------------------------------------------------------------------
+
+# Salts folded into per-lane PRNG keys so every sampling event at one
+# sequence index draws from a distinct stream.  Keys fold the ABSOLUTE
+# sequence index of the token being decided, which makes streams
+# replay-stable across preemption and horizon re-splits.
+SALT_SAMPLE = 0   # non-speculative draws (scan step / first prefill token)
+SALT_DRAFT = 1    # drafter proposal draws
+SALT_ACCEPT = 2   # rejection-sampling accept uniforms
+SALT_BONUS = 3    # residual / bonus draws after the accepted prefix
+
+
+def lane_keys(seeds: torch.Tensor) -> torch.Tensor:
+    """Per-lane base PRNG keys from int32 seeds: (B,) -> (B, 2) (uint32
+    words in int64), ``jax.random.PRNGKey`` of each seed."""
+    return prng.prng_key(seeds)
+
+
+def event_keys(base_keys: torch.Tensor, seq_idx: torch.Tensor,
+               salt: int) -> torch.Tensor:
+    """``fold(fold(base, seq_idx), salt)`` per lane.
+
+    base_keys: (B, 2); seq_idx: (B,) or (B, Q) absolute sequence index of
+    the token the event decides.  Returns keys of seq_idx.shape + (2,)."""
+    if seq_idx.dim() == 2:
+        base_keys = base_keys[:, None, :].expand(*seq_idx.shape, 2)
+    return prng.fold_in(prng.fold_in(base_keys, seq_idx), salt)
+
+
+def uniform_lanes(keys: torch.Tensor) -> torch.Tensor:
+    """One U[0, 1) draw per key; keys: (..., 2) -> (...) float32."""
+    return prng.uniform(keys, 1)[..., 0]
+
+
+def sampling_dist(logits: torch.Tensor, temps: torch.Tensor,
+                  top_ks: torch.Tensor) -> torch.Tensor:
+    """Per-lane warped sampling distribution over the real vocab.
+
+    logits: (..., V) already sliced to the real vocab; temps/top_ks:
+    (...,).  Lanes with ``temps <= 0`` get a ONE-HOT argmax distribution;
+    ``top_ks <= 0`` disables top-k truncation, and the k-th value is taken
+    at ``top_ks - 1`` clipped into [0, V - 1].  Returns float32 probs."""
+    logits = logits.float()
+    V = logits.shape[-1]
+    greedy = temps <= 0.0
+    top = torch.sort(logits, dim=-1, descending=True).values
+    kth = top.gather(-1, (top_ks.long() - 1).clamp(0, V - 1)[..., None])
+    keep = (logits >= kth) | (top_ks <= 0)[..., None]
+    t = torch.where(greedy, 1.0, temps.clamp_min(1e-6))[..., None]
+    probs = torch.softmax(torch.where(keep, logits / t, NEG_INF), dim=-1)
+    # one-hot by comparison: no host check of the class range
+    one_hot = (torch.arange(V, device=logits.device)
+               == logits.argmax(dim=-1, keepdim=True)).to(torch.float32)
+    return torch.where(greedy[..., None], one_hot, probs)
+
+
+def sample_from_dist(keys: torch.Tensor, probs: torch.Tensor,
+                     greedy: torch.Tensor) -> torch.Tensor:
+    """One token per lane from ``probs``; greedy lanes take the argmax
+    EXACTLY (categorical over a one-hot is only almost-surely the argmax).
+
+    keys: (..., 2); probs: (..., V); greedy: (...,) bool -> (...) int32."""
+    drawn = prng.categorical(keys, torch.log(probs + 1e-30))
+    return torch.where(greedy, probs.argmax(dim=-1), drawn).to(torch.int32)
 
 
 # ---------------------------------------------------------------------------
@@ -385,48 +458,88 @@ class Model:
         x = _norm(x, params["final_norm"], cfg)
         return self._head(params, x), cache
 
+    def next_tokens(self, logits, seq_idx, temps=None, top_ks=None,
+                    base_keys=None):
+        """Each lane's next token from its logits (B, V_pad): the argmax
+        over the real vocab, or with ``temps``/``top_ks`` (B,) and
+        ``base_keys`` (B, 2) (``lane_keys``) a draw from the warped
+        distribution under ``event_keys(base_keys, seq_idx,
+        SALT_SAMPLE)``, greedy lanes (``temps <= 0``) the exact argmax.
+        -> (B,) int32."""
+        logits = logits[:, :self.cfg.vocab_size]
+        if temps is None:
+            return logits.argmax(dim=-1).to(torch.int32)
+        dist = sampling_dist(logits, temps, top_ks)
+        keys = event_keys(base_keys, seq_idx, SALT_SAMPLE)
+        return sample_from_dist(keys, dist, temps <= 0.0)
+
+    def horizon_step(self, params, cache, tokens, positions, active,
+                     budgets, block_tables, eos_ids, max_len: int,
+                     temps=None, top_ks=None, base_keys=None):
+        """One live step of ``decode_multi_paged``'s loop: decode every
+        lane (inactive ones parked at position 0 through table row 0),
+        pick each lane's token with ``next_tokens`` at sequence index
+        ``positions + 1``, and advance the lane state ``tokens``,
+        ``positions``, ``active`` and ``budgets`` IN PLACE.  Allocates on
+        the device only and never reads back, so a CUDA graph can capture
+        it (``serving.graphs``).  Returns ``(nxt, emitted, logits)``."""
+        pos_eff = torch.where(active, positions, 0)
+        bt_eff = torch.where(active[:, None], block_tables, 0)
+        logits, _ = self.decode_step_paged(params, cache, tokens, pos_eff,
+                                           bt_eff)
+        nxt = self.next_tokens(logits, positions + 1, temps, top_ks,
+                               base_keys)
+        emitted = active.clone()
+        left = budgets - emitted.to(torch.int32)
+        done = emitted & ((left <= 0) | (nxt == eos_ids)
+                          | (positions + 1 >= max_len))
+        tokens.copy_(torch.where(emitted, nxt, tokens))
+        positions.add_(emitted.to(torch.int32))
+        active.copy_(active & ~done)
+        budgets.copy_(left)
+        return nxt, emitted, logits
+
     def decode_multi_paged(self, params, cache, tokens, positions,
                            block_tables, active, budgets, eos_ids,
-                           num_steps: int, max_len: int):
-        """Greedy multi-step decode over the paged pool.
+                           num_steps: int, max_len: int, temps=None,
+                           top_ks=None, seeds=None):
+        """Multi-step decode over the paged pool.
 
-        Runs ``num_steps`` decode steps with every piece of lane state on
-        the device; the caller reads ``(out_tokens, emitted)`` back once.
-        Lanes that are inactive, or finish mid-horizon, decode at position
-        0 through table row 0 (the parking block).  Where the reference
-        skips a step in which every lane has drained (``lax.cond``), this
-        loop runs it parked: no lane emits, so the emitted tokens, the
-        final state and every live block are the same, and no host sync is
-        needed to decide.
+        Runs ``num_steps`` decode steps (``horizon_step``) with every piece
+        of lane state on the device; the caller reads ``(out_tokens,
+        emitted)`` back once.  Lanes that are inactive, or finish
+        mid-horizon, decode at position 0 through table row 0 (the parking
+        block).  Where the reference skips a step in which every lane has
+        drained (``lax.cond``), this loop runs it parked: no lane emits, so
+        the emitted tokens, the final state and every live block are the
+        same, and no host sync is needed to decide.
 
         tokens/positions/budgets/eos_ids: (B,) int32 (eos -1 = none);
-        active: (B,) bool.  Returns ``(out_tokens (N, B), emitted (N, B)
-        bool, last_logits (B, V_pad), (tokens, positions, active, budgets),
-        cache)``; token [i, b] is valid iff emitted[i, b].
+        active: (B,) bool; the inputs are not modified.  With ``temps``/
+        ``top_ks``/``seeds`` (all (B,)) set, each step's token is drawn
+        from the temperature/top-k-warped distribution with a key folded
+        from the lane seed and the token's absolute sequence index
+        (replay-stable); lanes with ``temps[b] <= 0`` still take the exact
+        argmax.  ``temps=None`` is the greedy path.  Returns
+        ``(out_tokens (N, B), emitted (N, B) bool, last_logits (B, V_pad),
+        (tokens, positions, active, budgets), cache)``; token [i, b] is
+        valid iff emitted[i, b].
         """
         self._no_decode()
-        V = self.cfg.vocab_size
+        state = [t.clone() for t in (tokens, positions, active, budgets)]
+        base_keys = lane_keys(seeds) if temps is not None else None
         logits = torch.zeros(tokens.shape[0], params["embed"].shape[0],
                              dtype=self.plan.compute_dtype,
                              device=tokens.device)
         outs, ems = [], []
         for _ in range(num_steps):
-            pos_eff = torch.where(active, positions, 0)
-            bt_eff = torch.where(active[:, None], block_tables, 0)
-            logits, cache = self.decode_step_paged(params, cache, tokens,
-                                                   pos_eff, bt_eff)
-            nxt = logits[:, :V].argmax(dim=-1).to(torch.int32)
-            emitted = active
-            budgets = budgets - emitted.to(torch.int32)
-            done = emitted & ((budgets <= 0) | (nxt == eos_ids)
-                              | (positions + 1 >= max_len))
-            tokens = torch.where(emitted, nxt, tokens)
-            positions = positions + emitted.to(torch.int32)
-            active = active & ~done
+            nxt, emitted, logits = self.horizon_step(
+                params, cache, *state, block_tables, eos_ids, max_len,
+                temps, top_ks, base_keys)
             outs.append(nxt)
             ems.append(emitted)
-        return (torch.stack(outs), torch.stack(ems), logits,
-                (tokens, positions, active, budgets), cache)
+        return (torch.stack(outs), torch.stack(ems), logits, tuple(state),
+                cache)
 
     # ----- cache -----
     def init_cache(self, batch: int, seq_len: int, dtype=torch.bfloat16,

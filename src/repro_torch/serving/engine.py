@@ -9,7 +9,7 @@ reports goodput.
   block pool (``PagedCachePool``).  Admission runs bucketed batched
   prefill (prompts padded to power-of-two length buckets, one prefill
   launch per bucket shape); decode walks per-lane block tables,
-  ``horizon`` greedy steps per host sync (``Model.decode_multi_paged``).
+  ``horizon`` steps per host sync (``Model.decode_multi_paged``'s step).
   When the pool runs out of blocks the youngest request is preempted and
   recomputed later.  With ``prefill_chunk=C`` prompts instead stream into
   the pool C tokens per scheduler step, every prefilling row in one
@@ -29,11 +29,25 @@ is block-striped over ``n`` ranks and every decode step attends stripe by
 stripe.  All stripes live on the engine's one device (the reference puts
 each on its own device), so no device count limits ``n``.
 
-Ported so far: greedy requests; variants; shards > 1 with whole-prompt
-prefill for the dense families.  Not ported yet (see ROADMAP.md): chunked
-prefill and prefix sharing at shards > 1, MoE at shards > 1 (expert
-parallelism), speculative decode, sampling, the pause knob, and the
-resilience paths (deadlines, retries, quarantine, crash).
+Sampled requests (``temperature > 0``, optional ``top_k``) draw every
+token under a key folded from the request's seed (its own, or one derived
+from the engine's ``seed`` and its id) and the token's absolute sequence
+index, ``jax.random``'s keys bit for bit (``models.prng``): a draw
+depends on its logits and that key alone, never on preemption, horizon
+splits or capture (a preempted request's recomputed logits may still
+differ in the last bits in bf16).
+
+``graphs=True`` (the default) runs the decode horizon, the chunk tick and
+the slot step as CUDA graphs captured once per shape and replayed
+(``serving.graphs``), the counterpart of the reference's jitted steps; on
+the CPU the same steps run eagerly.  ``graphs=False`` runs them eagerly on
+the card too, as ``jax.disable_jit`` does for the reference.
+
+Ported so far: greedy and sampled requests; variants; shards > 1 with
+whole-prompt prefill for the dense families.  Not ported yet (see
+ROADMAP.md): chunked prefill and prefix sharing at shards > 1, MoE at
+shards > 1 (expert parallelism), speculative decode, the pause knob, and
+the resilience paths (deadlines, retries, quarantine, crash).
 """
 from __future__ import annotations
 
@@ -45,7 +59,11 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
-from repro_torch.models.transformer import Model
+from repro_torch.core.traces import _stable_seed
+from repro_torch.models.transformer import (SALT_SAMPLE, Model, event_keys,
+                                            lane_keys, sample_from_dist,
+                                            sampling_dist)
+from repro_torch.serving import graphs as G
 from repro_torch.serving.kvcache import CachePool, PagedCachePool
 from repro_torch.serving.request import Request
 
@@ -143,7 +161,8 @@ class Engine:
                  paged: bool | None = None, block_size: int = 16,
                  n_blocks: int | None = None, horizon: int = 1,
                  prefill_chunk: int | None = None,
-                 prefix_share: bool = False):
+                 prefix_share: bool = False, seed: int = 0,
+                 graphs: bool = True):
         self.model = model
         self.variants: dict[str, tuple[Model, dict]] = {"full": (model,
                                                                 params)}
@@ -166,6 +185,9 @@ class Engine:
         if (prefill_chunk or prefix_share) and not self.paged:
             raise ValueError("chunked prefill / prefix sharing require the "
                              "paged serving mode")
+        self.seed = seed
+        self.graphs = graphs
+        self._stream = None           # the side stream captures run on
         self.queue: deque[Request] = deque()
         self.active: dict[int, Request] = {}
         self.prefilling: dict[int, Request] = {}
@@ -189,6 +211,27 @@ class Engine:
                                        n_blocks=self.n_blocks)
         else:
             self.pool = CachePool(model, self.n_slots, self.max_seq)
+        # step programs by (path, variant, shards, shape, sampled); they
+        # captured the old parameters and pool, so they go with them
+        self.programs: dict[tuple, G.Program] = {}
+
+    @property
+    def captured(self) -> bool:
+        """Do the step programs run as CUDA graphs?  Only on a CUDA
+        device, and only with ``graphs=True``."""
+        return self.graphs and self.model.device.type == "cuda"
+
+    def _program(self, key: tuple, make) -> G.Program:
+        """The step program under ``key``, built by ``make(tensors,
+        capture=..., stream=...)`` on first use."""
+        prog = self.programs.get(key)
+        if prog is None:
+            if self.captured and self._stream is None:
+                self._stream = torch.cuda.Stream(self.model.device)
+            prog = make(lambda: (self.params, self.pool.cache),
+                        capture=self.captured, stream=self._stream)
+            self.programs[key] = prog
+        return prog
 
     def _unported_at(self, n: int) -> str | None:
         """What serving at ``n`` > 1 shards would need that is not ported
@@ -312,9 +355,6 @@ class Engine:
 
     # -- request lifecycle -------------------------------------------------
     def submit(self, req: Request) -> None:
-        if req.temperature > 0:
-            raise NotImplementedError("sampled requests (temperature > 0) "
-                                      "are not ported yet; serve greedy")
         if req.deadline_ms is not None:
             raise NotImplementedError("request deadlines are not ported yet")
         self.stats.submitted += 1
@@ -353,10 +393,49 @@ class Engine:
         if self.paged:
             self.pool.set_last_token(self.pool.lane_of[req.req_id], tok)
 
-    def _next_from_prefill(self, logits: torch.Tensor) -> np.ndarray:
-        """Each row's first output token: the greedy argmax."""
+    def _req_seed(self, req: Request) -> int:
+        """Per-request deterministic sampling seed: the request's own, or
+        a crc32 fold of (engine seed, req_id) — process-stable, so
+        sampled replays reproduce across runs."""
+        if req.seed is not None:
+            return int(req.seed) % (2 ** 31)
+        return _stable_seed("request", self.seed, req.req_id) % (2 ** 31)
+
+    def _sampling(self, reqs: dict) -> tuple:
+        """Host arrays of temperatures, top-k and seeds for ``{lane:
+        request}`` over ``width`` lanes (unused lanes greedy)."""
+        width = self.pool.n_lanes if self.paged else self.pool.n_slots
+        temps = np.zeros(width, np.float32)
+        top_ks = np.zeros(width, np.int32)
+        seeds = np.zeros(width, np.int32)
+        for lane, req in reqs.items():
+            temps[lane] = req.temperature
+            top_ks[lane] = req.top_k
+            seeds[lane] = self._req_seed(req)
+        return temps, top_ks, seeds
+
+    def _next_from_prefill(self, logits: torch.Tensor, reqs: list,
+                           idx) -> np.ndarray:
+        """Each row's first output token from its prefill logits: the
+        argmax, with sampled rows (temperature > 0) drawn from the warped
+        distribution under the request's key at sequence index ``idx``
+        (the context's length); one readback either way."""
         v = self.model.cfg.vocab_size
-        return logits[:, :v].argmax(dim=-1).cpu().numpy()
+        nxt = logits[:, :v].argmax(dim=-1).to(torch.int32)
+        if any(r.temperature > 0 for r in reqs):
+            rows, dev = len(reqs), logits.device
+            temps = torch.tensor([r.temperature for r in reqs],
+                                 dtype=torch.float32, device=dev)
+            top_ks = torch.tensor([r.top_k for r in reqs], dtype=torch.int32,
+                                  device=dev)
+            seeds = torch.tensor([self._req_seed(r) for r in reqs],
+                                 dtype=torch.int32, device=dev)
+            keys = event_keys(lane_keys(seeds), torch.as_tensor(
+                np.asarray(idx[:rows], np.int32), device=dev), SALT_SAMPLE)
+            nxt[:rows] = sample_from_dist(
+                keys, sampling_dist(logits[:rows, :v], temps, top_ks),
+                temps <= 0.0)
+        return nxt.cpu().numpy()
 
     def _admit(self, now: float) -> None:
         if self.paged:
@@ -377,7 +456,8 @@ class Engine:
                 self.params, self._to_device(np.asarray([ctx], np.int32)))
             self.stats.prefill_tokens += len(ctx)
             self.stats.prefill_batches += 1
-            tok = int(self._next_from_prefill(logits)[0])
+            tok = int(self._next_from_prefill(logits, [req],
+                                              [len(ctx)])[0])
             self.stats.host_syncs += 1
             self.pool.insert(req.req_id, cache, len(ctx))
             self._activate(req, tok, now)
@@ -422,7 +502,7 @@ class Engine:
             logits, cache = self.model.prefill_ragged(
                 self.params, self._to_device(tokens),
                 self._to_device(lengths))
-            nxt = self._next_from_prefill(logits)
+            nxt = self._next_from_prefill(logits, reqs, lengths)
             self.stats.prefill_batches += 1
             self.stats.host_syncs += 1
             for i, req in enumerate(reqs):
@@ -487,15 +567,23 @@ class Engine:
             starts[i] = pos
             lens[i] = take
             tables[i] = self.pool.block_tables[self.pool.lane_of[req.req_id]]
-        logits, _ = self.model.prefill_chunk_paged(
-            self.params, self.pool.cache, self._to_device(tokens),
-            self._to_device(starts), self._to_device(lens),
-            self._to_device(tables))
+        width = self.pool.blocks_per_seq
+        prog = self._program(
+            ("tick", self.knobs.variant, self.shards, b_pad, c_pad, width),
+            lambda tensors, **kw: G.chunk_program(self.model, tensors, b_pad,
+                                                  c_pad, width, **kw))
+        for name, a in (("tokens", tokens), ("starts", starts),
+                        ("lens", lens), ("tables", tables)):
+            prog.bufs[name].copy_(torch.from_numpy(a))
+        prog.run()
         self.stats.prefill_batches += 1
         nxt = None
         if any(self._prefill_pos[r.req_id] + t == len(ctx)
                for r, ctx, t in zip(reqs, ctxs, takes)):
-            nxt = self._next_from_prefill(logits)
+            nxt = self._next_from_prefill(
+                prog.bufs["logits"], reqs,
+                [self._prefill_pos[r.req_id] + t
+                 for r, t in zip(reqs, takes)])
             self.stats.host_syncs += 1
         worked = 0
         for i, (req, ctx, take) in enumerate(zip(reqs, ctxs, takes)):
@@ -526,9 +614,9 @@ class Engine:
             self.stats.preemptions += 1
 
     def _decode_paged(self, now: float) -> int:
-        """Horizon decode: one ``decode_multi_paged`` call runs
-        ``horizon`` steps for every lane; the host syncs once to drain the
-        produced ``(tokens, emitted)``."""
+        """Horizon decode: ``horizon`` runs of the step program (captured:
+        replays of one CUDA graph) advance every lane; the host syncs once
+        to drain the produced ``(tokens, emitted)``."""
         budgets = {rid: req.max_new_tokens - len(req.output)
                    for rid, req in self.active.items()}
         n_eff = self.horizon
@@ -550,13 +638,27 @@ class Engine:
             budget_arr[lane] = budgets[rid]
             if req.eos_id is not None:
                 eos_arr[lane] = req.eos_id
-        toks, emitted, _, (tok_f, pos_f, _, _), _ = \
-            self.model.decode_multi_paged(
-                self.params, self.pool.cache, self.pool.last_tokens_dev(),
-                self.pool.positions(), self.pool.tables(),
-                self._to_device(active_mask), self._to_device(budget_arr),
-                self._to_device(eos_arr), num_steps=n_eff,
-                max_len=self.max_seq)
+        # sampling buffers only when some lane samples, so an all-greedy
+        # batch runs the greedy program
+        sampled = any(r.temperature > 0 for r in self.active.values())
+        T = self.pool.blocks_per_seq
+        prog = self._program(
+            ("horizon", self.knobs.variant, self.shards, width, T, sampled),
+            lambda tensors, **kw: G.horizon_program(
+                self.model, tensors, width, T, max_len=self.max_seq,
+                sampled=sampled, **kw))
+        b = prog.bufs
+        b["tokens"].copy_(self.pool.last_tokens_dev())
+        b["positions"].copy_(self.pool.positions())
+        b["tables"].copy_(self.pool.tables())
+        for name, a in (("active", active_mask), ("budgets", budget_arr),
+                        ("eos", eos_arr)):
+            b[name].copy_(torch.from_numpy(a))
+        if sampled:
+            G.set_sampling(b, *self._sampling(
+                {self.pool.lane_of[rid]: req
+                 for rid, req in self.active.items()}))
+        toks, emitted = G.run_horizon(prog, n_eff)
         # the horizon's single host sync: tokens and flags in one readback
         drained = torch.stack([toks, emitted.to(torch.int32)]).cpu().numpy()
         toks_h, em_h = drained[0], drained[1].astype(bool)
@@ -564,8 +666,8 @@ class Engine:
         self.stats.decode_syncs += 1
         # the loop's final device state becomes the pool mirror; the numpy
         # mirrors are updated below
-        self.pool.adopt_device("positions", pos_f)
-        self.pool.adopt_device("last_tokens", tok_f)
+        self.pool.adopt_device("positions", b["positions"])
+        self.pool.adopt_device("last_tokens", b["tokens"])
         produced = 0
         finished = []
         for rid, req in list(self.active.items()):
@@ -587,16 +689,27 @@ class Engine:
         return produced
 
     def _decode_slots(self, now: float) -> int:
-        """One greedy decode step over every slot (parked slots decode at
-        position 0, which the next insert overwrites); one host sync."""
+        """One decode step over every slot (parked slots decode at
+        position 0, which the next insert overwrites), through the slot
+        step program (captured: one CUDA graph); one host sync."""
         lanes = {rid: self.pool.slot_of[rid] for rid in self.active}
-        tokens = np.zeros(self.pool.n_slots, np.int32)
+        width = self.pool.n_slots
+        tokens = np.zeros(width, np.int32)
         for rid, req in self.active.items():
             tokens[lanes[rid]] = req.output[-1]
-        logits, _ = self.model.decode_step(self.params, self.pool.cache,
-                                           self._to_device(tokens),
-                                           self.pool.positions())
-        nxt = self._next_from_prefill(logits)
+        sampled = any(r.temperature > 0 for r in self.active.values())
+        prog = self._program(
+            ("slot", self.knobs.variant, width, sampled),
+            lambda tensors, **kw: G.slot_program(self.model, tensors, width,
+                                                 sampled=sampled, **kw))
+        prog.bufs["tokens"].copy_(torch.from_numpy(tokens))
+        prog.bufs["positions"].copy_(
+            torch.tensor(self.pool.lengths, dtype=torch.int32))
+        if sampled:
+            G.set_sampling(prog.bufs, *self._sampling(
+                {lanes[rid]: req for rid, req in self.active.items()}))
+        prog.run()
+        nxt = prog.bufs["nxt"].cpu().numpy()
         self.stats.host_syncs += 1
         self.stats.decode_syncs += 1
         produced = 0

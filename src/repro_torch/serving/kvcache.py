@@ -23,8 +23,8 @@ pool cannot hold.
 The numpy arrays (tables, lengths, last tokens) are the source of truth;
 ``tables()`` / ``positions()`` / ``last_tokens_dev()`` return persistent
 device copies that are built once and then updated in place, a row at a
-time, as the allocator mutates.  After a decode horizon the engine hands
-the loop's final device state back with ``adopt_device``.  The pool itself
+time, as the allocator mutates.  After a decode horizon the engine copies
+the loop's final device state into them with ``adopt_device``.  The pool itself
 is written in place (the reference donates it to a jitted scatter).
 """
 from __future__ import annotations
@@ -165,9 +165,10 @@ class PagedCachePool:
             dev[lane].copy_(torch.from_numpy(np.ascontiguousarray(row)))
 
     def adopt_device(self, name: str, arr: torch.Tensor) -> None:
-        """Install a device array produced by the decode loop as the new
-        mirror (the caller keeps the numpy host state in sync)."""
-        self._dev[name] = arr
+        """Copy a device array produced by the decode loop into the
+        mirror, in place: the mirror keeps its address (the caller keeps
+        the numpy host state in sync)."""
+        self._device(name).copy_(arr)
 
     # -- allocator ---------------------------------------------------------
     def blocks_for(self, n_tokens: int) -> int:

@@ -96,7 +96,9 @@ class EngineSpec:
             torch.Generator(device=device).manual_seed(seed))
 
     def build(self, *, device="cuda") -> Engine:
-        """Build (plan, seeded parameters, pool, Engine) on ``device``."""
+        """Build (plan, seeded parameters, pool, Engine) on ``device``.
+        The engine's sampling seed is the spec's ``seed``, as the
+        reference's."""
         self.validate()
         plan = self.plan()
         model, params = self._materialize(self.cfg, plan, self.seed, device)
@@ -105,7 +107,7 @@ class EngineSpec:
             knobs=EngineKnobs(max_batch=self.max_batch or self.n_slots),
             paged=True, block_size=self.block_size, n_blocks=self.n_blocks,
             horizon=self.horizon, prefill_chunk=self.prefill_chunk,
-            prefix_share=self.prefix_share)
+            prefix_share=self.prefix_share, seed=self.seed)
         for i, (name, vcfg) in enumerate(self.variants):
             eng.add_variant(name, *self._materialize(vcfg, plan,
                                                      self.seed + 10 + i,

@@ -1458,3 +1458,360 @@ def test_wkv_kernel_at_grid_edges(gen, jc, q, B, T, H):
     y_ref, s_ref = wkv.rwkv6_wkv_ref(*args)
     assert_wkv_close(y, y_ref, torch.bfloat16)
     assert_wkv_close(s, s_ref, torch.float32)
+
+
+# ---------------------------------------------------------------------------
+# the serving steps as CUDA graphs (serving/graphs.py)
+# ---------------------------------------------------------------------------
+
+GRAPH_STATS = ("decode_tokens", "prefill_tokens", "prefill_batches",
+               "preemptions", "host_syncs", "decode_syncs", "variant_swaps")
+
+
+def _launch_counts() -> dict:
+    from repro_torch.serving.graphs import _wrapper_counters
+    return {f"{fn.__name__}.{name}": getattr(fn, name)
+            for fn, name in _wrapper_counters()}
+
+
+def _graph_load(vocab: int, sampled: bool) -> list:
+    """Six requests of 5-40 tokens; with ``sampled`` every other one at
+    temperature 0.8 and top-k 40 (explicit seeds on two of them)."""
+    g = torch.Generator().manual_seed(5)
+    out = []
+    for i in range(6):
+        n = int(torch.randint(5, 41, (1,), generator=g))
+        prompt = torch.randint(0, vocab, (n,), generator=g).tolist()
+        kw = dict(temperature=0.8, top_k=40, seed=(11 * i if i < 3 else
+                                                   None)) \
+            if sampled and i % 2 else {}
+        out.append((prompt, 10 + i, kw))
+    return out
+
+
+def _serve_graphs(model, params, load, graphs: bool, swap=None, **kw):
+    """Serve ``load`` on a fresh engine; returns (streams, stats,
+    launch-count deltas, engine)."""
+    from repro_torch.serving import Engine, EngineKnobs, Request
+    eng = Engine(model, params, max_seq=96, n_slots=4,
+                 knobs=EngineKnobs(max_batch=4), block_size=8,
+                 graphs=graphs, **kw)
+    if swap is not None:
+        eng.add_variant(*swap)
+    # fixed ids: a request without a seed of its own derives it from its id
+    reqs = [Request(prompt=p, max_new_tokens=m, req_id=900 + i, **rkw)
+            for i, (p, m, rkw) in enumerate(load)]
+    for r in reqs:
+        eng.submit(r)
+    before = _launch_counts()
+    if swap is not None:
+        eng.step(now=0.0)
+        eng.step(now=1.0)
+        eng.set_variant(swap[0])
+    eng.run()
+    torch.cuda.synchronize()
+    after = _launch_counts()
+    return ([list(r.output) for r in reqs],
+            [getattr(eng.stats, k) for k in GRAPH_STATS],
+            {k: after[k] - before[k] for k in after}, eng)
+
+
+def _graph_model(arch: str, quantize: bool = False):
+    cfg = get_config(arch).smoke_config()
+    m = build_model(cfg, local_plan(param_dtype=torch.bfloat16,
+                                    quantize_serve=quantize))
+    return m, m.init(torch.Generator(device="cuda").manual_seed(0))
+
+
+GRAPH_PATHS = {
+    "llama paged h4": ("llama2-7b", dict(horizon=4)),
+    "llama paged h1 preempt": ("llama2-7b", dict(horizon=1, n_blocks=10)),
+    "llama paged h4 preempt": ("llama2-7b", dict(horizon=4, n_blocks=10)),
+    "llama chunked prefix": ("llama2-7b", dict(horizon=4, prefill_chunk=8,
+                                               prefix_share=True)),
+    "llama slots": ("llama2-7b", dict(paged=False)),
+    "rwkv6-3b slots": ("rwkv6-3b", dict()),
+    "hymba slots": ("hymba-1.5b", dict()),
+    "granite paged h4": ("granite-moe-3b-a800m", dict(horizon=4)),
+}
+
+
+@pytest.mark.parametrize("sampled", [False, True], ids=["greedy", "sampled"])
+@pytest.mark.parametrize("path", sorted(GRAPH_PATHS))
+def test_captured_engine_matches_eager(gen, path, sampled):
+    """Every captured path (the horizon, the chunk tick, the slot step)
+    against ``graphs=False`` on the same weights and requests: identical
+    streams, ``EngineStats`` counters and kernel launch counts; the
+    captured engine replayed its graphs, the eager one captured none."""
+    arch, kw = GRAPH_PATHS[path]
+    m, p = _graph_model(arch)
+    load = _graph_load(m.cfg.vocab_size, sampled)
+    got = _serve_graphs(m, p, load, True, **kw)
+    want = _serve_graphs(m, p, load, False, **kw)
+    assert got[0] == want[0]
+    assert got[1] == want[1]
+    assert got[2] == want[2]
+    cap, eager = got[3], want[3]
+    assert cap.captured and not eager.captured
+    assert sum(pr.captures for pr in cap.programs.values()) >= 1
+    assert sum(pr.replays for pr in cap.programs.values()) >= 1
+    assert all(pr.captures == 0 for pr in eager.programs.values())
+    if "chunked" in path:
+        assert any(k[0] == "tick" for k in cap.programs)
+
+
+def test_captured_sharded_engine_matches_eager(gen):
+    """The block-striped pool at shards 2 and (after ``set_shards``) 4:
+    the captured horizon against the eager one, streams, counters and
+    kernel 4's launches equal; ``set_shards`` drops the programs and the
+    next run captures anew."""
+    from repro_torch.serving import EngineSpec, Request
+    cfg = get_config("llama2-7b").smoke_config().replace(n_kv_heads=4)
+    spec = EngineSpec(cfg, shards=2, max_seq=64, n_slots=4, block_size=8,
+                      n_blocks=16, horizon=4)
+    load = _graph_load(cfg.vocab_size, True)
+
+    def run(eng):
+        reqs = [Request(prompt=pr, max_new_tokens=n, req_id=900 + i, **kw)
+                for i, (pr, n, kw) in enumerate(load)]
+        for r in reqs:
+            eng.submit(r)
+        before = _launch_counts()
+        eng.run()
+        torch.cuda.synchronize()
+        after = _launch_counts()
+        return [list(r.output) for r in reqs], \
+            {k: after[k] - before[k] for k in after}
+
+    cap, eager = spec.build(), spec.build()
+    eager.graphs = False              # before its first step
+    for n in (2, 4):
+        if n == 4:
+            cap.set_shards(4)
+            eager.set_shards(4)
+            assert cap.programs == {}
+        a, b = run(cap), run(eager)
+        assert a == b
+        assert a[1]["paged_decode_attention_lse.launches"] > 0
+        assert sum(pr.captures for pr in cap.programs.values()) >= 1
+
+
+def test_captured_variant_swap_matches_eager(gen):
+    """granite's full variant, then ``set_variant("int8")`` after two
+    steps: the programs go with the rebuilt pool, the int8 variant's are
+    captured anew, and the captured run equals the eager one."""
+    m, p = _graph_model("granite-moe-3b-a800m")
+    mq, pq = _graph_model("granite-moe-3b-a800m", quantize=True)
+    load = _graph_load(m.cfg.vocab_size, False)
+    got = _serve_graphs(m, p, load, True, swap=("int8", mq, pq), horizon=4)
+    want = _serve_graphs(m, p, load, False, swap=("int8", mq, pq), horizon=4)
+    assert got[:3] == want[:3]
+    assert got[1][GRAPH_STATS.index("variant_swaps")] == 1
+    assert all(k[1] == "int8" for k in got[3].programs)
+    assert sum(pr.captures for pr in got[3].programs.values()) >= 1
+
+
+def test_replays_leave_the_tickets_at_zero(gen):
+    """Captured horizons replay kernel 2 many times: every ticket counter
+    is 0 once the card is done."""
+    m, p = _graph_model("llama2-7b")
+    _, _, launches, eng = _serve_graphs(m, p, _graph_load(m.cfg.vocab_size,
+                                                          True), True,
+                                        horizon=4)
+    assert launches["paged_decode_attention.launches"] > 0
+    assert sum(pr.replays for pr in eng.programs.values()) > 0
+    torch.cuda.synchronize()
+    assert all(int(t.abs().sum()) == 0 for t in da._TICKETS.values())
+
+
+def test_recapture_when_the_parameters_move(gen):
+    """A program recaptures when a parameter leaf it captured moves
+    (``Engine.params = ...``), and the new weights then take effect."""
+    from repro_torch.serving import Engine, Request
+    m, p = _graph_model("llama2-7b")
+    eng = Engine(m, p, max_seq=64, n_slots=2, block_size=8, horizon=2)
+    eng.submit(Request(prompt=[3, 5, 7], max_new_tokens=6))
+    eng.run()
+    (prog,) = eng.programs.values()
+    assert prog.captures == 1
+    from repro_torch.models.layers import tree_map
+    eng.params = tree_map(torch.clone, p)
+    eng.submit(Request(prompt=[3, 5, 7], max_new_tokens=6))
+    eng.run()
+    assert prog.captures == 2
+
+
+def test_capture_meeting_a_host_sync_raises(gen):
+    """A body that reads a value back (``.item()``) cannot be captured:
+    the program raises with its name instead of running eagerly, and the
+    card takes work afterwards."""
+    from repro_torch.serving.graphs import Program
+    x = torch.ones(4, device="cuda")
+    out = torch.zeros(1, device="cuda")
+
+    def body():
+        out.fill_(x.sum().item())
+
+    prog = Program("probe step", body, {}, lambda: (), capture=True,
+                   stream=torch.cuda.Stream())
+    with pytest.raises(RuntimeError, match="capture of the probe step"):
+        prog.run()
+    assert prog.graph is None and prog.captures == 0
+    torch.cuda.synchronize()
+    assert float((x + 1).sum()) == 8.0
+
+
+def test_graphs_false_runs_eager(gen):
+    """``graphs=False`` on the card: no program captures, every launch is
+    counted as it happens."""
+    from repro_torch.serving import Engine, Request
+    m, p = _graph_model("llama2-7b")
+    eng = Engine(m, p, max_seq=64, n_slots=2, block_size=8, horizon=3,
+                 graphs=False)
+    assert not eng.captured
+    before = pa.paged_decode_attention.launches
+    eng.submit(Request(prompt=[3, 5, 7], max_new_tokens=7))
+    eng.run()
+    assert all(pr.graph is None and pr.captures == 0
+               for pr in eng.programs.values())
+    assert pa.paged_decode_attention.launches - before == \
+        eng.stats.decode_syncs * 3 * m.cfg.num_layers
+
+
+def test_prng_on_the_card_matches_the_cpu(gen):
+    """Keys, 32-bit draws and uniforms made on the card are bit-identical
+    to the same calls on the CPU (integer arithmetic and exact float
+    steps); categorical draws, which pass through two logs, agree too on
+    these logits."""
+    from repro_torch.models import prng
+    from repro_torch.models import transformer as T
+    seeds = torch.tensor([0, 1, 7, 2**31 - 1, 12345], dtype=torch.int32)
+    idx = torch.tensor([1, 5, 300, 2047, 65535], dtype=torch.int32)
+    logits = torch.randn(5, 1000, generator=torch.Generator().manual_seed(1))
+    for dev in ("cpu", "cuda"):
+        keys = T.event_keys(T.lane_keys(seeds.to(dev)), idx.to(dev),
+                            T.SALT_SAMPLE)
+        got = (keys.cpu(), prng.random_bits(keys, 257).cpu(),
+               T.uniform_lanes(keys).cpu(),
+               prng.categorical(keys, logits.to(dev)).cpu())
+        if dev == "cpu":
+            want = got
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("kind", ["horizon", "chunk", "slot"])
+def test_replay_is_bit_identical_to_eager(gen, kind):
+    """A replay computes what the eager body computes, bit for bit, on the
+    same inputs and the same pool (each run on its own copy of it)."""
+    from repro_torch.models.layers import tree_map
+    from repro_torch.serving import graphs as G
+    m, p = _graph_model("llama2-7b")
+    cfg, B = m.cfg, 3
+    tokens = torch.randint(0, cfg.vocab_size, (B, 16), generator=gen,
+                           device="cuda", dtype=torch.int32)
+    if kind == "slot":
+        pool = m.init_cache(B, 64)
+        pool["attn"]["k"].normal_(generator=gen)
+        pool["attn"]["v"].normal_(generator=gen)
+    else:
+        pool = m.init_paged_cache(1 + B * 8, 8)
+        for leaf in pool["attn"].values():
+            leaf.normal_(generator=gen)
+    tables = (1 + torch.arange(B * 8, device="cuda", dtype=torch.int32)
+              ).reshape(B, 8)
+    pos = torch.tensor([20, 7, 33], dtype=torch.int32, device="cuda")
+    inputs = {"horizon": {"tokens": tokens[:, 0].contiguous(),
+                          "positions": pos, "tables": tables,
+                          "active": torch.ones(B, dtype=torch.bool,
+                                               device="cuda"),
+                          "budgets": torch.full((B,), 9, dtype=torch.int32,
+                                                device="cuda"),
+                          "eos": torch.full((B,), -1, dtype=torch.int32,
+                                            device="cuda")},
+              "chunk": {"tokens": tokens, "starts": pos,
+                        "lens": torch.tensor([16, 5, 1], dtype=torch.int32,
+                                             device="cuda"),
+                        "tables": tables},
+              "slot": {"tokens": tokens[:, 0].contiguous(),
+                       "positions": pos}}[kind]
+
+    def program(cache, capture):
+        tensors = lambda: (p, cache)  # noqa: E731
+        kw = dict(capture=capture, stream=torch.cuda.Stream())
+        if kind == "horizon":
+            return G.horizon_program(m, tensors, B, 8, max_len=64,
+                                     sampled=True, **kw)
+        if kind == "chunk":
+            return G.chunk_program(m, tensors, B, 16, 8, **kw)
+        return G.slot_program(m, tensors, B, sampled=True, **kw)
+
+    def run(prog):
+        if "temps" in prog.bufs:
+            G.set_sampling(prog.bufs, [0.8, 0.0, 1.2], [40, 0, 5], [1, 2, 3])
+        for name, t in inputs.items():
+            prog.bufs[name].copy_(t)
+        prog.run()
+        torch.cuda.synchronize()
+        return {k: v.clone() for k, v in prog.bufs.items()}
+
+    eager_pool = tree_map(torch.clone, pool)
+    eager = run(program(eager_pool, False))
+    cap_pool = tree_map(torch.clone, pool)
+    cap = program(cap_pool, True)
+    run(cap)                    # the first step, eager, then the capture
+    tree_map(lambda d, s: d.copy_(s), cap_pool, pool)   # same addresses
+    replay = run(cap)
+    assert cap.captures == 1 and cap.replays == 1
+    for name in eager:
+        assert torch.equal(eager[name], replay[name]), name
+    # the parking block (0) takes every padded token's write, in no
+    # defined order; the rest of the pool must match bit for bit
+    for a, b in zip(G._leaves(eager_pool), G._leaves(cap_pool)):
+        if kind == "slot":
+            assert torch.equal(a, b)
+        else:
+            assert torch.equal(a[:, 1:], b[:, 1:])
+
+
+def test_collector_stays_out_of_captures(gen):
+    """A captured graph that becomes cyclic garbage (an engine whose
+    programs refer back to it) must not be collected during another
+    capture: destroying a graph mid-capture invalidates the capture.  Here
+    the last reference to a captured program drops into a cycle inside a
+    capture, with the collector set to run at almost every allocation;
+    the capture still succeeds and its replay computes what it should."""
+    import gc
+    from repro_torch.serving.graphs import Program
+    x = torch.ones(8, device="cuda")
+    y = torch.zeros(8, device="cuda")
+    victim = Program("victim step", lambda: y.copy_(x * 2), {}, lambda: (),
+                     capture=True, stream=torch.cuda.Stream())
+    victim.run()                          # the eager step, then the capture
+    holder = [victim]
+    del victim
+
+    def body():
+        y.add_(1)
+        if torch.cuda.is_current_stream_capturing() and holder:
+            cycle = [holder.pop()]
+            cycle.append(cycle)
+            del cycle
+            junk = [[] for _ in range(10000)]   # the collector's cue
+            del junk
+        y.add_(1)
+
+    threshold = gc.get_threshold()
+    gc.set_threshold(1, 1, 1)
+    try:
+        prog = Program("second step", body, {}, lambda: (), capture=True,
+                       stream=torch.cuda.Stream())
+        prog.run()
+    finally:
+        gc.set_threshold(*threshold)
+    gc.collect()
+    assert prog.captures == 1 and not holder
+    y.zero_()
+    prog.run()                            # a replay: two adds
+    torch.cuda.synchronize()
+    assert torch.equal(y, torch.full_like(y, 2.0))

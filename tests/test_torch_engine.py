@@ -109,8 +109,8 @@ def test_bucket_matches_reference():
 def test_unported_request_kinds_raise(models):
     _, _, tm, tp = models
     eng = Engine(tm, tp, max_seq=64, n_slots=2)
-    with pytest.raises(NotImplementedError):
-        eng.submit(Request(prompt=[1, 2], temperature=0.7))
+    # sampled requests are ported (tests/test_torch_sampling.py)
+    eng.submit(Request(prompt=[1, 2], temperature=0.7))
     with pytest.raises(NotImplementedError):
         eng.submit(Request(prompt=[1, 2], deadline_ms=10.0))
     # the slot pool is ported; chunked prefill still needs the paged pool,
@@ -118,8 +118,7 @@ def test_unported_request_kinds_raise(models):
     with pytest.raises(ValueError):
         Engine(tm, tp, max_seq=64, n_slots=2, paged=False, prefill_chunk=8)
     slots = Engine(tm, tp, max_seq=64, n_slots=2, paged=False)
-    with pytest.raises(NotImplementedError):
-        slots.submit(Request(prompt=[1, 2], temperature=0.7))
+    slots.submit(Request(prompt=[1, 2], temperature=0.7))
     with pytest.raises(NotImplementedError):
         slots.submit(Request(prompt=[1, 2], deadline_ms=10.0))
 

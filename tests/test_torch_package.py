@@ -54,6 +54,15 @@ def test_no_jax_or_reference_imports(path):
     assert not bad, f"{path} imports {sorted(bad)}"
 
 
+def test_import_scan_covers_the_step_programs_and_sampling():
+    """The scan above reaches the modules that run the serving steps as
+    CUDA graphs and draw jax.random's keys."""
+    scanned = {p.relative_to(PKG).as_posix() for p in _sources()
+               if PKG in p.parents}
+    assert {"models/prng.py", "serving/graphs.py", "core/traces.py",
+            "core/__init__.py"} <= scanned
+
+
 def test_importing_every_module_loads_no_jax():
     code = (
         "import importlib, pkgutil, sys\n"
