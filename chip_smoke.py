@@ -29,7 +29,11 @@ Builds the hand-written CUDA kernels from ``src/repro_torch/csrc`` (one
    dtype pair, each bf16 launch on the tensor cores and each f32 one on
    the CUDA cores; for kernel 5, also hymba's ring with its positions
    clamped to the ring's last slot, timed beside its plain version and
-   SDPA), and times kernel, plain version and a
+   SDPA; for kernel 2, a speculative verify pass's 20 pseudo-lanes, 4
+   lanes' current tokens and 4 drafts each, with the split plan pinned to
+   4 lanes, bit-identical row for row to 4-lane launches at each
+   candidate's position, at llama2-7b's and llama2-13b's heads), and
+   times kernel, plain version and a
    PyTorch library call beside each where one exists (the library call is
    a yardstick only; the port never calls it).  Kernels 1-5 and kernel
    1's window and bidirectional forms are timed five times (20 calls
@@ -61,7 +65,14 @@ Builds the hand-written CUDA kernels from ``src/repro_torch/csrc`` (one
    requests those of the greedy horizon-8 run; and with and without a
    pool small enough to preempt, the same streams in an f32 compute plan
    (in bf16 a reading: a recomputed prefill's logits differ from the
-   decode's in the last bits).  Every run prints its decode tok/s;
+   decode's in the last bits).  Then speculative decode with n-gram
+   drafts (spec_k 4, horizon 4) on ``plain_load``'s prompts and on
+   their continuation load (each prompt followed by its own 32-token
+   greedy continuation, as ``benchmarks/bench_engine.py`` builds it),
+   greedy and sampled, captured and eager (equal), beside horizon 8 without
+   speculation on the same load, kernel 2 launched once per layer and
+   verify round; in an f32 compute plan the greedy speculative streams
+   must equal the horizon-8 run's.  Every run prints its decode tok/s;
 3. compares logits teacher-forced: prefill and one paged decode step,
    one decode step through the block-striped pool at shards 2 and 4
    against the unsharded step (bf16 and f32 compute plans), a two-chunk
@@ -70,7 +81,8 @@ Builds the hand-written CUDA kernels from ``src/repro_torch/csrc`` (one
    against whole-prompt prefill; and the slot decode step against the
    paged one on the same context;
 4. traces one whole-prompt prefill, one decode horizon (unsharded and at
-   shards 2 and 4), one chunk tick and one slot decode step at the serving
+   shards 2 and 4), one n-gram verify round, one chunk tick and one slot
+   decode step at the serving
    shape with ``torch.profiler``: host wall time and device busy time per
    step, the device's idle share, the device kernels that take the time,
    and the time and share of kernels 1-5 beside the device ops per
@@ -134,6 +146,14 @@ Builds the hand-written CUDA kernels from ``src/repro_torch/csrc`` (one
    the kernels against the plain versions in an f32 compute plan (held
    at 1e-4 of max |logit|) and in bf16 (a reading), and a trace of one
    forward with kernel 1's share of the device time.
+9. frees hubert and serves full-width llama2-13b (random bf16 weights,
+   seed 0) with its registered drafter, full-width llama2-7b (seed 100):
+   ``plain_load``'s prompts at horizon 8 give a continuation load,
+   served greedy and sampled at horizon 8 and speculatively with the
+   drafter (spec_k 4, horizon 4), captured and eager (equal), kernel 2 launched by every
+   verify pass and drafter step, kernel 1 by both models' prefills; one
+   round traced eager and captured beside the drafter's 5 steps alone
+   (its share of the round).
 
 The launch counts are per launch whether the launch ran eagerly or as a
 node of a replayed graph: a capture records each wrapper's count and
@@ -148,6 +168,7 @@ import json
 import subprocess
 import sys
 import time
+import weakref
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -610,6 +631,57 @@ def served_paged(torch, gen) -> None:
           f"kernel {spread(ms, lo, hi)}, device {dev:.4f} ms, plain "
           f"{plain_ms:.4f} ms, sdpa-dense {lib_ms:.4f} ms, bound "
           f"{bound:.4f} ms ({by}: {n_bytes} B)", flush=True)
+
+
+def check_verify_fold(torch) -> None:
+    """Kernel 2 over a verify pass's B * (K+1) pseudo-lanes (K = 4: the
+    current token and 4 drafts of each of 4 lanes, candidate i at position
+    ``pos + i`` through its lane's table, the last lane parked) with the
+    plan pinned to B lanes (``plan_lanes``, what ``decode_verify_paged``
+    passes) against B-lane launches at each candidate's position: every
+    row bit-identical, in every dtype pair, at llama2-7b's and
+    llama2-13b's heads; beside it, as a reading, the fold at its own
+    plan (B * (K+1) lanes), whose splits round otherwise."""
+    from repro_torch.kernels import paged_decode_attention as pa
+    g9 = torch.Generator(device="cuda").manual_seed(9)
+    B, Q, D, bs, T = 4, 5, 128, 16, 128
+    for heads in (32, 40):
+        for name, q_dt, kv_dt in _pairs(torch):
+            q, kp, vp, tables, _ = _paged_inputs(torch, g9, B * Q, heads,
+                                                 heads, D, bs, T, q_dt, kv_dt)
+            tables = tables[:B].contiguous()
+            tables[-1] = 0
+            pos = torch.tensor([230, 180, 120, 0], dtype=torch.int32,
+                               device="cuda")
+            fpos = (pos[:, None] + torch.arange(Q, dtype=torch.int32,
+                                                device="cuda")[None])
+            fpos[-1] = 0
+            fpos = fpos.reshape(B * Q).contiguous()
+            ftab = tables[:, None].expand(B, Q, T).reshape(B * Q, T) \
+                .contiguous()
+            pinned = pa.paged_decode_attention(q, kp, vp, ftab, fpos,
+                                               plan_lanes=B).view(B, Q, heads,
+                                                                  D)
+            own = pa.paged_decode_attention(q, kp, vp, ftab, fpos).view(
+                B, Q, heads, D)
+            same, own_err = 0, 0.0
+            for i in range(Q):
+                want = pa.paged_decode_attention(
+                    q.view(B, Q, heads, D)[:, i].contiguous(), kp, vp,
+                    tables, fpos.view(B, Q)[:, i].contiguous())
+                same += int(torch.equal(pinned[:, i], want))
+                own_err = max(own_err, compare(own[:, i], want)[0])
+            L_b = pa.paged_split_plan(B, heads, heads, T, bs)[0]
+            L_f = pa.paged_split_plan(B * Q, heads, heads, T, bs)[0]
+            print(f"paged_decode_attention verify fold q={q_dt} pool={kv_dt} "
+                  f"H=K={heads} D={D} {B} lanes x {Q} candidates at "
+                  f"positions 230/180/120 + i (a parked lane): pinned plan "
+                  f"(L={L_b}) bit-identical to {B}-lane launches in {same}/"
+                  f"{Q} candidate rows; the fold's own plan (L={L_f}) "
+                  f"differs by up to {own_err:.3e} (a reading)", flush=True)
+            if same != Q:
+                fail(f"kernel 2's verify fold with the pinned plan differs "
+                     f"from {B}-lane launches ({q_dt}/{kv_dt}, H={heads})")
 
 
 def check_lse(torch, gen):
@@ -1380,14 +1452,16 @@ def system_prompt_load(vocab: int) -> list:
 
 
 COUNTERS = ("decode_tokens", "prefill_tokens", "prefill_batches",
-            "preemptions", "host_syncs", "decode_syncs", "variant_swaps")
+            "preemptions", "host_syncs", "decode_syncs", "variant_swaps",
+            "verify_passes", "draft_tokens", "accepted_tokens")
 
 
 def watch_pool(pool, shards: int) -> dict:
     """Record the paged pool at its fullest: after each
     ``ensure_append_blocks`` (a step's admissions come before it, its
     releases after) the live blocks, and at the largest count the live
-    blocks of each of the ``shards`` stripes."""
+    blocks of each of the ``shards`` stripes.  The wrapper refers to the
+    pool, so ``unwatch_pool`` must take it off after the run."""
     seen = {"peak": 0, "stripes": [0] * shards}
     inner = pool.ensure_append_blocks
     nb_loc = pool.n_blocks // shards
@@ -1404,16 +1478,42 @@ def watch_pool(pool, shards: int) -> dict:
     return seen
 
 
+def unwatch_pool(pool) -> None:
+    """Take ``watch_pool``'s wrapper off ``pool`` (it and the pool refer
+    to each other, which would keep the pool alive past its engine)."""
+    vars(pool).pop("ensure_append_blocks", None)
+
+
 def serve(torch, model, params, label: str, load: list, need: tuple,
+          drafter: tuple | None = None, repeats: int = 0,
           **engine_kw) -> dict:
     """Serve ``load`` through one Engine (4 lanes, blocks of 16, max_seq
-    2048) with ``drive``; the engine and its pool are freed before
-    returning."""
+    2048) with ``drive``; ``drafter`` (model, params) is registered and
+    chosen as the speculative drafter.  Then ``repeats`` more runs of the
+    same load on the same engine, its programs captured: their decode
+    tok/s is ``warm_tok_s`` (the first run's wall holds the captures and
+    the first prefills), and their streams must equal the first run's.
+    The engine and its pool are freed before returning."""
     from repro_torch.serving import Engine, EngineKnobs
     eng = Engine(model, params, max_seq=2048, n_slots=4,
                  knobs=EngineKnobs(max_batch=4), block_size=16, **engine_kw)
+    if drafter is not None:
+        eng.add_drafter(drafter[0].cfg.name, *drafter)
+        eng.set_drafter(drafter[0].cfg.name)
     out = drive(torch, eng, label, load, need)
+    out["warm_tok_s"] = []
+    for i in range(repeats):
+        again = drive(torch, eng, f"{label} warm {i + 1}", load, need)
+        if again["streams"] != out["streams"]:
+            fail(f"{label}: warm run {i + 1} changed the streams")
+        out["warm_tok_s"].append(again["tok_s"])
+    # the engine goes with its last reference, its pools and graphs with
+    # it, so the next engine's pools have the memory (llama2-13b with its
+    # drafter leaves room for one engine at a time)
+    gone = [weakref.ref(eng), weakref.ref(eng.pool)]
     del eng
+    if any(r() is not None for r in gone):
+        fail(f"{label}: the dropped engine or its pool is still referenced")
     torch.cuda.empty_cache()
     return out
 
@@ -1457,6 +1557,8 @@ def drive(torch, eng, label: str, load: list, need: tuple,
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = read_launches()
+    if paged:
+        unwatch_pool(pool)
     pool = eng.pool
     run = SimpleNamespace(
         completed=stats.completed[n_done:],
@@ -1806,7 +1908,180 @@ def serve_paths(torch, model, params) -> dict:
     for run in runs + [chunked, chunked_eager, whole, slots, slots_eager]:
         for name, n in run["launches"].items():
             total[name] = total.get(name, 0) + n
+    return total, {"greedy": runs[1], "sampled": runs[3]}
+
+
+# ---------------------------------------------------------------------------
+# speculative decode (phase 2: llama2-7b with n-gram drafts; phase 9:
+# llama2-13b with the llama2-7b drafter)
+# ---------------------------------------------------------------------------
+
+SPEC = dict(spec_k=4, horizon=4)
+# warm runs of each llama2-7b speculative load and of its horizon-8 base:
+# the tok/s comparison reads their medians and spread (llama2-13b's
+# drafted runs, 0.24-0.30x, are far enough from 1 without them)
+WARM = 3
+
+
+def continuation_load(load: list, streams: list, sampled: bool) -> list:
+    """``benchmarks/bench_engine.py``'s continuation style (primer 32): each
+    of ``load``'s prompts followed by its own 32-token greedy continuation
+    (``streams``, a greedy run of ``load``), 32 new tokens, so the text
+    the model emits next is already in its context; with ``sampled`` the
+    odd requests sample at temperature 0.8, top-k 40, seed 100 + i."""
+    return [(list(p) + list(s), 32,
+             dict(temperature=0.8, top_k=40, seed=100 + i)
+             if sampled and i % 2 else {})
+            for i, ((p, *_), s) in enumerate(zip(load, streams))]
+
+
+def spec_report(run: dict, base: dict, label: str, model,
+                drafter=None) -> None:
+    """Print a speculative run's decode tok/s beside ``base`` (the same
+    load at horizon 8 without speculation, in the same call), its spec
+    counters, host syncs per 1k decode tokens and kernel-2 launches; fail
+    unless verify passes ran and kernel 2 launched once per layer and
+    verify round (and with a drafter once per drafter layer and drafter
+    step, spec_k + 1 a round: the drafts and the backfill)."""
+    st = run["stats"]
+    k = SPEC["spec_k"]
+    rounds = st.decode_syncs * SPEC["horizon"]
+    ws, wb = run["warm_tok_s"], base["warm_tok_s"]
+    if ws and wb:
+        med = lambda xs: sorted(xs)[len(xs) // 2]  # noqa: E731
+        print(f"spec {model.cfg.name} {label}: warm decode tok/s "
+              f"{med(ws):.1f} (runs {', '.join(f'{x:.1f}' for x in ws)}) "
+              f"against {med(wb):.1f} (runs "
+              f"{', '.join(f'{x:.1f}' for x in wb)}) at horizon 8 without "
+              f"speculation: {med(ws) / med(wb):.2f}x of the medians, "
+              f"{min(ws) / max(wb):.2f}-{max(ws) / min(wb):.2f}x over "
+              f"the runs", flush=True)
+    per_round = model.cfg.num_layers + (
+        drafter.cfg.num_layers * (k + 1) if drafter is not None else 0)
+    k2 = run["launches"]["paged_decode_attention"]
+    bst = base["stats"]
+    print(f"spec {model.cfg.name} {label}: decode tok/s {run['tok_s']:.1f} "
+          f"(horizon 8 without speculation, same load: {base['tok_s']:.1f};"
+          f" {run['tok_s'] / base['tok_s']:.2f}x); verify_passes="
+          f"{st.verify_passes} draft_tokens={st.draft_tokens} "
+          f"accepted_tokens={st.accepted_tokens} acceptance_rate="
+          f"{st.accepted_tokens / max(st.draft_tokens, 1):.3f} "
+          f"accepted_per_sync="
+          f"{st.accepted_tokens / max(st.decode_syncs, 1):.2f}; host syncs "
+          f"per 1k tokens {1e3 * st.host_syncs / st.decode_tokens:.1f} "
+          f"({1e3 * bst.host_syncs / bst.decode_tokens:.1f} without); "
+          f"kernel-2 launches {k2} ({per_round} x {rounds} rounds; "
+          f"{base['launches']['paged_decode_attention']} without)",
+          flush=True)
+    if not st.verify_passes or st.draft_tokens != k * st.verify_passes:
+        fail(f"{label}: no verify pass, or drafts != spec_k x passes")
+    if k2 != per_round * rounds:
+        fail(f"{label}: kernel 2 launched {k2} times, not {per_round} per "
+             f"round over {rounds} rounds")
+
+
+def spec_pairs(torch, model, params, loads: dict, bases: dict,
+               drafter=None, repeats: int = 0) -> list:
+    """Each ``loads[name]`` served speculatively (``SPEC``; n-gram drafts,
+    or ``drafter``'s), captured and eager (``graphs=False``), which must
+    agree (``same_as_eager``), each reported beside ``bases[name]``, the
+    captured run with ``repeats`` warm runs; greedy loads' streams beside
+    the base's (in bf16 a reading).  Returns the runs."""
+    paged = ("flash_attention", "paged_decode_attention")
+    how = (f"{drafter[0].cfg.name} drafter" if drafter is not None
+           else "n-gram") + (f" spec_k={SPEC['spec_k']} "
+                             f"horizon={SPEC['horizon']}")
+    kw = dict(SPEC) if drafter is not None else dict(SPEC, draft="ngram")
+    d_model = drafter[0] if drafter is not None else None
+    runs = []
+    for name, load in loads.items():
+        cap = serve(torch, model, params, f"{name} {how}", load, paged,
+                    drafter=drafter, repeats=repeats, **kw)
+        eager = serve(torch, model, params, f"{name} {how} eager", load,
+                      paged, drafter=drafter, graphs=False, **kw)
+        same_as_eager(cap, eager, f"{model.cfg.name} {name} {how}")
+        for run, tag in ((cap, "captured"), (eager, "eager")):
+            spec_report(run, bases[name], f"{name} {how} {tag}", model,
+                        d_model)
+        if "greedy" in name:
+            print(f"{model.cfg.name} {name} {how}: "
+                  f"{same_streams(cap['streams'], bases[name]['streams'])}/8"
+                  f" streams equal to the horizon-8 run without speculation "
+                  f"(a reading in bf16: the verify pass's GEMMs take "
+                  f"{4 * (SPEC['spec_k'] + 1)} rows where the step's take "
+                  f"4)", flush=True)
+        runs += [cap, eager]
+    return runs
+
+
+def spec_f32_greedy(torch, model, params, load: list) -> list:
+    """The check behind greedy speculation: in an f32 compute plan (TF32
+    off) on the same weights, n-gram speculative greedy streams equal the
+    horizon-8 run's.  A stream that parts at a near-tie (top-2 gap of the
+    teacher-forced f32 logits below 1e-3: 20-row against 4-row GEMMs;
+    kernel 2's fold is bit-identical, phase 1) is printed as a reading;
+    anywhere else it fails."""
+    from repro_torch.models import build_model, local_plan
+    paged = ("flash_attention", "paged_decode_attention")
+    f32 = build_model(model.cfg, local_plan(param_dtype=torch.bfloat16,
+                                            compute_dtype=torch.float32),
+                      device=model.device)
+    base = serve(torch, f32, params, "continuation greedy horizon=8 (f32 "
+                 "plan)", load, paged, horizon=8)
+    spec = serve(torch, f32, params, "continuation greedy n-gram spec (f32 "
+                 "plan)", load, paged, draft="ngram", **SPEC)
+    n = same_streams(base["streams"], spec["streams"])
+    print(f"llama2-7b f32 plan: {n}/8 n-gram speculative greedy streams "
+          f"equal to the horizon-8 run's", flush=True)
+    for r, (a, b) in enumerate(zip(base["streams"], spec["streams"])):
+        if a == b:
+            continue
+        t = next(i for i, (x, y) in enumerate(zip(a, b)) if x != y)
+        ctx = torch.tensor([list(load[r][0]) + a[:t]], dtype=torch.int32,
+                           device=model.device)
+        top = f32.logits(params, ctx)[0, -1, :model.cfg.vocab_size].float()
+        top = top.topk(2).values
+        gap = float(top[0] - top[1])
+        print(f"  request {r} parts at new token {t}: {a[t]} without, "
+              f"{b[t]} with speculation; top-2 gap of the teacher-forced "
+              f"f32 logits {gap:.3e}", flush=True)
+        if gap >= 1e-3:
+            fail("greedy speculation (f32 plan) parts from the plain "
+                 "stream away from a near-tie")
+    return [base, spec]
+
+
+def sum_launches(runs: list) -> dict:
+    total = {}
+    for run in runs:
+        for name, n in run["launches"].items():
+            total[name] = total.get(name, 0) + n
     return total
+
+
+def serve_spec(torch, model, params, h8: dict) -> dict:
+    """Phase 2's speculative runs on llama2-7b (n-gram drafts, ``SPEC``):
+    ``plain_load``'s prompts (greedy, and ``sampled_load``) and their
+    continuation load (``continuation_load`` over ``h8``'s greedy
+    horizon-8 run's streams), greedy and sampled, each captured and
+    eager, beside horizon-8 runs without speculation on the same loads,
+    with ``WARM`` warm runs on each side; then the f32 check.  Returns
+    the launches summed over the runs."""
+    vocab = model.cfg.vocab_size
+    paged = ("flash_attention", "paged_decode_attention")
+    plain = plain_load(vocab)
+    loads = {"plain greedy": plain, "plain sampled": sampled_load(vocab)}
+    for kind in ("greedy", "sampled"):
+        loads[f"continuation {kind}"] = continuation_load(
+            plain, h8["greedy"]["streams"], kind == "sampled")
+    bases = {name: serve(torch, model, params, f"{name} horizon=8", load,
+                         paged, horizon=8, repeats=WARM)
+             for name, load in loads.items()}
+    runs = list(bases.values())
+    runs += spec_pairs(torch, model, params, loads, bases, repeats=WARM)
+    runs += spec_f32_greedy(torch, model, params,
+                            loads["continuation greedy"])
+    return sum_launches(runs)
 
 
 # ---------------------------------------------------------------------------
@@ -2067,7 +2342,8 @@ def trace(torch, label: str, fn, walls: list, per: int, unit: str) -> None:
     """Trace one call of ``fn`` with ``torch.profiler``: device busy time,
     the device's idle share against the median of ``walls`` (its host
     wall per step) and the device kernels that take the time, all divided
-    by ``per``, and the time and share of kernels 1-5 where they ran."""
+    by ``per``, and the time and share of kernels 1-5 where they ran.
+    Returns the device busy ms per ``unit``."""
     import statistics
     from torch.profiler import ProfilerActivity, profile
     wall_ms = statistics.median(walls)
@@ -2107,6 +2383,7 @@ def trace(torch, label: str, fn, walls: list, per: int, unit: str) -> None:
             print(f"  {label_k} {ms:.3f} ms/{unit} over {n:.0f} launches, "
                   f"share {ms / busy_ms:.3f} of device busy, beside "
                   f"{n_ops:.0f} device ops/{unit}", flush=True)
+    return busy_ms
 
 
 def replayed(prog, inputs: dict, steps: int = 0):
@@ -2218,6 +2495,21 @@ def phase4_calls(torch, model, params, horizon: int = 8) -> dict:
             horizon, "step")
     chunk_prog = G.chunk_program(model, lambda: (params, pool.cache), B, 128,
                                  T, capture=True, stream=torch.cuda.Stream())
+    # a speculative round's lane state: each lane's history holds its
+    # prompt, the current token at its position
+    hist = torch.zeros(B, 2049, dtype=torch.int32, device=dev)
+    hist[:, :256] = tokens
+    spec_lanes = dict(lanes, hist=hist)
+
+    def verify_round(capture: bool):
+        prog = G.spec_program(
+            model, None, lambda: (params, pool.cache, None, None), B, T,
+            2049, spec_k=4, max_len=2048, ngram=2, capture=capture,
+            stream=torch.cuda.Stream() if capture else None)
+        return replayed(prog, spec_lanes)
+
+    spec_label = (f"{B} lanes at positions {lengths}, one n-gram verify "
+                  f"round (spec_k=4: {B * 5} pseudo-lanes)")
     return {
         "prefill": (f"{B} prompts of {lengths} tokens in a 256 bucket",
                     lambda: model.prefill_ragged(params, tokens, lens), 1,
@@ -2246,6 +2538,9 @@ def phase4_calls(torch, model, params, horizon: int = 8) -> dict:
                            replayed(chunk_prog, {
                                "tokens": chunk, "starts": starts,
                                "lens": takes, "tables": tables}), 1, "tick"),
+        "verify round": (spec_label, verify_round(False), 1, "round"),
+        "verify round captured": (spec_label + ", a captured round",
+                                  verify_round(True), 1, "round"),
         "slot": (f"{B} slots of 2048 at positions {lengths}",
                  lambda: model.decode_step(params, slots, tok, lens), 1,
                  "step"),
@@ -3210,6 +3505,158 @@ def hubert_phases(torch) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 9: full-width llama2-13b with the llama2-7b drafter
+# ---------------------------------------------------------------------------
+
+def llama13b_models(torch) -> tuple:
+    """Full-width llama2-13b (seed 0) and its registered drafter,
+    llama2-7b (seed 100, the reference ``EngineSpec``'s first drafter
+    seed), random bf16 weights."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.drafters import drafter_for
+    from repro_torch.models import build_model, local_plan
+    out = []
+    for name, seed in (("llama2-13b", 0), (drafter_for("llama2-13b"), 100)):
+        cfg = get_config(name)
+        model = build_model(cfg, local_plan(param_dtype=torch.bfloat16))
+        t0 = time.perf_counter()
+        params = model.init(torch.Generator(device="cuda").manual_seed(seed))
+        torch.cuda.synchronize()
+        n_params = sum(t.numel() for t in _leaves(params))
+        print(f"{name} full width: {cfg.num_layers} layers d_model "
+              f"{cfg.d_model} heads {cfg.n_heads}/{cfg.n_kv_heads} d_ff "
+              f"{cfg.d_ff} vocab {cfg.vocab_size}; {n_params} params in "
+              f"bf16, init {time.perf_counter() - t0:.1f} s, "
+              f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated",
+              flush=True)
+        if n_params != cfg.param_count():
+            fail(f"{name} parameter count {n_params} != "
+                 f"{cfg.param_count()}")
+        out.append((model, params))
+    return tuple(out)
+
+
+def drafter_round_calls(torch, target, drafter) -> dict:
+    """One speculative round of ``target`` with ``drafter``'s drafts (4
+    lanes at positions 230/180/120/40 over pools of 516 blocks, spec_k 4:
+    4 drafter steps, the backfill step and the verify pass over 20
+    pseudo-lanes), eager and as a captured program, and the drafter's 5
+    steps alone, eager and captured: (label, fn, per, unit) as
+    ``phase4_calls``'s."""
+    from repro_torch.models import transformer as TT
+    from repro_torch.serving import PagedCachePool
+    from repro_torch.serving import graphs as G
+    (tm, tp), (dm, dp) = target, drafter
+    B, dev, k = 4, tm.device, SPEC["spec_k"]
+    lengths = [230, 180, 120, 40]
+    pool = PagedCachePool(tm, B, 2048, block_size=16, n_blocks=516)
+    pool.attach_draft(dm)
+    T = pool.blocks_per_seq
+    g = torch.Generator(device=dev).manual_seed(3)
+    hist = torch.zeros(B, 2049, dtype=torch.int32, device=dev)
+    hist[:, :256] = torch.randint(0, tm.cfg.vocab_size, (B, 256), device=dev,
+                                  dtype=torch.int32, generator=g)
+    lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    lanes = {"tokens": hist[:, 0].contiguous(), "positions": lens,
+             "tables": (1 + torch.arange(B * T, device=dev,
+                                         dtype=torch.int32)).reshape(B, T),
+             "active": torch.ones(B, dtype=torch.bool, device=dev),
+             "budgets": torch.full((B,), 1000, dtype=torch.int32, device=dev),
+             "eos": torch.full((B,), -1, dtype=torch.int32, device=dev),
+             "hist": hist}
+    tensors = lambda: (tp, pool.cache, dp, pool.draft_cache)  # noqa: E731
+
+    def round_call(capture: bool):
+        prog = G.spec_program(
+            tm, dm, tensors, B, T, 2049, spec_k=k, max_len=2048, ngram=2,
+            capture=capture, stream=torch.cuda.Stream() if capture else None)
+        return replayed(prog, lanes)
+
+    # the round's drafting as it runs it: greedy lanes (temperature 0)
+    # through the warped dist and the draw, then the backfill step
+    temps = torch.zeros(B, dtype=torch.float32, device=dev)
+    top_ks = torch.zeros(B, dtype=torch.int32, device=dev)
+    keys = TT.lane_keys(torch.zeros(B, dtype=torch.int32, device=dev))
+
+    def drafter_steps():
+        cur = lanes["tokens"]
+        for j in range(k + 1):
+            lg, _ = dm.decode_step_paged(dp, pool.draft_cache, cur, lens + j,
+                                         lanes["tables"])
+            if j < k:
+                qd = TT.sampling_dist(lg[:, :dm.cfg.vocab_size], temps,
+                                      top_ks)
+                cur = TT.sample_from_dist(TT.event_keys(
+                    keys, lens + j + 1, TT.SALT_DRAFT), qd, temps <= 0)
+
+    steps_prog = G.Program("drafter steps", drafter_steps, {},
+                           lambda: (dp, pool.draft_cache), capture=True,
+                           stream=torch.cuda.Stream())
+    label = (f"{B} lanes at positions {lengths}, spec_k={k} with the "
+             f"{dm.cfg.name} drafter")
+    return {
+        "drafter round": (label + f": {k} drafter steps, the backfill and "
+                          f"the verify pass over {B * (k + 1)} pseudo-lanes",
+                          round_call(False), 1, "round"),
+        "drafter round captured": (label + ", a captured round",
+                                   round_call(True), 1, "round"),
+        "drafter steps": (label + f": the drafter's {k + 1} steps alone",
+                          drafter_steps, 1, "round"),
+        "drafter steps captured": (label + f": the drafter's {k + 1} steps "
+                                   f"alone, captured", replayed(steps_prog,
+                                                                {}), 1,
+                                   "round"),
+    }
+
+
+def llama13b_phases(torch) -> dict:
+    """Phase 9: llama2-13b served with the llama2-7b drafter.  The plain
+    prompts at horizon 8 without speculation give the continuation load
+    (``continuation_load``); greedy and sampled, it is served at horizon
+    8 without speculation and with the drafter (``SPEC``), captured and
+    eager (equal), kernel 2 launched by every verify pass and every
+    drafter step, kernel 1 by both models' prefills.  Then one round
+    traced eager and captured, beside the drafter's share of it.
+    Returns the runs' launches."""
+    target, drafter = llama13b_models(torch)
+    tm, tp = target
+    paged = ("flash_attention", "paged_decode_attention")
+    plain = plain_load(tm.cfg.vocab_size)
+    first = serve(torch, tm, tp, "plain greedy horizon=8", plain, paged,
+                  horizon=8)
+    runs, loads, bases = [first], {}, {}
+    for kind in ("greedy", "sampled"):
+        name = f"continuation {kind}"
+        loads[name] = continuation_load(plain, first["streams"],
+                                        kind == "sampled")
+        bases[name] = serve(torch, tm, tp, f"{name} horizon=8", loads[name],
+                            paged, horizon=8)
+        runs.append(bases[name])
+    runs += spec_pairs(torch, tm, tp, loads, bases, drafter=drafter)
+    want = (tm.cfg.num_layers + drafter[0].cfg.num_layers) \
+        * runs[-1]["stats"].prefill_batches
+    if runs[-1]["launches"]["flash_attention"] != want:
+        fail("llama2-13b drafted: kernel 1 did not launch once per layer of "
+             "both models and prefill batch")
+    calls = drafter_round_calls(torch, target, drafter)
+    walls = {name: host_walls(torch, fn, per, reps=5)
+             for name, (_, fn, per, _) in calls.items()}
+    busy = {name: trace(torch, f"{name} profile llama2-13b bf16, {label}", fn,
+                        walls[name], per=per, unit=unit)
+            for name, (label, fn, per, unit) in calls.items()}
+    for tag in ("", " captured"):
+        print(f"llama2-13b drafter round{tag}: the llama2-7b drafter's "
+              f"steps take {busy['drafter steps' + tag]:.3f} of the round's "
+              f"{busy['drafter round' + tag]:.3f} ms device busy (share "
+              f"{busy['drafter steps' + tag] / busy['drafter round' + tag]:.3f})",
+              flush=True)
+    capture_times(calls, "llama2-13b")
+    del target, drafter, tm, tp, calls
+    torch.cuda.empty_cache()
+    return sum_launches(runs)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3247,6 +3694,7 @@ def main() -> int:
                check_prefill(torch, gen), check_dense(torch, gen),
                check_wkv(torch, gen), check_lse(torch, gen),
                check_int8(torch, gen)]
+    check_verify_fold(torch)
     check_flash_head_dims(torch, dtypes)
     check_prefill_head_dims(torch)
     print(f"phase 1 done at {time.perf_counter() - t_start:.1f} s",
@@ -3272,7 +3720,9 @@ def main() -> int:
     host_probe(torch, "after init", decode)
     with torch.inference_mode():
         host_probe(torch, "after init, under torch.inference_mode", decode)
-    launches = serve_paths(torch, model, params)
+    launches, h8 = serve_paths(torch, model, params)
+    for name, n in serve_spec(torch, model, params, h8).items():
+        launches[name] += n
     host_probe(torch, "after serve", decode)
     print(f"phase 2 done at {time.perf_counter() - t_start:.1f} s",
           flush=True)
@@ -3312,6 +3762,12 @@ def main() -> int:
 
     # phase 8: hymba went at the end of phase 7
     for name, n in hubert_phases(torch).items():
+        launches[name] += n
+    print(f"phase 8 done at {time.perf_counter() - t_start:.1f} s",
+          flush=True)
+
+    # phase 9: hubert went at the end of phase 8
+    for name, n in llama13b_phases(torch).items():
         launches[name] += n
     for e in entries:
         e["launches"] = launches[e["name"]]

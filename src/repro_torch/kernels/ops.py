@@ -42,24 +42,29 @@ def flash_attention(q, k, v, *, scale=None, causal=True, window=0):
 
 
 def paged_decode_attention(q, k_pool, v_pool, block_tables, positions, *,
-                           scale=None):
-    """One-token attention over a paged KV pool."""
+                           scale=None, plan_lanes=None):
+    """One-token attention over a paged KV pool.  ``plan_lanes`` pins the
+    kernel's split plan to that of so many lanes (the plain version has
+    no splits)."""
     if _on_cpu(q, k_pool, v_pool, block_tables, positions):
         return _paged.paged_decode_attention_ref(
             q, k_pool, v_pool, block_tables, positions, scale=scale)
     return _paged.paged_decode_attention(q, k_pool, v_pool, block_tables,
-                                         positions, scale=scale)
+                                         positions, scale=scale,
+                                         plan_lanes=plan_lanes)
 
 
 def paged_decode_attention_lse(q, k_pool, v_pool, block_tables, positions,
-                               owned, *, scale=None):
+                               owned, *, scale=None, plan_lanes=None):
     """One-token attention over the owned slots of one pool stripe;
-    returns ``(o, lse)``."""
+    returns ``(o, lse)``.  ``plan_lanes`` as for
+    ``paged_decode_attention``."""
     if _on_cpu(q, k_pool, v_pool, block_tables, positions, owned):
         return _paged.paged_decode_attention_lse_ref(
             q, k_pool, v_pool, block_tables, positions, owned, scale=scale)
     return _paged.paged_decode_attention_lse(
-        q, k_pool, v_pool, block_tables, positions, owned, scale=scale)
+        q, k_pool, v_pool, block_tables, positions, owned, scale=scale,
+        plan_lanes=plan_lanes)
 
 
 def paged_prefill_attention(q, k_pool, v_pool, block_tables, starts, *,

@@ -47,11 +47,13 @@ def paged_decode_attention_ref(q: torch.Tensor, k_pool: torch.Tensor,
                                v_pool: torch.Tensor,
                                block_tables: torch.Tensor,
                                positions: torch.Tensor, *,
-                               scale: float | None = None) -> torch.Tensor:
+                               scale: float | None = None,
+                               plan_lanes: int | None = None) -> torch.Tensor:
     """Plain version (port of ``kernels/ref.py::paged_decode_attention_ref``):
     gather each lane's logical KV view through its table, then attend
     (``decode_attention_ref`` rounds the normalised P to v's dtype, as the
-    reference model's ``paged_attention`` does)."""
+    reference model's ``paged_attention`` does).  ``plan_lanes`` is the
+    kernel's and is ignored: the plain version has no splits."""
     B, H, D = q.shape
     bs, K = k_pool.shape[1], k_pool.shape[2]
     T = block_tables.shape[1]
@@ -65,10 +67,12 @@ def paged_decode_attention_lse_ref(q: torch.Tensor, k_pool: torch.Tensor,
                                    block_tables: torch.Tensor,
                                    positions: torch.Tensor,
                                    owned: torch.Tensor, *,
-                                   scale: float | None = None):
+                                   scale: float | None = None,
+                                   plan_lanes: int | None = None):
     """Plain per-stripe decode (the function of the reference's
     ``paged_decode_attention_lse``): attend over the keys ``kpos <=
-    positions[b]`` of the table slots with ``owned[b, j] != 0`` only.
+    positions[b]`` of the table slots with ``owned[b, j] != 0`` only
+    (``plan_lanes``, the kernel's, is ignored).
     Returns ``(o, lse)``: o normalised over those keys (0 where there are
     none) in q's dtype, lse = m + log l in f32 (-1e30 where there are none).
 
@@ -268,15 +272,18 @@ def _check(name, q, k_pool, v_pool, block_tables, positions,
 
 
 def _launch(q, k_pool, v_pool, block_tables, positions, owned=None, *,
-            scale=None, split=None):
+            scale=None, split=None, plan_lanes=None):
     """One launch of kernel 2 (``owned`` None) or kernel 4, its splits of
     ``paged_split_plan``'s length (or ``split`` keys, a multiple of the
-    block size) merged inside it.  Returns o, or (o, lse) for kernel 4."""
+    block size) merged inside it; the plan is that of ``plan_lanes``
+    lanes where given (default: the launch's own B).  Returns o, or (o,
+    lse) for kernel 4."""
     B, H, D = q.shape
     n_blocks, bs, K, _ = k_pool.shape
     T = block_tables.shape[1]
     scale = scale if scale is not None else 1.0 / math.sqrt(D)
-    L, splits, groups = paged_split_plan(B, H, K, T, bs, owned is not None)
+    L, splits, groups = paged_split_plan(plan_lanes or B, H, K, T, bs,
+                                         owned is not None)
     if split is not None:
         L, splits = split, -(-T * bs // split)
     part = torch.empty(B * K * groups * splits * min(H // K, _MAX_HEADS)
@@ -306,12 +313,21 @@ def _launch(q, k_pool, v_pool, block_tables, positions, owned=None, *,
 def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
                            v_pool: torch.Tensor, block_tables: torch.Tensor,
                            positions: torch.Tensor, *,
-                           scale: float | None = None) -> torch.Tensor:
+                           scale: float | None = None,
+                           plan_lanes: int | None = None) -> torch.Tensor:
     """Launch the CUDA kernel (all tensors on the current CUDA device):
-    one launch, its splits merged inside it."""
+    one launch, its splits merged inside it.
+
+    ``plan_lanes`` pins the split plan to that of a launch over that many
+    lanes (still from shapes alone).  A lane's result depends on the
+    split length and its own inputs only, so a speculative verify pass,
+    whose B * (K + 1) pseudo-lanes are the candidates of B lanes, gives
+    each candidate the bits a B-lane decode step would at its position
+    when it passes ``plan_lanes=B``."""
     _check("paged_decode_attention", q, k_pool, v_pool, block_tables,
            positions)
-    out = _launch(q, k_pool, v_pool, block_tables, positions, scale=scale)
+    out = _launch(q, k_pool, v_pool, block_tables, positions, scale=scale,
+                  plan_lanes=plan_lanes)
     paged_decode_attention.launches += 1
     return out
 
@@ -323,14 +339,15 @@ def paged_decode_attention_lse(q: torch.Tensor, k_pool: torch.Tensor,
                                v_pool: torch.Tensor,
                                block_tables: torch.Tensor,
                                positions: torch.Tensor, owned: torch.Tensor,
-                               *, scale: float | None = None):
+                               *, scale: float | None = None,
+                               plan_lanes: int | None = None):
     """Launch the per-stripe CUDA kernel (all tensors on the current CUDA
     device): one launch, its splits merged inside it; returns ``(o,
-    lse)``."""
+    lse)``.  ``plan_lanes`` as for ``paged_decode_attention``."""
     _check("paged_decode_attention_lse", q, k_pool, v_pool, block_tables,
            positions, owned)
     out = _launch(q, k_pool, v_pool, block_tables, positions, owned,
-                  scale=scale)
+                  scale=scale, plan_lanes=plan_lanes)
     paged_decode_attention_lse.launches += 1
     return out
 

@@ -260,7 +260,8 @@ def _write_owned(stripe: torch.Tensor, rows: torch.Tensor,
 
 
 def _paged_decode_core(rank: int, q, k_stripe, v_stripe, block_tables,
-                       positions, k_new, v_new, *, scale: float):
+                       positions, k_new, v_new, *, scale: float,
+                       plan_lanes: int | None = None):
     """One rank's paged decode on its stripe of the block-striped pool
     (port of ``models/attention.py::_paged_decode_core`` up to its
     collectives).
@@ -285,11 +286,12 @@ def _paged_decode_core(rank: int, q, k_stripe, v_stripe, block_tables,
     t_owned = ((local_t >= 0) & (local_t < nb_loc)).to(torch.int32)
     return ops.paged_decode_attention_lse(
         q, k_stripe, v_stripe, local_t.clamp(0, nb_loc - 1), positions,
-        t_owned, scale=scale)
+        t_owned, scale=scale, plan_lanes=plan_lanes)
 
 
 def _paged_decode_striped(shards: int, q, k_pool, v_pool, block_tables,
-                          positions, k_new, v_new, *, scale: float):
+                          positions, k_new, v_new, *, scale: float,
+                          plan_lanes: int | None = None):
     """The sharded paged decode on one device: every rank's
     ``_paged_decode_core`` on its contiguous stripe of the pool (the array
     ``shard_map`` hands that rank in the reference), then one
@@ -300,25 +302,28 @@ def _paged_decode_striped(shards: int, q, k_pool, v_pool, block_tables,
     os, lses = zip(*(
         _paged_decode_core(r, q, k_pool[r * nb_loc:(r + 1) * nb_loc],
                            v_pool[r * nb_loc:(r + 1) * nb_loc], block_tables,
-                           positions, k_new, v_new, scale=scale)
+                           positions, k_new, v_new, scale=scale,
+                           plan_lanes=plan_lanes)
         for r in range(shards)))
     return combine_lse(torch.stack(os), torch.stack(lses))
 
 
 def gqa_decode_paged(p: dict, x: torch.Tensor, cache: dict,
                      positions: torch.Tensor, block_tables: torch.Tensor,
-                     cfg: ArchConfig, plan: ShardPlan):
+                     cfg: ArchConfig, plan: ShardPlan,
+                     plan_lanes: int | None = None):
     """Paged-pool decode step: write the new token's KV into its block (in
     place: the pool is updated where it lies), then attend through the
-    block table; under a sharded plan, stripe by stripe.
-    x: (B, d) -> (out (B, d), cache)."""
+    block table; under a sharded plan, stripe by stripe.  ``plan_lanes``
+    pins kernels 2 and 4 to the split plan of so many lanes (a verify
+    pass's fold).  x: (B, d) -> (out (B, d), cache)."""
     dt = plan.compute_dtype
     q, k_new, v_new = _decode_qkv(p, x, positions, cfg, plan)
     scale = 1.0 / math.sqrt(cfg.head_dim)
     if plan.paged_pool_sharded(cfg):
         o = _paged_decode_striped(plan.tp, q, cache["k"], cache["v"],
                                   block_tables, positions, k_new, v_new,
-                                  scale=scale)
+                                  scale=scale, plan_lanes=plan_lanes)
         return _out_proj(o, p["w_o"].to(dt)), cache
     bs = cache["k"].shape[1]
     blk = torch.gather(block_tables, 1, (positions // bs)[:, None].long())[:, 0]
@@ -326,7 +331,8 @@ def gqa_decode_paged(p: dict, x: torch.Tensor, cache: dict,
     cache["k"][blk, off] = k_new.to(cache["k"].dtype)
     cache["v"][blk, off] = v_new.to(cache["v"].dtype)
     o = ops.paged_decode_attention(q, cache["k"], cache["v"], block_tables,
-                                   positions, scale=scale)
+                                   positions, scale=scale,
+                                   plan_lanes=plan_lanes)
     return _out_proj(o, p["w_o"].to(dt)), cache
 
 

@@ -11,7 +11,8 @@ chunked prefill and cache writes update the paged pool or the slot cache
 (for RWKV6 and Mamba, the recurrent state) in place instead of returning a
 new one.
 
-The sampling helpers (``lane_keys`` .. ``sample_from_dist``) are the
+The sampling helpers (``lane_keys`` .. ``sample_from_dist``) and the
+speculative ones (``rejection_choose``, ``ngram_propose``) are the
 reference's, on ``repro_torch.models.prng``'s copy of ``jax.random``'s
 threefry: the same seeds give the same keys, draws and tokens.
 """
@@ -177,12 +178,13 @@ def block_decode(x, lp: dict, lc: dict, positions, cfg: ArchConfig,
 
 
 def block_decode_paged(x, lp: dict, lc: dict, positions, block_tables,
-                       cfg: ArchConfig, plan: ShardPlan):
+                       cfg: ArchConfig, plan: ShardPlan,
+                       plan_lanes: int | None = None):
     """Paged decode block, x (B, d); lc holds this layer's pool slice."""
     h = _norm(x, lp["norm1"], cfg)
     attn_out, attn_cache = A.gqa_decode_paged(lp["attn"], h, lc["attn"],
                                               positions, block_tables,
-                                              cfg, plan)
+                                              cfg, plan, plan_lanes)
     x = x + attn_out
     x = x + _mlp(_norm(x, lp["norm2"], cfg), lp, cfg, plan)
     return x, {"attn": attn_cache}
@@ -229,6 +231,13 @@ def uniform_lanes(keys: torch.Tensor) -> torch.Tensor:
     return prng.uniform(keys, 1)[..., 0]
 
 
+def _one_hot(idx: torch.Tensor, V: int) -> torch.Tensor:
+    """f32 one-hot of ``idx`` over V classes, by comparison (no host check
+    of the class range, so it can run inside a CUDA graph capture)."""
+    return (torch.arange(V, device=idx.device)
+            == idx[..., None]).to(torch.float32)
+
+
 def sampling_dist(logits: torch.Tensor, temps: torch.Tensor,
                   top_ks: torch.Tensor) -> torch.Tensor:
     """Per-lane warped sampling distribution over the real vocab.
@@ -245,10 +254,8 @@ def sampling_dist(logits: torch.Tensor, temps: torch.Tensor,
     keep = (logits >= kth) | (top_ks <= 0)[..., None]
     t = torch.where(greedy, 1.0, temps.clamp_min(1e-6))[..., None]
     probs = torch.softmax(torch.where(keep, logits / t, NEG_INF), dim=-1)
-    # one-hot by comparison: no host check of the class range
-    one_hot = (torch.arange(V, device=logits.device)
-               == logits.argmax(dim=-1, keepdim=True)).to(torch.float32)
-    return torch.where(greedy[..., None], one_hot, probs)
+    return torch.where(greedy[..., None], _one_hot(logits.argmax(dim=-1), V),
+                       probs)
 
 
 def sample_from_dist(keys: torch.Tensor, probs: torch.Tensor,
@@ -259,6 +266,81 @@ def sample_from_dist(keys: torch.Tensor, probs: torch.Tensor,
     keys: (..., 2); probs: (..., V); greedy: (...,) bool -> (...) int32."""
     drawn = prng.categorical(keys, torch.log(probs + 1e-30))
     return torch.where(greedy, probs.argmax(dim=-1), drawn).to(torch.int32)
+
+
+def rejection_choose(base_keys, pos_eff, drafts, q_dists, p_dists, greedy,
+                     n_valid):
+    """Standard speculative rejection sampling, vectorised per lane.
+
+    drafts: (B, K) proposal tokens with proposal dists ``q_dists``
+    (B, K, V); ``p_dists``: (B, K+1, V) target dists for every slot.
+    Draft j is accepted iff ``u_j * q_j(d_j) < p_j(d_j)`` with u_j ~
+    U[0, 1) keyed on the token's absolute slot index (SALT_ACCEPT); the
+    token at the first rejected slot is drawn from the renormalised
+    residual ``max(p - q, 0)`` (SALT_BONUS), falling back to p when the
+    residual vanishes (q == p); slot K has q = 0, so its "residual" is
+    the plain bonus draw from p.  The emitted-token marginal at every
+    consumed slot equals p exactly; greedy lanes (one-hot dists) accept
+    iff the draft is the argmax and correct with the argmax.
+
+    Returns ``(n_acc (B,) int32 accepted-prefix length, capped at
+    max(n_valid - 1, 0) so the bonus slot stays in range, cand_out
+    (B, K+1) int32 the would-be emitted token per slot)``."""
+    B, spec_k = drafts.shape
+    K1 = spec_k + 1
+    V = p_dists.shape[-1]
+    d = drafts.long()[..., None]
+    p_d = p_dists[:, :spec_k].gather(2, d)[..., 0]
+    q_d = q_dists.gather(2, d)[..., 0]
+    j = torch.arange(K1, dtype=torch.int32, device=drafts.device)[None, :]
+    u = uniform_lanes(event_keys(base_keys, pos_eff[:, None] + 1
+                                 + j[:, :spec_k], SALT_ACCEPT))
+    accept = u * q_d < p_d
+    n_acc = torch.cumprod(accept.to(torch.int32), dim=1).sum(dim=1)
+    n_acc = torch.minimum(n_acc, (n_valid - 1).clamp_min(0)).to(torch.int32)
+    q_ext = torch.cat([q_dists, q_dists.new_zeros(B, 1, V)], dim=1)
+    resid = (p_dists - q_ext).clamp_min(0.0)
+    rsum = resid.sum(dim=-1, keepdim=True)
+    resid = torch.where(rsum > 1e-9, resid / rsum.clamp_min(1e-30), p_dists)
+    corr = sample_from_dist(event_keys(base_keys, pos_eff[:, None] + 1 + j,
+                                       SALT_BONUS),
+                            resid, greedy[:, None].expand(B, K1))
+    d_ext = torch.cat([drafts, drafts.new_zeros(B, 1)], dim=1)
+    cand_out = torch.where(j < n_acc[:, None], d_ext, corr)
+    return n_acc, cand_out.to(torch.int32)
+
+
+def ngram_propose(hist, positions, *, k: int, n: int = 2):
+    """Prompt-lookup drafting (drafter-free speculation).
+
+    Match the n-token suffix ending at ``positions`` against every earlier
+    window of the sequence history and propose the k tokens that followed
+    the MOST RECENT match; with no match (or too little history) repeat
+    the current last token.  hist: (B, S) int32, ``hist[b, i]`` = i-th
+    sequence token, valid through ``positions[b]``; returns (B, k) int32.
+    """
+    B, S = hist.shape
+    dev = hist.device
+    pos = positions.long()
+    last = hist.gather(1, pos.clamp(0, S - 1)[:, None])
+    nw = S - n
+    if nw <= 0:
+        return last.expand(B, k).to(torch.int32)
+    windows = torch.stack([hist[:, j:nw + j] for j in range(n)], dim=-1)
+    suf_idx = (pos[:, None] - (n - 1)
+               + torch.arange(n, device=dev)[None, :]).clamp(0, S - 1)
+    suffix = hist.gather(1, suf_idx)
+    starts = torch.arange(nw, device=dev)
+    match = (windows == suffix[:, None, :]).all(dim=-1)
+    # the window must END strictly before the suffix itself (start <=
+    # pos - n), which also keeps its continuation a known token
+    match &= starts[None, :] <= pos[:, None] - n
+    best = torch.where(match, starts[None, :], -1).amax(dim=1)
+    cont_idx = torch.minimum(best[:, None] + n
+                             + torch.arange(k, device=dev)[None, :],
+                             pos[:, None])
+    drafts = hist.gather(1, cont_idx.clamp(0, S - 1))
+    return torch.where(best[:, None] >= 0, drafts, last).to(torch.int32)
 
 
 # ---------------------------------------------------------------------------
@@ -445,16 +527,18 @@ class Model:
         return self._head(params, x), cache
 
     def decode_step_paged(self, params, cache, tokens, positions,
-                          block_tables):
+                          block_tables, plan_lanes: int | None = None):
         """One token per lane over the paged pool (updated in place).
-        tokens/positions: (B,) int32; block_tables: (B, T) int32."""
+        tokens/positions: (B,) int32; block_tables: (B, T) int32.
+        ``plan_lanes`` pins the decode kernels' split plan to that of so
+        many lanes (``decode_verify_paged``'s fold)."""
         self._no_decode()
         cfg, plan = self.cfg, self.plan
         x = self._embed_inputs(params, tokens)
         for i in range(cfg.num_layers):
             x, _ = block_decode_paged(x, _layer(params["layers"], i),
                                       _layer(cache, i), positions,
-                                      block_tables, cfg, plan)
+                                      block_tables, cfg, plan, plan_lanes)
         x = _norm(x, params["final_norm"], cfg)
         return self._head(params, x), cache
 
@@ -540,6 +624,166 @@ class Model:
             ems.append(emitted)
         return (torch.stack(outs), torch.stack(ems), logits, tuple(state),
                 cache)
+
+    def decode_verify_paged(self, params, cache, tokens, positions,
+                            block_tables, n_valid):
+        """Target forward over Q candidate tokens per lane in ONE paged
+        pass (speculative verify): the current input token plus K drafts,
+        token i at absolute position ``positions[b] + i``.
+
+        The Q candidates fold into the lane axis: candidate i becomes a
+        pseudo-lane at position ``positions[b] + i`` sharing lane b's
+        block-table row, and all B * Q run through ``decode_step_paged``
+        verbatim, so kernel 2 (kernel 4 stripe by stripe on a sharded
+        pool) carries verify.  All Q keys are written into the pool
+        before the (position-masked) attention reads it, so candidate i
+        sees candidates < i causally.  The fold pins the decode kernels'
+        split plan to the un-folded batch's (``plan_lanes=B``): a
+        candidate's attention then has the bits of a B-lane decode step
+        at its position, where the plan of B * Q lanes would split the
+        walk otherwise and round differently.
+
+        Tokens at index >= ``n_valid[b]`` are routed to the parking block
+        (their logits are garbage; callers ignore them).  Returns (logits
+        (B, Q, V_pad), ``logits[b, i]`` predicting position ``positions[b]
+        + i + 1``, and the cache)."""
+        B, Q = tokens.shape
+        j = torch.arange(Q, dtype=torch.int32, device=tokens.device)
+        valid = j[None, :] < n_valid[:, None]
+        pos = torch.where(valid, positions[:, None] + j[None, :], 0)
+        tab = torch.where(valid[..., None], block_tables[:, None, :], 0)
+        logits, cache = self.decode_step_paged(
+            params, cache, tokens.reshape(B * Q), pos.reshape(B * Q),
+            tab.reshape(B * Q, tab.shape[-1]), plan_lanes=B)
+        return logits.reshape(B, Q, logits.shape[-1]), cache
+
+    def spec_round(self, drafter, params, cache, d_params, d_cache, hist,
+                   tokens, positions, active, budgets, block_tables,
+                   eos_ids, temps, top_ks, base_keys, *, spec_k: int,
+                   max_len: int, ngram: int = 2):
+        """One live round of ``decode_spec_paged``: propose ``spec_k``
+        drafts per lane (``ngram_propose`` over ``hist``, or ``spec_k``
+        decode steps of ``drafter`` over ``d_cache`` plus the backfill
+        step), verify the current token and the drafts in one target pass
+        (``decode_verify_paged``), choose the accepted prefix and one
+        corrected or bonus token (``rejection_choose``; greedy lanes,
+        ``temps <= 0``, take one-hot dists), and advance the lane state
+        ``tokens``, ``positions``, ``active``, ``budgets`` and ``hist`` IN
+        PLACE by the emitted run.  ``base_keys`` are ``lane_keys`` of the
+        lane seeds.  The pool and the draft pool are written in place too.
+        Allocates
+        on the device only and never reads back, so a CUDA graph can
+        capture it (``serving.graphs``).  Inactive lanes decode parked
+        (position 0, table row 0) and emit nothing.  Returns ``(cand_out
+        (B, K+1), emit (B, K+1) bool, n_acc (B,))``."""
+        V = self.cfg.vocab_size
+        B, K1 = tokens.shape[0], spec_k + 1
+        greedy = temps <= 0.0
+        pos_eff = torch.where(active, positions, 0)
+        bt_eff = torch.where(active[:, None], block_tables, 0)
+
+        # ---- propose spec_k draft tokens (+ their proposal dists q)
+        if drafter is None:
+            drafts = ngram_propose(hist, pos_eff, k=spec_k, n=ngram)
+            q_dists = _one_hot(drafts, V)
+        else:
+            cur, ds, qs = tokens, [], []
+            for j in range(spec_k):
+                p_j = (pos_eff + j).clamp_max(max_len - 1)
+                lg, _ = drafter.decode_step_paged(d_params, d_cache, cur, p_j,
+                                                  bt_eff)
+                qd = sampling_dist(lg[:, :V], temps, top_ks)
+                cur = sample_from_dist(
+                    event_keys(base_keys, pos_eff + j + 1, SALT_DRAFT), qd,
+                    greedy)
+                ds.append(cur)
+                qs.append(qd)
+            # backfill d_K so the drafter cache has no hole next round
+            drafter.decode_step_paged(
+                d_params, d_cache, cur,
+                (pos_eff + spec_k).clamp_max(max_len - 1), bt_eff)
+            drafts = torch.stack(ds, dim=1)
+            q_dists = torch.stack(qs, dim=1)
+
+        # ---- verify all spec_k + 1 positions in one target pass
+        cand_in = torch.cat([tokens[:, None], drafts], dim=1)
+        n_valid = torch.where(active, (max_len - pos_eff).clamp(0, K1), 0)
+        logits, _ = self.decode_verify_paged(params, cache, cand_in, pos_eff,
+                                             bt_eff, n_valid)
+        logits = logits[..., :V]
+
+        # ---- the accepted prefix + correction/bonus
+        p_dists = sampling_dist(logits, temps[:, None].expand(B, K1),
+                                top_ks[:, None].expand(B, K1))
+        n_acc, cand_out = rejection_choose(base_keys, pos_eff, drafts,
+                                           q_dists, p_dists, greedy, n_valid)
+
+        # ---- stop flags, replicating the horizon step's semantics: slot
+        # j is this round's (j+1)-th emission
+        j = torch.arange(K1, dtype=torch.int32, device=tokens.device)[None, :]
+        stop = ((budgets[:, None] - (j + 1) <= 0)
+                | (cand_out == eos_ids[:, None])
+                | (pos_eff[:, None] + j + 1 >= max_len))
+        n_stop = torch.cumsum(stop.to(torch.int32), dim=1)
+        stopped_before = (n_stop - stop.to(n_stop.dtype)) > 0
+        emit = active[:, None] & (j <= n_acc[:, None]) & ~stopped_before
+        done = (emit & stop).any(dim=1)
+        m = emit.sum(dim=1).to(torch.int32)
+
+        # ---- advance the lane state by the emitted run (a prefix of the
+        # slots): hist[pos_eff + 1 + i] = cand_out[i] for i < m, the
+        # reference's dropping scatter as a gather, so no write is lost
+        # or repeated
+        last_tok = cand_out.gather(1, (m - 1).clamp_min(0).long()[:, None])
+        S = hist.shape[1]
+        off = (torch.arange(S, device=hist.device)[None, :]
+               - pos_eff.long()[:, None] - 1)
+        take = (off >= 0) & (off < m[:, None])
+        hist.copy_(torch.where(take, cand_out.gather(
+            1, off.clamp(0, spec_k)), hist))
+        tokens.copy_(torch.where(m > 0, last_tok[:, 0], tokens))
+        positions.add_(m)
+        budgets.sub_(m)
+        active.copy_(active & ~done)
+        return cand_out, emit, n_acc
+
+    def decode_spec_paged(self, drafter, params, cache, d_params, d_cache,
+                          hist, tokens, positions, block_tables, active,
+                          budgets, eos_ids, temps, top_ks, seeds, *,
+                          num_steps: int, spec_k: int, max_len: int,
+                          ngram: int = 2):
+        """Speculative decode over the paged pool: ``num_steps`` rounds of
+        ``spec_round`` (drafts from ``drafter``, a paired smaller Model
+        whose paged cache ``d_cache`` shares this pool's block tables, or
+        with ``drafter`` None from n-gram prompt lookup over ``hist``),
+        every lane sampled from ``temps``/``top_ks`` under ``seeds``
+        (greedy lanes, ``temps <= 0``, take one-hot dists, so acceptance
+        is exact argmax agreement and the stream is
+        ``decode_multi_paged``'s).
+
+        Rejected tails need no KV rollback: position p is the next write
+        slot, so a stale slot is rewritten when that position is consumed
+        again; positions, budgets and the history advance by emitted
+        tokens only.  Blocks for spec_k + 1 writes per round must be
+        allocated (``ensure_append_blocks`` with the padded horizon).
+        Where the reference skips a round in which every lane has drained
+        (``lax.cond``), this loop runs it parked: nothing is emitted.
+
+        The inputs are not modified; the pools are written in place.
+        Returns ``(out_tokens (N, B, spec_k+1), emitted (N, B, spec_k+1)
+        bool, n_acc (N, B) accepted drafts per round, (tokens, positions,
+        active, budgets) final state, cache, d_cache, hist)``."""
+        self._no_decode()
+        state = [t.clone() for t in (tokens, positions, active, budgets)]
+        hist = hist.clone()
+        base_keys = lane_keys(seeds)
+        outs = [self.spec_round(drafter, params, cache, d_params, d_cache,
+                                hist, *state, block_tables, eos_ids, temps,
+                                top_ks, base_keys, spec_k=spec_k,
+                                max_len=max_len, ngram=ngram)
+                for _ in range(num_steps)]
+        cand, emitted, n_acc = (torch.stack(x) for x in zip(*outs))
+        return (cand, emitted, n_acc, tuple(state), cache, d_cache, hist)
 
     # ----- cache -----
     def init_cache(self, batch: int, seq_len: int, dtype=torch.bfloat16,

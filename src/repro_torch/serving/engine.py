@@ -37,28 +37,41 @@ depends on its logits and that key alone, never on preemption, horizon
 splits or capture (a preempted request's recomputed logits may still
 differ in the last bits in bf16).
 
-``graphs=True`` (the default) runs the decode horizon, the chunk tick and
-the slot step as CUDA graphs captured once per shape and replayed
-(``serving.graphs``), the counterpart of the reference's jitted steps; on
-the CPU the same steps run eagerly.  ``graphs=False`` runs them eagerly on
-the card too, as ``jax.disable_jit`` does for the reference.
+Speculative decode (``draft="ngram"``, or a model drafter registered with
+``add_drafter`` and chosen with ``set_drafter``): each decode launch runs
+``horizon`` verify rounds, each proposing ``spec_k`` drafts per lane,
+verifying them with the current token in one target pass (the candidates
+folded into the decode step's lanes, so kernel 2 carries verify) and
+emitting the accepted prefix plus one corrected or bonus token; one host
+sync drains up to ``horizon * (spec_k + 1)`` tokens a lane.  A model
+drafter's KV pool shares the target pool's block tables; its prompts are
+prefilled beside the target's.
+
+``graphs=True`` (the default) runs the decode horizon, the speculative
+round, the chunk tick and the slot step as CUDA graphs captured once per
+shape and replayed (``serving.graphs``), the counterpart of the
+reference's jitted steps; on the CPU the same steps run eagerly.
+``graphs=False`` runs them eagerly on the card too, as ``jax.disable_jit``
+does for the reference.
 
 Ported so far: greedy and sampled requests; variants; shards > 1 with
-whole-prompt prefill for the dense families.  Not ported yet (see
-ROADMAP.md): chunked prefill and prefix sharing at shards > 1, MoE at
-shards > 1 (expert parallelism), speculative decode, the pause knob, and
-the resilience paths (deadlines, retries, quarantine, crash).
+whole-prompt prefill for the dense families; speculative decode.  Not
+ported yet (see ROADMAP.md): chunked prefill and prefix sharing at shards
+> 1, MoE at shards > 1 (expert parallelism), the pause knob, and the
+resilience paths (deadlines, retries, quarantine, crash).
 """
 from __future__ import annotations
 
 import dataclasses
 import time
+import weakref
 from collections import deque
 from dataclasses import dataclass, field
 
 import numpy as np
 import torch
 
+from repro_torch.configs.drafters import check_draft_pair
 from repro_torch.core.traces import _stable_seed
 from repro_torch.models.transformer import (SALT_SAMPLE, Model, event_keys,
                                             lane_keys, sample_from_dist,
@@ -91,6 +104,11 @@ class EngineStats:
     rejected: int = 0            # contexts that can never fit max_seq
     host_syncs: int = 0          # device->host readbacks on the serving path
     decode_syncs: int = 0        # the subset issued by decode launches
+    # speculative decode: one verify pass emits a whole accepted run, so
+    # tokens per pass (and per sync) is what speculation buys
+    draft_tokens: int = 0        # drafts proposed across verify passes
+    accepted_tokens: int = 0     # drafts accepted (bonus tokens excluded)
+    verify_passes: int = 0       # target verify passes (lane-rounds) run
     submitted: int = 0
     n_steps: int = 0             # recorded (working) scheduler steps
     step_time_total: float = 0.0  # running sum of freq-scaled step times
@@ -117,6 +135,17 @@ class EngineStats:
                 good += len(r.output)
         self._good_acc[key] = (len(self.completed), good, t_max)
         return good / t_max
+
+    @property
+    def accepted_per_sync(self) -> float:
+        """Accepted draft tokens per decode sync: the free tokens each
+        host round trip carried on top of the one-per-pass baseline."""
+        return self.accepted_tokens / max(self.decode_syncs, 1)
+
+    @property
+    def acceptance_rate(self) -> float:
+        """Fraction of proposed draft tokens the target accepted."""
+        return self.accepted_tokens / max(self.draft_tokens, 1)
 
 
 def shard_compat(shards: int, cfg) -> str | None:
@@ -161,7 +190,8 @@ class Engine:
                  paged: bool | None = None, block_size: int = 16,
                  n_blocks: int | None = None, horizon: int = 1,
                  prefill_chunk: int | None = None,
-                 prefix_share: bool = False, seed: int = 0,
+                 prefix_share: bool = False, spec_k: int = 4,
+                 draft: str | None = None, ngram: int = 2, seed: int = 0,
                  graphs: bool = True):
         self.model = model
         self.variants: dict[str, tuple[Model, dict]] = {"full": (model,
@@ -185,6 +215,24 @@ class Engine:
         if (prefill_chunk or prefix_share) and not self.paged:
             raise ValueError("chunked prefill / prefix sharing require the "
                              "paged serving mode")
+        # speculative decode: ``draft`` picks the proposer ("ngram" =
+        # prompt lookup, or a model drafter registered by add_drafter);
+        # spec_k drafts are verified per target pass.  draft=None keeps
+        # the plain horizon decode
+        if draft is not None and not self.paged:
+            raise ValueError("speculative decoding requires the paged "
+                             "serving mode")
+        if draft is not None and spec_k < 1:
+            raise ValueError(f"spec_k must be >= 1 with a drafter, "
+                             f"got {spec_k}")
+        if draft is not None and draft != "ngram":
+            raise ValueError("model drafters are registered via "
+                             "add_drafter()/set_drafter(); the constructor "
+                             "only accepts draft='ngram' or None")
+        self.spec_k = spec_k
+        self.draft_name = draft
+        self.ngram = ngram
+        self.drafters: dict[str, tuple[Model, dict]] = {}
         self.seed = seed
         self.graphs = graphs
         self._stream = None           # the side stream captures run on
@@ -214,6 +262,7 @@ class Engine:
         # step programs by (path, variant, shards, shape, sampled); they
         # captured the old parameters and pool, so they go with them
         self.programs: dict[tuple, G.Program] = {}
+        self._bind_spec()
 
     @property
     def captured(self) -> bool:
@@ -221,17 +270,68 @@ class Engine:
         device, and only with ``graphs=True``."""
         return self.graphs and self.model.device.type == "cuda"
 
-    def _program(self, key: tuple, make) -> G.Program:
+    def _program(self, key: tuple, make, tensors=None) -> G.Program:
         """The step program under ``key``, built by ``make(tensors,
-        capture=..., stream=...)`` on first use."""
+        capture=..., stream=...)`` on first use.  ``tensors(engine)`` picks
+        what the program works on, by default the active variant's
+        (parameters, pool).  The program reaches the engine through a weak
+        reference: the engine holds its programs, so a strong one would
+        keep a dropped engine's pools (GBs at full width) alive until the
+        cyclic collector ran."""
         prog = self.programs.get(key)
         if prog is None:
             if self.captured and self._stream is None:
                 self._stream = torch.cuda.Stream(self.model.device)
-            prog = make(lambda: (self.params, self.pool.cache),
-                        capture=self.captured, stream=self._stream)
+            pick = tensors or (lambda eng: (eng.params, eng.pool.cache))
+            ref = weakref.ref(self)
+            prog = make(lambda: pick(ref()), capture=self.captured,
+                        stream=self._stream)
             self.programs[key] = prog
         return prog
+
+    # -- speculative decode (drafter lifecycle) ----------------------------
+    @property
+    def _spec_on(self) -> bool:
+        return self.paged and self.spec_k > 0 and self.draft_name is not None
+
+    def _bind_spec(self) -> None:
+        """(Re)bind the speculative path to the current target model and
+        drafter choice: attach a fresh (cold) drafter pool to the paged
+        pool, or detach it, and drop the speculative programs and the
+        drafter's chunk ticks, which captured the old ones."""
+        self._d_model = self._d_params = None
+        self.programs = {k: v for k, v in self.programs.items()
+                         if k[0] not in ("spec", "draft tick")}
+        if not self._spec_on or self.draft_name == "ngram":
+            if self.paged:
+                self.pool.detach_draft()
+            return
+        d_model, d_params = self.drafters[self.draft_name]
+        check_draft_pair(self.model.cfg, d_model.cfg)
+        self.pool.attach_draft(d_model)
+        self._d_model, self._d_params = d_model, d_params
+
+    def add_drafter(self, name: str, model: Model, params: dict) -> None:
+        """Register a small same-tokenizer model as a drafter choice
+        (pairing is validated: shared vocab, paged-servable)."""
+        check_draft_pair(self.model.cfg, model.cfg)
+        self.drafters[name] = (model, params)
+
+    def set_drafter(self, name: str | None) -> None:
+        """Switch the speculation proposer mid-flight: None (off),
+        "ngram" (prompt lookup), or a registered model drafter.
+
+        In-flight requests keep their target KV: speculation changes how
+        candidates are proposed, never what the target accepts, so
+        nothing is preempted.  A freshly attached model drafter starts
+        with a cold draft pool, which costs acceptance until lanes turn
+        over, not correctness."""
+        if name == self.draft_name:
+            return
+        if name is not None and name != "ngram" and name not in self.drafters:
+            raise KeyError(f"unknown drafter {name!r}")
+        self.draft_name = name
+        self._bind_spec()
 
     def _unported_at(self, n: int) -> str | None:
         """What serving at ``n`` > 1 shards would need that is not ported
@@ -313,10 +413,12 @@ class Engine:
             return None
         if not self.paged:
             return "sharded serving requires the paged mode"
-        for name, (m, _) in self.variants.items():
-            err = shard_compat(n, m.cfg)
-            if err is not None:
-                return f"variant {name!r}: {err}"
+        for kind, reg in (("variant", self.variants),
+                          ("drafter", self.drafters)):
+            for name, (m, _) in reg.items():
+                err = shard_compat(n, m.cfg)
+                if err is not None:
+                    return f"{kind} {name!r}: {err}"
         return self._unported_at(n)
 
     def set_shards(self, n: int) -> None:
@@ -343,10 +445,13 @@ class Engine:
         in_flight = set(self.active) | set(self.prefilling)
         if in_flight:
             self._preempt(sorted(in_flight, reverse=True))
-        self.variants = {
-            k: (Model(m.cfg, dataclasses.replace(
+        def rebuild(reg: dict) -> dict:
+            return {k: (Model(m.cfg, dataclasses.replace(
                 plan, quantize_serve=m.plan.quantize_serve), m.device), p)
-            for k, (m, p) in self.variants.items()}
+                for k, (m, p) in reg.items()}
+
+        self.variants = rebuild(self.variants)
+        self.drafters = rebuild(self.drafters)
         self.stats.shard_swaps += 1
         self._bind(self.variants[self.knobs.variant][0])
 
@@ -384,6 +489,9 @@ class Engine:
         req.output.append(tok)
         if req.first_token_s is None:
             req.first_token_s = now
+        if self._spec_on:
+            lane = self.pool.lane_of[req.req_id]
+            self.pool.set_hist_token(lane, int(self.pool.lengths[lane]), tok)
         if (len(req.output) >= req.max_new_tokens
                 or (req.eos_id is not None and tok == req.eos_id)):
             self._finish(req, now, "accepted")
@@ -505,8 +613,21 @@ class Engine:
             nxt = self._next_from_prefill(logits, reqs, lengths)
             self.stats.prefill_batches += 1
             self.stats.host_syncs += 1
+            d_cache = None
+            if self._d_model is not None:
+                # the drafter's KV for the same rows, scattered into the
+                # SAME blocks (the draft pool shares this pool's tables)
+                _, d_cache = self._d_model.prefill_ragged(
+                    self._d_params, self._to_device(tokens),
+                    self._to_device(lengths))
             for i, req in enumerate(reqs):
-                self.pool.insert(req.req_id, cache, i, int(lengths[i]))
+                lane = self.pool.insert(req.req_id, cache, i,
+                                        int(lengths[i]))
+                if self._spec_on:
+                    self.pool.set_hist(lane, self._context(req))
+                if d_cache is not None:
+                    self.pool.insert_draft(req.req_id, d_cache, i,
+                                           int(lengths[i]))
                 self.stats.prefill_tokens += int(lengths[i])
                 self._activate(req, int(nxt[i]), now)
 
@@ -538,6 +659,8 @@ class Engine:
             if lane is None:
                 break
             req = self.queue.popleft()
+            if self._spec_on:
+                self.pool.set_hist(lane, ctx)
             self.prefilling[req.req_id] = req
             self._prefill_pos[req.req_id] = \
                 len(shared) * self.pool.block_size
@@ -572,10 +695,20 @@ class Engine:
             ("tick", self.knobs.variant, self.shards, b_pad, c_pad, width),
             lambda tensors, **kw: G.chunk_program(self.model, tensors, b_pad,
                                                   c_pad, width, **kw))
-        for name, a in (("tokens", tokens), ("starts", starts),
-                        ("lens", lens), ("tables", tables)):
-            prog.bufs[name].copy_(torch.from_numpy(a))
-        prog.run()
+        progs = [prog]
+        if self._d_model is not None:
+            # stream the same chunk through the drafter into its pool
+            d_model, name = self._d_model, self.draft_name
+            progs.append(self._program(
+                ("draft tick", name, self.shards, b_pad, c_pad, width),
+                lambda tensors, **kw: G.chunk_program(d_model, tensors, b_pad,
+                                                      c_pad, width, **kw),
+                lambda eng: (eng._d_params, eng.pool.draft_cache)))
+        for p in progs:
+            for name, a in (("tokens", tokens), ("starts", starts),
+                            ("lens", lens), ("tables", tables)):
+                p.bufs[name].copy_(torch.from_numpy(a))
+            p.run()
         self.stats.prefill_batches += 1
         nxt = None
         if any(self._prefill_pos[r.req_id] + t == len(ctx)
@@ -688,6 +821,102 @@ class Engine:
         self.stats.decode_tokens += produced
         return produced
 
+    def _decode_spec(self, now: float) -> int:
+        """Speculative decode: ``horizon`` runs of the speculative round
+        program (captured: replays of one CUDA graph), each advancing every
+        lane by its accepted drafts + 1; one host sync drains up to
+        ``horizon * (spec_k + 1)`` tokens a lane, with the flags and
+        accepted counts, in one readback."""
+        budgets = {rid: req.max_new_tokens - len(req.output)
+                   for rid, req in self.active.items()}
+        k = self.spec_k
+        n_eff = self.horizon
+        # each round may write KV up to spec_k slots past the emitted run,
+        # so pad the per-request budgets by spec_k for block reservation
+        victims = self.pool.ensure_append_blocks(
+            sorted(self.active), horizon=n_eff * (k + 1),
+            budgets={rid: b + k for rid, b in budgets.items()})
+        if victims:
+            self._preempt(victims)
+        if not self.active:
+            return 0
+        width = self.pool.n_lanes
+        active_mask = np.zeros(width, bool)
+        budget_arr = np.zeros(width, np.int32)
+        eos_arr = np.full(width, -1, np.int32)
+        for rid, req in self.active.items():
+            lane = self.pool.lane_of[rid]
+            active_mask[lane] = True
+            budget_arr[lane] = budgets[rid]
+            if req.eos_id is not None:
+                eos_arr[lane] = req.eos_id
+        T = self.pool.blocks_per_seq
+        hist = self.pool.hist_dev()
+        d_model = self._d_model
+        prog = self._program(
+            ("spec", self.knobs.variant, self.shards, width, T, k,
+             self.draft_name),
+            lambda tensors, **kw: G.spec_program(
+                self.model, d_model, tensors, width, T, hist.shape[1],
+                spec_k=k, max_len=self.max_seq, ngram=self.ngram, **kw),
+            lambda eng: (eng.params, eng.pool.cache, eng._d_params,
+                         eng.pool.draft_cache))
+        b = prog.bufs
+        b["tokens"].copy_(self.pool.last_tokens_dev())
+        b["positions"].copy_(self.pool.positions())
+        b["tables"].copy_(self.pool.tables())
+        b["hist"].copy_(hist)
+        for name, a in (("active", active_mask), ("budgets", budget_arr),
+                        ("eos", eos_arr)):
+            b[name].copy_(torch.from_numpy(a))
+        G.set_sampling(b, *self._sampling(
+            {self.pool.lane_of[rid]: req for rid, req in self.active.items()}))
+        toks, em, acc = G.run_spec(prog, n_eff)
+        # the launch's single host sync: tokens, flags and accepted counts
+        # in one readback
+        drained = torch.cat([toks.flatten(), em.flatten().to(torch.int32),
+                             acc.flatten()]).cpu().numpy()
+        n = toks.numel()
+        toks_h = drained[:n].reshape(toks.shape)
+        em_h = drained[n:2 * n].reshape(toks.shape).astype(bool)
+        acc_h = drained[2 * n:].reshape(acc.shape)
+        self.stats.host_syncs += 1
+        self.stats.decode_syncs += 1
+        self.pool.adopt_device("positions", b["positions"])
+        self.pool.adopt_device("last_tokens", b["tokens"])
+        self.pool.adopt_device("hist", b["hist"])
+        produced = 0
+        finished = []
+        for rid, req in list(self.active.items()):
+            lane = self.pool.lane_of[rid]
+            em_l = em_h[:, lane, :]                          # (N, K+1)
+            # row-major boolean drain keeps round-then-slot order
+            new = [int(t) for t in toks_h[:, lane, :][em_l]]
+            cnt = len(new)
+            # a verify pass ran for this lane iff its slot 0 emitted
+            rounds = int(em_l[:, 0].sum())
+            self.stats.verify_passes += rounds
+            self.stats.draft_tokens += k * rounds
+            self.stats.accepted_tokens += int(
+                np.minimum(em_l.sum(axis=1), acc_h[:, lane]).sum())
+            if cnt:
+                base = int(self.pool.lengths[lane])
+                self.pool.token_hist[lane, base + 1: base + 1 + cnt] = new
+                req.output.extend(new)
+                produced += cnt
+                self.pool.lengths[lane] += cnt
+                self.pool.last_tokens[lane] = req.output[-1]
+            full = int(self.pool.lengths[lane]) + 1 > self.max_seq
+            if (len(req.output) >= req.max_new_tokens
+                    or (req.eos_id is not None
+                        and req.output[-1] == req.eos_id) or full):
+                finished.append(rid)
+        for rid in finished:
+            self._finish(self.active.pop(rid), now, "accepted")
+            self.pool.release(rid)
+        self.stats.decode_tokens += produced
+        return produced
+
     def _decode_slots(self, now: float) -> int:
         """One decode step over every slot (parked slots decode at
         position 0, which the next insert overwrites), through the slot
@@ -734,8 +963,9 @@ class Engine:
 
     def step(self, now: float | None = None) -> int:
         """One scheduler iteration: admit, advance chunked prefills by one
-        chunk, then one decode launch (``horizon`` steps in paged mode, one
-        in slot mode).  Returns the number of decode tokens produced."""
+        chunk, then one decode launch (``horizon`` steps in paged mode,
+        ``horizon`` verify rounds with speculation on, one step in slot
+        mode).  Returns the number of decode tokens produced."""
         t0 = time.perf_counter()
         now = now if now is not None else t0
         self._admit(now)
@@ -743,8 +973,12 @@ class Engine:
             if self.paged and self.prefill_chunk else 0
         produced = 0
         if self.active:
-            produced = self._decode_paged(now) if self.paged \
-                else self._decode_slots(now)
+            if self._spec_on:
+                produced = self._decode_spec(now)
+            elif self.paged:
+                produced = self._decode_paged(now)
+            else:
+                produced = self._decode_slots(now)
         if produced or prefilled:
             # simulated frequency knob: a capped clock stretches wall time
             self.stats.record_step((time.perf_counter() - t0)

@@ -19,8 +19,17 @@ the host.
   device; the engine then reads them back once.  One graph serves every
   horizon.  Shards 2 and 4 (kernel 4 and ``combine_lse``) take the same
   path.
+* The speculative round (``spec_program``, ``run_spec``): one live round of
+  ``Model.decode_spec_paged`` (the drafts, from n-gram lookup or the
+  drafter's ``spec_k`` decode steps and its backfill step, the verify
+  pass, the rejection sampling, the lane state and history update)
+  captured once and replayed ``horizon`` times, each replay's
+  (K+1) candidates, flags and accepted count copied into row i of the
+  (N, B, K+1) / (N, B) outputs on the device.
 * The chunk tick (``chunk_program``): ``Model.prefill_chunk_paged`` at one
-  (rows, chunk, table) shape, as the reference's jit is keyed by shape.
+  (rows, chunk, table) shape, as the reference's jit is keyed by shape;
+  with a model drafter, the engine runs the drafter's tick as a second
+  program of the same shape over the draft pool.
 * The slot step (``slot_program``): ``Model.decode_step`` over the slot
   pool and the next-token choice.
 
@@ -76,7 +85,7 @@ def _leaves(tree):
     if isinstance(tree, (list, tuple)):
         for v in tree:
             yield from _leaves(v)
-    else:
+    elif tree is not None:
         yield tree
 
 
@@ -132,7 +141,7 @@ class Program:
         counters = _wrapper_counters()
         before = [getattr(fn, name) for fn, name in counters]
         graph = torch.cuda.CUDAGraph()
-        # a graph that dies during a capture (an engine left to the cyclic
+        # a graph that dies during a capture (a program left to the cyclic
         # collector) frees its memory pool, which invalidates the capture:
         # no collection until the capture has ended
         collecting = gc.isenabled()
@@ -233,6 +242,71 @@ def run_horizon(prog: Program, num_steps: int):
         toks[i].copy_(b["nxt"])
         ems[i].copy_(b["emitted"])
     return toks, ems
+
+
+def spec_program(model: Model, drafter: Model | None, tensors, lanes: int,
+                 width: int, hist_width: int, *, spec_k: int, max_len: int,
+                 ngram: int, capture: bool, stream=None) -> Program:
+    """One live round of speculative decode over ``lanes`` lanes, block
+    tables of ``width`` and histories of ``hist_width``: ``tensors()``
+    returns (params, pool, drafter params, draft pool), the drafter's
+    None for n-gram drafts; inputs ``tables``, ``eos`` and ``temps``/
+    ``top_ks``/``keys`` (greedy lanes at temperature 0, as the reference
+    runs them: one program serves greedy and sampled batches); lane
+    state ``tokens``, ``positions``,
+    ``active``, ``budgets`` and ``hist``, advanced in place by every
+    round; outputs ``cand`` (lanes, spec_k + 1), ``emit`` (the same,
+    bool) and ``n_acc`` (lanes,)."""
+    dev = model.device
+    i32 = torch.int32
+    bufs = {"tokens": _zeros(lanes, i32, dev),
+            "positions": _zeros(lanes, i32, dev),
+            "active": _zeros(lanes, torch.bool, dev),
+            "budgets": _zeros(lanes, i32, dev),
+            "eos": _zeros(lanes, i32, dev),
+            "tables": _zeros((lanes, width), i32, dev),
+            "hist": _zeros((lanes, hist_width), i32, dev),
+            "cand": _zeros((lanes, spec_k + 1), i32, dev),
+            "emit": _zeros((lanes, spec_k + 1), torch.bool, dev),
+            "n_acc": _zeros(lanes, i32, dev),
+            **_sampling_bufs(lanes, dev)}
+
+    def body():
+        params, cache, d_params, d_cache = tensors()
+        cand, emit, n_acc = model.spec_round(
+            drafter, params, cache, d_params, d_cache, bufs["hist"],
+            bufs["tokens"], bufs["positions"], bufs["active"],
+            bufs["budgets"], bufs["tables"], bufs["eos"], bufs["temps"],
+            bufs["top_ks"], bufs["keys"], spec_k=spec_k, max_len=max_len,
+            ngram=ngram)
+        bufs["cand"].copy_(cand)
+        bufs["emit"].copy_(emit)
+        bufs["n_acc"].copy_(n_acc)
+
+    source = drafter.cfg.name if drafter is not None else f"{ngram}-gram"
+    return Program(f"speculative round ({lanes} lanes, spec_k="
+                   f"{spec_k}, {source} drafts)", body, bufs, tensors,
+                   capture=capture, stream=stream)
+
+
+def run_spec(prog: Program, num_steps: int):
+    """``num_steps`` runs of a speculative round program, each round's
+    ``cand``, ``emit`` and ``n_acc`` copied on the device into row i of
+    ``(out_tokens (N, B, K+1), emitted (N, B, K+1), n_acc (N, B))``,
+    which it returns (nothing is read back)."""
+    b = prog.bufs
+    dev = b["cand"].device
+    toks = torch.empty((num_steps,) + tuple(b["cand"].shape),
+                       dtype=torch.int32, device=dev)
+    ems = torch.empty_like(toks, dtype=torch.bool)
+    accs = torch.empty((num_steps,) + tuple(b["n_acc"].shape),
+                       dtype=torch.int32, device=dev)
+    for i in range(num_steps):
+        prog.run()
+        toks[i].copy_(b["cand"])
+        ems[i].copy_(b["emit"])
+        accs[i].copy_(b["n_acc"])
+    return toks, ems, accs
 
 
 def chunk_program(model: Model, tensors, rows: int, chunk: int, width: int,

@@ -1,5 +1,5 @@
 """KV-cache pools for continuous batching (port of
-``repro.serving.kvcache``, without the drafter pool or fault injection).
+``repro.serving.kvcache``, without fault injection).
 
 ``PagedCachePool``: one global block pool per layer (leaves ``(L,
 n_blocks, block_size, K, hd)``), a free-list block allocator and a
@@ -20,12 +20,18 @@ so a same-wave duplicate waits and attaches instead of writing a copy.
 the recurrent state) per slot; the fallback for cache families the block
 pool cannot hold.
 
-The numpy arrays (tables, lengths, last tokens) are the source of truth;
-``tables()`` / ``positions()`` / ``last_tokens_dev()`` return persistent
-device copies that are built once and then updated in place, a row at a
-time, as the allocator mutates.  After a decode horizon the engine copies
-the loop's final device state into them with ``adopt_device``.  The pool itself
-is written in place (the reference donates it to a jitted scatter).
+For speculative decode the paged pool also keeps each lane's sequence
+history (``token_hist``, what n-gram drafting reads) and, with a model
+drafter attached, a drafter KV pool of the same block geometry that rides
+the same block tables and allocator (``attach_draft``).
+
+The numpy arrays (tables, lengths, last tokens, history) are the source of
+truth; ``tables()`` / ``positions()`` / ``last_tokens_dev()`` /
+``hist_dev()`` return persistent device copies that are built once and
+then updated in place, a row (or cell) at a time, as the allocator
+mutates.  After a decode horizon the engine copies the loop's final device
+state into them with ``adopt_device``.  The pool itself is written in
+place (the reference donates it to a jitted scatter).
 """
 from __future__ import annotations
 
@@ -139,12 +145,18 @@ class PagedCachePool:
         # distinct admissions that deferred to attach to an in-flight
         # prefill (counted by the engine once per waiting request)
         self.pending_share_waits = 0
+        # speculative decode: per-lane sequence history (token_hist[l, i] =
+        # i-th sequence token; width max_seq + 1 so the token AT max_seq's
+        # write position still has a slot) + optional drafter KV pool
+        self.token_hist = np.zeros((n_lanes, max_seq + 1), np.int32)
+        self.draft_cache: dict | None = None
         self._dev: dict[str, torch.Tensor] = {}       # device mirrors
 
     # -- device mirrors ----------------------------------------------------
     def _host_of(self, name: str) -> np.ndarray:
         return {"tables": self.block_tables, "positions": self.lengths,
-                "last_tokens": self.last_tokens}[name]
+                "last_tokens": self.last_tokens,
+                "hist": self.token_hist}[name]
 
     def _device(self, name: str) -> torch.Tensor:
         if name not in self._dev:
@@ -152,11 +164,16 @@ class PagedCachePool:
                 self._host_of(name).copy()).to(self.device)
         return self._dev[name]
 
-    def mirror_write(self, name: str, lane: int) -> None:
-        """Replay row ``lane`` of a host array into its device copy (a
-        copy not built yet is built whole on next access)."""
+    def mirror_write(self, name: str, lane: int,
+                     pos: int | None = None) -> None:
+        """Replay row ``lane`` (or cell ``(lane, pos)``) of a host array
+        into its device copy (a copy not built yet is built whole on next
+        access)."""
         dev = self._dev.get(name)
         if dev is None:
+            return
+        if pos is not None:
+            dev[lane, pos] = int(self._host_of(name)[lane, pos])
             return
         row = self._host_of(name)[lane]
         if np.ndim(row) == 0:
@@ -244,12 +261,15 @@ class PagedCachePool:
                 del self.pending_index[key]
 
     # -- request lifecycle -------------------------------------------------
-    def _scatter(self, prefill_cache: dict, blks: list, row: int) -> None:
+    def _scatter(self, prefill_cache: dict, blks: list, row: int,
+                 cache: dict | None = None) -> None:
         """Write row ``row`` of a layer-stacked prefill cache (leaves
-        ``(L, B, S_pad, K, hd)``) into the physical blocks ``blks``."""
+        ``(L, B, S_pad, K, hd)``) into the physical blocks ``blks`` of
+        ``cache`` (default: the pool's)."""
         n, bs = len(blks), self.block_size
         idx = torch.tensor(blks, dtype=torch.long, device=self.device)
-        for name, dst in self.cache["attn"].items():
+        cache = self.cache if cache is None else cache
+        for name, dst in cache["attn"].items():
             seq = prefill_cache["attn"][name][:, row]       # (L, S_pad, K, hd)
             need = n * bs
             if seq.shape[1] < need:
@@ -375,3 +395,39 @@ class PagedCachePool:
     def set_last_token(self, lane: int, tok: int) -> None:
         self.last_tokens[lane] = tok
         self.mirror_write("last_tokens", lane)
+
+    # -- speculative decode: sequence history + drafter KV ------------------
+    def hist_dev(self) -> torch.Tensor:
+        """Per-lane sequence history, device-resident (B, max_seq + 1)."""
+        return self._device("hist")
+
+    def set_hist(self, lane: int, tokens: list) -> None:
+        """Install a lane's known sequence tokens (the prefill context).
+        The spec loop appends emissions on the device and hands the result
+        back through ``adopt_device("hist", ...)``."""
+        row = np.zeros(self.token_hist.shape[1], np.int32)
+        row[: len(tokens)] = tokens
+        self.token_hist[lane] = row
+        self.mirror_write("hist", lane)
+
+    def set_hist_token(self, lane: int, pos: int, tok: int) -> None:
+        self.token_hist[lane, pos] = tok
+        self.mirror_write("hist", lane, pos)
+
+    def attach_draft(self, model: Model, dtype=torch.bfloat16) -> None:
+        """Allocate a drafter KV pool with the SAME block geometry, so the
+        drafter rides this pool's block tables and allocator: every block
+        id resolves to the request's slots in both caches at once."""
+        self.draft_cache = None          # free the old pool first
+        self.draft_cache = model.init_paged_cache(self.n_blocks,
+                                                  self.block_size, dtype)
+
+    def detach_draft(self) -> None:
+        self.draft_cache = None
+
+    def insert_draft(self, req_id: int, prefill_cache: dict, row: int,
+                     prompt_len: int) -> None:
+        """Scatter the DRAFTER's prefill KV for an already-admitted
+        request into the drafter pool at the request's existing blocks."""
+        blks = self.blocks_of[req_id][: self.blocks_for(prompt_len)]
+        self._scatter(prefill_cache, blks, row, self.draft_cache)

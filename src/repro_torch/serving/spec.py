@@ -44,15 +44,13 @@ def serving_plan(shards: int = 1, **kw) -> ShardPlan:
 class EngineSpec:
     """Declarative description of one serving engine.
 
-    ``variants`` are ``(name, ArchConfig)`` pairs: their models are built
-    under the spec's plan and registered on the engine, the i-th one's
-    parameters from seed ``seed + 10 + i``, as the reference's.  Ported:
-    every field but the reference's speculative-decode fields (``spec_k``,
-    ``draft``) and its drafter registry (``drafters``), which raise
-    ``NotImplementedError`` when set (ROADMAP.md, Queue 1 item 8); its
-    ``ngram`` is left out with them.  ``prefill_chunk``/``prefix_share``
-    serve at ``shards = 1`` only, and a MoE config at ``shards = 1`` only
-    (ROADMAP.md, Queue 1 item 12)."""
+    ``variants`` / ``drafters`` are ``(name, ArchConfig)`` pairs: their
+    models are built under the spec's plan and registered on the engine,
+    the i-th variant's parameters from seed ``seed + 10 + i`` and the
+    i-th drafter's from ``seed + 100 + i``, as the reference's.  ``draft``
+    is None, ``"ngram"`` or the name of one of ``drafters``.
+    ``prefill_chunk``/``prefix_share`` serve at ``shards = 1`` only, and a
+    MoE config at ``shards = 1`` only (ROADMAP.md, Queue 1 item 12)."""
     cfg: ArchConfig
     shards: int = 1
     max_seq: int = 512
@@ -64,11 +62,12 @@ class EngineSpec:
     prefill_chunk: int | None = None
     prefix_share: bool = False
     spec_k: int = 4
-    draft: str | None = None
+    draft: str | None = None            # None | "ngram" | a drafters name
+    ngram: int = 2
     seed: int = 0
     param_dtype: torch.dtype = torch.bfloat16
     variants: tuple = ()                # ((name, ArchConfig), ...)
-    drafters: tuple = ()
+    drafters: tuple = ()                # ((name, ArchConfig), ...)
 
     def replace(self, **kw) -> "EngineSpec":
         return dataclasses.replace(self, **kw)
@@ -77,14 +76,8 @@ class EngineSpec:
         return serving_plan(self.shards, param_dtype=self.param_dtype)
 
     def validate(self) -> None:
-        unported = [name for name, on in (
-            ("spec_k", self.spec_k != 4), ("draft", self.draft is not None),
-            ("drafters", bool(self.drafters))) if on]
-        if unported:
-            raise NotImplementedError(f"EngineSpec fields {unported} are not "
-                                      f"ported yet (ROADMAP.md, Queue 1 item "
-                                      f"8)")
-        for name, cfg in (("full", self.cfg), *self.variants):
+        for name, cfg in (("full", self.cfg), *self.variants,
+                          *self.drafters):
             err = shard_compat(self.shards, cfg)
             if err is not None:
                 raise ValueError(f"EngineSpec ({name!r}): {err}")
@@ -107,10 +100,18 @@ class EngineSpec:
             knobs=EngineKnobs(max_batch=self.max_batch or self.n_slots),
             paged=True, block_size=self.block_size, n_blocks=self.n_blocks,
             horizon=self.horizon, prefill_chunk=self.prefill_chunk,
-            prefix_share=self.prefix_share, seed=self.seed)
+            prefix_share=self.prefix_share, spec_k=self.spec_k,
+            draft=self.draft if self.draft in (None, "ngram") else None,
+            ngram=self.ngram, seed=self.seed)
         for i, (name, vcfg) in enumerate(self.variants):
             eng.add_variant(name, *self._materialize(vcfg, plan,
                                                      self.seed + 10 + i,
                                                      device))
+        for i, (name, dcfg) in enumerate(self.drafters):
+            eng.add_drafter(name, *self._materialize(dcfg, plan,
+                                                     self.seed + 100 + i,
+                                                     device))
+        if self.draft is not None and self.draft != "ngram":
+            eng.set_drafter(self.draft)
         eng.spec = self
         return eng

@@ -1815,3 +1815,199 @@ def test_collector_stays_out_of_captures(gen):
     prog.run()                            # a replay: two adds
     torch.cuda.synchronize()
     assert torch.equal(y, torch.full_like(y, 2.0))
+
+
+# ---------------------------------------------------------------------------
+# speculative decode: the verify fold's pinned plan, captured rounds
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("q_dt,kv_dt", [
+    (torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16),
+    (torch.float32, torch.bfloat16)])
+@pytest.mark.parametrize("B,H,K,T,spec_k", [(4, 32, 32, 128, 4),
+                                            (4, 40, 40, 128, 4),
+                                            (3, 24, 8, 40, 2),
+                                            (2, 8, 2, 6, 7)])
+def test_verify_fold_with_pinned_plan_is_bit_identical(gen, q_dt, kv_dt, B,
+                                                       H, K, T, spec_k):
+    """Kernel 2 over a verify pass's B * (K+1) pseudo-lanes (candidate i of
+    lane b at position ``pos[b] + i`` through lane b's table) with the plan
+    pinned to B lanes gives, row for row, the bits of the B-lane launch at
+    each candidate's position; the parked lane (position 0 over row 0)
+    too."""
+    D, bs = 128 if H >= 32 else 64, 16
+    Q = spec_k + 1
+    n_blocks = 1 + B * T
+    tables = (torch.randperm(n_blocks - 1, generator=gen, device="cuda")
+              + 1).reshape(B, T).to(torch.int32)
+    q = torch.randn(B * Q, H, D, generator=gen, device="cuda", dtype=q_dt)
+    kp, vp = (torch.randn(n_blocks, bs, K, D, generator=gen, device="cuda",
+                          dtype=kv_dt) for _ in range(2))
+    pos = torch.randint(0, T * bs - Q, (B,), generator=gen, device="cuda",
+                        dtype=torch.int32)
+    pos[-1] = 0
+    tables[-1] = 0
+    j = torch.arange(Q, dtype=torch.int32, device="cuda")
+    fold_pos = (pos[:, None] + j[None]).reshape(B * Q).contiguous()
+    fold_tab = tables[:, None].expand(B, Q, T).reshape(B * Q, T).contiguous()
+    fold_pos.view(B, Q)[-1] = 0
+    got = pa.paged_decode_attention(q, kp, vp, fold_tab, fold_pos,
+                                    plan_lanes=B).view(B, Q, H, D)
+    for i in range(Q):
+        want = pa.paged_decode_attention(
+            q.view(B, Q, H, D)[:, i].contiguous(), kp, vp, tables,
+            fold_pos.view(B, Q)[:, i].contiguous())
+        assert torch.equal(got[:, i], want), f"candidate {i}"
+
+
+def _spec_model(arch: str, layers: int | None = None, seed: int = 0):
+    cfg = get_config(arch).smoke_config()
+    if layers:
+        cfg = cfg.replace(num_layers=layers)
+    m = build_model(cfg, local_plan(param_dtype=torch.bfloat16))
+    return m, m.init(torch.Generator(device="cuda").manual_seed(seed))
+
+
+SPEC_PATHS = {
+    "ngram h4": dict(draft="ngram", spec_k=4, horizon=4),
+    "ngram h4 preempt": dict(draft="ngram", spec_k=4, horizon=4,
+                             n_blocks=12),
+    "drafter h4": dict(drafter=True, spec_k=3, horizon=4),
+    "drafter chunked prefix": dict(drafter=True, spec_k=3, horizon=2,
+                                   prefill_chunk=8, prefix_share=True),
+}
+
+
+def _serve_spec(m, p, load, graphs: bool, drafter=None, **kw):
+    """``_serve_graphs`` with speculation: ``drafter`` (model, params) is
+    registered and chosen as "d"; returns (streams, stats with the spec
+    counters, launch-count deltas, engine)."""
+    from repro_torch.serving import Engine, EngineKnobs, Request
+    eng = Engine(m, p, max_seq=96, n_slots=4, knobs=EngineKnobs(max_batch=4),
+                 block_size=8, graphs=graphs, **kw)
+    if drafter is not None:
+        eng.add_drafter("d", *drafter)
+        eng.set_drafter("d")
+    reqs = [Request(prompt=pr, max_new_tokens=n, req_id=900 + i, **rkw)
+            for i, (pr, n, rkw) in enumerate(load)]
+    for r in reqs:
+        eng.submit(r)
+    before = _launch_counts()
+    eng.run()
+    torch.cuda.synchronize()
+    after = _launch_counts()
+    stats = [getattr(eng.stats, k) for k in GRAPH_STATS
+             + ("verify_passes", "draft_tokens", "accepted_tokens")]
+    return ([list(r.output) for r in reqs], stats,
+            {k: after[k] - before[k] for k in after}, eng)
+
+
+def _repeating_load(vocab: int, sampled: bool) -> list:
+    """``_graph_load``'s prompts, each ending with its last 6 tokens said
+    twice more, so n-gram drafts can be accepted."""
+    return [(pr + pr[-6:] * 2, n, kw)
+            for pr, n, kw in _graph_load(vocab, sampled)]
+
+
+@pytest.mark.parametrize("sampled", [False, True], ids=["greedy", "sampled"])
+@pytest.mark.parametrize("path", sorted(SPEC_PATHS))
+def test_captured_spec_engine_matches_eager(gen, path, sampled):
+    """The speculative round (n-gram or model drafts, the drafter's chunk
+    ticks) as CUDA graphs against ``graphs=False``: identical streams,
+    ``EngineStats`` (the spec counters too) and launch counts, kernel 2
+    launched by the verify passes and the drafter's steps."""
+    kw = dict(SPEC_PATHS[path])
+    m, p = _spec_model("llama2-7b")
+    drafter = _spec_model("llama2-7b", layers=1, seed=1) \
+        if kw.pop("drafter", False) else None
+    load = _repeating_load(m.cfg.vocab_size, sampled)
+    got = _serve_spec(m, p, load, True, drafter, **kw)
+    want = _serve_spec(m, p, load, False, drafter, **kw)
+    assert got[:3] == want[:3]
+    cap = got[3]
+    assert cap.captured and any(k[0] == "spec" for k in cap.programs)
+    assert sum(pr.replays for k, pr in cap.programs.items()
+               if k[0] == "spec") >= 1
+    assert got[1][-3] > 0 and got[2]["paged_decode_attention.launches"] > 0
+    if "preempt" in path:
+        assert got[1][GRAPH_STATS.index("preemptions")] > 0
+    if "chunked" in path:
+        assert any(k[0] == "draft tick" for k in cap.programs)
+
+
+@pytest.mark.parametrize("path", ["ngram h4", "drafter h4"])
+def test_spec_streams_equal_across_horizons(gen, path):
+    """Sampled and greedy requests: the keys fold (seed, sequence index,
+    salt) only, so the streams at horizon 1 and 4 are the same."""
+    kw = dict(SPEC_PATHS[path])
+    m, p = _spec_model("llama2-7b")
+    drafter = _spec_model("llama2-7b", layers=1, seed=1) \
+        if kw.pop("drafter", False) else None
+    load = _repeating_load(m.cfg.vocab_size, True)
+    h4 = _serve_spec(m, p, load, True, drafter, **kw)
+    h1 = _serve_spec(m, p, load, True, drafter, **dict(kw, horizon=1))
+    assert h1[0] == h4[0]
+
+
+def test_dropped_spec_engine_frees_the_card_without_the_collector(gen):
+    """A captured speculative engine with a model drafter and pools of
+    4096 blocks, built, served, dropped and built again with the cyclic
+    collector held off: each drop ends the engine and its step programs
+    (their CUDA graphs) at once and gives back at least its pool's and
+    draft pool's bytes."""
+    import gc
+    import weakref
+    from repro_torch.serving import graphs as G
+    m, p = _spec_model("llama2-7b")
+    drafter = _spec_model("llama2-7b", layers=1, seed=1)
+    load = _repeating_load(m.cfg.vocab_size, True)
+    kw = dict(SPEC_PATHS["drafter chunked prefix"], n_blocks=4096)
+    kw.pop("drafter")
+    collecting = gc.isenabled()
+    gc.disable()
+    try:
+        streams = []
+        for _ in range(2):
+            out = _serve_spec(m, p, load, True, drafter, **kw)
+            eng = out[3]
+            assert eng.captured and eng.programs
+            held = sum(t.untyped_storage().nbytes() for t in G._leaves(
+                [eng.pool.cache, eng.pool.draft_cache]))
+            refs = [weakref.ref(x) for x in (eng, eng.pool,
+                                             *eng.programs.values())]
+            streams.append(out[0])
+            torch.cuda.synchronize()
+            alive = torch.cuda.memory_allocated()
+            del out, eng
+            torch.cuda.synchronize()
+            assert [r() for r in refs] == [None] * len(refs)
+            assert alive - torch.cuda.memory_allocated() >= held > 0
+        assert streams[0] == streams[1]
+    finally:
+        if collecting:
+            gc.enable()
+
+
+def test_spec_greedy_equals_plain_greedy_in_f32(gen):
+    """Greedy speculation in an f32 compute plan (TF32 off): n-gram and
+    model-drafter streams equal the plain horizon's."""
+    from repro_torch.serving import Engine, EngineKnobs, Request
+    cfg = get_config("llama2-7b").smoke_config()
+    plan = local_plan(param_dtype=torch.bfloat16,
+                      compute_dtype=torch.float32)
+    m = build_model(cfg, plan)
+    p = m.init(torch.Generator(device="cuda").manual_seed(0))
+    d = build_model(cfg.replace(num_layers=1), plan)
+    dp = d.init(torch.Generator(device="cuda").manual_seed(1))
+    load = _repeating_load(cfg.vocab_size, False)
+    plain = Engine(m, p, max_seq=96, n_slots=4, block_size=8, horizon=8,
+                   knobs=EngineKnobs(max_batch=4))
+    reqs = [Request(prompt=pr, max_new_tokens=n) for pr, n, _ in load]
+    for r in reqs:
+        plain.submit(r)
+    plain.run()
+    want = [list(r.output) for r in reqs]
+    assert _serve_spec(m, p, load, True, **SPEC_PATHS["ngram h4"])[0] == want
+    kw = dict(SPEC_PATHS["drafter h4"])
+    kw.pop("drafter")
+    assert _serve_spec(m, p, load, True, (d, dp), **kw)[0] == want

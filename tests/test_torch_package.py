@@ -195,6 +195,26 @@ def test_dispatcher_sends_cuda_tensors_to_the_kernel_in_every_form(
     assert calls[0].get("window") == kw.get("window")   # passed through
 
 
+@pytest.mark.parametrize("name", ["paged_decode_attention",
+                                  "paged_decode_attention_lse"])
+def test_dispatcher_passes_the_pinned_plan_to_the_kernel(monkeypatch, name):
+    """A verify pass's ``plan_lanes`` reaches kernels 2 and 4 for CUDA
+    tensors, and the plain versions (which have no splits) run without it
+    on the CPU."""
+    mod, wrapper, plains, n_args = DISPATCH[name]
+    calls = []
+    monkeypatch.setattr(mod, wrapper,
+                        lambda *a, **k: calls.append(k) or "kernel")
+    assert getattr(ops, name)(*[_FakeCuda() for _ in range(n_args)],
+                              plan_lanes=4) == "kernel"
+    assert calls == [{"scale": None, "plan_lanes": 4}]
+    monkeypatch.setattr(mod, plains[0],
+                        lambda *a, **k: calls.append(k) or "plain")
+    cpu = [torch.zeros(1) for _ in range(n_args)]
+    assert getattr(ops, name)(*cpu, plan_lanes=4) == "plain"
+    assert calls[-1] == {"scale": None}
+
+
 @pytest.mark.parametrize("window", [0, 16])
 def test_dispatcher_sends_bidirectional_flash_to_the_kernel(monkeypatch,
                                                            window):

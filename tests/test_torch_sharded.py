@@ -396,9 +396,11 @@ def test_set_shards_preempts_in_flight():
 
 
 def test_sharded_paths_not_ported_raise():
-    """Chunked prefill and prefix sharing at shards > 1, and the spec
-    fields of unported items, raise ``NotImplementedError``; the
-    ``variants`` field is ported and builds."""
+    """Chunked prefill and prefix sharing at shards > 1 raise
+    ``NotImplementedError``; the ``variants`` field and the speculative
+    fields (``spec_k``, ``draft``, ``drafters``) are ported: each builds
+    and serves (its streams held to the reference in
+    ``test_torch_spec.py``)."""
     _, tcfg = _cfgs(2)
     for kw in (dict(prefill_chunk=16), dict(prefix_share=True)):
         with pytest.raises(NotImplementedError):
@@ -409,8 +411,12 @@ def test_sharded_paths_not_ported_raise():
         assert eng.shards == 1 and eng.stats.shard_swaps == 0
     for kw in (dict(spec_k=2), dict(draft="ngram"),
                dict(drafters=(("d", tcfg),))):
-        with pytest.raises(NotImplementedError):
-            EngineSpec(tcfg, **kw).build(device="cpu")
+        eng = EngineSpec(tcfg, **_base(**kw)).build(device="cpu")
+        req = Request(prompt=[3, 7, 11, 13], max_new_tokens=6)
+        eng.submit(req)
+        stats = eng.run()
+        assert len(req.output) == 6 and stats.decode_tokens == 5
+        assert (stats.verify_passes > 0) == ("draft" in kw)
     eng = EngineSpec(tcfg, variants=(("small", tcfg),)).build(device="cpu")
     assert list(eng.variants) == ["full", "small"]
     m = build_model(tcfg, serving_plan(2), device="cpu")
