@@ -3657,6 +3657,610 @@ def llama13b_phases(torch) -> dict:
     return sum_launches(runs)
 
 
+# ---------------------------------------------------------------------------
+# phase 10: the TAPAS control loop on the card
+# ---------------------------------------------------------------------------
+
+# bench_ablation's / bench_oversubscription's datacenter: 8 rows x 10 racks
+# x 4 servers = 320 servers (2560 GPUs), TAPAS, a thermal failure and a
+# x1.4 demand surge over hours 4-8 of a 12 h run at 10-minute ticks
+CLUSTER = dict(horizon_h=12.0, tick_min=10.0, seed=1, occupancy=0.95,
+               demand_scale=1.0)
+N_BOUND = 16                     # SaaS servers backed by the fleet
+SIZE_TO_VARIANT = {"70b": "full", "13b": "full", "7b": "small"}
+SUMMARY_COUNTS = ("thermal_events", "power_events")
+
+
+def cluster_config():
+    from repro_torch.core.datacenter import DCConfig
+    from repro_torch.core.scenario import DemandSurge, FailureEvent, Scenario
+    from repro_torch.core.simulator import TAPAS, SimConfig
+    return SimConfig(
+        dc=DCConfig(n_rows=8, racks_per_row=10, servers_per_rack=4),
+        policy=TAPAS, scenario=Scenario((
+            FailureEvent(kind="thermal", start_h=4.0, end_h=8.0, target=0),
+            DemandSurge(start_h=4.0, end_h=8.0, scale=1.4))), **CLUSTER)
+
+
+SMI_FIELDS = (("power.draw", "W"), ("clocks.sm", "MHz"),
+              ("temperature.gpu", "C"), ("utilization.gpu", "%"))
+
+
+def smi_reading() -> tuple:
+    """``SMI_FIELDS`` as ``nvidia-smi`` reads them now (utilization.gpu:
+    the share of its last sample period in which a kernel ran); None
+    where it reads no number."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=" + ",".join(f for f, _ in SMI_FIELDS),
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        timeout=60, check=True)
+    vals = []
+    for v in out.stdout.strip().splitlines()[0].split(","):
+        try:
+            vals.append(float(v))
+        except ValueError:
+            vals.append(None)
+    return tuple(vals)
+
+
+def summaries_agree(got: dict, want: dict, label: str) -> None:
+    """Counts exact, every float within 1e-5 relative (a zero residue
+    below 1e-12 absolutely)."""
+    worst = 0.0
+    for k, v in want.items():
+        if k in SUMMARY_COUNTS:
+            if got[k] != v:
+                fail(f"{label}: {k} {got[k]} != {v}")
+            continue
+        d = abs(got[k] - v)
+        if d > 1e-5 * abs(v) + 1e-12:
+            fail(f"{label}: {k} {got[k]!r} vs {v!r}")
+        worst = max(worst, d / abs(v) if v else 0.0)
+    print(f"{label}: counts equal, floats within {worst:.3e} relative "
+          f"(held at 1e-5)", flush=True)
+
+
+def physics_phase(torch):
+    """(a): the 320-server sim with no engines, on the card and on the
+    host's CPU, under TAPAS (the loop's configuration) and under Baseline
+    (whose placement trips thermal limits, so counts other than 0 are
+    held): counts exact, every float within 1e-5 relative, each tick's
+    hottest GPU and row power too.  Returns the card's TAPAS result."""
+    import dataclasses
+
+    import numpy as np
+    from repro_torch.core.simulator import BASELINE, ClusterSim
+    out = {}
+    for policy in ("TAPAS", "Baseline"):
+        cfg = cluster_config()
+        if policy == "Baseline":
+            cfg = dataclasses.replace(cfg, policy=BASELINE)
+        res = {}
+        for dev in ("cuda", "cpu"):
+            sim = ClusterSim(cfg, device=dev)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res[dev] = sim.run()
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            print(f"physics {policy} on {dev}: {sim.ticks} ticks of "
+                  f"{sim.dc.n_servers} servers "
+                  f"({sim.dc.n_servers * sim.dc.cfg.hw.chips} GPUs) in "
+                  f"{dt:.3f} s, {dt / sim.ticks * 1e3:.3f} ms per tick "
+                  f"(physics, telemetry and the control plane)", flush=True)
+        card, cpu = res["cuda"], res["cpu"]
+        summaries_agree(card.summary(), cpu.summary(),
+                        f"physics {policy} card vs CPU")
+        for name in ("max_gpu_temp_c", "row_power_frac"):
+            a, b = getattr(card, name), getattr(cpu, name)
+            if not np.allclose(a, b, rtol=1e-5, atol=0):
+                fail(f"physics {policy} card vs CPU: per-tick {name} "
+                     f"differs by {np.abs(a - b).max():.3e}")
+        print(f"physics {policy} card summary: "
+              f"{ {k: round(float(v), 6) for k, v in card.summary().items()} }",
+              flush=True)
+        out[policy] = card
+    return out["TAPAS"]
+
+
+class EngineLog:
+    """Records what one engine of the fleet is asked to do (submissions,
+    variant reloads, scheduler steps with the knobs they ran under) so an
+    eager twin can replay it."""
+
+    def __init__(self, eng):
+        self.eng, self.events = eng, []
+        self._orig = {n: getattr(eng, n) for n in ("submit", "step",
+                                                   "set_variant")}
+
+        def submit(req):
+            self.events.append(("submit", req))
+            return self._orig["submit"](req)
+
+        def step(now=None):
+            k = eng.knobs
+            self.events.append(("step", now, k.max_batch, k.freq_scale,
+                                k.paused))
+            return self._orig["step"](now)
+
+        def set_variant(name):
+            self.events.append(("set_variant", name))
+            return self._orig["set_variant"](name)
+
+        eng.submit, eng.step, eng.set_variant = submit, step, set_variant
+
+    def stop(self) -> list:
+        """Unhook; the logged requests' outputs as they stand now."""
+        for n in self._orig:
+            delattr(self.eng, n)
+        return [list(ev[1].output) for ev in self.events
+                if ev[0] == "submit"]
+
+    def replay(self, twin) -> list:
+        from repro_torch.serving import Request
+        copies = []
+        for ev in self.events:
+            if ev[0] == "submit":
+                r = ev[1]
+                c = Request(prompt=list(r.prompt),
+                            max_new_tokens=r.max_new_tokens,
+                            customer=r.customer, arrival_s=r.arrival_s,
+                            deadline_ms=r.deadline_ms,
+                            max_retries=r.max_retries)
+                copies.append(c)
+                twin.submit(c)
+            elif ev[0] == "set_variant":
+                twin.set_variant(ev[1])
+            else:
+                _, now, twin.knobs.max_batch, twin.knobs.freq_scale, \
+                    twin.knobs.paused = ev
+                twin.step(now)
+        return [list(c.output) for c in copies]
+
+
+def loop_phase(torch, card) -> dict:
+    """(b): the same sim on the card with full-width engines in the loop:
+    an ``EngineFleet`` of 2 llama2-13b engines with the llama2-7b "small"
+    variant, one weight copy (``build(share=)``), backing the first 16
+    SaaS servers once placed.  Returns the loop's launches."""
+    import statistics
+
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.simulator import ClusterSim
+    from repro_torch.serving import EngineFleet, EngineSpec
+    from repro_torch.serving import graphs as G
+    spec = EngineSpec(get_config("llama2-13b"), n_slots=16, max_seq=512,
+                      horizon=4,
+                      variants=(("small", get_config("llama2-7b")),))
+    t0 = time.perf_counter()
+    fleet = EngineFleet(spec, n_engines=2, steps_per_tick=4,
+                        backend_kw=dict(variant_for_size=SIZE_TO_VARIANT,
+                                        prompt_len=256, max_new_tokens=32))
+    torch.cuda.synchronize()
+    first = fleet.engines[0]
+    one_copy = all(e.variants[n][1] is first.variants[n][1]
+                   for e in fleet.engines for n in ("full", "small"))
+    n_params = {n: sum(t.numel() for t in _leaves(p))
+                for n, (_, p) in first.variants.items()}
+    print(f"fleet of {len(fleet.engines)} engines built in "
+          f"{time.perf_counter() - t0:.1f} s: {n_params} params in bf16, "
+          f"one weight copy: {one_copy}; pool per engine "
+          f"{first.pool.n_blocks} blocks of {first.pool.block_size} tokens "
+          f"({first.model.cfg.num_layers} layers x 2 x "
+          f"{first.model.cfg.n_kv_heads} x {first.model.cfg.head_dim} bf16); "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated",
+          flush=True)
+    if not one_copy:
+        fail("the fleet's engines do not share one weight copy")
+    for name, cfg in (("full", spec.cfg), ("small", get_config("llama2-7b"))):
+        if n_params[name] != cfg.param_count():
+            fail(f"{name} parameter count {n_params[name]} != "
+                 f"{cfg.param_count()}")
+
+    captures = [0]
+    orig_capture = G.Program._capture
+
+    def counting_capture(self):
+        captures[0] += 1
+        return orig_capture(self)
+
+    flush_s = [0.0]
+    orig_flush = fleet.flush
+
+    def timed_flush(*, now):
+        t = time.perf_counter()
+        n = orig_flush(now=now)
+        flush_s[0] += time.perf_counter() - t
+        return n
+
+    G.Program._capture = counting_capture
+    fleet.flush = timed_flush
+    sim = ClusterSim(cluster_config(), device="cuda")
+    bound, log, first_outputs = {}, None, None
+    knobs0 = [None] * len(fleet.engines)
+    knob_states, power, tick_s, physics_s = set(), [], [], []
+    profiled = None
+    reset_launches()
+    t_loop = time.perf_counter()
+    try:
+        while sim.tick < sim.ticks:
+            flush_before = flush_s[0]
+            if bound and len(tick_s) == 4:
+                # one bound tick traced: device busy against host wall
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                # the device's activity only: recording the host's ops
+                # too multiplies a tick's wall many times over
+                with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                    st = sim.step()
+                    torch.cuda.synchronize()
+                wall = time.perf_counter() - t
+                busy = sum(getattr(e, "self_device_time_total",
+                                   getattr(e, "self_cuda_time_total", 0))
+                           for e in prof.key_averages()
+                           if e.device_type.name == "CUDA") / 1e6
+                profiled = (sim.tick - 1, wall, busy)
+            else:
+                t = time.perf_counter()
+                st = sim.step()
+                wall = time.perf_counter() - t
+            if not bound:
+                saas = np.flatnonzero(st.kind == 2)
+                if len(saas) >= N_BOUND:
+                    for srv in saas[:N_BOUND]:
+                        bk = fleet.make_backend()
+                        sim.attach_backend(int(srv), bk)
+                        bound[int(srv)] = bk
+                    knobs0 = [knob_tuple(e) for e in fleet.engines]
+                    log = EngineLog(fleet.engines[0])
+                    print(f"tick {sim.tick - 1} ({st.now_h:.2f} h): "
+                          f"{len(saas)} SaaS servers placed; the fleet "
+                          f"backs {sorted(bound)} (engine of each: "
+                          f"{[fleet.engines.index(b.engine) for b in bound.values()]})",
+                          flush=True)
+                continue
+            tick_s.append(wall)
+            physics_s.append(wall - (flush_s[0] - flush_before))
+            power.append(smi_reading())
+            if len(tick_s) == 3:
+                first_outputs = log.stop()
+            states = tuple(knob_tuple(e) for e in fleet.engines)
+            knob_states.add(states)
+            servers = sorted(bound)
+            gp = [st.measured_goodput.get(s, 0.0) for s in servers]
+            print(f"{st.now_h:5.2f} h emerg={str(st.emergency):<5} risk "
+                  + " ".join(f"{st.risk[s]:.2f}" for s in servers)
+                  + " | knobs " + " ".join(
+                      f"e{i}:f{k[0]:.2f}/b{k[1]}/{k[2]}{'/P' if k[3] else ''}"
+                      for i, k in enumerate(states))
+                  + " | goodput tok/s " + " ".join(f"{g:.0f}" for g in gp)
+                  + f" | tick {wall:.3f} s", flush=True)
+    finally:
+        G.Program._capture = orig_capture
+        del fleet.flush
+    loop_wall = time.perf_counter() - t_loop
+    launches = read_launches()
+    tensor_core_route(launches, "cluster loop llama2-13b/llama2-7b")
+
+    summary = sim.result().summary()
+    applied = {s: len(b.applied) for s, b in bound.items()}
+    served = [len(e.stats.completed) for e in fleet.engines]
+    swaps = [e.stats.variant_swaps for e in fleet.engines]
+    print(f"cluster loop: {len(tick_s)} bound ticks in {loop_wall:.1f} s "
+          f"({sim.ticks} ticks in all); per bound tick host wall median "
+          f"{statistics.median(tick_s):.3f} s ({min(tick_s):.3f}-"
+          f"{max(tick_s):.3f}), of which the engines' flush "
+          f"{statistics.median([a - b for a, b in zip(tick_s, physics_s)]):.3f}"
+          f" s and physics, telemetry and control "
+          f"{statistics.median(physics_s) * 1e3:.1f} ms (medians)",
+          flush=True)
+    if profiled:
+        # the profiler stretches the traced tick's own wall many times
+        # over, so its busy time stands beside the unprofiled ticks on
+        # either side (load alternates from tick to tick)
+        tick, wall, busy = profiled
+        i = 4
+        near = (tick_s[i - 1] + tick_s[i + 1]) / 2 \
+            if len(tick_s) > i + 1 else statistics.median(tick_s)
+        print(f"cluster loop tick {tick} traced (device activity only): "
+              f"device busy {busy:.3f} s; its host wall under the profiler "
+              f"{wall:.3f} s; the unprofiled ticks either side "
+              f"{near:.3f} s (idle share beside them {1 - busy / near:.3f}, "
+              f"a reading); phase (b)'s host wall {loop_wall:.1f} s",
+              flush=True)
+    print(f"cluster loop: configs applied per bound server {applied}; "
+          f"requests completed per engine {served}; variant swaps {swaps}; "
+          f"graph captures {captures[0]}; decode tokens "
+          f"{[e.stats.decode_tokens for e in fleet.engines]}; queued at the "
+          f"end {[len(e.queue) for e in fleet.engines]}; launches "
+          f"flash_attention={launches['flash_attention']} "
+          f"paged_decode_attention={launches['paged_decode_attention']}",
+          flush=True)
+    for i, (name, unit) in enumerate(SMI_FIELDS):
+        vals = sorted(r[i] for r in power if r[i] is not None)
+        if vals:
+            print(f"cluster loop {name} over {len(vals)} ticks: min "
+                  f"{vals[0]:.1f} {unit}, median "
+                  f"{statistics.median(vals):.1f} {unit}, max "
+                  f"{vals[-1]:.1f} {unit}", flush=True)
+        else:
+            print(f"cluster loop {name}: not measured (nvidia-smi read no "
+                  f"number)", flush=True)
+    if not any(n > 1 for n in applied.values()):
+        fail("cluster loop: no reconfigure decision reached an engine")
+    if len(knob_states | {tuple(knobs0)}) < 2:
+        fail("cluster loop: no engine's knobs changed")
+    if not all(served):
+        fail(f"cluster loop: an engine served nothing ({served})")
+    if summary != card.summary():
+        fail(f"cluster loop: the summary with engines {summary} differs "
+             f"from the card's without {card.summary()}")
+    print("cluster loop: summary with engines equals the card's without "
+          "(telemetry only)", flush=True)
+    for name in ("flash_attention", "paged_decode_attention"):
+        if launches[name] == 0:
+            fail(f"cluster loop: {name} never launched")
+
+    # captured vs eager on engine 0's first 3 bound ticks
+    twin = spec.build(share=first)
+    twin.graphs = False
+    t = time.perf_counter()
+    eager = log.replay(twin)
+    same = sum(a == b for a, b in zip(first_outputs, eager))
+    print(f"cluster loop engine 0, first 3 bound ticks: captured vs eager "
+          f"{same}/{len(eager)} streams equal ({sum(map(len, eager))} "
+          f"tokens; eager replay {time.perf_counter() - t:.1f} s)",
+          flush=True)
+    if same != len(eager) or not eager:
+        fail("cluster loop: captured and eager streams differ")
+    del twin, fleet, first, sim, bound, log
+    torch.cuda.empty_cache()
+    return launches
+
+
+def knob_tuple(eng) -> tuple:
+    k = eng.knobs
+    return (k.freq_scale, k.max_batch, k.variant, k.paused)
+
+
+# fault_storm.py's drill clock (hours): cooling fails mid-run, the storm
+# lands inside it
+STORM = dict(horizon_h=2.0, tick_min=5.0, cooling=(0.8, 1.2),
+             crash=(0.9, 1.1), nan_burst=(1.0, 1.1), dropout=(0.8, 1.3))
+
+
+def storm_arm(share, spec, *, storm: bool, knobs) -> dict:
+    """One arm of ``examples/fault_storm.py``'s drill through the port: two
+    backends over engines that alias ``share``'s weights."""
+    import numpy as np
+    from repro_torch.core.datacenter import DCConfig
+    from repro_torch.core.faults import (DegradationLadder, EngineFault,
+                                         ResilienceKnobs, SensorDropout,
+                                         audit_requests)
+    from repro_torch.core.scenario import FailureEvent, Scenario
+    from repro_torch.core.simulator import TAPAS, ClusterSim, SimConfig
+    from repro_torch.serving import EngineBackend
+    dc = DCConfig(n_rows=2, racks_per_row=2, servers_per_rack=4,
+                  region="hot")
+
+    def sim_of(scenario, res):
+        return ClusterSim(SimConfig(
+            dc=dc, horizon_h=STORM["horizon_h"], tick_min=STORM["tick_min"],
+            seed=0, policy=TAPAS, occupancy=0.95, demand_scale=1.0,
+            scenario=scenario, resilience=res), device="cuda")
+
+    probe = sim_of(Scenario(), None)
+    attach_tick, saas = None, []
+    while probe.tick < probe.ticks:
+        st = probe.step()
+        saas = [int(s) for s in np.flatnonzero(st.kind == 2)]
+        if len(saas) >= 2:
+            attach_tick = probe.tick
+            break
+    if attach_tick is None:
+        fail("fault drill: the datacenter never placed 2 SaaS servers")
+    events = [FailureEvent(kind="cooling", start_h=STORM["cooling"][0],
+                           end_h=STORM["cooling"][1], target=0)]
+    if storm:
+        events += [
+            EngineFault(kind="crash", start_h=STORM["crash"][0],
+                        end_h=STORM["crash"][1], server=saas[0]),
+            EngineFault(kind="nan_burst", start_h=STORM["nan_burst"][0],
+                        end_h=STORM["nan_burst"][1], server=saas[1]),
+            SensorDropout(start_h=STORM["dropout"][0],
+                          end_h=STORM["dropout"][1])]
+    res = knobs if knobs is not None else ResilienceKnobs()
+    sim = sim_of(Scenario(tuple(events)), res)
+    backends, max_age = {}, 0
+    while sim.tick < sim.ticks:
+        st = sim.step()
+        max_age = max(max_age, st.telemetry_age_ticks)
+        if sim.tick == attach_tick and not backends:
+            for srv in saas[:2]:
+                bk = EngineBackend(
+                    spec.build(share=share), seed=srv, max_new_tokens=8,
+                    steps_per_tick=5,
+                    ladder=DegradationLadder() if res.ladder else None,
+                    deadline_ms=3_600_000.0)
+                sim.attach_backend(srv, bk)
+                backends[srv] = bk
+    for bk in backends.values():
+        bk.drain(now_h=float(sim.t_h[-1]) + STORM["tick_min"] / 60.0)
+    issued = [r for bk in backends.values() for r in bk.issued]
+    audit = audit_requests(issued)
+    engines = [bk.engine for bk in backends.values()]
+    pristine = all(
+        bool(torch_isfinite(e.pool.cache["attn"][n][:, sorted(
+            e.pool.free_blocks)])) for e in engines for n in ("k", "v"))
+    return {
+        "goodput_tokens": audit["accepted_tokens"],
+        "outcomes": audit["outcomes"], "lost": len(audit["lost"]),
+        "issued": audit["total"],
+        "crashes": sum(e.stats.crashes for e in engines),
+        "quarantined": sum(e.stats.quarantined for e in engines),
+        "retried": sum(e.stats.retried for e in engines),
+        "timed_out": sum(e.stats.timed_out for e in engines),
+        "dropped": sum(len(bk.dropped) for bk in backends.values()),
+        "watchdog_drains": sim.watchdog_drains,
+        "ladder_walks": sum(bk.ladder.walks for bk in backends.values()
+                            if bk.ladder is not None),
+        "max_telemetry_age": max_age, "pristine_free_blocks": pristine,
+        "streams": {bk.seed: [list(r.output) for r in bk.issued]
+                    for bk in backends.values()},
+        "nan_server": saas[1],
+    }
+
+
+def torch_isfinite(t) -> bool:
+    return bool(t.isfinite().all())
+
+
+def scrub_check(torch, device="cuda") -> None:
+    """Kernel 2 over a reused block whose unwritten tail still holds NaN
+    (a quarantined lane's, had it not been scrubbed): a reading of what
+    the kernel and its plain version make of the residue (the plain
+    version's masked ``0 * NaN`` is NaN), then the scrub
+    (``_zero_blocks``) and the check that the lane's output is finite and
+    the plain version's.  llama2-7b's heads, 2 lanes, block size 16."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import paged_decode_attention as pa
+    from repro_torch.serving.kvcache import _zero_blocks
+    g = torch.Generator(device=device).manual_seed(11)
+    B, H, D, bs, T = 2, 32, 128, 16, 4
+    n_blocks = 1 + B * T
+    kp = torch.randn(n_blocks, bs, H, D, generator=g, device=device,
+                     dtype=torch.bfloat16)
+    vp = torch.randn(n_blocks, bs, H, D, generator=g, device=device,
+                     dtype=torch.bfloat16)
+    q = torch.randn(B, H, D, generator=g, device=device, dtype=torch.bfloat16)
+    tables = (1 + torch.arange(B * T, device=device,
+                               dtype=torch.int32)).reshape(B, T)
+    pos = torch.tensor([37, 50], device=device, dtype=torch.int32)
+    last = int(tables[0, 37 // bs])
+    kp[last, 37 % bs + 1:] = float("nan")      # the unwritten tail
+    vp[last, 37 % bs + 1:] = float("nan")
+    o = ops.paged_decode_attention(q, kp, vp, tables, pos)
+    ref = pa.paged_decode_attention_ref(q, kp, vp, tables, pos)
+    print(f"scrub check: kernel 2 over a NaN tail past the lane's length: "
+          f"lane 0 finite {torch_isfinite(o[0])} (plain version "
+          f"{torch_isfinite(ref[0])}), lane 1 finite {torch_isfinite(o[1])}",
+          flush=True)
+    cache = {"attn": {"k": kp[None], "v": vp[None]}}
+    keep_k, keep_v = kp[last, :37 % bs + 1].clone(), vp[last,
+                                                        :37 % bs + 1].clone()
+    _zero_blocks(cache, torch.tensor([last], device=device))
+    kp[last, :37 % bs + 1], vp[last, :37 % bs + 1] = keep_k, keep_v
+    o = ops.paged_decode_attention(q, kp, vp, tables, pos)
+    ref = pa.paged_decode_attention_ref(q, kp, vp, tables, pos)
+    err, rel = compare(o, ref)
+    print(f"scrub check: after the scrub lane 0 finite {torch_isfinite(o)}, "
+          f"max abs err against the plain version {err:.3e} (rel {rel:.3e})",
+          flush=True)
+    if not torch_isfinite(o) or err > TOL["bf16"] or rel > REL_TOL["bf16"]:
+        fail("scrub check: kernel 2 after the scrub is not finite or not "
+             "the plain version's")
+
+
+def fault_drill_phase(torch) -> dict:
+    """(c): ``examples/fault_storm.py``'s three arms through the port on two
+    backends over one shared full-width llama2-7b.  Returns the arms'
+    launches."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.faults import recovery_off
+    from repro_torch.serving import EngineSpec
+    scrub_check(torch)
+    spec = EngineSpec(get_config("llama2-7b"), max_seq=96, n_slots=4,
+                      max_batch=4, block_size=8)
+    t0 = time.perf_counter()
+    share = spec.build()
+    torch.cuda.synchronize()
+    print(f"fault drill: llama2-7b full width built in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    reset_launches()
+    arms = {}
+    for label, storm, knobs in (("fault_free", False, None),
+                                ("recovery_on", True, None),
+                                ("recovery_off", True, recovery_off())):
+        t = time.perf_counter()
+        arms[label] = r = storm_arm(share, spec, storm=storm, knobs=knobs)
+        print(f"fault drill {label:13s} goodput={r['goodput_tokens']:5d} tok "
+              f"outcomes={r['outcomes']} lost={r['lost']} "
+              f"dropped={r['dropped']} issued={r['issued']} "
+              f"crashes={r['crashes']} quarantined={r['quarantined']} "
+              f"retried={r['retried']} watchdog={r['watchdog_drains']} "
+              f"ladder={r['ladder_walks']} "
+              f"max_telemetry_age={r['max_telemetry_age']} "
+              f"free blocks finite={r['pristine_free_blocks']} "
+              f"({time.perf_counter() - t:.1f} s)", flush=True)
+    launches = read_launches()
+    tensor_core_route(launches, "fault drill llama2-7b")
+    free, on, off = (arms[k] for k in ("fault_free", "recovery_on",
+                                       "recovery_off"))
+    ratio_on = on["goodput_tokens"] / max(free["goodput_tokens"], 1)
+    ratio_off = off["goodput_tokens"] / max(free["goodput_tokens"], 1)
+    print(f"fault drill: goodput vs fault-free: recovery on {ratio_on:.3f}, "
+          f"recovery off {ratio_off:.3f}; launches "
+          f"flash_attention={launches['flash_attention']} "
+          f"paged_decode_attention={launches['paged_decode_attention']}",
+          flush=True)
+    nan_srv = off["nan_server"]
+    a, b = free["streams"][nan_srv], off["streams"][nan_srv]
+    differ = [(x, y) for x, y in zip(a, b) if x != y]
+    zeros = sum(1 for _, y in differ if y and y[-1] == 0)
+    print(f"fault drill recovery off, server {nan_srv} (the NaN burst's): "
+          f"{len(differ)} of {len(b)} streams differ from the fault-free "
+          f"arm's, {zeros} of them ending in token 0 (argmax of NaN "
+          f"logits); e.g. {differ[:2]}", flush=True)
+    if on["lost"] != 0:
+        fail("fault drill: the recovery-on arm lost requests")
+    if not (on["crashes"] >= 1 and off["crashes"] >= 1):
+        fail("fault drill: a storm arm saw no crash")
+    if on["quarantined"] < 1:
+        fail("fault drill: the recovery-on arm quarantined nothing")
+    if not (on["watchdog_drains"] >= 1 and on["max_telemetry_age"] > 0
+            and on["ladder_walks"] >= 1):
+        fail("fault drill: the recovery-on arm's watchdog, stale telemetry "
+             "or ladder did not engage")
+    if not on["pristine_free_blocks"]:
+        fail("fault drill: a free block holds a non-finite value after "
+             "recovery")
+    if ratio_on < 0.9:
+        fail(f"fault drill: the storm cost too much goodput: {ratio_on:.3f}")
+    if off["lost"] + off["dropped"] == 0:
+        fail("fault drill: the recovery-off arm lost nothing")
+    if not ratio_off < ratio_on:
+        fail("fault drill: recovery made nothing better")
+    for name in ("flash_attention", "paged_decode_attention"):
+        if launches[name] == 0:
+            fail(f"fault drill: {name} never launched")
+    del share
+    torch.cuda.empty_cache()
+    return launches
+
+
+def cluster_phases(torch) -> dict:
+    """Phase 10: (a) the physics on the card against the CPU, (b) the loop
+    with full-width engines, (c) the fault drill.  Returns the launches of
+    (b) and (c)."""
+    t0 = time.perf_counter()
+    card = physics_phase(torch)
+    print(f"phase 10 (a) done in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    t = time.perf_counter()
+    launches = loop_phase(torch, card)
+    print(f"phase 10 (b) done in {time.perf_counter() - t:.1f} s",
+          flush=True)
+    t = time.perf_counter()
+    for name, n in fault_drill_phase(torch).items():
+        launches[name] += n
+    print(f"phase 10 (c) done in {time.perf_counter() - t:.1f} s; phase 10 "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3768,6 +4372,12 @@ def main() -> int:
 
     # phase 9: hubert went at the end of phase 8
     for name, n in llama13b_phases(torch).items():
+        launches[name] += n
+    print(f"phase 9 done at {time.perf_counter() - t_start:.1f} s",
+          flush=True)
+
+    # phase 10: llama2-13b and its drafter went at the end of phase 9
+    for name, n in cluster_phases(torch).items():
         launches[name] += n
     for e in entries:
         e["launches"] = launches[e["name"]]

@@ -54,15 +54,28 @@ reference's jitted steps; on the CPU the same steps run eagerly.
 ``graphs=False`` runs them eagerly on the card too, as ``jax.disable_jit``
 does for the reference.
 
+Resilience (the fault model of ``core.faults``): ``EngineKnobs.paused``
+holds admission through a reconfiguration drain; requests with
+``deadline_ms`` are evicted once past it, wherever they are; a quarantined
+request is retried with exponential backoff, up to its ``max_retries``;
+``inject_kv_corruption`` poisons a block of an active lane with NaNs and
+arms the guard, whose scan before the next decode quarantines every lane
+holding a non-finite written position; ``crash``/``restore`` take the
+engine offline and rebuild its pool, re-queueing (or, with ``drop=True``,
+returning) its unfinished work; ``take_unfinished`` strips it for a
+watchdog to re-home.  On the no-fault path none of it launches or syncs
+anything.
+
 Ported so far: greedy and sampled requests; variants; shards > 1 with
-whole-prompt prefill for the dense families; speculative decode.  Not
-ported yet (see ROADMAP.md): chunked prefill and prefix sharing at shards
-> 1, MoE at shards > 1 (expert parallelism), the pause knob, and the
-resilience paths (deadlines, retries, quarantine, crash).
+whole-prompt prefill for the dense families; speculative decode; the
+pause knob and the resilience paths.  Not ported yet (see ROADMAP.md):
+chunked prefill and prefix sharing at shards > 1, MoE at shards > 1
+(expert parallelism).
 """
 from __future__ import annotations
 
 import dataclasses
+import heapq
 import time
 import weakref
 from collections import deque
@@ -85,11 +98,11 @@ STEP_WINDOW = 512       # recent step times retained for inspection
 
 @dataclass
 class EngineKnobs:
-    """The TAPAS-configurable instance settings ported so far (the pause
-    knob waits for the reconfiguration drains)."""
+    """The TAPAS-configurable instance settings."""
     max_batch: int = 8
     freq_scale: float = 1.0      # 1.0 = nominal clock; <1 slows step time
     variant: str = "full"        # model-size / quantization variant key
+    paused: bool = False         # drained during reconfiguration (§4.3)
 
 
 @dataclass
@@ -101,7 +114,8 @@ class EngineStats:
     #                              dry, or displaced by a variant reload)
     variant_swaps: int = 0       # set_variant reloads (may preempt actives)
     shard_swaps: int = 0         # set_shards reconfigures (preempt actives)
-    rejected: int = 0            # contexts that can never fit max_seq
+    rejected: int = 0            # finished "rejected": contexts that can
+    #                              never fit max_seq, or retry-exhausted
     host_syncs: int = 0          # device->host readbacks on the serving path
     decode_syncs: int = 0        # the subset issued by decode launches
     # speculative decode: one verify pass emits a whole accepted run, so
@@ -109,7 +123,17 @@ class EngineStats:
     draft_tokens: int = 0        # drafts proposed across verify passes
     accepted_tokens: int = 0     # drafts accepted (bonus tokens excluded)
     verify_passes: int = 0       # target verify passes (lane-rounds) run
-    submitted: int = 0
+    # resilience: each counter tracks one recovery mechanism; terminal
+    # outcomes live on the Request (mutually exclusive), these count
+    # events, so retried can exceed the number of requests
+    submitted: int = 0           # requests ever handed to submit()
+    timed_out: int = 0           # requests evicted past their deadline_ms
+    retried: int = 0             # re-queues via the bounded-retry path
+    #                              (quarantine), not preemptions
+    retry_exhausted: int = 0     # retry budget burned -> finished rejected
+    quarantined: int = 0         # lanes pulled by the NaN/Inf KV guard
+    guard_scans: int = 0         # pre-decode corruption scans launched
+    crashes: int = 0             # crash() invocations survived
     n_steps: int = 0             # recorded (working) scheduler steps
     step_time_total: float = 0.0  # running sum of freq-scaled step times
     completed: list = field(default_factory=list)
@@ -242,26 +266,46 @@ class Engine:
         self._prefill_pos: dict[int, int] = {}
         self._pending_waiter: int | None = None   # req deferred on a
         #                                           pending shared prefill
+        # resilience state, inert on the no-fault path: the backoff heap
+        # stays empty, deadline eviction is gated on _has_deadlines and
+        # the guard scan runs only while armed, so fault-free streams and
+        # host syncs are those of an engine without it
+        self.offline = False          # crash()ed and not yet restore()d
+        self.slow_factor = 1.0        # stuck-slow fault: step-time stretch
+        self.retry_backoff_s = 0.05   # base of the exponential re-queue
+        #                               backoff (doubles per retry)
+        self._guard_armed = False     # scan KV for NaN/Inf before decode
+        self._delayed: list = []      # (not_before_s, seq, req) heap
+        self._delay_seq = 0
+        self._has_deadlines = False
         self.stats = EngineStats()
         self._bind(model)
 
+    def _make_pool(self) -> None:
+        """(Re)create the KV pool for the current model.  The step
+        programs captured the old pool's tensors, so they go with it: no
+        graph is ever replayed against a freed pool.  The old pool is
+        dropped before the new one is allocated."""
+        # step programs by (path, variant, shards, shape, sampled)
+        self.programs: dict[tuple, G.Program] = {}
+        self.pool = None
+        if self.paged:
+            self.pool = PagedCachePool(self.model, self.n_slots, self.max_seq,
+                                       block_size=self.block_size,
+                                       n_blocks=self.n_blocks)
+        else:
+            self.pool = CachePool(self.model, self.n_slots, self.max_seq)
+
     def _bind(self, model: Model) -> None:
-        """(Re)build the pool for ``model``."""
+        """(Re)build the pool for ``model``; the step programs, which
+        captured the old parameters and pool, go with them."""
         self.model = model
         if self.paged and not model.supports_paged:
             raise ValueError(f"{model.cfg.name} cannot serve paged "
                              f"(attn_kind={model.cfg.attn_kind!r})")
         if self.prefill_chunk and self.shards > 1:
             raise NotImplementedError(self._unported_at(self.shards))
-        if self.paged:
-            self.pool = PagedCachePool(model, self.n_slots, self.max_seq,
-                                       block_size=self.block_size,
-                                       n_blocks=self.n_blocks)
-        else:
-            self.pool = CachePool(model, self.n_slots, self.max_seq)
-        # step programs by (path, variant, shards, shape, sampled); they
-        # captured the old parameters and pool, so they go with them
-        self.programs: dict[tuple, G.Program] = {}
+        self._make_pool()
         self._bind_spec()
 
     @property
@@ -460,9 +504,9 @@ class Engine:
 
     # -- request lifecycle -------------------------------------------------
     def submit(self, req: Request) -> None:
-        if req.deadline_ms is not None:
-            raise NotImplementedError("request deadlines are not ported yet")
         self.stats.submitted += 1
+        if req.deadline_ms is not None:
+            self._has_deadlines = True
         self.queue.append(req)
 
     @staticmethod
@@ -475,7 +519,9 @@ class Engine:
         """The single terminal transition: stamp the outcome, count it and
         log the request as completed."""
         req.finish(now, outcome)
-        if outcome == "rejected":
+        if outcome == "timed_out":
+            self.stats.timed_out += 1
+        elif outcome == "rejected":
             self.stats.rejected += 1
         self.stats.completed.append(req)
 
@@ -545,6 +591,176 @@ class Engine:
                 temps <= 0.0)
         return nxt.cpu().numpy()
 
+    # -- resilience: deadlines, bounded retry, NaN quarantine, crash -------
+    def _release_delayed(self, now: float) -> None:
+        """Move backoff-delayed retries whose time has come back into the
+        admission queue (no-op while the heap is empty)."""
+        while self._delayed and self._delayed[0][0] <= now:
+            _, _, req = heapq.heappop(self._delayed)
+            self.queue.append(req)
+
+    def _expire_deadlines(self, now: float) -> None:
+        """Evict every request past its deadline — queued, backing off,
+        prefilling or active — so expired work never holds a lane.  Gated
+        on _has_deadlines: an engine that never saw a deadline_ms skips
+        it entirely."""
+        if not self._has_deadlines:
+            return
+
+        def expired(r: Request) -> bool:
+            return r.deadline_s is not None and now >= r.deadline_s
+
+        if any(expired(r) for r in self.queue):
+            kept: deque[Request] = deque()
+            for req in self.queue:
+                if expired(req):
+                    self._finish(req, now, "timed_out")
+                else:
+                    kept.append(req)
+            self.queue = kept
+        if any(expired(item[2]) for item in self._delayed):
+            kept_d = []
+            for item in self._delayed:
+                if expired(item[2]):
+                    self._finish(item[2], now, "timed_out")
+                else:
+                    kept_d.append(item)
+            self._delayed = kept_d
+            heapq.heapify(self._delayed)
+        for rid in sorted((rid for rid, r in self.active.items()
+                           if expired(r)), reverse=True):
+            req = self.active.pop(rid)
+            self.pool.release(rid)
+            self._finish(req, now, "timed_out")
+        for rid in sorted((rid for rid, r in self.prefilling.items()
+                           if expired(r)), reverse=True):
+            req = self.prefilling.pop(rid)
+            del self._prefill_pos[rid]
+            self.pool.release(rid)
+            self._finish(req, now, "timed_out")
+
+    def _requeue_for_retry(self, req: Request, now: float) -> None:
+        """Bounded retry on the recompute path: re-queue with exponential
+        backoff, or finish rejected once the budget is burned.  Unlike
+        _preempt (scheduler churn: unlimited, no backoff), retries are
+        fault recovery: bounded and backed off."""
+        if req.retries >= req.max_retries:
+            self.stats.retry_exhausted += 1
+            self._finish(req, now, "rejected")
+            return
+        req.retries += 1
+        self.stats.retried += 1
+        delay = self.retry_backoff_s * (2.0 ** (req.retries - 1))
+        self._delay_seq += 1
+        heapq.heappush(self._delayed, (now + delay, self._delay_seq, req))
+
+    def _quarantine_scan(self, now: float) -> int:
+        """Pre-decode NaN/Inf sweep over the active lanes' written KV.
+        Runs only while armed (a fault injection just landed), so the
+        no-fault path never pays the scan or its readback.  A corrupted
+        lane is quarantined: its blocks scrubbed and released, its request
+        re-queued for recompute through the bounded retry, so the
+        corrupted KV never feeds a decode step and a recovered stream
+        equals the fault-free one."""
+        if not (self._guard_armed and self.paged and self.active):
+            return 0
+        self._guard_armed = False
+        mask = np.zeros(self.pool.n_lanes, bool)
+        for rid in self.active:
+            mask[self.pool.lane_of[rid]] = True
+        bad = self.pool.bad_lanes(mask)
+        self.stats.host_syncs += 1
+        self.stats.guard_scans += 1
+        bad_rids = sorted((rid for rid in self.active
+                           if bad[self.pool.lane_of[rid]]), reverse=True)
+        for rid in bad_rids:
+            req = self.active.pop(rid)
+            self.pool.scrub_lane(rid)     # never recycle poisoned blocks
+            self.pool.release(rid)
+            self.stats.quarantined += 1
+            self._requeue_for_retry(req, now)
+        return len(bad_rids)
+
+    def inject_kv_corruption(self, rid: int, *, last_block: bool = False,
+                             arm_guard: bool = True) -> None:
+        """Fault hook: poison one of an active request's KV blocks with
+        NaNs (its oldest block by default, cold corruption; its freshest
+        with ``last_block``, a NaN-logit burst) and arm the guard scan.
+        ``arm_guard=False`` models an unguarded engine: the corruption
+        stays and the next decode reads it."""
+        if not self.paged:
+            raise ValueError("KV corruption targets the paged pool")
+        if rid not in self.active:
+            raise KeyError(f"request {rid} is not active")
+        lane = self.pool.lane_of[rid]
+        n_written = max(1, int(self.pool.lengths[lane]))
+        idx = (n_written - 1) // self.pool.block_size if last_block else 0
+        self.pool.corrupt_lane(lane, block_idx=idx)
+        if arm_guard:
+            self._guard_armed = True
+
+    def crash(self, now: float, *, drop: bool = False) -> list:
+        """Simulate process death.  The engine goes offline (step() is a
+        no-op until restore()) and all KV state is lost: the pool is
+        rebuilt and the step programs with it.  With ``drop=False``
+        unfinished work is re-queued for recompute after the restart; with
+        ``drop=True`` (recovery off) every unfinished request is returned
+        unfinished, the silent loss the resilience audit exists to
+        catch."""
+        self.stats.crashes += 1
+        self.offline = True
+        dropped: list[Request] = []
+        for rid in sorted(set(self.active) | set(self.prefilling),
+                          reverse=True):
+            req = self.active.pop(rid, None)
+            if req is None:
+                req = self.prefilling.pop(rid)
+                del self._prefill_pos[rid]
+            if drop:
+                dropped.append(req)
+            else:
+                self.queue.appendleft(req)
+        if drop:
+            dropped.extend(self.queue)
+            self.queue.clear()
+            dropped.extend(item[2] for item in self._delayed)
+            self._delayed.clear()
+        self._pending_waiter = None
+        self._prefill_pos.clear()
+        self._make_pool()
+        if self._d_model is not None:
+            self.pool.attach_draft(self._d_model)
+        return dropped
+
+    def restore(self) -> None:
+        """Bring a crashed engine back online (its queue survives; crash()
+        already wiped the KV)."""
+        self.offline = False
+
+    def heartbeat(self) -> bool:
+        """Liveness probe the watchdog polls each tick."""
+        return not self.offline
+
+    def take_unfinished(self) -> list:
+        """Strip every unfinished request off this engine (a watchdog
+        drain onto siblings): in-flight KV released, queued and backing-
+        off work unhooked.  Returns the requests sorted by req_id, so
+        re-homing is deterministic."""
+        out = list(self.queue)
+        self.queue.clear()
+        out.extend(item[2] for item in self._delayed)
+        self._delayed.clear()
+        for rid in sorted(set(self.active) | set(self.prefilling),
+                          reverse=True):
+            req = self.active.pop(rid, None)
+            if req is None:
+                req = self.prefilling.pop(rid)
+                del self._prefill_pos[rid]
+            self.pool.release(rid)
+            out.append(req)
+        self._pending_waiter = None
+        return sorted(out, key=lambda r: r.req_id)
+
     def _admit(self, now: float) -> None:
         if self.paged:
             if self.prefill_chunk:
@@ -554,7 +770,8 @@ class Engine:
             return
         # slot pool: one exact-length prefill (and one host sync) per request
         while (self.queue and self.pool.has_free()
-               and len(self.active) < self.knobs.max_batch):
+               and len(self.active) < self.knobs.max_batch
+               and not self.knobs.paused):
             if len(self._context(self.queue[0])) > self.max_seq - 1:
                 self._reject(self.queue.popleft(), now)
                 continue
@@ -578,7 +795,7 @@ class Engine:
         # double-count the free lists across requests admitted together
         lanes_left = len(self.pool.free_lanes)
         blocks_left = len(self.pool.free_blocks)
-        while (self.queue
+        while (self.queue and not self.knobs.paused
                and len(self.active) + len(batch) < self.knobs.max_batch
                and lanes_left > 0):
             ctx_len = len(self._context(self.queue[0]))
@@ -636,7 +853,8 @@ class Engine:
         context needs (reusing prefix-shared blocks), then let
         ``_prefill_tick`` stream the prompt into the pool one chunk per
         scheduler step, interleaved with decode."""
-        while (self.queue and len(self.active) + len(self.prefilling)
+        while (self.queue and not self.knobs.paused
+               and len(self.active) + len(self.prefilling)
                < self.knobs.max_batch):
             ctx = self._context(self.queue[0])
             if len(ctx) > self.max_seq - 1:
@@ -962,12 +1180,19 @@ class Engine:
         return produced
 
     def step(self, now: float | None = None) -> int:
-        """One scheduler iteration: admit, advance chunked prefills by one
-        chunk, then one decode launch (``horizon`` steps in paged mode,
-        ``horizon`` verify rounds with speculation on, one step in slot
-        mode).  Returns the number of decode tokens produced."""
+        """One scheduler iteration (a no-op while offline): release due
+        retries, expire deadlines, run the armed guard scan, admit,
+        advance chunked prefills by one chunk, then one decode launch
+        (``horizon`` steps in paged mode, ``horizon`` verify rounds with
+        speculation on, one step in slot mode).  Returns the number of
+        decode tokens produced."""
         t0 = time.perf_counter()
         now = now if now is not None else t0
+        if self.offline:
+            return 0
+        self._release_delayed(now)
+        self._expire_deadlines(now)
+        self._quarantine_scan(now)
         self._admit(now)
         prefilled = self._prefill_tick(now) \
             if self.paged and self.prefill_chunk else 0
@@ -980,15 +1205,17 @@ class Engine:
             else:
                 produced = self._decode_slots(now)
         if produced or prefilled:
-            # simulated frequency knob: a capped clock stretches wall time
+            # simulated frequency knob: a capped clock stretches wall
+            # time; a stuck-slow fault stretches it further
             self.stats.record_step((time.perf_counter() - t0)
+                                   * self.slow_factor
                                    / max(self.knobs.freq_scale, 1e-3))
         return produced
 
     def run(self, *, max_steps: int = 10_000) -> EngineStats:
         steps = 0
-        while (self.queue or self.active or self.prefilling) \
-                and steps < max_steps:
+        while (self.queue or self.active or self.prefilling
+               or self._delayed) and steps < max_steps:
             self.step(now=float(steps))
             steps += 1
         return self.stats

@@ -1,5 +1,5 @@
 """KV-cache pools for continuous batching (port of
-``repro.serving.kvcache``, without fault injection).
+``repro.serving.kvcache``).
 
 ``PagedCachePool``: one global block pool per layer (leaves ``(L,
 n_blocks, block_size, K, hd)``), a free-list block allocator and a
@@ -32,6 +32,13 @@ then updated in place, a row (or cell) at a time, as the allocator
 mutates.  After a decode horizon the engine copies the loop's final device
 state into them with ``adopt_device``.  The pool itself is written in
 place (the reference donates it to a jitted scatter).
+
+Fault injection and the NaN guard: ``corrupt_lane`` poisons one physical
+block with NaNs, ``bad_lanes`` finds the lanes whose written positions
+hold a NaN or Inf, and ``scrub_lane`` zeroes a quarantined lane's blocks
+before they return to the free list.  The scrub matters: the attention
+kernels mask keys past a lane's length with -inf, but a NaN left in V
+still turns ``0 * NaN`` into NaN for the next lane that reuses the block.
 """
 from __future__ import annotations
 
@@ -42,6 +49,7 @@ import torch
 
 from repro_torch.models.layers import tree_map
 from repro_torch.models.transformer import Model
+from repro_torch.serving.graphs import _leaves
 
 
 class CachePool:
@@ -94,6 +102,49 @@ class CachePool:
     def advance(self, active_slots: list) -> None:
         for s in active_slots:
             self.lengths[s] += 1
+
+
+def _poison_block(cache: dict, blk: int) -> None:
+    """Overwrite one physical block with NaNs in every leaf, in place
+    (fault injection: simulated KV memory corruption)."""
+    for leaf in _leaves(cache):
+        leaf[:, blk] = float("nan")
+
+
+def _zero_blocks(cache: dict, blk_ids: torch.Tensor) -> None:
+    """Scrub the indexed physical blocks back to zero in place (quarantine
+    cleanup).  A freed NaN block reused as a decode append block is only
+    partly overwritten, and masked attention still folds the residue in
+    as ``0 * NaN``, so poisoned blocks must be back in the pool's pristine
+    (zero) state before they re-enter the free list."""
+    for leaf in _leaves(cache):
+        leaf[:, blk_ids] = 0
+
+
+def _bad_lane_scan(cache: dict, tables: torch.Tensor, lengths: torch.Tensor,
+                   mask: torch.Tensor) -> torch.Tensor:
+    """Per-lane NaN/Inf detector over the *written* KV positions.
+
+    The reference gathers each lane's logical blocks (``leaf[:, tables]``,
+    ``(L, B, P, bs, ...)``), a copy of every active lane's KV.  Here each
+    layer of each leaf is reduced over its trailing dims to one flag per
+    physical (block, position), the flags are or-ed over layers and
+    leaves, and only those ``(n_blocks, bs)`` flags are gathered through
+    the tables: the same answer without the copy.  ``isfinite`` reads the
+    bf16 pool directly.  Positions at or past ``lengths`` are ignored:
+    append blocks reused from the free list may hold stale NaNs in slots
+    decode has not written yet, which attention never reads."""
+    bad = None
+    for leaf in _leaves(cache):
+        for layer in leaf:                        # (n_blocks, bs, ...)
+            flags = (~torch.isfinite(layer)).flatten(2).any(dim=2)
+            bad = flags if bad is None else bad | flags
+    n_p, bs = tables.shape[1], bad.shape[1]
+    g = bad[tables.long()]                        # (B, P, bs)
+    pos = (torch.arange(n_p, device=g.device)[None, :, None] * bs
+           + torch.arange(bs, device=g.device)[None, None, :])
+    valid = pos < lengths[:, None, None]
+    return (g & valid).flatten(1).any(dim=1) & mask
 
 
 def _chain_key(prev: bytes, tokens) -> bytes:
@@ -395,6 +446,38 @@ class PagedCachePool:
     def set_last_token(self, lane: int, tok: int) -> None:
         self.last_tokens[lane] = tok
         self.mirror_write("last_tokens", lane)
+
+    # -- fault injection + NaN guard ----------------------------------------
+    def corrupt_lane(self, lane: int, *, block_idx: int = 0) -> None:
+        """Poison the lane's ``block_idx``-th logical block with NaNs
+        (fault injection).  The parking block is refused, which keeps
+        parked lanes clean: every idle lane aliases physical block 0."""
+        phys = int(self.block_tables[lane, block_idx])
+        if phys == 0:
+            raise ValueError(
+                f"lane {lane} block {block_idx} is the parking block — "
+                f"the lane holds no data there to corrupt")
+        _poison_block(self.cache, phys)
+
+    def bad_lanes(self, mask) -> np.ndarray:
+        """Which masked lanes hold NaN/Inf anywhere in their written KV:
+        one scan and one host readback (the caller counts the sync); the
+        engine runs it only while its guard is armed."""
+        out = _bad_lane_scan(self.cache, self.tables(), self.positions(),
+                             torch.as_tensor(np.asarray(mask, bool),
+                                             device=self.device))
+        return out.cpu().numpy()
+
+    def scrub_lane(self, req_id: int) -> None:
+        """Zero every block a quarantined request holds, so the blocks
+        re-enter the free list pristine.  Sharers of a poisoned block are
+        quarantined by the same scan (their tables alias the same physical
+        block), so scrubbing under them is safe."""
+        ids = torch.tensor(self.blocks_of[req_id], dtype=torch.long,
+                           device=self.device)
+        _zero_blocks(self.cache, ids)
+        if self.draft_cache is not None:
+            _zero_blocks(self.draft_cache, ids)
 
     # -- speculative decode: sequence history + drafter KV ------------------
     def hist_dev(self) -> torch.Tensor:

@@ -15,6 +15,13 @@ Weights come from a seeded ``torch.Generator``, which draws other numbers
 than the reference's ``jax.random`` key of the same seed: a test that holds
 the port to the reference carries the reference's weights across
 (``repro_torch.convert.from_jax_params``) into ``Engine.params``.
+
+``build(share=other_engine)`` aliases another engine's (model, parameters)
+registries, every variant and drafter included, instead of initialising
+them again: a fleet of engines holds ONE copy of the weights (see
+``serving.backend.EngineFleet``); each engine still gets its own pool and
+step programs.  Nothing in the port writes a parameter in place, so the
+aliasing is as safe as the reference's over immutable arrays.
 """
 from __future__ import annotations
 
@@ -88,13 +95,22 @@ class EngineSpec:
         return model, model.init(
             torch.Generator(device=device).manual_seed(seed))
 
-    def build(self, *, device="cuda") -> Engine:
+    def build(self, *, device="cuda", share: Engine | None = None) -> Engine:
         """Build (plan, seeded parameters, pool, Engine) on ``device``.
         The engine's sampling seed is the spec's ``seed``, as the
-        reference's."""
+        reference's.
+
+        ``share=`` aliases an existing engine's model and parameter
+        registries (it must come from a spec with the same cfg, shards,
+        variants and drafters) and builds on its device, so N engines hold
+        one copy of the weights."""
         self.validate()
         plan = self.plan()
-        model, params = self._materialize(self.cfg, plan, self.seed, device)
+        if share is not None:
+            model, params = share.variants["full"]
+        else:
+            model, params = self._materialize(self.cfg, plan, self.seed,
+                                              device)
         eng = Engine(
             model, params, max_seq=self.max_seq, n_slots=self.n_slots,
             knobs=EngineKnobs(max_batch=self.max_batch or self.n_slots),
@@ -103,14 +119,21 @@ class EngineSpec:
             prefix_share=self.prefix_share, spec_k=self.spec_k,
             draft=self.draft if self.draft in (None, "ngram") else None,
             ngram=self.ngram, seed=self.seed)
-        for i, (name, vcfg) in enumerate(self.variants):
-            eng.add_variant(name, *self._materialize(vcfg, plan,
-                                                     self.seed + 10 + i,
-                                                     device))
-        for i, (name, dcfg) in enumerate(self.drafters):
-            eng.add_drafter(name, *self._materialize(dcfg, plan,
-                                                     self.seed + 100 + i,
-                                                     device))
+        if share is not None:
+            for name, (m, p) in share.variants.items():
+                if name != "full":
+                    eng.add_variant(name, m, p)
+            for name, (m, p) in share.drafters.items():
+                eng.add_drafter(name, m, p)
+        else:
+            for i, (name, vcfg) in enumerate(self.variants):
+                eng.add_variant(name, *self._materialize(vcfg, plan,
+                                                         self.seed + 10 + i,
+                                                         device))
+            for i, (name, dcfg) in enumerate(self.drafters):
+                eng.add_drafter(name, *self._materialize(dcfg, plan,
+                                                         self.seed + 100 + i,
+                                                         device))
         if self.draft is not None and self.draft != "ngram":
             eng.set_drafter(self.draft)
         eng.spec = self

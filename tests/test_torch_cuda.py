@@ -2011,3 +2011,151 @@ def test_spec_greedy_equals_plain_greedy_in_f32(gen):
     kw = dict(SPEC_PATHS["drafter h4"])
     kw.pop("drafter")
     assert _serve_spec(m, p, load, True, (d, dp), **kw)[0] == want
+
+
+# ---------------------------------------------------------------------------
+# resilience on the card: the scrub, quarantine, crash, the physics
+# ---------------------------------------------------------------------------
+
+def test_scrub_keeps_kernel_2_finite_over_a_reused_block(gen):
+    """A quarantined lane's block reused with NaN left in its unwritten
+    tail: after ``_zero_blocks`` kernel 2 is finite and the plain
+    version's (what it makes of the unscrubbed residue is a reading in
+    ``chip_smoke.py`` phase 10)."""
+    from repro_torch.serving.kvcache import _zero_blocks
+    B, H, D, bs, T = 2, 8, 64, 16, 4
+    n_blocks = 1 + B * T
+    kp = torch.randn(n_blocks, bs, H, D, generator=gen, device="cuda",
+                     dtype=torch.bfloat16)
+    vp = torch.randn(n_blocks, bs, H, D, generator=gen, device="cuda",
+                     dtype=torch.bfloat16)
+    q = torch.randn(B, H, D, generator=gen, device="cuda",
+                    dtype=torch.bfloat16)
+    tables = (1 + torch.arange(B * T, device="cuda",
+                               dtype=torch.int32)).reshape(B, T)
+    pos = torch.tensor([21, 50], device="cuda", dtype=torch.int32)
+    last = int(tables[0, 21 // bs])
+    want = pa.paged_decode_attention_ref(q, kp, vp, tables, pos)
+    keep = kp[last].clone(), vp[last].clone()
+    kp[last], vp[last] = float("nan"), float("nan")
+    _zero_blocks({"attn": {"k": kp[None], "v": vp[None]}},
+                 torch.tensor([last], device="cuda"))
+    assert int(kp[last].abs().sum()) == 0
+    kp[last, : 21 % bs + 1] = keep[0][: 21 % bs + 1]
+    vp[last, : 21 % bs + 1] = keep[1][: 21 % bs + 1]
+    o = ops.paged_decode_attention(q, kp, vp, tables, pos)
+    assert bool(o.isfinite().all())
+    assert_close(o, want, torch.bfloat16)
+
+
+def _resilience_engine(m, p, **kw):
+    from repro_torch.serving import Engine, EngineKnobs
+    return Engine(m, p, max_seq=64, n_slots=3, block_size=8,
+                  knobs=EngineKnobs(max_batch=3), **kw)
+
+
+def _resilience_load(vocab, seed):
+    from repro_torch.serving import Request
+    g = torch.Generator().manual_seed(seed)
+    return [Request(prompt=torch.randint(0, vocab, (int(n),),
+                                         generator=g).tolist(),
+                    max_new_tokens=6)
+            for n in torch.randint(4, 16, (4,), generator=g)]
+
+
+def _dry(eng, now=0.0):
+    for _ in range(500):
+        if not (eng.queue or eng.active or eng.prefilling or eng._delayed):
+            return
+        eng.step(now=now)
+        now += 1.0
+    raise AssertionError("engine did not drain")
+
+
+@pytest.mark.parametrize("horizon", [1, 4])
+def test_quarantine_on_the_card_recovers_exact_streams(gen, horizon):
+    """The guard's scan on the card finds the poisoned lane; recompute
+    gives the clean run's streams; every free block is finite after."""
+    m, p = _graph_model("llama2-7b")
+    base = _resilience_engine(m, p, horizon=horizon)
+    clean = _resilience_load(m.cfg.vocab_size, 2)
+    for r in clean:
+        base.submit(r)
+    _dry(base)
+    eng = _resilience_engine(m, p, horizon=horizon)
+    reqs = _resilience_load(m.cfg.vocab_size, 2)
+    for r in reqs:
+        eng.submit(r)
+    eng.step(now=0.0)
+    victim = sorted(eng.active)[0]
+    mask = torch.zeros(eng.pool.n_lanes, dtype=torch.bool).numpy()
+    mask[list(eng.pool.lane_of.values())] = True
+    eng.inject_kv_corruption(victim, last_block=True)
+    bad = eng.pool.bad_lanes(mask)
+    assert bad.tolist() == [lane == eng.pool.lane_of[victim]
+                            for lane in range(eng.pool.n_lanes)]
+    _dry(eng, now=1.0)
+    assert eng.stats.quarantined == 1 and eng.stats.retried == 1
+    assert [r.output for r in reqs] == [r.output for r in clean]
+    free = sorted(eng.pool.free_blocks)
+    for leaf in eng.pool.cache["attn"].values():
+        assert bool(leaf[:, free].isfinite().all())
+
+
+def test_crash_drops_the_captured_programs_with_the_pool(gen):
+    """``crash()`` rebuilds the pool and drops every step program that
+    captured the old one, so no graph replays against freed memory; after
+    ``restore()`` the engine captures anew and the requeued requests give
+    the clean run's streams."""
+    m, p = _graph_model("llama2-7b")
+    base = _resilience_engine(m, p, horizon=4)
+    clean = _resilience_load(m.cfg.vocab_size, 3)
+    for r in clean:
+        base.submit(r)
+    _dry(base)
+    eng = _resilience_engine(m, p, horizon=4)
+    reqs = _resilience_load(m.cfg.vocab_size, 3)
+    for r in reqs:
+        eng.submit(r)
+    eng.step(now=0.0)
+    eng.step(now=1.0)
+    assert eng.programs and eng.captured
+    old_pool = eng.pool
+    assert eng.crash(2.0) == []
+    assert eng.programs == {} and eng.pool is not old_pool
+    assert eng.step(now=3.0) == 0
+    eng.restore()
+    _dry(eng, now=4.0)
+    assert sum(pr.captures for pr in eng.programs.values()) >= 1
+    assert [r.output for r in reqs] == [r.output for r in clean]
+    assert eng.pool.used_blocks == 0
+
+
+def test_cluster_sim_on_the_card_matches_the_cpu(gen):
+    """The physics on the card against the CPU: event counts equal, the
+    floats within 1e-5 relative."""
+    import numpy as np
+    from repro_torch.core.datacenter import DCConfig
+    from repro_torch.core.scenario import (DemandSurge, FailureEvent,
+                                           Scenario)
+    from repro_torch.core.simulator import BASELINE, TAPAS, ClusterSim, \
+        SimConfig
+    for policy in (BASELINE, TAPAS):
+        cfg = SimConfig(dc=DCConfig(n_rows=4, racks_per_row=5,
+                                    servers_per_rack=4),
+                        horizon_h=12.0, tick_min=10.0, seed=2,
+                        policy=policy, occupancy=0.95, demand_scale=1.0,
+                        scenario=Scenario((
+                            FailureEvent(kind="thermal", start_h=3.0,
+                                         end_h=6.0, target=0),
+                            DemandSurge(start_h=3.0, end_h=6.0,
+                                        scale=1.4))))
+        a = ClusterSim(cfg, device="cuda").run()
+        b = ClusterSim(cfg, device="cpu").run()
+        sa, sb = a.summary(), b.summary()
+        for k in ("thermal_events", "power_events"):
+            assert sa[k] == sb[k]
+        for k in sa:
+            np.testing.assert_allclose(sa[k], sb[k], rtol=1e-5, atol=1e-12)
+        np.testing.assert_allclose(a.max_gpu_temp_c, b.max_gpu_temp_c,
+                                   rtol=1e-5)

@@ -6,6 +6,8 @@ Both engines serve ``launch/serve.py``'s workload (8 requests, prompts of
 same weights (a JAX ``Model.init`` tree carried over with
 ``from_jax_params``, f32 plan; the KV pool is bf16 on both sides).  Greedy
 streams must match token for token, and the engine counters exactly."""
+import dataclasses
+
 import numpy as np
 import pytest
 
@@ -107,20 +109,33 @@ def test_bucket_matches_reference():
 
 
 def test_unported_request_kinds_raise(models):
-    _, _, tm, tp = models
-    eng = Engine(tm, tp, max_seq=64, n_slots=2)
-    # sampled requests are ported (tests/test_torch_sampling.py)
-    eng.submit(Request(prompt=[1, 2], temperature=0.7))
-    with pytest.raises(NotImplementedError):
-        eng.submit(Request(prompt=[1, 2], deadline_ms=10.0))
-    # the slot pool is ported; chunked prefill still needs the paged pool,
-    # as in the reference
+    """Every request kind is ported now: sampled requests
+    (tests/test_torch_sampling.py) and requests with ``deadline_ms``,
+    which both pools take and serve as the JAX engine does (the live
+    deadline expires one request mid-stream, the loose one never fires).
+    What the reference refuses is still refused: chunked prefill needs
+    the paged pool."""
+    jm, jp, tm, tp = models
     with pytest.raises(ValueError):
         Engine(tm, tp, max_seq=64, n_slots=2, paged=False, prefill_chunk=8)
-    slots = Engine(tm, tp, max_seq=64, n_slots=2, paged=False)
-    slots.submit(Request(prompt=[1, 2], temperature=0.7))
-    with pytest.raises(NotImplementedError):
-        slots.submit(Request(prompt=[1, 2], deadline_ms=10.0))
+
+    def serve(engine_cls, req_cls, model, params, paged):
+        eng = engine_cls(model, params, max_seq=64, n_slots=2, paged=paged)
+        reqs = [req_cls(prompt=[1, 2, 3], max_new_tokens=6, arrival_s=0.0,
+                        deadline_ms=3_500.0),
+                req_cls(prompt=[4, 5], max_new_tokens=6, arrival_s=0.0,
+                        deadline_ms=3_600_000.0),
+                req_cls(prompt=[1, 2], temperature=0.7, max_new_tokens=4)]
+        for r in reqs:
+            eng.submit(r)
+        stats = eng.run()
+        return ([(tuple(r.output), r.outcome) for r in reqs],
+                stats.timed_out, stats.submitted, len(stats.completed))
+
+    for paged in (True, False):
+        got = serve(Engine, Request, tm, tp, paged)
+        assert got == serve(JEngine, JRequest, jm, jp, paged)
+        assert got[0][0][1] == "timed_out" and got[1] == 1
 
 
 def test_goodput_matches_reference(models):
@@ -262,15 +277,34 @@ def test_engine_pool_fully_reclaimed(tiny):
 
 
 @pytest.mark.parametrize("knob", [{"variant": "int8"}, {"paused": True}])
-def test_unported_knobs_are_refused(knob):
-    """A knob whose mechanism is not ported (``paused``: the
-    reconfiguration drains) is not accepted, so no caller gets a silently
-    ignored knob; ``variant`` is ported (``set_variant``) and is taken
-    with the reference's default."""
-    assert {"variant", "paused"} <= set(JKnobs.__dataclass_fields__)
+def test_unported_knobs_are_refused(knob, models):
+    """Every knob of the reference is ported, none is silently ignored:
+    ``variant`` (``set_variant``) and ``paused`` (the reconfiguration
+    drain), with the reference's defaults.  A paused engine admits nothing
+    (on both engines), and once unpaused serves the JAX engine's
+    streams."""
+    assert set(EngineKnobs.__dataclass_fields__) == \
+        set(JKnobs.__dataclass_fields__)
+    assert dataclasses.asdict(EngineKnobs()) == dataclasses.asdict(JKnobs())
     if "variant" in knob:
         assert EngineKnobs(**knob).variant == "int8"
-        assert EngineKnobs().variant == JKnobs().variant == "full"
         return
-    with pytest.raises(TypeError):
-        EngineKnobs(**knob)
+    assert EngineKnobs(**knob).paused is True
+    jm, jp, tm, tp = models
+
+    def serve(engine_cls, knobs_cls, req_cls, model, params):
+        eng = engine_cls(model, params, max_seq=64, n_slots=2,
+                         knobs=knobs_cls(max_batch=2, **knob))
+        reqs = [req_cls(prompt=[1, 2, 3 + i], max_new_tokens=5)
+                for i in range(3)]
+        for r in reqs:
+            eng.submit(r)
+        held = [eng.step(now=float(i)) for i in range(3)]
+        held.append((len(eng.queue), len(eng.active)))
+        eng.knobs.paused = False
+        eng.run()
+        return held, [tuple(r.output) for r in reqs]
+
+    got = serve(Engine, EngineKnobs, Request, tm, tp)
+    assert got == serve(JEngine, JKnobs, JRequest, jm, jp)
+    assert got[0] == [0, 0, 0, (3, 0)]
