@@ -39,7 +39,11 @@ Builds the hand-written CUDA kernels from ``src/repro_torch/csrc`` (one
    1's window and bidirectional forms are timed five times (20 calls
    each): median, min and max, kernel 1's with its TFLOP/s; kernel 1
    causal at D = 80, 96 and 256 at S = 2048 is a reading (D = 256,
-   gemma-7b's prefill shape, timed five times);
+   gemma-7b's prefill shape, timed five times); kernels 1-5 at gemma-7b's
+   heads (16/16 of D = 256: a prefill bucket, a decode step over 4
+   lanes, a chunk tick, that step per stripe at 2 stripes, 4 slots of
+   2048) through the same checks, held in every dtype pair and timed
+   beside their plain versions, a library call and the bound (readings);
 2. serves full-width llama2-7b (random weights from a seeded generator)
    through the ``Engine`` on five paths, each with every launch count set
    to 0 just before and read just after: the paged pool with whole-prompt
@@ -154,6 +158,35 @@ Builds the hand-written CUDA kernels from ``src/repro_torch/csrc`` (one
    verify pass and drafter step, kernel 1 by both models' prefills; one
    round traced eager and captured beside the drafter's 5 steps alone
    (its share of the round).
+10. frees llama2-13b and runs the TAPAS control loop on the card
+   (``cluster_phases``): the 320-server sim's physics against the CPU,
+   the loop with an ``EngineFleet`` of two full-width llama2-13b engines
+   (the fleet, its engines and pools end when the loop drops them, with
+   the cyclic collector held off), and ``examples/fault_storm.py``'s
+   three arms on full-width llama2-7b.
+11. frees phase 10's engines and serves, one model at a time (each freed
+   before the next is built), the reference's five other token-input
+   configs at their published widths with random bf16 weights from seed
+   0: deepseek-7b, qwen3-1.7b (qk_norm, tied), gemma-7b (head dim 256,
+   the gelu GLU, (1 + w) norms, the scaled embedding, tied),
+   chameleon-34b (~69 GB) and qwen3-moe-235b-a22b (128 experts top-8)
+   cut to 8 of its 94 layers: ``plain_load`` at horizon 8 through the
+   paged pool, captured and eager (equal); gemma-7b also through the
+   block-striped pool at shards 2 (captured and eager) and 4, chunked
+   prefill with prefix sharing and the slot pool, each captured and
+   eager, so kernels 1-5 all run at D = 256; the dense models' prefill
+   and decode step teacher-forced kernels vs plain; one captured decode
+   step traced per model (device ms per step, idle share), and each
+   model's tok/s and launches beside the card's name and power limit.
+12. the fleet (``fleet_phases``): ``repro_torch.launch.fleet``'s drill
+   (3 regions, both routers) with each region's physics on the card
+   against the CPU (summaries equal); its measured drill with one
+   ``EngineFleet`` of two full-width llama2-7b engines per region, all
+   six on one weight copy, ``nvidia-smi``'s power, SM clock and
+   temperature read every tick, the reference's closing checks and the
+   summary equal to the same drill's without engines (the drill cut to
+   its first 6 of 12 hours); and the oversubscription sweep on the card,
+   its rows equal to the CPU's.
 
 The launch counts are per launch whether the launch ran eagerly or as a
 node of a replayed graph: a capture records each wrapper's count and
@@ -164,6 +197,7 @@ times, and the card's name and power limit as ``nvidia-smi`` prints them.
 """
 from __future__ import annotations
 
+import gc
 import json
 import subprocess
 import sys
@@ -274,17 +308,21 @@ def device_ms(torch, fn, iters: int = 20) -> float:
 # phase 1: kernels against their plain versions
 # ---------------------------------------------------------------------------
 
-def check_flash(torch, dtypes, gen):
+def check_flash(torch, dtypes, gen, shapes=None):
+    """Kernel 1, causal, B = 4, over ``shapes`` ((generator, H, K, D, S,
+    label) cases), each held in every dtype of ``dtypes``; the bf16 case
+    of most work timed.  By default llama2-7b's heads, then
+    granite-moe-3b-a800m's (GQA 24/8, D=64) at its prefill buckets from a
+    generator of their own, so the llama inputs stay as drawn."""
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
     B = 4
-    # llama2-7b's heads, then granite-moe-3b-a800m's (GQA 24/8, D=64) at
-    # its prefill buckets from a generator of their own, so the llama
-    # inputs stay as drawn
-    g6 = torch.Generator(device="cuda").manual_seed(6)
-    shapes = ([(gen, 32, 32, 128, S, "") for S in (16, 200, 512)]
-              + [(g6, 24, 8, 64, S, " (granite)") for S in (16, 200, 256)])
-    timed = None
+    if shapes is None:
+        g6 = torch.Generator(device="cuda").manual_seed(6)
+        shapes = ([(gen, 32, 32, 128, S, "") for S in (16, 200, 512)]
+                  + [(g6, 24, 8, 64, S, " (granite)")
+                     for S in (16, 200, 256)])
+    timed, work = None, 0
     for name, dt in dtypes.items():
         for g, H, K, D, S, model in shapes:
             # the model's (B, S, H, D) activations, passed as strided views
@@ -294,8 +332,8 @@ def check_flash(torch, dtypes, gen):
             err = held(f"flash_attention {name} B={B} H={H} K={K} S={S} "
                        f"D={D}{model}", fa.flash_attention(q, k, v),
                        fa.flash_attention_ref(q, k, v), name)
-            if name == "bf16" and S == 512:
-                timed = (q, k, v, err)
+            if name == "bf16" and H * D * S * S > work:
+                timed, work = (q, k, v, err), H * D * S * S
     q, k, v, err = timed
     _, H, S, D = q.shape
     ms, lo, hi = spread_ms(lambda: fa.flash_attention(q, k, v))
@@ -506,31 +544,57 @@ def _paged_inputs(torch, gen, B, H, K, D, bs, T, q_dt, kv_dt):
     return q, kp, vp, tables, pos
 
 
-def check_paged(torch, gen):
+def check_paged(torch, gen, cases=None, B=8, D=128):
+    """Kernel 2 over tables of 128 blocks of 16 at ragged positions (lane
+    0 at the last), one call per (tolerance name, H, K, q dtype, pool
+    dtype) of ``cases``, the first one timed.  By default llama2-7b's
+    heads and a GQA 64/8 case."""
     from repro_torch.kernels import paged_decode_attention as pa
     bf16, f32 = torch.bfloat16, torch.float32
-    B, D, bs, T = 8, 128, 16, 128
-    cases = [("bf16", 32, 32, bf16, bf16), ("f32", 32, 32, f32, f32),
-             ("bf16", 32, 32, f32, bf16), ("bf16", 64, 8, bf16, bf16),
-             ("f32", 64, 8, f32, f32)]
+    bs, T = 16, 128
+    if cases is None:
+        cases = [("bf16", 32, 32, bf16, bf16), ("f32", 32, 32, f32, f32),
+                 ("bf16", 32, 32, f32, bf16), ("bf16", 64, 8, bf16, bf16),
+                 ("f32", 64, 8, f32, f32)]
     timed = None
     for name, H, K, q_dt, kv_dt in cases:
         args = _paged_inputs(torch, gen, B, H, K, D, bs, T, q_dt, kv_dt)
-        err, rel = compare(pa.paged_decode_attention(*args),
-                           pa.paged_decode_attention_ref(*args))
-        ok = err <= TOL[name] and rel <= REL_TOL[name]
-        print(f"paged_decode_attention q={q_dt} pool={kv_dt} B={B} H={H} "
-              f"K={K} D={D} bs={bs} T={T} max_pos={args[4].max().item()}: "
-              f"max_abs_err={err:.3e} tol={TOL[name]:.0e} "
-              f"rel_err={rel:.3e} rel_tol={REL_TOL[name]:.0e} "
-              f"{'ok' if ok else 'FAIL'}", flush=True)
-        if not ok:
-            fail(f"paged_decode_attention {q_dt}/{kv_dt} H={H} K={K} "
-                 f"disagrees with its plain version")
+        err = held(f"paged_decode_attention q={q_dt} pool={kv_dt} B={B} "
+                   f"H={H} K={K} D={D} bs={bs} T={T} "
+                   f"max_pos={args[4].max().item()}",
+                   pa.paged_decode_attention(*args),
+                   pa.paged_decode_attention_ref(*args), name)
         if timed is None:
             timed = (args, err)
-    # granite-moe-3b-a800m's decode (GQA 24/8, D=64, four lanes) at its
-    # phase-6 step's positions, from a generator of its own
+    (q, kp, vp, tables, pos), err = timed
+    H, K = q.shape[1], kp.shape[2]
+    ms, lo, hi = spread_ms(
+        lambda: pa.paged_decode_attention(q, kp, vp, tables, pos))
+    plain_ms = cuda_ms(
+        lambda: pa.paged_decode_attention_ref(q, kp, vp, tables, pos))
+    lib_ms, n_bytes, flops = paged_yardstick(torch, q, kp, vp, tables, pos)
+    bound, by = bound_of(n_bytes, flops, "bf16")
+    keys = flops // (4 * D * H)
+    print(f"paged_decode_attention bf16 B={B} H={H} K={K} D={D} keys={keys}: "
+          f"kernel {spread(ms, lo, hi)}, plain {plain_ms:.4f} ms, sdpa-dense "
+          f"{lib_ms:.4f} ms, bound {bound:.4f} ms ({by}: {n_bytes} B, "
+          f"{flops} flop)", flush=True)
+    return {"name": "paged_decode_attention", "route": "cuda",
+            "source": "src/repro_torch/csrc/paged_decode_attention.cu",
+            "replaces": "src/repro/kernels/paged_decode_attention.py:331",
+            "max_abs_err": err, "ms": ms, "ms_min": lo, "ms_max": hi,
+            "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
+            "library_ms": lib_ms}
+
+
+def check_paged_edges(torch) -> None:
+    """Kernel 2 beyond ``check_paged``'s cases: granite-moe-3b-a800m's
+    decode (GQA 24/8, D=64, four lanes) at its phase-6 step's positions,
+    from a generator of its own; lanes at the edges of the plan's split;
+    llama2-7b's served step (``served_paged``)."""
+    from repro_torch.kernels import paged_decode_attention as pa
+    bf16, f32 = torch.bfloat16, torch.float32
+    B, D, bs, T = 8, 128, 16, 128
     g7 = torch.Generator(device="cuda").manual_seed(7)
     for name, q_dt, kv_dt in (("bf16", bf16, bf16), ("f32", f32, f32),
                               ("bf16", f32, bf16)):
@@ -559,25 +623,6 @@ def check_paged(torch, gen):
              pa.paged_decode_attention(q, kp, vp, tables, pos),
              pa.paged_decode_attention_ref(q, kp, vp, tables, pos), name)
     served_paged(torch, g8)
-    (q, kp, vp, tables, pos), err = timed
-    H, K = q.shape[1], kp.shape[2]
-    ms, lo, hi = spread_ms(
-        lambda: pa.paged_decode_attention(q, kp, vp, tables, pos))
-    plain_ms = cuda_ms(
-        lambda: pa.paged_decode_attention_ref(q, kp, vp, tables, pos))
-    lib_ms, n_bytes, flops = paged_yardstick(torch, q, kp, vp, tables, pos)
-    bound, by = bound_of(n_bytes, flops, "bf16")
-    keys = flops // (4 * D * H)
-    print(f"paged_decode_attention bf16 B={B} H={H} K={K} D={D} keys={keys}: "
-          f"kernel {spread(ms, lo, hi)}, plain {plain_ms:.4f} ms, sdpa-dense "
-          f"{lib_ms:.4f} ms, bound {bound:.4f} ms ({by}: {n_bytes} B, "
-          f"{flops} flop)", flush=True)
-    return {"name": "paged_decode_attention", "route": "cuda",
-            "source": "src/repro_torch/csrc/paged_decode_attention.cu",
-            "replaces": "src/repro/kernels/paged_decode_attention.py:331",
-            "max_abs_err": err, "ms": ms, "ms_min": lo, "ms_max": hi,
-            "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
-            "library_ms": lib_ms}
 
 
 def paged_yardstick(torch, q, kp, vp, tables, pos) -> tuple[float, int, int]:
@@ -684,18 +729,47 @@ def check_verify_fold(torch) -> None:
                      f"from {B}-lane launches ({q_dt}/{kv_dt}, H={heads})")
 
 
-def check_lse(torch, gen):
-    """Kernel 4 at kernel 2's phase-1 shapes (B=8, H=K=32, D=128, bs=16,
-    T=128) over a pool of 1028 blocks (a multiple of 2 and 4) with
-    scrambled tables across all of it, split into 2 and 4 stripes: every
-    stripe owns blocks of every lane.  Per stripe, (o, lse) against the
-    plain version; the stripes' ``combine_lse`` against kernel 2 over the
-    whole pool.  bf16 and f32-over-bf16 pairs.  Timed at 2 stripes, per
-    launch: CUDA events around both stripes' launches, halved."""
+def lse_yardstick(torch, calls: list) -> tuple:
+    """(SDPA ms, bytes, flops) of one kernel-4 launch per stripe in
+    ``calls`` (each the launch's arguments), summed over the stripes:
+    SDPA over each stripe's owned keys gathered into a dense, masked (B,
+    K, T*bs, D) cache (the gather itself is not timed; it gives o but no
+    lse), and what the launches must move and compute."""
     import torch.nn.functional as F
+    sdpa, n_bytes, flops = [], 0, 0
+    for q, k_s, v_s, local, pos, owned in calls:
+        (B, H, D), (T, bs, K) = q.shape, (local.shape[1],) + k_s.shape[1:3]
+        keys_live = ((torch.arange(T * bs, device="cuda")[None, :]
+                      <= pos[:, None])
+                     & (owned != 0).repeat_interleave(bs, dim=1))
+        kd = k_s[local.long()].reshape(B, T * bs, K, D).transpose(1, 2)
+        vd = v_s[local.long()].reshape(B, T * bs, K, D).transpose(1, 2)
+        sdpa.append((q[:, :, None], kd, vd, keys_live[:, None, None, :]))
+        keys = int(keys_live.sum().item())
+        slots_seen = int(((torch.arange(T, device="cuda")[None, :] * bs)
+                          <= pos[:, None]).sum().item())
+        blocks = int(keys_live.reshape(B, T, bs).any(-1).sum().item())
+        n_bytes += (2 * keys * K * D * k_s.element_size()  # owned live K, V
+                    + 2 * B * H * D * q.element_size()     # q in, o out
+                    + 4 * B * H                            # lse out
+                    + 4 * (slots_seen + blocks + B))       # owned, ids, pos
+        flops += 4 * D * H * keys
+    lib_ms = cuda_ms(lambda: [F.scaled_dot_product_attention(
+        qq, kd, vd, attn_mask=m) for qq, kd, vd, m in sdpa]) / len(calls)
+    return lib_ms, n_bytes, flops
+
+
+def check_lse(torch, gen, B=8, H=32, D=128, n_blocks=1028, stripes=(2, 4)):
+    """Kernel 4 at kernel 2's phase-1 shapes (by default B=8, H=K=32,
+    D=128; bs=16, T=128) over a pool of ``n_blocks`` blocks (a multiple
+    of each count of ``stripes``) with scrambled tables across all of
+    it, split into stripes: every stripe owns blocks of every lane.  Per
+    stripe, (o, lse) against the plain version; the stripes'
+    ``combine_lse`` against kernel 2 over the whole pool.  bf16 and
+    f32-over-bf16 pairs.  Timed at 2 stripes, per launch: CUDA events
+    around both stripes' launches, halved."""
     from repro_torch.kernels import paged_decode_attention as pa
-    B, H, K, D, bs, T = 8, 32, 32, 128, 16, 128
-    n_blocks = 1028
+    K, bs, T = H, 16, 128
     timed = None
     bf16, f32 = torch.bfloat16, torch.float32
     for name, q_dt, kv_dt in (("bf16", bf16, bf16), ("bf16", f32, bf16)):
@@ -708,7 +782,7 @@ def check_lse(torch, gen):
         kp, vp = (torch.randn(n_blocks, bs, K, D, generator=gen,
                               device="cuda", dtype=kv_dt) for _ in range(2))
         full = pa.paged_decode_attention(q, kp, vp, tables, pos)
-        for shards in (2, 4):
+        for shards in stripes:
             nb_loc = n_blocks // shards
             calls, os_, lses = [], [], []
             for r in range(shards):
@@ -742,34 +816,12 @@ def check_lse(torch, gen):
                  name)
             if shards == 2 and q_dt == torch.bfloat16:
                 timed = (calls, err)
-    lse_empty_stripe(torch, n_blocks)
     calls, err = timed
     ms, lo, hi = spread_ms(lambda: [pa.paged_decode_attention_lse(*a)
                                     for a in calls], per=2)
     plain_ms = cuda_ms(lambda: [pa.paged_decode_attention_lse_ref(*a)
                                 for a in calls]) / 2
-    # yardstick: SDPA over each stripe's owned keys gathered into a dense,
-    # masked (B, K, T*bs, D) cache (the gather itself is not timed); it
-    # gives o but no lse
-    sdpa, n_bytes, flops = [], 0, 0
-    for q, k_s, v_s, local, pos, owned in calls:
-        keys_live = ((torch.arange(T * bs, device="cuda")[None, :]
-                      <= pos[:, None])
-                     & (owned != 0).repeat_interleave(bs, dim=1))
-        kd = k_s[local.long()].reshape(B, T * bs, K, D).transpose(1, 2)
-        vd = v_s[local.long()].reshape(B, T * bs, K, D).transpose(1, 2)
-        sdpa.append((q[:, :, None], kd, vd, keys_live[:, None, None, :]))
-        keys = int(keys_live.sum().item())
-        slots_seen = int(((torch.arange(T, device="cuda")[None, :] * bs)
-                          <= pos[:, None]).sum().item())
-        blocks = int(keys_live.reshape(B, T, bs).any(-1).sum().item())
-        n_bytes += (2 * keys * K * D * k_s.element_size()  # owned live K, V
-                    + 2 * B * H * D * q.element_size()     # q in, o out
-                    + 4 * B * H                            # lse out
-                    + 4 * (slots_seen + blocks + B))       # owned, ids, pos
-        flops += 4 * D * H * keys
-    lib_ms = cuda_ms(lambda: [F.scaled_dot_product_attention(
-        qq, kd, vd, attn_mask=m) for qq, kd, vd, m in sdpa]) / 2
+    lib_ms, n_bytes, flops = lse_yardstick(torch, calls)
     bound, by = bound_of(n_bytes // 2, flops // 2, "bf16")
     print(f"paged_decode_attention_lse bf16 B={B} H={H} K={K} D={D}, 2 "
           f"stripes of {n_blocks // 2} blocks, per launch: kernel "
@@ -868,19 +920,51 @@ def _pairs(torch):
     return [("bf16", bf16, bf16), ("f32", f32, f32), ("bf16", f32, bf16)]
 
 
-def check_prefill(torch, gen):
-    """Kernel 3 at the chunked path's shapes: 4 lanes, T = 128 blocks of
-    16 (max_seq 2048), chunks of 16 and 128.  Lane 0 starts at 0, lane 1
-    past 1024, lane 2 mid-table, and lane 3 is a padded row (table of
-    zeros, start 0) as the engine's row bucket adds; the engine's ragged
-    rows (lengths < C) differ only in which outputs it reads."""
+def prefill_yardstick(torch, q, kp, vp, tables, starts) -> tuple:
+    """(SDPA ms, bytes, flops) of one kernel-3 call: SDPA with a boolean
+    mask over the same keys gathered into a dense (B, K, T*bs, D) cache
+    (the gather itself is not timed), and what the call must move and
+    compute: the distinct K/V rows the lanes read, q in and o out, the
+    table ids and starts; 4 D flops per (query, key) pair and head."""
     import torch.nn.functional as F
+    B, C, H, D = q.shape
+    bs, K = kp.shape[1], kp.shape[2]
+    T = tables.shape[1]
+    kd = kp[tables].reshape(B, T * bs, K, D).transpose(1, 2)
+    vd = vp[tables].reshape(B, T * bs, K, D).transpose(1, 2)
+    qpos = starts[:, None] + torch.arange(C, device="cuda")[None, :]
+    mask = (torch.arange(T * bs, device="cuda")[None, None, :]
+            <= qpos[:, :, None])[:, None]
+    qt = q.transpose(1, 2)
+    lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+        qt, kd, vd, attn_mask=mask))
+    st = [int(x) for x in starts.tolist()]
+    tab = tables.tolist()
+    # distinct (block, offset) key rows the lanes need: the padded lane
+    # names block 0 throughout, so its keys are one block's
+    keys = len({(tab[b][kpos // bs], kpos % bs)
+                for b, s0 in enumerate(st) for kpos in range(s0 + C)})
+    seen = sum(C * s0 + C * (C + 1) // 2 for s0 in st)   # (query, key) pairs
+    n_bytes = (2 * keys * K * D * kp.element_size()      # K and V, read once
+               + 2 * B * C * H * D * q.element_size()    # q in, o out
+               + 4 * sum(-(-(s0 + C) // bs) for s0 in st) + 4 * B)
+    return lib_ms, n_bytes, 4 * D * H * seen
+
+
+def check_prefill(torch, gen, heads=((32, 32), (64, 8)), chunks=(16, 128),
+                  D=128):
+    """Kernel 3 at the chunked path's shapes: 4 lanes, T = 128 blocks of
+    16 (max_seq 2048), each (H, K) of ``heads`` and chunk of ``chunks``;
+    the first heads' largest chunk timed in bf16.  Lane 0 starts at 0,
+    lane 1 past 1024, lane 2 mid-table, and lane 3 is a padded row (table
+    of zeros, start 0) as the engine's row bucket adds; the engine's
+    ragged rows (lengths < C) differ only in which outputs it reads."""
     from repro_torch.kernels import paged_prefill_attention as ppa
-    B, D, bs, T = 4, 128, 16, 128
+    B, bs, T = 4, 16, 128
     timed = None
     for name, q_dt, kv_dt in _pairs(torch):
-        for H, K in ((32, 32), (64, 8)):
-            for C in (16, 128):
+        for H, K in heads:
+            for C in chunks:
                 n_blocks = 1 + B * T
                 perm = torch.randperm(n_blocks - 1, generator=gen,
                                       device="cuda") + 1
@@ -901,7 +985,7 @@ def check_prefill(torch, gen):
                            ppa.paged_prefill_attention(*args),
                            ppa.paged_prefill_attention_ref(*args), name)
                 if (q_dt, kv_dt, H, C) == (torch.bfloat16, torch.bfloat16,
-                                           32, 128):
+                                           heads[0][0], chunks[-1]):
                     timed = (args, err)
     (q, kp, vp, tables, starts), err = timed
     C, H, K = q.shape[1], q.shape[2], kp.shape[2]
@@ -909,27 +993,8 @@ def check_prefill(torch, gen):
         q, kp, vp, tables, starts))
     plain_ms = cuda_ms(lambda: ppa.paged_prefill_attention_ref(
         q, kp, vp, tables, starts))
-    # yardstick: SDPA with a boolean mask over the same keys gathered into
-    # a dense (B, K, T*bs, D) cache (the gather itself is not timed)
-    kd = kp[tables].reshape(B, T * bs, K, D).transpose(1, 2)
-    vd = vp[tables].reshape(B, T * bs, K, D).transpose(1, 2)
-    qpos = starts[:, None] + torch.arange(C, device="cuda")[None, :]
-    mask = (torch.arange(T * bs, device="cuda")[None, None, :]
-            <= qpos[:, :, None])[:, None]
-    qt = q.transpose(1, 2)
-    lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
-        qt, kd, vd, attn_mask=mask))
+    lib_ms, n_bytes, flops = prefill_yardstick(torch, *timed[0])
     st = [int(x) for x in starts.tolist()]
-    tab = tables.tolist()
-    # distinct (block, offset) key rows the lanes need: the padded lane
-    # names block 0 throughout, so its keys are one block's
-    keys = len({(tab[b][kpos // bs], kpos % bs)
-                for b, s0 in enumerate(st) for kpos in range(s0 + C)})
-    seen = sum(C * s0 + C * (C + 1) // 2 for s0 in st)   # (query, key) pairs
-    n_bytes = (2 * keys * K * D * kp.element_size()      # K and V, read once
-               + 2 * B * C * H * D * q.element_size()    # q in, o out
-               + 4 * sum(-(-(s0 + C) // bs) for s0 in st) + 4 * B)
-    flops = 4 * D * H * seen
     bound, by = bound_of(n_bytes, flops, "bf16")
     print(f"paged_prefill_attention bf16 B={B} C={C} H={H} K={K} D={D} "
           f"starts={st}: kernel {spread(ms, lo, hi)}, plain {plain_ms:.4f} "
@@ -982,20 +1047,41 @@ def check_prefill_head_dims(torch) -> None:
                      ppa.paged_prefill_attention_ref(*args), name)
 
 
-def check_dense(torch, gen):
+def check_head_dim_256(torch) -> None:
+    """Kernels 1-5 at gemma-7b's served heads (16/16 of D = 256) through
+    phase 1's checks, from a generator of their own: each held against its
+    plain version in every dtype pair it is built for, and timed in bf16
+    beside its plain version, a PyTorch library call and the bound.
+    Kernel 1: a prefill bucket (B = 4, S = 256) causal; kernel 2: 4 lanes
+    over tables of 128 blocks of 16; kernel 3: a chunk of 128 at starts
+    0/1100/515 and a padded lane; kernel 4: 4 lanes at 2 stripes of a
+    516-block pool; kernel 5: 4 slots of 2048.  Readings, not entries of
+    the kernels line."""
+    g = torch.Generator(device="cuda").manual_seed(25)
+    check_flash(torch, {"bf16": torch.bfloat16, "f32": torch.float32}, g,
+                shapes=[(g, 16, 16, 256, 256, " (gemma-7b)")])
+    check_paged(torch, g, B=4, D=256, cases=[
+        (name, 16, 16, q_dt, kv_dt) for name, q_dt, kv_dt in _pairs(torch)])
+    check_prefill(torch, g, heads=((16, 16),), chunks=(128,), D=256)
+    check_lse(torch, g, B=4, H=16, D=256, n_blocks=516, stripes=(2,))
+    check_dense(torch, g, heads=((16, 16),), lengths=(2048,), D=256)
+
+
+def check_dense(torch, gen, heads=((32, 32), (64, 8)), lengths=(2048, 1000),
+                D=128):
     """Kernel 5 at the slot path's shapes: 4 slots of max_seq 2048, and a
     cache length of 1000 that is not a multiple of a split.  One lane at
     the last position, one parked at 0, two ragged.  Held against
     ``flash_decode_ref``, the plain version of the slot model path (what
-    the dispatcher takes on the CPU).  Over hymba's ring, a reading beside
-    its plain version and SDPA."""
+    the dispatcher takes on the CPU).  Each (H, K) of ``heads`` and cache
+    length of ``lengths``; the first of each timed in bf16."""
     import torch.nn.functional as F
     from repro_torch.kernels import decode_attention as da
-    B, D = 4, 128
+    B = 4
     timed = None
     for name, q_dt, kv_dt in _pairs(torch):
-        for H, K in ((32, 32), (64, 8)):
-            for S in (2048, 1000):
+        for H, K in heads:
+            for S in lengths:
                 pos = torch.randint(0, S, (B,), generator=gen, device="cuda",
                                     dtype=torch.int32)
                 pos[0], pos[3] = S - 1, 0
@@ -1012,8 +1098,44 @@ def check_dense(torch, gen):
                            da.decode_attention(*args),
                            da.flash_decode_ref(*args), name)
                 if (q_dt, kv_dt, H, S) == (torch.bfloat16, torch.bfloat16,
-                                           32, 2048):
+                                           heads[0][0], lengths[0]):
                     timed = (args, err)
+    (q, k, v, pos), err = timed
+    H, S, K = q.shape[1], k.shape[1], k.shape[2]
+    ms, lo, hi = spread_ms(lambda: da.decode_attention(q, k, v, pos))
+    plain_ms = cuda_ms(lambda: da.flash_decode_ref(q, k, v, pos))
+    # yardstick: SDPA with a boolean mask over the cache's (B, K, S, D)
+    # transposed view
+    kt, vt = k.transpose(1, 2), v.transpose(1, 2)
+    mask = (torch.arange(S, device="cuda")[None, :]
+            <= pos[:, None])[:, None, None, :]
+    lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+        q[:, :, None], kt, vt, attn_mask=mask))
+    keys = int((pos.long() + 1).sum().item())
+    n_bytes = (2 * keys * K * D * k.element_size()      # K and V of live keys
+               + 2 * B * H * D * q.element_size() + 4 * B)
+    flops = 4 * D * H * keys
+    bound, by = bound_of(n_bytes, flops, "bf16")
+    dev = device_ms(torch, lambda: da.decode_attention(q, k, v, pos))
+    print(f"decode_attention bf16 B={B} H={H} K={K} D={D} S={S} "
+          f"keys={keys}: kernel {spread(ms, lo, hi)}, device {dev:.4f} ms "
+          f"(20 calls held back to back), plain {plain_ms:.4f} ms, "
+          f"sdpa {lib_ms:.4f} ms, bound {bound:.4f} ms ({by}: {n_bytes} B, "
+          f"{flops} flop)", flush=True)
+    return {"name": "decode_attention", "route": "cuda",
+            "source": "src/repro_torch/csrc/decode_attention.cu",
+            "replaces": "src/repro/kernels/decode_attention.py:70",
+            "max_abs_err": err, "ms": ms, "ms_min": lo, "ms_max": hi,
+            "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
+            "library_ms": lib_ms}
+
+
+def check_ring(torch) -> None:
+    """Kernel 5 over hymba's ring: a reading beside its plain version and
+    SDPA."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import decode_attention as da
+    B = 4
     # hymba-1.5b's ring (4 slots, 25/5 heads, D=64, W=1024), positions
     # clamped to the ring's last slot as the model clamps them, against the
     # ring decode's plain version (o rounded to the ring's dtype), from a
@@ -1053,34 +1175,6 @@ def check_dense(torch, gen):
           f"{ring_dev:.4f} ms (20 calls held back to back), plain "
           f"{ring_plain:.4f} ms, sdpa {ring_lib:.4f} ms, bound "
           f"{r_bound:.4f} ms ({r_by})", flush=True)
-    (q, k, v, pos), err = timed
-    H, S, K = q.shape[1], k.shape[1], k.shape[2]
-    ms, lo, hi = spread_ms(lambda: da.decode_attention(q, k, v, pos))
-    plain_ms = cuda_ms(lambda: da.flash_decode_ref(q, k, v, pos))
-    # yardstick: SDPA with a boolean mask over the cache's (B, K, S, D)
-    # transposed view
-    kt, vt = k.transpose(1, 2), v.transpose(1, 2)
-    mask = (torch.arange(S, device="cuda")[None, :]
-            <= pos[:, None])[:, None, None, :]
-    lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
-        q[:, :, None], kt, vt, attn_mask=mask))
-    keys = int((pos.long() + 1).sum().item())
-    n_bytes = (2 * keys * K * D * k.element_size()      # K and V of live keys
-               + 2 * B * H * D * q.element_size() + 4 * B)
-    flops = 4 * D * H * keys
-    bound, by = bound_of(n_bytes, flops, "bf16")
-    dev = device_ms(torch, lambda: da.decode_attention(q, k, v, pos))
-    print(f"decode_attention bf16 B={B} H={H} K={K} D={D} S={S} "
-          f"keys={keys}: kernel {spread(ms, lo, hi)}, device {dev:.4f} ms "
-          f"(20 calls held back to back), plain {plain_ms:.4f} ms, "
-          f"sdpa {lib_ms:.4f} ms, bound {bound:.4f} ms ({by}: {n_bytes} B, "
-          f"{flops} flop)", flush=True)
-    return {"name": "decode_attention", "route": "cuda",
-            "source": "src/repro_torch/csrc/decode_attention.cu",
-            "replaces": "src/repro/kernels/decode_attention.py:70",
-            "max_abs_err": err, "ms": ms, "ms_min": lo, "ms_max": hi,
-            "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
-            "library_ms": lib_ms}
 
 
 def held_scaled(label: str, got, want, name: str) -> float:
@@ -1822,32 +1916,21 @@ def serve_sharded(torch, model, params, load: list, ref: dict) -> list:
         if len(run["stripe_blocks"]) != n or min(run["stripe_blocks"]) == 0:
             fail(f"shards={n}: a stripe held no live block")
         if n == 2:
-            same_as_eager(run, runs[0], "llama2-7b EngineSpec shards=2")
+            same_as_eager(run, runs[0], f"{cfg.name} EngineSpec shards=2")
         runs.append(run)
     del eng
     torch.cuda.empty_cache()
     return runs
 
 
-def serve_paths(torch, model, params) -> dict:
-    """Phase 2: the paged pool at horizon 1 and 8, the block-striped pool
-    at shards 2 and 4 (``serve_sharded``), chunked prefill with prefix
-    sharing beside a whole-prompt run of its requests, and the slot pool.
-    Returns the launches of each kernel summed over the runs."""
-    vocab, L = model.cfg.vocab_size, model.cfg.num_layers
+def serve_chunked(torch, model, params) -> list:
+    """Chunked prefill with prefix sharing (chunks of 128, horizon 8) on
+    ``system_prompt_load``, captured and eager, beside a whole-prompt run
+    of the same requests; checks the shared blocks, the unshared prefill
+    tokens and kernel 3's launches (one per layer and chunk tick)."""
+    name, vocab, L = model.cfg.name, model.cfg.vocab_size, \
+        model.cfg.num_layers
     paged = ("flash_attention", "paged_decode_attention")
-    load = plain_load(vocab)
-    runs = [serve(torch, model, params, "horizon=1", load, paged, horizon=1),
-            serve(torch, model, params, "horizon=8", load, paged, horizon=8)]
-    if runs[0]["streams"] != runs[1]["streams"]:
-        fail("greedy streams differ between horizon 1 and horizon 8")
-    print("greedy streams identical at horizon 1 and 8", flush=True)
-    eager = serve(torch, model, params, "horizon=8 eager", load, paged,
-                  horizon=8, graphs=False)
-    same_as_eager(runs[1], eager, "llama2-7b horizon=8")
-    runs += [eager] + serve_sampled(torch, model, params, runs[1])
-    runs += serve_sharded(torch, model, params, load, runs[1])
-
     sys_load = system_prompt_load(vocab)
     chunked = serve(torch, model, params,
                     "chunked prefill_chunk=128 prefix_share horizon=8",
@@ -1879,7 +1962,7 @@ def serve_paths(torch, model, params) -> dict:
                            "paged_decode_attention"),
                           horizon=8, prefill_chunk=128, prefix_share=True,
                           graphs=False)
-    same_as_eager(chunked, chunked_eager, "llama2-7b chunked")
+    same_as_eager(chunked, chunked_eager, f"{name} chunked")
     whole = serve(torch, model, params, "whole-prompt, same requests, "
                   "horizon=8", sys_load, paged, horizon=8)
     print(f"chunked vs whole-prompt on the same weights: "
@@ -1887,15 +1970,22 @@ def serve_paths(torch, model, params) -> dict:
           f"equal (a reading, not a check: bf16 at full width); "
           f"prefill_tokens {st.prefill_tokens} vs "
           f"{whole['stats'].prefill_tokens}", flush=True)
+    return [chunked, chunked_eager, whole]
 
+
+def serve_slots(torch, model, params, load: list, ref: dict) -> list:
+    """The slot pool (``paged=False``) on ``load``, captured and eager;
+    checks kernel 5's launches (one per layer and decode step) and reads
+    the streams against the paged run ``ref``."""
+    name, L = model.cfg.name, model.cfg.num_layers
     slots = serve(torch, model, params, "slots (paged=False)", load,
                   ("flash_attention", "decode_attention"), paged=False)
     want = L * slots["stats"].decode_syncs
     print(f"slot checks: decode_attention launches="
           f"{slots['launches']['decode_attention']} ({L} x "
           f"{slots['stats'].decode_syncs} decode steps = {want}); "
-          f"{same_streams(slots['streams'], runs[0]['streams'])}/8 streams "
-          f"equal to the paged horizon-1 run (a reading, not a check)",
+          f"{same_streams(slots['streams'], ref['streams'])}/8 streams "
+          f"equal to the paged run (a reading, not a check)",
           flush=True)
     if slots["launches"]["decode_attention"] != want:
         fail("slots: decode_attention did not launch once per layer and "
@@ -1903,9 +1993,31 @@ def serve_paths(torch, model, params) -> dict:
     slots_eager = serve(torch, model, params, "slots (paged=False) eager",
                         load, ("flash_attention", "decode_attention"),
                         paged=False, graphs=False)
-    same_as_eager(slots, slots_eager, "llama2-7b slots")
+    same_as_eager(slots, slots_eager, f"{name} slots")
+    return [slots, slots_eager]
+
+
+def serve_paths(torch, model, params) -> dict:
+    """Phase 2: the paged pool at horizon 1 and 8, the block-striped pool
+    at shards 2 and 4 (``serve_sharded``), chunked prefill with prefix
+    sharing beside a whole-prompt run of its requests, and the slot pool.
+    Returns the launches of each kernel summed over the runs."""
+    paged = ("flash_attention", "paged_decode_attention")
+    load = plain_load(model.cfg.vocab_size)
+    runs = [serve(torch, model, params, "horizon=1", load, paged, horizon=1),
+            serve(torch, model, params, "horizon=8", load, paged, horizon=8)]
+    if runs[0]["streams"] != runs[1]["streams"]:
+        fail("greedy streams differ between horizon 1 and horizon 8")
+    print("greedy streams identical at horizon 1 and 8", flush=True)
+    eager = serve(torch, model, params, "horizon=8 eager", load, paged,
+                  horizon=8, graphs=False)
+    same_as_eager(runs[1], eager, "llama2-7b horizon=8")
+    runs += [eager] + serve_sampled(torch, model, params, runs[1])
+    runs += serve_sharded(torch, model, params, load, runs[1])
+    runs += serve_chunked(torch, model, params)
+    runs += serve_slots(torch, model, params, load, runs[0])
     total = {}
-    for run in runs + [chunked, chunked_eager, whole, slots, slots_eager]:
+    for run in runs:
         for name, n in run["launches"].items():
             total[name] = total.get(name, 0) + n
     return total, {"greedy": runs[1], "sampled": runs[3]}
@@ -3668,7 +3780,6 @@ CLUSTER = dict(horizon_h=12.0, tick_min=10.0, seed=1, occupancy=0.95,
                demand_scale=1.0)
 N_BOUND = 16                     # SaaS servers backed by the fleet
 SIZE_TO_VARIANT = {"70b": "full", "13b": "full", "7b": "small"}
-SUMMARY_COUNTS = ("thermal_events", "power_events")
 
 
 def cluster_config():
@@ -3703,29 +3814,39 @@ def smi_reading() -> tuple:
     return tuple(vals)
 
 
+def _flat(summary: dict, prefix: str = "") -> dict:
+    out = {}
+    for k, v in summary.items():
+        if isinstance(v, dict):
+            out.update(_flat(v, f"{prefix}{k}."))
+        else:
+            out[prefix + k] = v
+    return out
+
+
 def summaries_agree(got: dict, want: dict, label: str) -> None:
-    """Counts exact, every float within 1e-5 relative (a zero residue
-    below 1e-12 absolutely)."""
-    worst = 0.0
-    for k, v in want.items():
-        if k in SUMMARY_COUNTS:
-            if got[k] != v:
-                fail(f"{label}: {k} {got[k]} != {v}")
-            continue
-        d = abs(got[k] - v)
-        if d > 1e-5 * abs(v) + 1e-12:
-            fail(f"{label}: {k} {got[k]!r} vs {v!r}")
-        worst = max(worst, d / abs(v) if v else 0.0)
-    print(f"{label}: counts equal, floats within {worst:.3e} relative "
-          f"(held at 1e-5)", flush=True)
+    """A ``summary()`` (a fleet's nests its regions') equal to another,
+    every field exactly (NaN where both are NaN): the physics on the card
+    is bit-equal to the CPU's, and engines are telemetry only."""
+    got, want = _flat(got), _flat(want)
+    nan = object()
+    differ = sorted(k for k in set(got) | set(want)
+                    if got.get(k, nan) != want.get(k, nan)
+                    and not (got.get(k) != got.get(k)
+                             and want.get(k) != want.get(k)))
+    if differ:
+        fail(f"{label}: {len(differ)} of {len(want)} fields differ, e.g. "
+             + ", ".join(f"{k} {got.get(k)!r} vs {want.get(k)!r}"
+                         for k in differ[:4]))
+    print(f"{label}: all {len(want)} fields equal", flush=True)
 
 
 def physics_phase(torch):
     """(a): the 320-server sim with no engines, on the card and on the
     host's CPU, under TAPAS (the loop's configuration) and under Baseline
     (whose placement trips thermal limits, so counts other than 0 are
-    held): counts exact, every float within 1e-5 relative, each tick's
-    hottest GPU and row power too.  Returns the card's TAPAS result."""
+    held): the summaries equal, each tick's hottest GPU and row power
+    within 1e-5 relative.  Returns the card's TAPAS result."""
     import dataclasses
 
     import numpy as np
@@ -3818,11 +3939,12 @@ class EngineLog:
         return [list(c.output) for c in copies]
 
 
-def loop_phase(torch, card) -> dict:
+def loop_phase(torch, card) -> tuple:
     """(b): the same sim on the card with full-width engines in the loop:
     an ``EngineFleet`` of 2 llama2-13b engines with the llama2-7b "small"
     variant, one weight copy (``build(share=)``), backing the first 16
-    SaaS servers once placed.  Returns the loop's launches."""
+    SaaS servers once placed.  Returns the loop's launches and weak
+    references to its fleet, simulator, engines and pools."""
     import statistics
 
     import numpy as np
@@ -4016,9 +4138,9 @@ def loop_phase(torch, card) -> dict:
           flush=True)
     if same != len(eager) or not eager:
         fail("cluster loop: captured and eager streams differ")
-    del twin, fleet, first, sim, bound, log
-    torch.cuda.empty_cache()
-    return launches
+    ends = [weakref.ref(x) for x in (fleet, sim, twin, *fleet.engines,
+                                     *(e.pool for e in fleet.engines))]
+    return launches, ends
 
 
 def knob_tuple(eng) -> tuple:
@@ -4250,13 +4372,338 @@ def cluster_phases(torch) -> dict:
     print(f"phase 10 (a) done in {time.perf_counter() - t0:.1f} s",
           flush=True)
     t = time.perf_counter()
-    launches = loop_phase(torch, card)
-    print(f"phase 10 (b) done in {time.perf_counter() - t:.1f} s",
+    # the loop's fleet must end when (b) drops it, with the cyclic
+    # collector held off: no reference cycle may keep its engines, pools
+    # and CUDA graphs (~50 GiB) on the card into phase 11
+    collecting = gc.isenabled()
+    gc.disable()
+    try:
+        launches, ends = loop_phase(torch, card)
+        left = sum(r() is not None for r in ends)
+    finally:
+        if collecting:
+            gc.enable()
+    torch.cuda.empty_cache()
+    print(f"phase 10 (b) done in {time.perf_counter() - t:.1f} s; its "
+          f"fleet, simulator, engines and pools ended with it: "
+          f"{len(ends) - left} of {len(ends)}, "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB left allocated",
           flush=True)
+    if left:
+        fail(f"cluster loop: {left} of {len(ends)} of the fleet's objects "
+             f"outlived the phase (a reference cycle)")
     t = time.perf_counter()
     for name, n in fault_drill_phase(torch).items():
         launches[name] += n
     print(f"phase 10 (c) done in {time.perf_counter() - t:.1f} s; phase 10 "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 11: the reference's five other token-input configs at full width
+# ---------------------------------------------------------------------------
+
+# (arch, layers): every width as published; qwen3-moe-235b-a22b's depth cut
+# to 8 of its 94 layers (94 layers of 128 experts, ~470 GB in bf16, fit no
+# single card; 8 take ~42 GB)
+TOKEN_CONFIGS = (("deepseek-7b", None), ("qwen3-1.7b", None),
+                 ("gemma-7b", None), ("chameleon-34b", None),
+                 ("qwen3-moe-235b-a22b", 8))
+
+
+def full_width(torch, name: str, layers=None):
+    """``name`` at its published widths (depth ``layers`` where given),
+    random bf16 weights from seed 0; fails unless the tree holds the
+    config's parameters (plus the qk_norm scales, which ``param_count``
+    leaves out, in the reference as in the port)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model, local_plan
+    cfg = get_config(name)
+    if layers is not None:
+        cfg = cfg.replace(num_layers=layers)
+    model = build_model(cfg, local_plan(param_dtype=torch.bfloat16))
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    n = sum(t.numel() for t in _leaves(params))
+    want = cfg.param_count() + (2 * cfg.num_layers * cfg.head_dim
+                                if cfg.qk_norm else 0)
+    experts = (f" {cfg.n_experts} experts top-{cfg.top_k} of d_ff "
+               f"{cfg.expert_d_ff}" if cfg.n_experts else f" d_ff {cfg.d_ff}")
+    print(f"{name} full width: {cfg.num_layers} layers"
+          f"{f' (of {get_config(name).num_layers})' if layers else ''} "
+          f"d_model {cfg.d_model} heads {cfg.n_heads}/{cfg.n_kv_heads} x "
+          f"{cfg.head_dim}{experts} vocab {cfg.vocab_size}"
+          f"{' qk_norm' if cfg.qk_norm else ''}"
+          f"{' tied' if cfg.tie_embeddings else ''}; {n} params in bf16, "
+          f"init {time.perf_counter() - t0:.1f} s, "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated, "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB at the "
+          f"init's peak", flush=True)
+    if n != want:
+        fail(f"{name}: parameter count {n} != config's {want}")
+    return model, params
+
+
+def decode_step_trace(torch, model, params) -> tuple:
+    """One decode horizon of 8 steps at 4 lanes at positions
+    230/180/120/40 (a pool of 516 blocks of 16) as replays of one
+    captured step: host wall per step over 5 calls, and one traced
+    call's device busy per step and idle share."""
+    import statistics
+    from repro_torch.serving import PagedCachePool
+    B, dev = 4, model.device
+    lengths = [230, 180, 120, 40]
+    pool = PagedCachePool(model, B, 2048, block_size=16, n_blocks=516)
+    T = pool.blocks_per_seq
+    gen = torch.Generator(device=dev).manual_seed(2)
+    lanes = {"tokens": torch.randint(0, model.cfg.vocab_size, (B,),
+                                     device=dev, dtype=torch.int32,
+                                     generator=gen),
+             "positions": torch.tensor(lengths, dtype=torch.int32,
+                                       device=dev),
+             "tables": (1 + torch.arange(B * T, device=dev, dtype=torch.int32)
+                        ).reshape(B, T),
+             "active": torch.ones(B, dtype=torch.bool, device=dev),
+             "budgets": torch.full((B,), 1000, dtype=torch.int32, device=dev),
+             "eos": torch.full((B,), -1, dtype=torch.int32, device=dev)}
+    fn = captured_horizon(torch, model, params, pool.cache, lanes, 8)
+    walls = host_walls(torch, fn, 8, reps=5)
+    busy = trace(torch, f"{model.cfg.name} decode captured ({B} lanes at "
+                 f"positions {lengths}, horizon=8, replays of one captured "
+                 f"step)", fn, walls, 8, "step")
+    del fn, pool
+    torch.cuda.empty_cache()
+    return busy, statistics.median(walls)
+
+
+def token_config_phase(torch, name: str, layers) -> dict:
+    """One config of phase 11: whole-prompt prefill and horizon-8 decode
+    through the paged pool, captured and eager (equal); for gemma-7b
+    (head dim 256) also the block-striped pool (``serve_sharded``: shards
+    2 captured and eager, then ``set_shards(4)``), chunked prefill with
+    prefix sharing and the slot pool, each captured and eager; prefill
+    and one decode step teacher-forced through the kernels and the plain
+    versions (the dense configs; a MoE's routing is discontinuous in
+    bf16, so granite's check in phase 6 runs in an f32 plan); a traced
+    captured decode step.  Returns the launches of its runs."""
+    model, params = full_width(torch, name, layers)
+    paged = ("flash_attention", "paged_decode_attention")
+    load = plain_load(model.cfg.vocab_size)
+    runs = [serve(torch, model, params, "horizon=8", load, paged, horizon=8),
+            serve(torch, model, params, "horizon=8 eager", load, paged,
+                  horizon=8, graphs=False)]
+    same_as_eager(runs[0], runs[1], f"{name} horizon=8")
+    if model.cfg.head_dim == 256:
+        runs += serve_sharded(torch, model, params, load, runs[0])
+        runs += serve_chunked(torch, model, params)
+        runs += serve_slots(torch, model, params, load, runs[0])
+    if not model.cfg.n_experts:
+        teacher_forced(torch, model, params)
+    busy, wall = decode_step_trace(torch, model, params)
+    total = {}
+    for run in runs:
+        for k, n in run["launches"].items():
+            total[k] = total.get(k, 0) + n
+    print(f"phase 11 {name}: decode tok/s {runs[0]['tok_s']:.1f} captured, "
+          f"{runs[1]['tok_s']:.1f} eager (horizon 8, 4 lanes, "
+          f"{len(load)} requests of 32 new tokens); captured decode step "
+          f"{busy:.3f} ms of device work, {wall:.3f} ms host wall, idle "
+          f"share {1 - busy / wall:.3f}; kernel launches "
+          f"{ {k: n for k, n in total.items() if n} }; card "
+          f"{card_line()}", flush=True)
+    del model, params
+    torch.cuda.empty_cache()
+    return total
+
+
+def token_config_phases(torch) -> dict:
+    """Phase 11: each of ``TOKEN_CONFIGS`` in turn, the last one's weights
+    freed before the next is built."""
+    total = {}
+    for name, layers in TOKEN_CONFIGS:
+        t0 = time.perf_counter()
+        for k, n in token_config_phase(torch, name, layers).items():
+            total[k] = total.get(k, 0) + n
+        print(f"phase 11 {name} done in {time.perf_counter() - t0:.1f} s, "
+              f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB left "
+              f"allocated", flush=True)
+    return total
+
+
+# ---------------------------------------------------------------------------
+# phase 12: the fleet of regions and the oversubscription sweep on the card
+# ---------------------------------------------------------------------------
+
+# the measured drill's horizon on the card: the reference's 12 h drill cut
+# to its first 6 h (the failure, the heat wave and the surge start inside
+# them), which halves its ~130 s of full-width prefills
+MEASURED_H = 6.0
+
+
+def fleet_physics_phase(torch) -> dict:
+    """(a): ``repro_torch.launch.fleet``'s drill (3 regions of 64 servers,
+    12 h at 10-minute ticks, gulf's cooling failure in a heat wave) under
+    both routers, each region's physics on the card and on the host's
+    CPU: the summaries equal.  Returns the card's summaries by router."""
+    from repro_torch.core.fleet import GlobalTapasRouter, LatencyOnlyRouter
+    from repro_torch.launch import fleet as geo
+    out = {}
+    for label, router in (("latency", LatencyOnlyRouter),
+                          ("global", GlobalTapasRouter)):
+        res = {}
+        for dev in ("cuda", "cpu"):
+            fs = geo.make_fleet(router, device=dev)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res[dev] = fs.run().summary()
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            n = sum(s.dc.n_servers for s in fs.sims.values())
+            print(f"fleet {label} on {dev}: {fs.ticks} ticks of "
+                  f"{len(fs.sims)} regions, {n} servers, in {dt:.3f} s, "
+                  f"{dt / fs.ticks * 1e3:.3f} ms per tick", flush=True)
+        summaries_agree(res["cuda"], res["cpu"],
+                              f"fleet {label} card vs CPU")
+        s = res["cuda"]
+        print(f"fleet {label} card summary: throttle="
+              f"{s['throttle_events']} per region "
+              f"{ {n: r['thermal_events'] for n, r in s['regions'].items()} } "
+              f"unserved={s['unserved_frac']:.6f} "
+              f"quality={s['mean_quality']:.6f} moved={s['moved_load']:.3f} "
+              f"migrations={s['migrations']}", flush=True)
+        out[label] = s
+    geo.check_drills(out["latency"], out["global"])
+    return out
+
+
+def measured_fleet_phase(torch) -> dict:
+    """(b): ``run_measured_drill`` with full-width llama2-7b engines: one
+    ``EngineFleet`` of two engines per region (4 lanes, max_seq 64,
+    blocks of 8), all six on one weight copy, backing every SaaS server
+    that appears (3 regions of 96 servers, ``MEASURED_H`` hours), with
+    every launch count set to 0 just before and read just after;
+    ``nvidia-smi``'s power, SM clock and temperature read after every
+    tick.  Fails unless the
+    reference's closing checks hold, kernels 1 and 2 ran (every kernel-1
+    launch on the tensor cores) and the fleet's summary equals the same
+    drill's without engines on the card (the backends are telemetry
+    only).  Returns its launches."""
+    import statistics
+    from repro_torch.configs import get_config
+    from repro_torch.core.fleet import GlobalTapasRouter
+    from repro_torch.launch import fleet as geo
+    from repro_torch.serving import EngineSpec
+    spec = EngineSpec(get_config("llama2-7b"), max_seq=64, n_slots=4,
+                      block_size=8)
+    smi, walls = [], []
+    last = [time.perf_counter()]
+
+    def on_tick(fs, st):
+        now = time.perf_counter()
+        walls.append(now - last[0])
+        smi.append(smi_reading())
+        if fs.tick % 6 == 0:
+            flushes = {n: fl.flushes for n, fl in fleets_of(fs).items()}
+            print(f"measured fleet h={st.now_h:5.2f}: risk "
+                  f"{ {n: round(float(r), 3) for n, r in st.risk.items()} } "
+                  f"emergency {st.emergency} tick wall {walls[-1]:.3f} s, "
+                  f"power {smi[-1][0]} W, SM {smi[-1][1]} MHz, "
+                  f"{smi[-1][2]} C; flushes {flushes}", flush=True)
+        last[0] = time.perf_counter()
+
+    def fleets_of(fs):
+        out = {}
+        for name, sim in fs.sims.items():
+            for bk in sim.backends.values():
+                out[name] = bk.fleet
+        return out
+
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    m = geo.run_measured_drill(spec=spec, on_tick=on_tick,
+                               horizon_h=MEASURED_H)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    geo.check_measured(m)
+    tensor_core_route(launches, "measured fleet llama2-7b")
+    for name in ("flash_attention", "paged_decode_attention"):
+        if launches[name] == 0:
+            fail(f"measured fleet: {name} never launched")
+    engines = [e for fl in m["fleets"].values() for e in fl.engines]
+    served = sum(len(e.stats.completed) for e in engines)
+    decode = sum(e.stats.decode_tokens for e in engines)
+    step_s = sum(e.stats.step_time_total for e in engines)
+    caps = sum(p.captures for e in engines for p in e.programs.values())
+    reps = sum(p.replays for e in engines for p in e.programs.values())
+    cols = list(zip(*smi))
+    ranges = ", ".join(
+        f"{f} {min(v for v in c if v is not None):.1f}-"
+        f"{statistics.median([v for v in c if v is not None]):.1f}-"
+        f"{max(v for v in c if v is not None):.1f} {u}"
+        for (f, u), c in zip(SMI_FIELDS, cols) if any(v is not None
+                                                      for v in c))
+    print(f"measured fleet: {wall:.1f} s for {len(walls)} ticks (median "
+          f"tick {statistics.median(walls):.3f} s, {min(walls):.3f}-"
+          f"{max(walls):.3f}), engines' steps {step_s:.1f} s of it; "
+          f"{served} requests completed, {decode} decode tokens "
+          f"({decode / step_s:.1f} tok/s over the engines' step time), "
+          f"graph captures {caps}, replays {reps}; launches "
+          f"flash_attention={launches['flash_attention']} "
+          f"paged_decode_attention={launches['paged_decode_attention']}; "
+          f"over the ticks (min-median-max) {ranges}; card {card_line()}",
+          flush=True)
+    plain = geo.make_fleet(GlobalTapasRouter, servers_per_rack=6,
+                           horizon_h=MEASURED_H).run()
+    summaries_agree(m["summary"], plain.summary(),
+                          "measured fleet vs the same drill without engines")
+    del m, engines
+    torch.cuda.empty_cache()
+    return launches
+
+
+def sweep_phase(torch) -> None:
+    """(c): ``repro_torch.launch.oversub``'s sweep (Baseline and TAPAS at
+    0, 20 and 40% over a 4 x 5 x 4 datacenter, 12 h) on the card, its
+    rows equal to the same sweep's on the host's CPU."""
+    from repro_torch.core.datacenter import DCConfig
+    from repro_torch.core.oversubscribe import sweep
+    from repro_torch.core.simulator import BASELINE, TAPAS
+    from repro_torch.launch import oversub
+    t0 = time.perf_counter()
+    card = oversub.run_sweep()
+    t1 = time.perf_counter()
+    cpu = sweep([BASELINE, TAPAS], ratios=(0.0, 0.2, 0.4),
+                dc=DCConfig(n_rows=4, racks_per_row=5, servers_per_rack=4),
+                horizon_h=12.0, seed=1, device="cpu")
+    t2 = time.perf_counter()
+    same = sum(a == b for a, b in zip(card["rows"], cpu))
+    print(f"sweep card vs CPU: {same}/{len(cpu)} rows equal; card "
+          f"{t1 - t0:.1f} s, CPU {t2 - t1:.1f} s", flush=True)
+    if card["rows"] != cpu:
+        fail("the oversubscription sweep's rows differ between the card and "
+             "the CPU")
+
+
+def fleet_phases(torch) -> dict:
+    """Phase 12: (a) the fleet's physics on the card against the CPU, (b)
+    the measured drill on full-width engines, (c) the sweep.  Returns the
+    launches of (b)."""
+    t0 = time.perf_counter()
+    fleet_physics_phase(torch)
+    print(f"phase 12 (a) done in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    t = time.perf_counter()
+    launches = measured_fleet_phase(torch)
+    print(f"phase 12 (b) done in {time.perf_counter() - t:.1f} s",
+          flush=True)
+    t = time.perf_counter()
+    sweep_phase(torch)
+    print(f"phase 12 (c) done in {time.perf_counter() - t:.1f} s; phase 12 "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     return launches
 
@@ -4298,9 +4745,13 @@ def main() -> int:
                check_prefill(torch, gen), check_dense(torch, gen),
                check_wkv(torch, gen), check_lse(torch, gen),
                check_int8(torch, gen)]
+    check_paged_edges(torch)
+    check_ring(torch)
+    lse_empty_stripe(torch, 1028)
     check_verify_fold(torch)
     check_flash_head_dims(torch, dtypes)
     check_prefill_head_dims(torch)
+    check_head_dim_256(torch)
     print(f"phase 1 done at {time.perf_counter() - t_start:.1f} s",
           flush=True)
 
@@ -4378,6 +4829,18 @@ def main() -> int:
 
     # phase 10: llama2-13b and its drafter went at the end of phase 9
     for name, n in cluster_phases(torch).items():
+        launches[name] += n
+    print(f"phase 10 done at {time.perf_counter() - t_start:.1f} s",
+          flush=True)
+
+    # phase 11: phase 10's engines went with it
+    for name, n in token_config_phases(torch).items():
+        launches[name] += n
+    print(f"phase 11 done at {time.perf_counter() - t_start:.1f} s",
+          flush=True)
+
+    # phase 12: the last phase-11 model went at its end
+    for name, n in fleet_phases(torch).items():
         launches[name] += n
     for e in entries:
         e["launches"] = launches[e["name"]]

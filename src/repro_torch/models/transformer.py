@@ -406,8 +406,11 @@ class Model:
         else:
             x = L.take_embedding(params["embed"], inputs).to(dt)
         if cfg.embed_scale:
-            x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=dt,
-                                 device=x.device)
+            # sqrt(d_model) rounded to the compute dtype, as the reference
+            # rounds it; filled on the device (no host copy), so a CUDA
+            # graph can capture it
+            x = x * torch.full((), math.sqrt(cfg.d_model), dtype=dt,
+                               device=x.device)
         return x
 
     def _trunk(self, params, x, positions, *, want_cache: bool):

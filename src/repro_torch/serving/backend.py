@@ -33,6 +33,8 @@ region to follow it across the WAN.
 """
 from __future__ import annotations
 
+import weakref
+
 import numpy as np
 
 from repro_torch.core.faults import fault_pick
@@ -257,18 +259,21 @@ class EngineBackend:
         release (and overdue deadlines expire).  A backend still inside
         a crash window is restored first — the run is over; what matters
         is that no re-queued request is left in limbo."""
-        eng = self.engine
-        if eng.offline:
-            eng.restore()
-        now_s = now_h * 3600.0
-        produced = 0
-        for _ in range(max_steps):
-            if not (eng.queue or eng.active or eng.prefilling
-                    or eng._delayed):
-                break
-            produced += eng.step(now=now_s)
-            now_s += 1.0
-        return produced
+        return _drain(self.engine, now_h=now_h, max_steps=max_steps)
+
+
+def _drain(eng: Engine, *, now_h: float, max_steps: int) -> int:
+    """``EngineBackend.drain`` for one engine."""
+    if eng.offline:
+        eng.restore()
+    now_s = now_h * 3600.0
+    produced = 0
+    for _ in range(max_steps):
+        if not (eng.queue or eng.active or eng.prefilling or eng._delayed):
+            break
+        produced += eng.step(now=now_s)
+        now_s += 1.0
+    return produced
 
 
 # ---------------------------------------------------------------------------
@@ -301,18 +306,29 @@ class EngineFleet:
                                   for _ in range(n_engines - 1)]
         self.steps_per_tick = steps_per_tick
         self.backend_kw = dict(backend_kw or {})
-        self.backends: list[FleetBackend] = []
+        # each backend holds its fleet (the simulator flushes it through
+        # them), so the fleet holds its backends weakly: a strong list
+        # would close a cycle that keeps a dropped fleet's engines, pools
+        # and CUDA graphs on the card until the cyclic collector ran
+        self._backends: list[weakref.ref] = []
+        self._made = 0
         self.flushes = 0
+
+    @property
+    def backends(self) -> list["FleetBackend"]:
+        """The fleet's live backends, in the order they were made."""
+        return [bk for bk in (r() for r in self._backends) if bk is not None]
 
     def make_backend(self, **kw) -> "FleetBackend":
         """A backend for one more simulated server, assigned round-robin
         to the fleet's engines."""
-        i = len(self.backends)
+        i = self._made
+        self._made += 1
         merged = {**self.backend_kw, **kw}
         merged.setdefault("seed", i)
         bk = FleetBackend(self.engines[i % len(self.engines)],
                           fleet=self, index=i, **merged)
-        self.backends.append(bk)
+        self._backends.append(weakref.ref(bk))
         return bk
 
     def flush(self, *, now: float) -> int:
@@ -322,6 +338,7 @@ class EngineFleet:
         self.flushes += 1
         now_s = now * 3600.0
         produced_total = 0
+        backends = self.backends
         for eng in self.engines:
             wall_before = eng.stats.step_time_total
             produced = 0
@@ -333,22 +350,15 @@ class EngineFleet:
                 produced += eng.step(now=now_s)
             wall = eng.stats.step_time_total - wall_before
             produced_total += produced
-            for bk in self.backends:
+            for bk in backends:
                 if bk.engine is eng:
                     bk._settle(wall)
         return produced_total
 
     def drain(self, *, now_h: float, max_steps: int = 200) -> int:
-        """Run every engine dry after the last tick (one backend per
-        engine drives the shared drain)."""
-        produced = 0
-        seen = set()
-        for bk in self.backends:
-            if id(bk.engine) not in seen:
-                seen.add(id(bk.engine))
-                produced += EngineBackend.drain(bk, now_h=now_h,
-                                                max_steps=max_steps)
-        return produced
+        """Run every engine dry after the last tick."""
+        return sum(_drain(eng, now_h=now_h, max_steps=max_steps)
+                   for eng in self.engines)
 
 
 class FleetBackend(EngineBackend):

@@ -13,6 +13,8 @@ telemetry only), in the port and against the reference.  The batched
 ``build(share=)``) and the drafter rule (``draft_min_freq``) likewise.
 ``measured_goodput`` is wall-clock, so only its sign is held."""
 import dataclasses
+import gc
+import weakref
 
 import numpy as np
 import pytest
@@ -251,9 +253,11 @@ def test_backend_drops_drafter_under_freq_cap(weights):
                        ("ngram", 1, None)]
 
 
-def _fleet_run(weights, side):
+def _fleet_run(weights, side, refs=None):
     """``test_sharded.py::test_cluster_sim_flushes_fleet_backends`` on a
-    2-engine fleet sharing one weight copy."""
+    2-engine fleet sharing one weight copy.  ``refs``, when given, gets
+    weak references to the fleet, the simulator, the engines, their pools
+    and the backends."""
     ns = JAX_SIDE if side == "jax" else PORT_SIDE
     share = _engine(weights, side, 0, max_seq=64, n_slots=3)
     cfg = ns["cfg"]("llama2-7b").smoke_config()
@@ -278,6 +282,10 @@ def _fleet_run(weights, side):
     fleet.drain(now_h=2.0)
     shared = all(e.variants[n][1] is share.variants[n][1]
                  for e in fleet.engines for n in ("full", "small"))
+    if refs is not None:
+        refs += [weakref.ref(x) for x in (
+            fleet, sim, share, *fleet.engines,
+            *(e.pool for e in fleet.engines), *attached.values())]
     return {
         "attached": sorted(attached),
         "engine_of": [fleet.engines.index(bk.engine)
@@ -290,6 +298,23 @@ def _fleet_run(weights, side):
         "shared": shared, "measured": measured > 0,
         "bound_ticks": bound_ticks,
     }
+
+
+def test_dropped_engine_fleet_ends_without_the_collector(weights):
+    """A fleet that has served inside a simulator, dropped with the cyclic
+    collector held off: the fleet, its engines, their pools, its backends
+    and the simulator all end at once (no reference cycle keeps a dropped
+    fleet's pools alive)."""
+    refs = []
+    collecting = gc.isenabled()
+    gc.disable()
+    try:
+        out = _fleet_run(weights, "port", refs)
+        assert out["measured"] and len(refs) > 7
+        assert [r() for r in refs] == [None] * len(refs)
+    finally:
+        if collecting:
+            gc.enable()
 
 
 def test_engine_fleet_flushes_once_per_tick_matching_reference(weights):

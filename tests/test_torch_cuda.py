@@ -1533,6 +1533,14 @@ GRAPH_PATHS = {
     "rwkv6-3b slots": ("rwkv6-3b", dict()),
     "hymba slots": ("hymba-1.5b", dict()),
     "granite paged h4": ("granite-moe-3b-a800m", dict(horizon=4)),
+    # gemma-7b's scaled embedding, (1 + w) norms and gelu GLU, qwen3's
+    # qk_norm and 128-expert router (4 at smoke size) inside a capture
+    "gemma paged h4": ("gemma-7b", dict(horizon=4)),
+    "gemma chunked prefix": ("gemma-7b", dict(horizon=4, prefill_chunk=8,
+                                              prefix_share=True)),
+    "gemma slots": ("gemma-7b", dict(paged=False)),
+    "qwen3 paged h4": ("qwen3-1.7b", dict(horizon=4)),
+    "qwen3-moe paged h4": ("qwen3-moe-235b-a22b", dict(horizon=4)),
 }
 
 
@@ -1983,6 +1991,61 @@ def test_dropped_spec_engine_frees_the_card_without_the_collector(gen):
             assert [r() for r in refs] == [None] * len(refs)
             assert alive - torch.cuda.memory_allocated() >= held > 0
         assert streams[0] == streams[1]
+    finally:
+        if collecting:
+            gc.enable()
+
+
+def test_dropped_engine_fleet_frees_the_card_without_the_collector(gen):
+    """An ``EngineFleet`` of two captured smoke llama2-7b engines on one
+    weight copy, pools of 4096 blocks, that has served inside a
+    ``ClusterSim`` on the card, dropped with the cyclic collector held
+    off: the fleet, its engines, their pools and step programs, its
+    backends and the simulator end at once, and the card gets back at
+    least the pools' bytes."""
+    import gc
+    import weakref
+
+    import numpy as np
+    from repro_torch.core.datacenter import DCConfig
+    from repro_torch.core.simulator import TAPAS, ClusterSim, SimConfig
+    from repro_torch.serving import EngineFleet, EngineSpec
+    from repro_torch.serving import graphs as G
+    spec = EngineSpec(get_config("llama2-7b").smoke_config(), max_seq=96,
+                      n_slots=4, n_blocks=4096, horizon=4)
+    dc = DCConfig(n_rows=2, racks_per_row=2, servers_per_rack=4,
+                  region="hot")
+    collecting = gc.isenabled()
+    gc.disable()
+    try:
+        fleet = EngineFleet(spec, n_engines=2, backend_kw=dict(
+            requests_per_load=3.0, prompt_len=4, max_new_tokens=4))
+        sim = ClusterSim(SimConfig(dc=dc, horizon_h=3.0, tick_min=10.0,
+                                   seed=3, policy=TAPAS, occupancy=0.95,
+                                   demand_scale=1.0), device="cuda")
+        while sim.tick < sim.ticks:
+            st = sim.step()
+            for srv in np.flatnonzero(st.kind == 2):
+                if int(srv) not in sim.backends:
+                    sim.attach_backend(int(srv), fleet.make_backend())
+        fleet.drain(now_h=3.0)
+        engines = fleet.engines
+        assert sim.backends and fleet.flushes > 0
+        assert all(e.captured and e.programs for e in engines)
+        assert sum(len(r.output) for bk in sim.backends.values()
+                   for r in bk.issued) > 0
+        held = sum(t.untyped_storage().nbytes()
+                   for t in G._leaves([e.pool.cache for e in engines]))
+        refs = [weakref.ref(x) for x in (
+            fleet, sim, *engines, *(e.pool for e in engines),
+            *(p for e in engines for p in e.programs.values()),
+            *sim.backends.values())]
+        torch.cuda.synchronize()
+        alive = torch.cuda.memory_allocated()
+        del fleet, sim, st, engines
+        torch.cuda.synchronize()
+        assert [r() for r in refs] == [None] * len(refs)
+        assert alive - torch.cuda.memory_allocated() >= held > 0
     finally:
         if collecting:
             gc.enable()

@@ -108,6 +108,26 @@ def test_bucket_matches_reference():
         assert _bucket(n, lo=1) == j_bucket(n, lo=1)
 
 
+def _mixed_kinds(engine_cls, req_cls, model, params, paged):
+    """A live deadline, a loose one and a sampled request.  The sampled
+    request carries its own ``seed``: without one its seed derives from
+    ``req_id``, which each package draws from a process-wide counter, so
+    the two engines' draws would depend on how many requests earlier
+    tests in the same process created."""
+    eng = engine_cls(model, params, max_seq=64, n_slots=2, paged=paged)
+    reqs = [req_cls(prompt=[1, 2, 3], max_new_tokens=6, arrival_s=0.0,
+                    deadline_ms=3_500.0),
+            req_cls(prompt=[4, 5], max_new_tokens=6, arrival_s=0.0,
+                    deadline_ms=3_600_000.0),
+            req_cls(prompt=[1, 2], temperature=0.7, max_new_tokens=4,
+                    seed=17)]
+    for r in reqs:
+        eng.submit(r)
+    stats = eng.run()
+    return ([(tuple(r.output), r.outcome) for r in reqs],
+            stats.timed_out, stats.submitted, len(stats.completed))
+
+
 def test_unported_request_kinds_raise(models):
     """Every request kind is ported now: sampled requests
     (tests/test_torch_sampling.py) and requests with ``deadline_ms``,
@@ -118,24 +138,27 @@ def test_unported_request_kinds_raise(models):
     jm, jp, tm, tp = models
     with pytest.raises(ValueError):
         Engine(tm, tp, max_seq=64, n_slots=2, paged=False, prefill_chunk=8)
-
-    def serve(engine_cls, req_cls, model, params, paged):
-        eng = engine_cls(model, params, max_seq=64, n_slots=2, paged=paged)
-        reqs = [req_cls(prompt=[1, 2, 3], max_new_tokens=6, arrival_s=0.0,
-                        deadline_ms=3_500.0),
-                req_cls(prompt=[4, 5], max_new_tokens=6, arrival_s=0.0,
-                        deadline_ms=3_600_000.0),
-                req_cls(prompt=[1, 2], temperature=0.7, max_new_tokens=4)]
-        for r in reqs:
-            eng.submit(r)
-        stats = eng.run()
-        return ([(tuple(r.output), r.outcome) for r in reqs],
-                stats.timed_out, stats.submitted, len(stats.completed))
-
     for paged in (True, False):
-        got = serve(Engine, Request, tm, tp, paged)
-        assert got == serve(JEngine, JRequest, jm, jp, paged)
+        got = _mixed_kinds(Engine, Request, tm, tp, paged)
+        assert got == _mixed_kinds(JEngine, JRequest, jm, jp, paged)
         assert got[0][0][1] == "timed_out" and got[1] == 1
+
+
+def test_sampled_streams_do_not_depend_on_earlier_requests(models):
+    """The order dependence the explicit seed removes: port requests
+    created first put the two packages' ``req_id`` counters out of step
+    (as earlier test files in one worker do), and the sampled stream still
+    equals the JAX engine's; the same request without a seed would have
+    drawn under another request seed on each side."""
+    jm, jp, tm, tp = models
+    for _ in range(3):
+        Request(prompt=[1], max_new_tokens=1)
+    if Request(prompt=[1], max_new_tokens=1).req_id == \
+            JRequest(prompt=[1], max_new_tokens=1).req_id:
+        Request(prompt=[1], max_new_tokens=1)      # now out of step
+    got = _mixed_kinds(Engine, Request, tm, tp, True)
+    assert got == _mixed_kinds(JEngine, JRequest, jm, jp, True)
+    assert len(got[0][2][0]) == 4 and got[0][2][1] == "accepted"
 
 
 def test_goodput_matches_reference(models):

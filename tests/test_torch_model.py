@@ -63,11 +63,14 @@ def _np(t):
 # configs and parameter layout
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("name", ["llama2-7b", "llama2-13b", "llama2-70b"])
+@pytest.mark.parametrize("name", ["llama2-7b", "llama2-13b", "llama2-70b",
+                                  "deepseek-7b", "qwen3-1.7b", "gemma-7b",
+                                  "chameleon-34b", "qwen3-moe-235b-a22b"])
 def test_configs_match_reference(name):
     t, j = get_config(name), j_get_config(name)
     assert t.__dict__ == j.__dict__
     assert t.param_count() == j.param_count()
+    assert t.param_count(active=True) == j.param_count(active=True)
     assert t.smoke_config().__dict__ == j.smoke_config().__dict__
 
 
@@ -82,9 +85,11 @@ def test_local_plan_pads_match_reference(name):
 
 
 def test_registry_lists_ported_archs():
-    assert list_archs() == ["granite-moe-3b-a800m", "hubert-xlarge",
+    assert list_archs() == ["chameleon-34b", "deepseek-7b", "gemma-7b",
+                            "granite-moe-3b-a800m", "hubert-xlarge",
                             "hymba-1.5b", "llama2-13b", "llama2-70b",
-                            "llama2-7b", "rwkv6-3b"]
+                            "llama2-7b", "qwen3-1.7b", "qwen3-moe-235b-a22b",
+                            "rwkv6-3b"]
     with pytest.raises(KeyError):
         get_config("minicpm3-4b")
 

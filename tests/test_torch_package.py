@@ -14,6 +14,7 @@ import torch
 import repro_torch
 from repro_torch import convert
 from repro_torch.configs import get_config
+from repro_torch.core import FleetSim, oversubscribe
 from repro_torch.kernels import build, ops
 from repro_torch.kernels import decode_attention as dense_mod
 from repro_torch.kernels import flash_attention as flash_mod
@@ -21,6 +22,8 @@ from repro_torch.kernels import int8_matmul as i8_mod
 from repro_torch.kernels import paged_decode_attention as paged_mod
 from repro_torch.kernels import paged_prefill_attention as prefill_mod
 from repro_torch.kernels import rwkv6_wkv as wkv_mod
+from repro_torch.launch import fleet as launch_fleet
+from repro_torch.launch import oversub as launch_oversub
 from repro_torch.models import Model, build_model, layers, local_plan
 from repro_torch.models import attention as TA
 from repro_torch.models import moe as TM
@@ -102,7 +105,10 @@ def test_every_kernel_source_is_built():
     TA.kv_index, TA.init_paged_attn_cache, TA.init_attn_cache,
     Model.init_cache, TS.init_rwkv_tmix, TS.init_rwkv_cmix,
     TS.init_rwkv_state, TM.init_moe, TS.init_mamba, TS.init_mamba_state,
-    EngineSpec.build,
+    EngineSpec.build, FleetSim.__init__, oversubscribe.sweep,
+    oversubscribe.FleetOversubPlanner.__init__, launch_fleet.make_fleet,
+    launch_fleet.run_drill, launch_fleet.run_measured_drill,
+    launch_oversub.run_sweep, launch_oversub.run_fleet,
 ], ids=lambda f: f.__qualname__)
 def test_entry_points_default_to_cuda(fn):
     assert inspect.signature(fn).parameters["device"].default == "cuda"
@@ -116,6 +122,17 @@ def test_serve_cli_defaults_to_cuda():
     from repro_torch.launch import serve
     with pytest.raises((AssertionError, RuntimeError)):
         serve.main(["--smoke", "--requests", "1"])
+
+
+@pytest.mark.parametrize("main", [launch_fleet.main, launch_oversub.main],
+                         ids=["fleet", "oversub"])
+def test_fleet_clis_default_to_cuda(main):
+    """Without --device the fleet and oversubscription CLIs put their
+    physics on CUDA (and so fail where there is none)."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default would run")
+    with pytest.raises((AssertionError, RuntimeError)):
+        main([])
 
 
 class _FakeCuda:
