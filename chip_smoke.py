@@ -44,6 +44,13 @@ Builds the hand-written CUDA kernels from ``src/repro_torch/csrc`` (one
    lanes, a chunk tick, that step per stripe at 2 stripes, 4 slots of
    2048) through the same checks, held in every dtype pair and timed
    beside their plain versions, a library call and the bound (readings);
+   and kernel 3's owned/LSE form (the per-stripe chunk attention of the
+   block-striped pool) at llama2-7b's and gemma-7b's heads over 2 and 4
+   stripes in every dtype pair, a lane whose keys one stripe owns (o 0
+   and lse -1e30 exactly in the others), per stripe against its plain
+   version and the stripes' ``combine_lse`` against kernel 3 over the
+   whole pool, timed beside SDPA over a stripe's owned keys and the
+   bound;
 2. serves full-width llama2-7b (random weights from a seeded generator)
    through the ``Engine`` on five paths, each with every launch count set
    to 0 just before and read just after: the paged pool with whole-prompt
@@ -187,6 +194,23 @@ Builds the hand-written CUDA kernels from ``src/repro_torch/csrc`` (one
    summary equal to the same drill's without engines (the drill cut to
    its first 6 of 12 hours); and the oversubscription sweep on the card,
    its rows equal to the CPU's.
+13. every paged path at shards 2 and 4, and MLA.  The sharded paths run
+   inside the phases that hold their model (their lines start "phase
+   13"): in phase 2, llama2-7b's chunked prefill with prefix sharing at
+   shards 2 and 4 (every chunk tick through kernel 3's owned/LSE form,
+   every decode step through kernel 4, the same shared blocks and
+   prefill tokens as shards 1), the same in an f32 plan over an f32 pool
+   at shards 1 and 2 (equal streams), and n-gram speculation at shards
+   2; in phase 6, granite's shard degrees refused by its vocabulary
+   (49155, odd), as the reference's rule refuses them; in phase 11,
+   gemma-7b chunked and qwen3-moe (the experts combined over 2 ranks) at
+   shards 2; each captured and eager (equal).
+   Then full-width minicpm3-4b (62 layers of MLA) on the slot pool,
+   captured and eager, kernel 1 alone carrying its prefills (q and k at
+   D = 96, v zero-padded from 64), kernel 1's reading at that shape,
+   prefill and one decode step teacher-forced kernels vs plain (f32 plan
+   over an f32 cache), one captured slot step traced beside its weights'
+   byte bound.
 
 The launch counts are per launch whether the launch ran eagerly or as a
 node of a replayed graph: a capture records each wrapper's count and
@@ -1009,6 +1033,138 @@ def check_prefill(torch, gen, heads=((32, 32), (64, 8)), chunks=(16, 128),
             "library_ms": lib_ms}
 
 
+def prefill_lse_yardstick(torch, calls: list) -> tuple:
+    """(SDPA ms, bytes, flops) of one launch of kernel 3's owned/LSE form
+    per stripe in ``calls`` (each the launch's arguments), summed over the
+    stripes: SDPA over each stripe's owned keys gathered into a dense,
+    masked (B, K, T*bs, D) cache (the gather itself is not timed; it
+    gives o but no lse), and what the launches must move and compute: the
+    owned K/V rows some query of the lane sees, q in, o and lse out, the
+    table ids, the owned mask and the starts; 4 D flops per owned (query,
+    key) pair and head."""
+    import torch.nn.functional as F
+    sdpa, n_bytes, flops = [], 0, 0
+    for q, k_s, v_s, local, starts, owned in calls:
+        B, C, H, D = q.shape
+        T, (bs, K) = local.shape[1], k_s.shape[1:3]
+        kpos = torch.arange(T * bs, device="cuda")
+        qpos = starts[:, None] + torch.arange(C, device="cuda")[None, :]
+        own = (owned != 0).repeat_interleave(bs, dim=1)          # (B, T*bs)
+        sees = (kpos[None, None, :] <= qpos[:, :, None]) & own[:, None, :]
+        kd = k_s[local.long()].reshape(B, T * bs, K, D).transpose(1, 2)
+        vd = v_s[local.long()].reshape(B, T * bs, K, D).transpose(1, 2)
+        sdpa.append((q.transpose(1, 2), kd, vd, sees[:, None]))
+        # the lanes' distinct owned rows: a padded lane names block 0
+        loc, own_l, st = local.tolist(), owned.tolist(), starts.tolist()
+        rows = {(loc[b][k // bs], k % bs)
+                for b in range(B) for k in range(st[b] + C)
+                if own_l[b][k // bs]}
+        pairs = int(sees.sum().item())
+        n_bytes += (2 * len(rows) * K * D * k_s.element_size()
+                    + 2 * B * C * H * D * q.element_size()   # q in, o out
+                    + 4 * B * C * H                          # lse out
+                    + 8 * sum(-(-(int(s0) + C) // bs) for s0 in starts)
+                    + 4 * B)                                 # ids, owned, starts
+        flops += 4 * D * H * pairs
+    lib_ms = cuda_ms(lambda: [F.scaled_dot_product_attention(
+        qq, kd, vd, attn_mask=m) for qq, kd, vd, m in sdpa]) / len(calls)
+    return lib_ms, n_bytes, flops
+
+
+def check_prefill_lse(torch, gen, H=32, D=128, stripes=(2, 4),
+                      label="llama2-7b", timed_stripes=2):
+    """Kernel 3's owned/LSE form at the chunked path's shape (4 lanes, a
+    chunk of 128, tables of 128 blocks of 16, H = K heads of D) over a
+    pool of 516 blocks split into ``stripes`` stripes, in every dtype pair.
+    Lane 0 starts at 0 and lane 2 at 515 over scrambled tables (their
+    chunks' keys span the stripes); lane 1 starts at 1100 over blocks
+    1-128, all in stripe 0, so every other stripe owns none of its keys
+    (o 0 and lse -1e30 exactly); lane 3 is a padded row.  Per stripe,
+    (o, lse) against the plain version; the stripes' ``combine_lse``
+    against kernel 3 over the whole pool; each bf16 launch on the tensor
+    cores.  Timed in bf16 at ``timed_stripes`` stripes per launch (both
+    stripes' launches, halved) beside the plain version, SDPA over each
+    stripe's owned keys and the bound."""
+    from repro_torch.kernels import paged_decode_attention as pa
+    from repro_torch.kernels import paged_prefill_attention as ppa
+    B, C, K, bs, T, n_blocks = 4, 128, H, 16, 128, 516
+    timed = None
+    for name, q_dt, kv_dt in _pairs(torch):
+        perm = torch.randperm(n_blocks - 1, generator=gen, device="cuda") + 1
+        tables = perm[: B * T].reshape(B, T).to(torch.int32)
+        tables[1] = torch.arange(1, T + 1, dtype=torch.int32, device="cuda")
+        tables[3] = 0
+        starts = torch.tensor([0, 1100, 515, 0], dtype=torch.int32,
+                              device="cuda")
+        q = torch.randn(B, C, H, D, generator=gen, device="cuda", dtype=q_dt)
+        kp, vp = (torch.randn(n_blocks, bs, K, D, generator=gen,
+                              device="cuda", dtype=kv_dt) for _ in range(2))
+        full = ppa.paged_prefill_attention(q, kp, vp, tables, starts)
+        for shards in stripes:
+            nb_loc = n_blocks // shards
+            calls, os_, lses = [], [], []
+            for r in range(shards):
+                local = tables - r * nb_loc
+                owned = ((local >= 0) & (local < nb_loc)).to(torch.int32)
+                args = (q, kp[r * nb_loc:(r + 1) * nb_loc],
+                        vp[r * nb_loc:(r + 1) * nb_loc],
+                        local.clamp(0, nb_loc - 1), starts, owned)
+                before = ppa.paged_prefill_attention_lse.tensor_core
+                o, lse = ppa.paged_prefill_attention_lse(*args)
+                if ppa.paged_prefill_attention_lse.tensor_core != \
+                        before + (q_dt == torch.bfloat16):
+                    fail(f"paged_prefill_attention_lse q={q_dt}: the launch "
+                         f"did not take the route of its dtype")
+                o_ref, lse_ref = ppa.paged_prefill_attention_lse_ref(*args)
+                what = (f"paged_prefill_attention_lse ({label}) q={q_dt} "
+                        f"pool={kv_dt} B={B} C={C} H={H} K={K} D={D} bs={bs} "
+                        f"T={T} starts={starts.tolist()} stripe {r}/{shards}")
+                err = held(f"{what} o", o, o_ref, name)
+                empty = lse_ref == -1e30
+                lse_err = ((lse - lse_ref)[~empty].abs().max().item()
+                           if bool((~empty).any()) else 0.0)
+                if bool(empty[1].all()) != (r > 0):
+                    fail(f"{what}: setup, lane 1's rows empty "
+                         f"{bool(empty[1].all())}")
+                print(f"{what} lse: max_abs_err={lse_err:.3e} tol=1e-04, "
+                      f"{int(empty.sum())} (lane, token, head) rows with no "
+                      f"key: lse -1e30 and o 0 exactly", flush=True)
+                if (not torch.equal(lse == -1e30, empty) or lse_err > 1e-4
+                        or not bool((o[empty] == 0).all())):
+                    fail(f"{what}: lse or the empty rows' o disagree with "
+                         f"the plain version")
+                calls.append(args)
+                os_.append(o)
+                lses.append(lse)
+            held(f"combine_lse of {shards} stripes of paged_prefill_"
+                 f"attention_lse ({label}) vs paged_prefill_attention "
+                 f"q={q_dt} pool={kv_dt}",
+                 pa.combine_lse(torch.stack(os_), torch.stack(lses)), full,
+                 name)
+            if shards == timed_stripes and q_dt == torch.bfloat16:
+                timed = (calls, err)
+    calls, err = timed
+    n = len(calls)
+    ms, lo, hi = spread_ms(lambda: [ppa.paged_prefill_attention_lse(*a)
+                                    for a in calls], per=n)
+    plain_ms = cuda_ms(lambda: [ppa.paged_prefill_attention_lse_ref(*a)
+                                for a in calls]) / n
+    lib_ms, n_bytes, flops = prefill_lse_yardstick(torch, calls)
+    bound, by = bound_of(n_bytes // n, flops // n, "bf16")
+    print(f"paged_prefill_attention_lse ({label}) bf16 B={B} C={C} H={H} "
+          f"K={K} D={D}, {n} stripes of {n_blocks // n} blocks, per launch: "
+          f"kernel {spread(ms, lo, hi)}, plain {plain_ms:.4f} ms, sdpa over "
+          f"the gathered owned keys {lib_ms:.4f} ms (o only, no lse), bound "
+          f"{bound:.4f} ms ({by}: {n_bytes // n} B, {flops // n} flop)",
+          flush=True)
+    return {"name": "paged_prefill_attention_lse", "route": "cuda",
+            "source": "src/repro_torch/csrc/paged_prefill_attention_lse.cu",
+            "replaces": "src/repro/kernels/paged_decode_attention.py:255",
+            "max_abs_err": err, "ms": ms, "ms_min": lo, "ms_max": hi,
+            "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
+            "library_ms": lib_ms}
+
+
 def check_prefill_head_dims(torch) -> None:
     """Kernel 3 at every head dim kernel 1 takes, in every dtype pair, at
     G = 4 (8/2 heads) and granite's G = 3 (24/8), a chunk of 40 over
@@ -1055,7 +1211,8 @@ def check_head_dim_256(torch) -> None:
     Kernel 1: a prefill bucket (B = 4, S = 256) causal; kernel 2: 4 lanes
     over tables of 128 blocks of 16; kernel 3: a chunk of 128 at starts
     0/1100/515 and a padded lane; kernel 4: 4 lanes at 2 stripes of a
-    516-block pool; kernel 5: 4 slots of 2048.  Readings, not entries of
+    516-block pool; kernel 5: 4 slots of 2048; kernel 3's owned/LSE form
+    as ``check_prefill_lse`` at 2 and 4 stripes.  Readings, not entries of
     the kernels line."""
     g = torch.Generator(device="cuda").manual_seed(25)
     check_flash(torch, {"bf16": torch.bfloat16, "f32": torch.float32}, g,
@@ -1065,6 +1222,7 @@ def check_head_dim_256(torch) -> None:
     check_prefill(torch, g, heads=((16, 16),), chunks=(128,), D=256)
     check_lse(torch, g, B=4, H=16, D=256, n_blocks=516, stripes=(2,))
     check_dense(torch, g, heads=((16, 16),), lengths=(2048,), D=256)
+    check_prefill_lse(torch, g, H=16, D=256, label="gemma-7b")
 
 
 def check_dense(torch, gen, heads=((32, 32), (64, 8)), lengths=(2048, 1000),
@@ -1480,6 +1638,7 @@ def kernel_wrappers() -> dict:
             "paged_decode_attention": pa.paged_decode_attention,
             "paged_decode_attention_lse": pa.paged_decode_attention_lse,
             "paged_prefill_attention": ppa.paged_prefill_attention,
+            "paged_prefill_attention_lse": ppa.paged_prefill_attention_lse,
             "decode_attention": da.decode_attention,
             "rwkv6_wkv": wkv.rwkv6_wkv,
             "int8_matmul": i8.int8_matmul}
@@ -1493,6 +1652,7 @@ def reset_launches() -> None:
     wrappers["flash_attention"].bidirectional = 0
     wrappers["flash_attention"].tensor_core = 0
     wrappers["paged_prefill_attention"].tensor_core = 0
+    wrappers["paged_prefill_attention_lse"].tensor_core = 0
 
 
 def read_launches() -> dict:
@@ -1509,16 +1669,19 @@ def read_launches() -> dict:
         wrappers["flash_attention"].bidirectional
     out["flash_attention_tensor_core"] = \
         wrappers["flash_attention"].tensor_core
-    out["paged_prefill_attention_tensor_core"] = \
-        wrappers["paged_prefill_attention"].tensor_core
+    for name in ("paged_prefill_attention", "paged_prefill_attention_lse"):
+        out[f"{name}_tensor_core"] = wrappers[name].tensor_core
     return out
 
 
 def tensor_core_route(launches: dict, label: str) -> None:
-    """Fail unless every kernel-1 and every kernel-3 launch of a bf16 run
-    took the tensor cores."""
-    for num, name in ((1, "flash_attention"), (3, "paged_prefill_attention")):
+    """Fail unless every kernel-1 and every kernel-3 launch (its owned/LSE
+    form's too) of a bf16 run took the tensor cores."""
+    for num, name in ((1, "flash_attention"), (3, "paged_prefill_attention"),
+                      ("3s", "paged_prefill_attention_lse")):
         tc, n = launches[f"{name}_tensor_core"], launches[name]
+        if num == "3s" and not n:
+            continue
         print(f"{label}: kernel {num} on the tensor cores {tc} of {n} "
               f"launches", flush=True)
         if tc != n:
@@ -2014,8 +2177,13 @@ def serve_paths(torch, model, params) -> dict:
     same_as_eager(runs[1], eager, "llama2-7b horizon=8")
     runs += [eager] + serve_sampled(torch, model, params, runs[1])
     runs += serve_sharded(torch, model, params, load, runs[1])
-    runs += serve_chunked(torch, model, params)
+    chunked = serve_chunked(torch, model, params)
+    runs += chunked
     runs += serve_slots(torch, model, params, load, runs[0])
+    # phase 13's llama paths, while llama2-7b is on the card
+    runs += chunked_shards(torch, model, params, chunked[0], (2, 4))
+    runs += chunked_f32_shards(torch, model, params)
+    runs += spec_shards(torch, model, params)
     total = {}
     for run in runs:
         for name, n in run["launches"].items():
@@ -2226,6 +2394,7 @@ class plain_versions:
         ops.paged_decode_attention = pa.paged_decode_attention_ref
         ops.paged_decode_attention_lse = pa.paged_decode_attention_lse_ref
         ops.paged_prefill_attention = ppa.paged_prefill_attention_ref
+        ops.paged_prefill_attention_lse = ppa.paged_prefill_attention_lse_ref
         ops.paged_verify_attention = ppa.paged_prefill_attention_ref
         ops.decode_attention = _decode_ref
         ops.rwkv6_wkv = wkv.rwkv6_wkv_ref
@@ -3031,6 +3200,8 @@ def serve_granite(torch, variants) -> dict:
     del eng
     torch.cuda.empty_cache()
     same_as_eager(swap, swap_eager, "granite full then int8")
+    # phase 13: granite's shard degrees, refused by its vocabulary
+    granite_refuses_shards(torch, variants)
     st = swap["stats"]
     print(f"granite swap checks: variant_swaps={st.variant_swaps} (1), "
           f"preemptions={st.preemptions} (>= {swap['in_flight']} in flight "
@@ -4415,8 +4586,9 @@ TOKEN_CONFIGS = (("deepseek-7b", None), ("qwen3-1.7b", None),
 def full_width(torch, name: str, layers=None):
     """``name`` at its published widths (depth ``layers`` where given),
     random bf16 weights from seed 0; fails unless the tree holds the
-    config's parameters (plus the qk_norm scales, which ``param_count``
-    leaves out, in the reference as in the port)."""
+    config's parameters (plus the qk_norm scales and MLA's q and kv norm
+    scales, which ``param_count`` leaves out, in the reference as in the
+    port)."""
     from repro_torch.configs import get_config
     from repro_torch.models import build_model, local_plan
     cfg = get_config(name)
@@ -4430,6 +4602,8 @@ def full_width(torch, name: str, layers=None):
     n = sum(t.numel() for t in _leaves(params))
     want = cfg.param_count() + (2 * cfg.num_layers * cfg.head_dim
                                 if cfg.qk_norm else 0)
+    if cfg.attn_kind == "mla":       # nor MLA's q and kv norms
+        want += cfg.num_layers * (cfg.q_lora_rank + cfg.kv_lora_rank)
     experts = (f" {cfg.n_experts} experts top-{cfg.top_k} of d_ff "
                f"{cfg.expert_d_ff}" if cfg.n_experts else f" d_ff {cfg.d_ff}")
     print(f"{name} full width: {cfg.num_layers} layers"
@@ -4488,7 +4662,9 @@ def token_config_phase(torch, name: str, layers) -> dict:
     and one decode step teacher-forced through the kernels and the plain
     versions (the dense configs; a MoE's routing is discontinuous in
     bf16, so granite's check in phase 6 runs in an f32 plan); a traced
-    captured decode step.  Returns the launches of its runs."""
+    captured decode step; phase 13's paths on the same weights: gemma-7b
+    chunked at shards 2, a MoE config at shards 2.  Returns the launches
+    of its runs."""
     model, params = full_width(torch, name, layers)
     paged = ("flash_attention", "paged_decode_attention")
     load = plain_load(model.cfg.vocab_size)
@@ -4498,8 +4674,12 @@ def token_config_phase(torch, name: str, layers) -> dict:
     same_as_eager(runs[0], runs[1], f"{name} horizon=8")
     if model.cfg.head_dim == 256:
         runs += serve_sharded(torch, model, params, load, runs[0])
-        runs += serve_chunked(torch, model, params)
+        chunked = serve_chunked(torch, model, params)
+        runs += chunked
         runs += serve_slots(torch, model, params, load, runs[0])
+        runs += chunked_shards(torch, model, params, chunked[0], (2,))
+    if model.cfg.n_experts:
+        runs += moe_shards(torch, model, params, runs[0])
     if not model.cfg.n_experts:
         teacher_forced(torch, model, params)
     busy, wall = decode_step_trace(torch, model, params)
@@ -4708,6 +4888,340 @@ def fleet_phases(torch) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 13: every paged path at shards 2 and 4, and MLA (minicpm3-4b)
+# ---------------------------------------------------------------------------
+#
+# The sharded paths run on the phases that already hold their model on the
+# card (llama2-7b in phase 2, granite in phase 6, gemma-7b and qwen3-moe in
+# phase 11), so no model is built twice; each line they print starts with
+# "phase 13".  minicpm3-4b is built and served at the end.
+
+def sharded(torch, model, n: int, **plan_kw):
+    """``model``'s config under the ``n``-way serving plan (a ``Model``
+    holds no weights: the same parameters serve it)."""
+    from repro_torch.models import build_model
+    from repro_torch.serving import serving_plan
+    plan_kw.setdefault("param_dtype", model.plan.param_dtype)
+    return build_model(model.cfg, serving_plan(n, **plan_kw),
+                       device=model.device)
+
+
+def twins(torch, model, params, label: str, load: list, need: tuple,
+          **engine_kw) -> list:
+    """``load`` served captured and with ``graphs=False`` on the same
+    weights: the pair must agree (``same_as_eager``)."""
+    cap = serve(torch, model, params, label, load, need, **engine_kw)
+    eager = serve(torch, model, params, f"{label} eager", load, need,
+                  graphs=False, **engine_kw)
+    same_as_eager(cap, eager, f"phase 13 {model.cfg.name} {label}")
+    return [cap, eager]
+
+
+def pool_for(ref: dict) -> int:
+    """The smallest multiple of 4 blocks above a run's fullest point: the
+    same schedule without preemption, every stripe of 2 or 4 live."""
+    return -(-(ref["peak_blocks"] + 1) // 4) * 4
+
+
+def striped_launches(run: dict, n: int, L: int, label: str) -> None:
+    """Fail unless every decode step went through kernel 4 (``n`` launches
+    per layer, none of kernel 2) and every chunk tick through kernel 3's
+    owned/LSE form (``n`` per layer, none of kernel 3), with a live block
+    in every stripe at the run's fullest point."""
+    la, st = run["launches"], run["stats"]
+    want = {"paged_decode_attention_lse": n * L * run["steps"],
+            "paged_decode_attention": 0, "paged_prefill_attention": 0}
+    if "paged_prefill_attention_lse" in la and st.prefill_batches and \
+            la["flash_attention"] == 0:
+        want["paged_prefill_attention_lse"] = n * L * st.prefill_batches
+    got = {k: la[k] for k in want}
+    print(f"phase 13 {label} shards={n} checks: launches {got} (want "
+          f"{want}), live blocks per stripe at the fullest point "
+          f"{run['stripe_blocks']} (all > 0)", flush=True)
+    if got != want:
+        fail(f"{label} shards={n}: the striped kernels did not carry every "
+             f"step and tick")
+    if len(run["stripe_blocks"]) != n or min(run["stripe_blocks"]) == 0:
+        fail(f"{label} shards={n}: a stripe held no live block")
+
+
+def chunked_shards(torch, model, params, ref: dict, counts=(2, 4)) -> list:
+    """Chunked prefill with prefix sharing (``system_prompt_load``, chunks
+    of 128, horizon 8) at each shard count of ``counts``, captured and
+    eager, over a pool just above the unsharded chunked run ``ref``'s
+    fullest point: every chunk tick through kernel 3's owned/LSE form,
+    every decode step through kernel 4, the same shared blocks and
+    prefill tokens as ``ref``, no preemption; streams against ``ref`` are
+    a reading (bf16)."""
+    name, L = model.cfg.name, model.cfg.num_layers
+    load = system_prompt_load(model.cfg.vocab_size)
+    runs = []
+    for n in counts:
+        pair = twins(torch, sharded(torch, model, n), params,
+                     "chunked prefill_chunk=128 prefix_share horizon=8",
+                     load, ("paged_prefill_attention_lse",
+                            "paged_decode_attention_lse"),
+                     horizon=8, prefill_chunk=128, prefix_share=True,
+                     n_blocks=pool_for(ref))
+        run = pair[0]
+        striped_launches(run, n, L, f"{name} chunked")
+        st, rs = run["stats"], ref["stats"]
+        print(f"phase 13 {name} chunked shards={n}: shared_block_hits="
+              f"{run['shared_block_hits']} ({ref['shared_block_hits']} "
+              f"unsharded), prefill_tokens={st.prefill_tokens} "
+              f"({rs.prefill_tokens}), preemptions={st.preemptions} (0); "
+              f"{same_streams(run['streams'], ref['streams'])}/8 streams "
+              f"equal to shards 1 (a reading: bf16); decode tok/s "
+              f"{run['tok_s']:.1f} captured, {pair[1]['tok_s']:.1f} eager; "
+              f"card {card_line()}", flush=True)
+        if (run["shared_block_hits"] != ref["shared_block_hits"]
+                or st.prefill_tokens != rs.prefill_tokens
+                or st.preemptions):
+            fail(f"{name} chunked shards={n}: the sharing or the schedule "
+                 f"differs from shards 1")
+        runs += pair
+    return runs
+
+
+def chunked_f32_shards(torch, model, params) -> list:
+    """llama's chunked, prefix-shared streams in an f32 compute plan over
+    an f32 pool at shards 1 and 2 (captured): they must be equal.  Over
+    the bf16 pool each stripe rounds exp(s - its own max) where shards 1
+    rounds the normalised P; in f32 both are the identity."""
+    import functools
+    from repro_torch.serving import engine as E
+    load = system_prompt_load(model.cfg.vocab_size)
+    pool_cls = E.PagedCachePool
+    E.PagedCachePool = functools.partial(pool_cls, dtype=torch.float32)
+    try:
+        runs = [serve(torch, sharded(torch, model, n,
+                                     compute_dtype=torch.float32), params,
+                      f"chunked f32 plan, f32 pool, shards={n}", load,
+                      ("paged_prefill_attention_lse" if n > 1
+                       else "paged_prefill_attention",),
+                      horizon=8, prefill_chunk=128, prefix_share=True)
+                for n in (1, 2)]
+    finally:
+        E.PagedCachePool = pool_cls
+    same = same_streams(runs[0]["streams"], runs[1]["streams"])
+    print(f"phase 13 {model.cfg.name} chunked, f32 plan over an f32 pool: "
+          f"{same}/8 streams equal between shards 1 and 2; decode tok/s "
+          f"{runs[0]['tok_s']:.1f} / {runs[1]['tok_s']:.1f}", flush=True)
+    if runs[0]["streams"] != runs[1]["streams"]:
+        fail("chunked f32: shards 2 streams differ from shards 1")
+    return runs
+
+
+def spec_shards(torch, model, params) -> list:
+    """N-gram speculative decode (spec_k 4, horizon 4) at shards 2 on
+    ``plain_load``, captured and eager: every verify pass folded into
+    kernel 4 (2 launches per layer and round; kernel 2 never), drafts
+    proposed and accepted."""
+    name, L = model.cfg.name, model.cfg.num_layers
+    pair = twins(torch, sharded(torch, model, 2), params,
+                 "n-gram spec spec_k=4 horizon=4 shards=2",
+                 plain_load(model.cfg.vocab_size),
+                 ("flash_attention", "paged_decode_attention_lse"),
+                 draft="ngram", **SPEC)
+    run = pair[0]
+    st, la = run["stats"], run["launches"]
+    rounds = st.decode_syncs * SPEC["horizon"]
+    print(f"phase 13 {name} n-gram spec at shards 2: verify_passes="
+          f"{st.verify_passes} draft_tokens={st.draft_tokens} "
+          f"accepted_tokens={st.accepted_tokens} kernel 4 launches "
+          f"{la['paged_decode_attention_lse']} (2 x {L} x {rounds} rounds), "
+          f"kernel 2 {la['paged_decode_attention']} (0); decode tok/s "
+          f"{run['tok_s']:.1f} captured, {pair[1]['tok_s']:.1f} eager",
+          flush=True)
+    if (st.verify_passes == 0 or la["paged_decode_attention"]
+            or la["paged_decode_attention_lse"] != 2 * L * rounds):
+        fail(f"{name} spec shards=2: the verify passes did not go through "
+             f"kernel 4 alone")
+    return pair
+
+
+def moe_shards(torch, model, params, ref: dict) -> list:
+    """A MoE config at shards 2 on ``plain_load`` at horizon 8, captured
+    and eager, over a pool just above the unsharded run ``ref``'s fullest
+    point: every decode step through kernel 4, the experts combined over 2
+    ranks; streams against ``ref`` are a reading (bf16; routing is
+    discontinuous)."""
+    name, L = model.cfg.name, model.cfg.num_layers
+    pair = twins(torch, sharded(torch, model, 2), params,
+                 "horizon=8 shards=2", plain_load(model.cfg.vocab_size),
+                 ("flash_attention", "paged_decode_attention_lse"),
+                 horizon=8, n_blocks=pool_for(ref))
+    striped_launches(pair[0], 2, L, f"{name} MoE")
+    print(f"phase 13 {name} at shards 2: "
+          f"{same_streams(pair[0]['streams'], ref['streams'])}/8 streams "
+          f"equal to shards 1 (a reading); decode tok/s "
+          f"{pair[0]['tok_s']:.1f} captured, {pair[1]['tok_s']:.1f} eager; "
+          f"card {card_line()}", flush=True)
+    return pair
+
+
+def granite_refuses_shards(torch, variants) -> None:
+    """granite at full width cannot serve sharded: its vocabulary (49155)
+    divides by neither 2 nor 4, and ``shard_compat``, the reference's
+    rule the port keeps, refuses a plan whose pads would not carry the
+    parameters over.  ``can_shard`` gives that reason and an
+    ``EngineBackend`` mapping tp onto 2 shards counts a reject and keeps
+    the engine at 1 (the expert-parallel path runs at full width on
+    qwen3-moe in phase 11; granite's smoke config, vocab 128, serves at
+    shards 2 in the CPU tests)."""
+    from repro_torch.core.profiles import ConfigPoint
+    from repro_torch.serving import Engine, EngineBackend
+    model, params = variants["full"]
+    eng = Engine(model, params, max_seq=2048, n_slots=4, block_size=16)
+    why = {n: eng.can_shard(n) for n in (2, 4)}
+    bk = EngineBackend(eng, shards_for_tp={4: 2})
+    bk.apply_config(ConfigPoint(freq=1.0, tp=4, batch=16, size="7b",
+                                quant="bf16"))
+    print(f"phase 13 granite-moe-3b-a800m at shards 2 and 4: refused, "
+          f"{why}; EngineBackend shard_rejects={bk.shard_rejects} (1), "
+          f"shards={eng.shards} (1)", flush=True)
+    if (not all(why.values()) or "vocab_size" not in why[2]
+            or bk.shard_rejects != 1 or eng.shards != 1):
+        fail("granite: a shard degree its vocabulary does not divide was "
+             "not refused")
+    del eng, bk
+    torch.cuda.empty_cache()
+
+
+def mla_flash_reading(torch, model) -> None:
+    """Kernel 1 at minicpm3-4b's prefill (one prompt of 200 tokens, 40
+    heads, q and k at D = 96, v zero-padded from 64 to 96) beside its plain
+    version, SDPA on the same padded inputs and the bound of the unpadded
+    work; the padded output's first 64 columns against attention with v
+    at 64 (plain torch)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+    cfg = model.cfg
+    H, S = cfg.n_heads, 200
+    Dk, Dv = cfg.qk_nope_head_dim + cfg.qk_rope_head_dim, cfg.v_head_dim
+    g = torch.Generator(device="cuda").manual_seed(13)
+    q, k = (torch.randn(1, H, S, Dk, generator=g, device="cuda",
+                        dtype=torch.bfloat16) for _ in range(2))
+    v = torch.randn(1, H, S, Dv, generator=g, device="cuda",
+                    dtype=torch.bfloat16)
+    vp = F.pad(v, (0, Dk - Dv))
+    scale = 1.0 / Dk ** 0.5
+    o = fa.flash_attention(q, k, vp, scale=scale, causal=True)[..., :Dv]
+    want = F.scaled_dot_product_attention(q.float(), k.float(), v.float(),
+                                          is_causal=True, scale=scale)
+    held(f"flash_attention minicpm3-4b prefill B=1 H={H} S={S} D={Dk}, v "
+         f"padded {Dv} -> {Dk}, o[..., :{Dv}] vs attention with v at {Dv}",
+         o, want, "bf16")
+    ms, lo, hi = spread_ms(lambda: fa.flash_attention(q, k, vp, scale=scale,
+                                                      causal=True))
+    plain_ms = cuda_ms(lambda: fa.flash_attention_ref(q, k, vp, scale=scale,
+                                                      causal=True))
+    lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+        q, k, vp, is_causal=True, scale=scale))
+    pairs = S * (S + 1) // 2
+    bound, by = bound_of(2 * H * S * (2 * Dk + 2 * Dv),
+                         2 * H * pairs * (Dk + Dv), "bf16")
+    print(f"phase 13 kernel 1 at D = {Dk} with v padded from {Dv} (minicpm3-4b "
+          f"prefill, B=1 H={H} S={S}): kernel {spread(ms, lo, hi)}, plain "
+          f"{plain_ms:.4f} ms, sdpa on the padded inputs {lib_ms:.4f} ms, "
+          f"bound of the unpadded work {bound:.4f} ms ({by}); card "
+          f"{card_line()}", flush=True)
+
+
+def mla_phase(torch) -> dict:
+    """Phase 13's MLA: full-width minicpm3-4b (62 layers, random bf16
+    weights from seed 0) on the slot pool (``paged=None`` picks it, as the
+    reference's engine does): ``plain_load`` captured and eager (equal),
+    kernel 1 once per layer and prefill (q/k at D = 96, v padded), no
+    other kernel (the latent decode is plain torch); prefill and one slot
+    decode step teacher-forced kernels vs plain versions in an f32 plan
+    (1e-4 of max |logit|; bf16 a reading); kernel 1's reading at the
+    prefill shape; one captured slot step traced beside the weights'
+    byte bound."""
+    model, params = full_width(torch, "minicpm3-4b")
+    cfg, L = model.cfg, model.cfg.num_layers
+    load = plain_load(cfg.vocab_size)
+    runs = twins(torch, model, params, "slots (MLA latent cache)", load,
+                 ("flash_attention",), paged=None)
+    la, st = runs[0]["launches"], runs[0]["stats"]
+    others = {k: la[k] for k in ("paged_decode_attention",
+                                 "paged_decode_attention_lse",
+                                 "paged_prefill_attention",
+                                 "paged_prefill_attention_lse",
+                                 "decode_attention", "rwkv6_wkv")}
+    print(f"phase 13 minicpm3-4b slots: flash_attention launches "
+          f"{la['flash_attention']} ({L} x {st.prefill_batches} prefills), "
+          f"other kernels {others} (all 0); decode tok/s "
+          f"{runs[0]['tok_s']:.1f} captured, {runs[1]['tok_s']:.1f} eager; "
+          f"card {card_line()}", flush=True)
+    if la["flash_attention"] != L * st.prefill_batches or any(
+            others.values()):
+        fail("minicpm3-4b: kernel 1 did not carry each prefill alone")
+    mla_flash_reading(torch, model)
+    mla_teacher_forced(torch, model, params)
+    tok = torch.tensor([5, 9, 13, 17], dtype=torch.int32, device="cuda")
+    pos = torch.tensor([230, 180, 120, 40], dtype=torch.int32, device="cuda")
+    slots = model.init_cache(4, 2048, device="cuda")
+    fn = captured_slot(torch, model, params, slots, tok, pos)
+    walls = host_walls(torch, fn, 1, reps=5)
+    busy = trace(torch, "minicpm3-4b slot decode captured (4 slots at "
+                 "positions 230/180/120/40 of 2048)", fn, walls, 1, "step")
+    import statistics
+    wall = statistics.median(walls)
+    w_bytes = sum(t.numel() * t.element_size() for t in _leaves(params))
+    print(f"phase 13 minicpm3-4b captured slot step: {busy:.3f} ms of device "
+          f"work, {wall:.3f} ms host wall, idle share {1 - busy / wall:.3f}; "
+          f"the weights' byte bound {w_bytes / HBM_BYTES_PER_S * 1e3:.2f} ms "
+          f"({w_bytes} B); card {card_line()}", flush=True)
+    del fn, slots
+    total = {}
+    for run in runs:
+        for k, n in run["launches"].items():
+            total[k] = total.get(k, 0) + n
+    del model, params, runs
+    torch.cuda.empty_cache()
+    return total
+
+
+def mla_teacher_forced(torch, model, params) -> None:
+    """minicpm3-4b's prefill of 4 prompts of 200 tokens and one slot decode
+    step after it, through the kernels and through the plain versions on
+    the card: in an f32 compute plan over the same bf16 weights and an
+    f32 slot cache (held at 1e-4 of max |logit|; over a bf16 cache a
+    written value within f32 rounding of a bf16 boundary may round either
+    way) and in bf16 (a reading)."""
+    from repro_torch.models import build_model, local_plan
+    for plan in ("f32", "bf16"):
+        m = model if plan == "bf16" else build_model(
+            model.cfg, local_plan(param_dtype=torch.bfloat16,
+                                  compute_dtype=torch.float32))
+        toks = _prompts(torch, m, 7)[0][:, :200]
+
+        def run():
+            logits, cache = m.prefill(params, toks)
+            nxt = logits.argmax(-1).to(torch.int32)
+            slots = m.init_cache(toks.shape[0], 256, device="cuda",
+                                 dtype=m.plan.compute_dtype)
+            for name, leaf in cache["attn"].items():
+                slots["attn"][name][:, :, :toks.shape[1]] = leaf.to(
+                    slots["attn"][name].dtype)
+            pos = torch.full((toks.shape[0],), toks.shape[1],
+                             dtype=torch.int32, device="cuda")
+            return logits, m.decode_step(params, slots, nxt, pos)[0]
+
+        pk, dk = run()
+        with plain_versions():
+            pp, dp = run()
+        for what, a, b in (("prefill", pk, pp), ("decode step", dk, dp)):
+            label = f"minicpm3-4b {plan} plan {what} logits, kernels vs plain"
+            if plan == "f32":
+                held_scaled(label, a[:, :model.cfg.vocab_size],
+                            b[:, :model.cfg.vocab_size], "f32")
+            else:
+                _reading(torch, model.cfg.vocab_size, label, a, b)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4736,15 +5250,15 @@ def main() -> int:
     # phase 1
     gen = torch.Generator(device="cuda").manual_seed(0)
     dtypes = {"bf16": torch.bfloat16, "f32": torch.float32}
-    # kernels 4 and 6 last, in the order they came: the earlier kernels
-    # draw the inputs they drew before
+    # kernels 4, 6 and 3's owned/LSE form last, in the order they came:
+    # the earlier kernels draw the inputs they drew before
     entries = [check_flash(torch, dtypes, gen), check_flash_window(torch,
                                                                   dtypes),
                check_flash_bidirectional(torch, dtypes),
                check_paged(torch, gen),
                check_prefill(torch, gen), check_dense(torch, gen),
                check_wkv(torch, gen), check_lse(torch, gen),
-               check_int8(torch, gen)]
+               check_int8(torch, gen), check_prefill_lse(torch, gen)]
     check_paged_edges(torch)
     check_ring(torch)
     lse_empty_stripe(torch, 1028)
@@ -4841,6 +5355,12 @@ def main() -> int:
 
     # phase 12: the last phase-11 model went at its end
     for name, n in fleet_phases(torch).items():
+        launches[name] += n
+    print(f"phase 12 done at {time.perf_counter() - t_start:.1f} s",
+          flush=True)
+
+    # phase 13: minicpm3-4b (the sharded paths ran in phases 2, 6 and 11)
+    for name, n in mla_phase(torch).items():
         launches[name] += n
     for e in entries:
         e["launches"] = launches[e["name"]]

@@ -5,7 +5,8 @@ from repro_torch.configs.base import ArchConfig, get_config, list_archs, registe
 from repro_torch.configs import (chameleon_34b,  # noqa: F401
                                  deepseek_7b, gemma_7b, granite_moe_3b,
                                  hubert_xlarge, hymba_1p5b, llama2_7b,
-                                 qwen3_1p7b, qwen3_moe_235b, rwkv6_3b)
+                                 minicpm3_4b, qwen3_1p7b, qwen3_moe_235b,
+                                 rwkv6_3b)
 from repro_torch.configs.drafters import (DRAFT_PAIRS, check_draft_pair,
                                           drafter_for)
 

@@ -1,5 +1,5 @@
 // Hopper (sm_90a) building blocks shared by the tensor-core attention
-// kernels (flash_attention.cu, paged_prefill_attention.cu): the tile
+// kernels (flash_attention.cu, paged_prefill.cuh): the tile
 // shapes and their shared-memory panels per head dim, mbarriers, TMA
 // loads, wgmma descriptors and instructions, and the P V product that
 // takes P from registers.  See flash_attention.cu's note for the layouts.

@@ -25,8 +25,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # number of CTAs the split plans (kernels 5, 6 and 7) fill
 SMS = 132
 SOURCES = ("flash_attention", "paged_decode_attention",
-           "paged_prefill_attention", "decode_attention", "rwkv6_wkv",
-           "int8_matmul")
+           "paged_prefill_attention", "paged_prefill_attention_lse",
+           "decode_attention", "rwkv6_wkv", "int8_matmul")
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 

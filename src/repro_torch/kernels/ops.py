@@ -78,6 +78,17 @@ def paged_prefill_attention(q, k_pool, v_pool, block_tables, starts, *,
                                             starts, scale=scale)
 
 
+def paged_prefill_attention_lse(q, k_pool, v_pool, block_tables, starts,
+                                owned, *, scale=None):
+    """Chunk attention over the owned slots of one pool stripe; returns
+    ``(o, lse)``."""
+    if _on_cpu(q, k_pool, v_pool, block_tables, starts, owned):
+        return _prefill.paged_prefill_attention_lse_ref(
+            q, k_pool, v_pool, block_tables, starts, owned, scale=scale)
+    return _prefill.paged_prefill_attention_lse(
+        q, k_pool, v_pool, block_tables, starts, owned, scale=scale)
+
+
 def paged_verify_attention(q, k_pool, v_pool, block_tables, positions, *,
                            scale=None):
     """Speculative verify: chunk attention with ``starts = positions``."""
@@ -140,6 +151,6 @@ def quantize_cols(w):
 
 __all__ = ["flash_attention", "paged_decode_attention",
            "paged_decode_attention_lse", "paged_prefill_attention",
-           "paged_verify_attention", "decode_attention", "rwkv6_wkv",
+           "paged_prefill_attention_lse", "paged_verify_attention", "decode_attention", "rwkv6_wkv",
            "int8_matmul", "int8_matmul_quantized", "quantize_rows",
            "quantize_cols"]

@@ -1,7 +1,8 @@
 """Paged chunked-prefill attention (C query tokens per lane through a block
 table): the CUDA kernel's wrapper and its plain PyTorch version.
 
-The kernel (``csrc/paged_prefill_attention.cu``) replaces the Pallas TPU
+The kernel (``csrc/paged_prefill_attention.cu``, its bodies in
+``csrc/paged_prefill.cuh``) replaces the Pallas TPU
 kernel ``repro/kernels/paged_decode_attention.py::paged_prefill_attention``.
 q (B, C, H, D), query c of lane b at absolute position ``starts[b] + c``;
 k_pool/v_pool (n_blocks, bs, K, D) already holding the chunk's own KV;
@@ -16,6 +17,16 @@ TF32): the route is chosen by dtype alone, never by a retry.
 ``paged_verify_attention`` (speculative verify: the current token plus its
 drafts at ``positions + i``) is the same kernel with ``starts = positions``,
 as in the reference; it has no kernel of its own.
+
+``paged_prefill_attention_lse`` is its owned/LSE form, the per-stripe
+step of a chunk over the block-striped pool (what kernel 4 is to kernel
+2): the pools are one stripe, the tables hold local ids (clipped into the
+stripe where not owned) and ``owned`` (B, T) int32 is nonzero where the
+stripe holds the slot's block; it attends over the owned slots only and
+returns ``(o (B, C, H, D) in q's dtype, lse (B, C, H) f32)``, which
+``paged_decode_attention.combine_lse`` merges over the stripes.  It is
+the same two bodies with the owned mask on the gather, built from
+``csrc/paged_prefill_attention_lse.cu``.
 """
 from __future__ import annotations
 
@@ -65,6 +76,50 @@ def paged_prefill_attention_ref(q: torch.Tensor, k_pool: torch.Tensor,
     return o.to(q.dtype)
 
 
+def paged_prefill_attention_lse_ref(q: torch.Tensor, k_pool: torch.Tensor,
+                                    v_pool: torch.Tensor,
+                                    block_tables: torch.Tensor,
+                                    starts: torch.Tensor,
+                                    owned: torch.Tensor, *,
+                                    scale: float | None = None):
+    """Plain per-stripe chunk attention (the function of the reference's
+    sharded ``_paged_prefill_core`` on one rank, up to its pmax/psum):
+    query c of lane b attends over the keys ``kpos <= starts[b] + c`` of
+    the table slots with ``owned[b, j] != 0`` only.  Returns ``(o, lse)``:
+    o normalised over those keys (0 where there are none) in q's dtype,
+    lse = m + log l in f32 (-1e30 where there are none), (B, C, H).
+
+    As ``paged_decode_attention_lse_ref`` does for one token, it rounds
+    the unnormalised exp(s - m) to the pool's dtype before PV with m this
+    stripe's own max (the reference's core takes the max over every rank,
+    which one stripe does not know), and l sums the unrounded values; at
+    f32 the rounding is the identity."""
+    B, C, H, D = q.shape
+    bs, K = k_pool.shape[1], k_pool.shape[2]
+    T = block_tables.shape[1]
+    scale = scale if scale is not None else 1.0 / math.sqrt(D)
+    ids = block_tables.long()
+    ke = k_pool[ids].reshape(B, T * bs, K, D).repeat_interleave(H // K, dim=2)
+    ve = v_pool[ids].reshape(B, T * bs, K, D).repeat_interleave(H // K, dim=2)
+    s = torch.einsum("bchd,bshd->bhcs", q.float(), ke.float()) * scale
+    qpos = starts[:, None] + torch.arange(C, device=q.device)[None, :]
+    live = ((torch.arange(T * bs, device=q.device)[None, None, :]
+             <= qpos[:, :, None])
+            & (owned != 0).repeat_interleave(bs, dim=1)[:, None, :])
+    live = live[:, None]                                  # (B, 1, C, S)
+    s = torch.where(live, s, NEG_INF)
+    m = s.amax(dim=-1)                                    # (B, H, C)
+    pexp = torch.where(live, torch.exp(s - m[..., None]), 0.0)
+    l = pexp.sum(dim=-1)
+    num = torch.einsum("bhcs,bshd->bchd", pexp.to(v_pool.dtype).float(),
+                       ve.float())
+    l_c = l.transpose(1, 2)                               # (B, C, H)
+    o = (num / l_c.clamp_min(1e-30)[..., None]).to(q.dtype)
+    lse = torch.where(l_c > 0, m.transpose(1, 2)
+                      + torch.log(l_c.clamp_min(1e-30)), NEG_INF)
+    return o, lse
+
+
 @functools.cache
 def _kernel():
     fn = build.library("paged_prefill_attention").paged_prefill_attention
@@ -75,44 +130,56 @@ def _kernel():
     return fn
 
 
-def _check(q, k_pool, v_pool, block_tables, starts) -> None:
-    named = (("q", q), ("k_pool", k_pool), ("v_pool", v_pool),
-             ("block_tables", block_tables), ("starts", starts))
-    for name, t in named:
+@functools.cache
+def _lse_kernel():
+    fn = build.library("paged_prefill_attention_lse")\
+        .paged_prefill_attention_lse
+    fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 8
+                   + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
+                      ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _check(q, k_pool, v_pool, block_tables, starts, owned=None,
+           name="paged_prefill_attention") -> None:
+    named = [("q", q), ("k_pool", k_pool), ("v_pool", v_pool),
+             ("block_tables", block_tables), ("starts", starts)]
+    if owned is not None:
+        named.append(("owned", owned))
+    for arg, t in named:
         if not t.is_cuda or t.device != q.device:
-            raise ValueError(f"paged_prefill_attention: {name} must be on "
-                             f"q's CUDA device, got {t.device}")
+            raise ValueError(f"{name}: {arg} must be on q's CUDA device, got "
+                             f"{t.device}")
         if not t.is_contiguous():
-            raise ValueError(f"paged_prefill_attention: {name} must be "
-                             f"contiguous")
+            raise ValueError(f"{name}: {arg} must be contiguous")
     if (q.dtype, k_pool.dtype) not in _PAIRS or v_pool.dtype != k_pool.dtype:
-        raise TypeError(f"paged_prefill_attention: q {q.dtype} over pools "
+        raise TypeError(f"{name}: q {q.dtype} over pools "
                         f"{k_pool.dtype}/{v_pool.dtype} not supported")
-    if block_tables.dtype != torch.int32 or starts.dtype != torch.int32:
-        raise TypeError("paged_prefill_attention: block_tables and starts "
-                        "must be int32")
+    if any(t.dtype != torch.int32 for _, t in named[3:]):
+        raise TypeError(f"{name}: {', '.join(a for a, _ in named[3:])} "
+                        f"must be int32")
     if q.dim() != 4 or k_pool.dim() != 4 or k_pool.shape != v_pool.shape:
-        raise ValueError(f"paged_prefill_attention: shapes q "
-                         f"{tuple(q.shape)} pools {tuple(k_pool.shape)}/"
-                         f"{tuple(v_pool.shape)}")
+        raise ValueError(f"{name}: shapes q {tuple(q.shape)} pools "
+                         f"{tuple(k_pool.shape)}/{tuple(v_pool.shape)}")
     B, C, H, D = q.shape
     if k_pool.shape[3] != D or H % k_pool.shape[2]:
-        raise ValueError(f"paged_prefill_attention: q {tuple(q.shape)} does "
-                         f"not fit pools {tuple(k_pool.shape)}")
+        raise ValueError(f"{name}: q {tuple(q.shape)} does not fit pools "
+                         f"{tuple(k_pool.shape)}")
     if D not in _HEAD_DIMS:
-        raise ValueError(f"paged_prefill_attention: head dim {D} not in "
-                         f"{_HEAD_DIMS}")
+        raise ValueError(f"{name}: head dim {D} not in {_HEAD_DIMS}")
     if block_tables.dim() != 2 or block_tables.shape[0] != B \
             or starts.shape != (B,):
-        raise ValueError(f"paged_prefill_attention: tables "
-                         f"{tuple(block_tables.shape)} starts "
+        raise ValueError(f"{name}: tables {tuple(block_tables.shape)} starts "
                          f"{tuple(starts.shape)} for {B} lanes")
+    if owned is not None and owned.shape != block_tables.shape:
+        raise ValueError(f"{name}: owned {tuple(owned.shape)} does not match "
+                         f"tables {tuple(block_tables.shape)}")
     if q.data_ptr() % 16 or k_pool.data_ptr() % 16 or v_pool.data_ptr() % 16:
-        raise ValueError("paged_prefill_attention: q and the pools must "
-                         "start on 16 bytes")
+        raise ValueError(f"{name}: q and the pools must start on 16 bytes")
     if q.device.index != torch.cuda.current_device():
-        raise ValueError(f"paged_prefill_attention: q on {q.device}, current "
-                         f"device is cuda:{torch.cuda.current_device()}")
+        raise ValueError(f"{name}: q on {q.device}, current device is "
+                         f"cuda:{torch.cuda.current_device()}")
 
 
 def paged_prefill_attention(q: torch.Tensor, k_pool: torch.Tensor,
@@ -141,6 +208,37 @@ def paged_prefill_attention(q: torch.Tensor, k_pool: torch.Tensor,
 
 paged_prefill_attention.launches = 0
 paged_prefill_attention.tensor_core = 0
+
+
+def paged_prefill_attention_lse(q: torch.Tensor, k_pool: torch.Tensor,
+                                v_pool: torch.Tensor,
+                                block_tables: torch.Tensor,
+                                starts: torch.Tensor, owned: torch.Tensor, *,
+                                scale: float | None = None):
+    """Launch the per-stripe CUDA kernel (all tensors on the current CUDA
+    device); returns ``(o, lse)``.  ``launches`` counts every launch,
+    ``tensor_core`` the bf16 ones (the ``wgmma`` body)."""
+    _check(q, k_pool, v_pool, block_tables, starts, owned,
+           name="paged_prefill_attention_lse")
+    B, C, H, D = q.shape
+    n_blocks, bs, K, _ = k_pool.shape
+    scale = scale if scale is not None else 1.0 / math.sqrt(D)
+    out = torch.empty_like(q)
+    lse = torch.empty(B, C, H, dtype=torch.float32, device=q.device)
+    err = _lse_kernel()(
+        q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+        block_tables.data_ptr(), starts.data_ptr(), owned.data_ptr(),
+        out.data_ptr(), lse.data_ptr(), B, C, H, K, D, n_blocks, bs,
+        block_tables.shape[1], scale, _DTYPES[q.dtype], _DTYPES[k_pool.dtype],
+        torch.cuda.current_stream(q.device).cuda_stream)
+    build.check(err, "paged_prefill_attention_lse")
+    paged_prefill_attention_lse.launches += 1
+    paged_prefill_attention_lse.tensor_core += q.dtype == torch.bfloat16
+    return out, lse
+
+
+paged_prefill_attention_lse.launches = 0
+paged_prefill_attention_lse.tensor_core = 0
 
 
 def paged_verify_attention(q: torch.Tensor, k_pool: torch.Tensor,

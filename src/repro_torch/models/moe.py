@@ -5,9 +5,16 @@ Dispatch is sort-based with a fixed per-expert capacity: the router picks
 into per-expert buffers of ``capacity`` rows, every expert runs its gated
 MLP over its whole buffer, and each token sums its experts' outputs
 weighted by the router gates.  The reference runs the block inside
-``shard_map`` with the experts sharded over the ``model`` axis; the port's
-plan has no mesh, so this is the reference's ``axis=None`` branch, every
-expert on the model's one device.
+``shard_map`` with the experts sharded over the ``model`` axis: rank r
+holds experts ``[r * e_loc, (r + 1) * e_loc)`` (``e_loc = e_pad / tp``),
+scatter-adds its experts' outputs into its own partial y, and one psum
+adds the partials.  The port's plan has no mesh: every expert stays on the
+model's one device and the expert GEMMs run as one batched product over
+all ``e_pad`` experts, but at ``tp > 1`` the combine is the reference's
+``axis`` branch, each rank's partial y summed in its slot order and the
+partials added in rank order where the reference takes its psum.  Pad
+experts (``e_pad > n_experts``) are zero and never routed: the router
+covers the real experts only.
 
 TAPAS's quantization knob (``ShardPlan.quantize_serve``) stores the
 experts as int8 with one f32 scale per (expert, output channel) and
@@ -136,9 +143,11 @@ def dispatch(topv: torch.Tensor, topi: torch.Tensor, *, e_pad: int,
 
 
 def _moe_core(x, router_w, w_gate, w_up, w_down, *, cfg: ArchConfig,
-              e_pad: int, capacity: int, activation: str) -> torch.Tensor:
-    """MoE over x (T, d) with every expert local (the reference's
-    ``axis=None``): y (T, d)."""
+              e_pad: int, capacity: int, activation: str,
+              tp: int = 1) -> torch.Tensor:
+    """MoE over x (T, d): y (T, d).  At ``tp`` 1 every expert is local
+    (the reference's ``axis=None``); at ``tp`` > 1 the combine is its
+    ``axis`` branch over ``tp`` ranks of ``e_pad // tp`` experts."""
     T, d = x.shape
     topv, topi = route(x, router_w, cfg)
     buf_src, buf_gate, slots = dispatch(topv, topi, e_pad=e_pad,
@@ -157,9 +166,23 @@ def _moe_core(x, router_w, w_gate, w_up, w_down, *, cfg: ArchConfig,
     # in the compute dtype; dropped assignments read the zero row
     rows = torch.cat([out.reshape(e_pad * capacity, d), out.new_zeros(1, d)])
     parts = rows[slots]                                  # (T, k, d)
-    y = parts[:, 0]
-    for j in range(1, parts.shape[1]):
-        y = y + parts[:, j]
+    if tp == 1:
+        y = parts[:, 0]
+        for j in range(1, parts.shape[1]):
+            y = y + parts[:, j]
+        return y
+    # rank r's partial y holds the contributions of its slots [r * e_loc *
+    # capacity, (r + 1) * e_loc * capacity) in slot order (a masked-out
+    # contribution adds an exact 0); the partials are then added in rank
+    # order (the reference's psum); a dropped slot belongs to no rank
+    rank = slots // (e_pad // tp * capacity)             # (T, k)
+    y = None
+    for r in range(tp):
+        mine = (rank == r)[..., None]
+        y_r = torch.where(mine[:, 0], parts[:, 0], 0)
+        for j in range(1, parts.shape[1]):
+            y_r = y_r + torch.where(mine[:, j], parts[:, j], 0)
+        y = y_r if y is None else y + y_r
     return y
 
 
@@ -176,5 +199,6 @@ def moe_ffn(p: dict, x: torch.Tensor, cfg: ArchConfig,
         weights = [p[n].to(dt) for n in EXPERT_WEIGHTS]
     y = _moe_core(x.reshape(B * S, d).to(dt), p["router"], *weights,
                   cfg=cfg, e_pad=plan.e_pad(cfg),
-                  capacity=_capacity(B * S, cfg), activation=cfg.activation)
+                  capacity=_capacity(B * S, cfg), activation=cfg.activation,
+                  tp=plan.tp)
     return y.reshape(B, S, d)

@@ -2,11 +2,13 @@
 
 The plan carries the two dtypes every model function reads, the
 model-parallel degree ``tp`` and the serve-time quantization knob
-``quantize_serve`` (int8 MoE experts, ``models.moe``).  There is no mesh: at ``tp > 1`` only the
-paged KV pool is block-striped (``paged_pool_sharded``), and every stripe
-stays on the model's one device, where the reference hands rank r its
-stripe on its own device through ``shard_map``.  The weights stay whole,
-so projections, MLP and head compute as at ``tp = 1``.
+``quantize_serve`` (int8 MoE experts, ``models.moe``).  There is no mesh:
+at ``tp > 1`` the paged KV pool is block-striped (``paged_pool_sharded``)
+and a MoE layer combines its experts rank by rank (``moe._moe_core``), and
+every stripe and rank stays on the model's one device, where the reference
+hands rank r its stripe and its experts on its own device through
+``shard_map``.  The weights stay whole, so projections, MLP and head
+compute as at ``tp = 1``.
 
 Every padded dimension equals the published one (``h_pad == n_heads``,
 ``k_pad == n_kv_heads``, ``v_pad == vocab_size``): a serving plan only

@@ -1,4 +1,4 @@
-"""Model assembly for the dense GQA, MoE, RWKV6, hybrid (hymba:
+"""Model assembly for the dense GQA and MLA, MoE, RWKV6, hybrid (hymba:
 sliding-window attention beside Mamba) and encoder (hubert: bidirectional
 attention over frame embeddings) families (port of those parts of
 ``repro.models.transformer``).
@@ -49,7 +49,7 @@ def _norm_init(cfg: ArchConfig, dt, device) -> dict:
 
 def _ported(cfg: ArchConfig) -> bool:
     """The blocks this module ports.  On token inputs with RMSNorm: causal
-    GQA + a gated MLP or a MoE layer of gated experts; RWKV6 time-mix +
+    GQA or MLA + a gated MLP or a MoE layer of gated experts; RWKV6 time-mix +
     channel-mix; and the hybrid block, sliding-window attention beside
     Mamba + a gated MLP.  On frame embeddings with LayerNorm: the encoder
     block, bidirectional GQA + a two-layer GELU MLP."""
@@ -61,8 +61,8 @@ def _ported(cfg: ArchConfig) -> bool:
         return False
     if cfg.rwkv:
         return cfg.mlp_kind == "rwkv_cmix"
-    attn = "swa" if cfg.family == "hybrid" else "gqa"
-    return cfg.attn_kind == attn and cfg.causal and cfg.mlp_kind == "glu"
+    attn = ("swa",) if cfg.family == "hybrid" else ("gqa", "mla")
+    return cfg.attn_kind in attn and cfg.causal and cfg.mlp_kind == "glu"
 
 
 # ---------------------------------------------------------------------------
@@ -80,7 +80,8 @@ def init_layer(cfg: ArchConfig, plan: ShardPlan, *,
         p["cmix"] = S.init_rwkv_cmix(cfg, plan, generator=generator,
                                      device=device)
         return p
-    p["attn"] = A.init_gqa(cfg, plan, generator=generator, device=device)
+    init_attn = A.init_mla if cfg.attn_kind == "mla" else A.init_gqa
+    p["attn"] = init_attn(cfg, plan, generator=generator, device=device)
     if cfg.family == "hybrid":
         p["mamba"] = S.init_mamba(cfg, plan, generator=generator,
                                   device=device)
@@ -356,11 +357,6 @@ class Model:
             raise NotImplementedError(f"{cfg.name} ({cfg.family}, "
                                       f"attn_kind={cfg.attn_kind!r}) is not "
                                       f"ported yet")
-        if cfg.n_experts and plan.tp > 1:
-            raise NotImplementedError(
-                f"{cfg.name}: MoE at shards > 1 (the reference's expert "
-                f"parallelism) is not ported yet (ROADMAP.md, Queue 1 item "
-                f"12)")
         self.cfg = cfg
         self.plan = plan
         self.device = torch.device(device)
@@ -483,13 +479,10 @@ class Model:
         its first lengths[b]; starts: (B,) absolute position of tokens[:, 0]
         (earlier chunks and prefix-shared blocks already sit in the pool);
         block_tables: (B, T).  Returns (logits at each row's last valid
-        chunk token (B, V_pad), cache)."""
+        chunk token (B, V_pad), cache).  Under a sharded plan each layer
+        writes and attends stripe by stripe (``attention.
+        _paged_prefill_core``)."""
         cfg, plan = self.cfg, self.plan
-        if plan.paged_pool_sharded(cfg):
-            raise NotImplementedError(
-                "chunked prefill over a block-striped pool needs the "
-                "reference's _paged_prefill_core with an owned/LSE form of "
-                "kernel 3, not ported yet (ROADMAP.md, Queue 1 item 12)")
         x = self._embed_inputs(params, tokens)
         for i in range(cfg.num_layers):
             x, _ = block_prefill_paged(x, _layer(params["layers"], i),

@@ -25,9 +25,10 @@ reports goodput.
 In-flight requests are preempted and recomputed under the new variant.
 
 ``set_shards(n)`` reconfigures the model-parallel degree: the paged pool
-is block-striped over ``n`` ranks and every decode step attends stripe by
-stripe.  All stripes live on the engine's one device (the reference puts
-each on its own device), so no device count limits ``n``.
+is block-striped over ``n`` ranks and every decode step and chunk tick
+attends stripe by stripe; a MoE layer combines its experts over ``n``
+ranks.  All stripes and ranks live on the engine's one device (the
+reference puts each on its own device), so no device count limits ``n``.
 
 Sampled requests (``temperature > 0``, optional ``top_k``) draw every
 token under a key folded from the request's seed (its own, or one derived
@@ -66,11 +67,10 @@ returning) its unfinished work; ``take_unfinished`` strips it for a
 watchdog to re-home.  On the no-fault path none of it launches or syncs
 anything.
 
-Ported so far: greedy and sampled requests; variants; shards > 1 with
-whole-prompt prefill for the dense families; speculative decode; the
-pause knob and the resilience paths.  Not ported yet (see ROADMAP.md):
-chunked prefill and prefix sharing at shards > 1, MoE at shards > 1
-(expert parallelism).
+Every path of the reference's engine is ported: greedy and sampled
+requests; variants; shards > 1 on every paged path (whole-prompt and
+chunked prefill, prefix sharing, speculative decode, MoE); the pause knob
+and the resilience paths.
 """
 from __future__ import annotations
 
@@ -303,8 +303,6 @@ class Engine:
         if self.paged and not model.supports_paged:
             raise ValueError(f"{model.cfg.name} cannot serve paged "
                              f"(attn_kind={model.cfg.attn_kind!r})")
-        if self.prefill_chunk and self.shards > 1:
-            raise NotImplementedError(self._unported_at(self.shards))
         self._make_pool()
         self._bind_spec()
 
@@ -377,22 +375,6 @@ class Engine:
         self.draft_name = name
         self._bind_spec()
 
-    def _unported_at(self, n: int) -> str | None:
-        """What serving at ``n`` > 1 shards would need that is not ported
-        yet, or None."""
-        if n <= 1:
-            return None
-        if self.prefill_chunk:
-            return ("chunked prefill and prefix sharing at shards > 1 are "
-                    "not ported yet (ROADMAP.md, Queue 1 item 12)")
-        moe = [name for name, (m, _) in self.variants.items()
-               if m.cfg.n_experts]
-        if moe:
-            return (f"MoE variants {moe} at shards > 1 (the reference's "
-                    f"expert parallelism) are not ported yet (ROADMAP.md, "
-                    f"Queue 1 item 12)")
-        return None
-
     # -- variant management (model-size / quantization knob) --------------
     def add_variant(self, name: str, model: Model, params: dict) -> None:
         self.variants[name] = (model, params)
@@ -446,11 +428,10 @@ class Engine:
 
     def can_shard(self, n: int) -> str | None:
         """Why the engine cannot reconfigure to ``n``-way model
-        parallelism (None = it can): the paged mode, every registered
-        variant's counts divide cleanly, and nothing it serves is unported
-        at ``n`` (chunked prefill, MoE).  The reference also needs ``n``
-        devices; here every stripe lives on the engine's one device, so
-        that objection does not arise."""
+        parallelism (None = it can): the paged mode, and every registered
+        variant's and drafter's counts divide cleanly.  The reference also
+        needs ``n`` devices; here every stripe lives on the engine's one
+        device, so that objection does not arise."""
         if n < 1:
             return f"shard degree must be >= 1, got {n}"
         if n == 1:
@@ -463,24 +444,20 @@ class Engine:
                 err = shard_compat(n, m.cfg)
                 if err is not None:
                     return f"{kind} {name!r}: {err}"
-        return self._unported_at(n)
+        return None
 
     def set_shards(self, n: int) -> None:
         """Reconfigure the model-parallel degree (costs a pause, like a
         variant reload): preempt in-flight work, rebuild every registered
         variant's model under the new plan with the same parameters, and
-        rebuild the pool.  Raises, without preempting, when ``can_shard``
-        objects: ``NotImplementedError`` for a path not ported at ``n``,
-        else ``ValueError``.
+        rebuild the pool.  Raises ``ValueError``, without preempting, when
+        ``can_shard`` objects.
 
         Each variant keeps its own ``quantize_serve``, where the
         reference's rebuild under ``serving_plan`` drops it (its int8
         variant would then look up bf16 experts it does not hold)."""
         if n == self.shards:
             return
-        unported = self._unported_at(n)
-        if unported is not None:
-            raise NotImplementedError(f"set_shards({n}): {unported}")
         err = self.can_shard(n)
         if err is not None:
             raise ValueError(f"set_shards({n}): {err}")

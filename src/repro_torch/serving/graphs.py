@@ -27,7 +27,9 @@ the host.
   (K+1) candidates, flags and accepted count copied into row i of the
   (N, B, K+1) / (N, B) outputs on the device.
 * The chunk tick (``chunk_program``): ``Model.prefill_chunk_paged`` at one
-  (rows, chunk, table) shape, as the reference's jit is keyed by shape;
+  (rows, chunk, table) shape, as the reference's jit is keyed by shape,
+  and by the plan's shards (2 and 4: kernel 3's owned/LSE form per stripe
+  and ``combine_lse``);
   with a model drafter, the engine runs the drafter's tick as a second
   program of the same shape over the draft pool.
 * The slot step (``slot_program``): ``Model.decode_step`` over the slot
@@ -74,7 +76,8 @@ def _wrapper_counters() -> list:
     from repro_torch.kernels import rwkv6_wkv as wkv
     wrappers = (fa.flash_attention, pa.paged_decode_attention,
                 pa.paged_decode_attention_lse, ppa.paged_prefill_attention,
-                da.decode_attention, wkv.rwkv6_wkv, i8.int8_matmul)
+                ppa.paged_prefill_attention_lse, da.decode_attention,
+                wkv.rwkv6_wkv, i8.int8_matmul)
     return [(fn, name) for fn in wrappers for name, v in vars(fn).items()
             if type(v) is int]
 

@@ -55,9 +55,9 @@ class EngineSpec:
     models are built under the spec's plan and registered on the engine,
     the i-th variant's parameters from seed ``seed + 10 + i`` and the
     i-th drafter's from ``seed + 100 + i``, as the reference's.  ``draft``
-    is None, ``"ngram"`` or the name of one of ``drafters``.
-    ``prefill_chunk``/``prefix_share`` serve at ``shards = 1`` only, and a
-    MoE config at ``shards = 1`` only (ROADMAP.md, Queue 1 item 12)."""
+    is None, ``"ngram"`` or the name of one of ``drafters``.  Every field
+    serves at every shard count ``shard_compat`` admits: chunked prefill,
+    prefix sharing, speculation and MoE configs included."""
     cfg: ArchConfig
     shards: int = 1
     max_seq: int = 512

@@ -224,6 +224,94 @@ def test_paged_decode_lse_kernel_matches_plain(gen, q_dt, kv_dt, shards, B,
     assert_close(got, pa.paged_decode_attention(q, kp, vp, tables, pos), dt)
 
 
+@pytest.mark.parametrize("q_dt,kv_dt", [
+    (torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16),
+    (torch.float32, torch.bfloat16)])
+@pytest.mark.parametrize("B,C,H,K,D,bs,T", [
+    (2, 16, 8, 2, 64, 16, 8), (3, 8, 4, 4, 128, 32, 4),
+    (2, 5, 4, 1, 32, 8, 10), (2, 128, 32, 32, 128, 16, 24),
+    (1, 24, 4, 2, 16, 8, 6), (2, 40, 16, 16, 256, 16, 6),
+    (3, 33, 40, 40, 96, 8, 12),
+])
+@pytest.mark.parametrize("shards", [2, 4])
+def test_paged_prefill_lse_kernel_matches_plain(gen, q_dt, kv_dt, shards, B,
+                                                C, H, K, D, bs, T):
+    """Kernel 3's owned/LSE form per stripe against its plain version
+    (GQA, MHA and MQA, head dims 16-256, block sizes 8/16/32, one lane at
+    0, the others mid-table, a padded lane): o at the dtype's tolerance,
+    lse at 1e-4 where finite and -1e30 exactly where the stripe saw no
+    key (o 0 there); the stripes' ``combine_lse`` against kernel 3 and its
+    plain version over the whole pool; each bf16 launch on the tensor
+    cores.  Its inputs come from a generator of its own, so the tests
+    after it draw from ``gen`` what they drew before it was added."""
+    gen = torch.Generator(device="cuda").manual_seed(26)
+    n_blocks = -(-(1 + B * T) // shards) * shards
+    tables = (torch.randperm(n_blocks - 1, generator=gen, device="cuda")
+              + 1)[: B * T].reshape(B, T).to(torch.int32)
+    starts = torch.randint(0, T * bs - C + 1, (B,), generator=gen,
+                           device="cuda", dtype=torch.int32)
+    starts[0] = 0
+    if B > 2:
+        tables[-1] = 0
+        starts[-1] = 0
+    q = torch.randn(B, C, H, D, generator=gen, device="cuda", dtype=q_dt)
+    kp, vp = (torch.randn(n_blocks, bs, K, D, generator=gen, device="cuda",
+                          dtype=kv_dt) for _ in range(2))
+    dt = max(q_dt, kv_dt, key=TOL.get)
+    os_, lses = [], []
+    for r in range(shards):
+        k_s, v_s, local, owned = _stripe_args(kp, vp, tables, r, shards)
+        before = (ppa.paged_prefill_attention_lse.launches,
+                  ppa.paged_prefill_attention_lse.tensor_core)
+        o, lse = ops.paged_prefill_attention_lse(q, k_s, v_s, local, starts,
+                                                 owned)
+        assert (ppa.paged_prefill_attention_lse.launches,
+                ppa.paged_prefill_attention_lse.tensor_core) == \
+            (before[0] + 1, before[1] + (q_dt == torch.bfloat16))
+        o_ref, lse_ref = ppa.paged_prefill_attention_lse_ref(
+            q, k_s, v_s, local, starts, owned)
+        assert o.dtype == q_dt and lse.shape == (B, C, H)
+        assert_close(o, o_ref, dt)
+        empty = lse_ref == -1e30
+        assert torch.equal(lse == -1e30, empty)
+        torch.testing.assert_close(lse[~empty], lse_ref[~empty], atol=1e-4,
+                                   rtol=0)
+        assert (o[empty] == 0).all()
+        os_.append(o)
+        lses.append(lse)
+    got = pa.combine_lse(torch.stack(os_), torch.stack(lses))
+    assert_close(got, ppa.paged_prefill_attention_ref(q, kp, vp, tables,
+                                                      starts), dt)
+    assert_close(got, ppa.paged_prefill_attention(q, kp, vp, tables, starts),
+                 dt)
+
+
+def test_paged_prefill_lse_kernel_edges(gen):
+    """A stripe that owns nothing gives o = 0 and lse = -1e30 everywhere,
+    in bf16 and f32; the wrapper refuses owned of another dtype or
+    shape.  A generator of its own, as above."""
+    gen = torch.Generator(device="cuda").manual_seed(26)
+    B, C, H, K, D, bs, T = 3, 16, 8, 2, 64, 16, 8
+    n_blocks = 2 * (1 + B * T)
+    tables = torch.randint(1, n_blocks, (B, T), generator=gen, device="cuda",
+                           dtype=torch.int32)
+    starts = torch.tensor([0, 40, 100], dtype=torch.int32, device="cuda")
+    for dt in (torch.bfloat16, torch.float32):
+        q = torch.randn(B, C, H, D, generator=gen, device="cuda", dtype=dt)
+        kp, vp = (torch.randn(n_blocks, bs, K, D, generator=gen,
+                              device="cuda", dtype=dt) for _ in range(2))
+        owned = torch.zeros_like(tables)
+        o, lse = ppa.paged_prefill_attention_lse(q, kp, vp, tables % 10,
+                                                 starts, owned)
+        assert (o == 0).all() and (lse == -1e30).all()
+    with pytest.raises(TypeError):
+        ppa.paged_prefill_attention_lse(q, kp, vp, tables, starts,
+                                        owned.long())
+    with pytest.raises(ValueError):
+        ppa.paged_prefill_attention_lse(q, kp, vp, tables, starts,
+                                        owned[:, :-1].contiguous())
+
+
 def test_paged_decode_lse_kernel_edges(gen):
     """A stripe that owns nothing gives o = 0 and lse = -1e30 everywhere;
     a lane at a negative position sees no key; the wrapper refuses owned
@@ -1516,10 +1604,15 @@ def _serve_graphs(model, params, load, graphs: bool, swap=None, **kw):
             {k: after[k] - before[k] for k in after}, eng)
 
 
-def _graph_model(arch: str, quantize: bool = False):
+def _graph_model(arch: str, quantize: bool = False, shards: int = 1,
+                 kv: int = 0):
+    """A smoke model in bf16 from seed 0, under the ``shards``-way serving
+    plan, with ``kv`` kv heads where given."""
+    from repro_torch.serving import serving_plan
     cfg = get_config(arch).smoke_config()
-    m = build_model(cfg, local_plan(param_dtype=torch.bfloat16,
-                                    quantize_serve=quantize))
+    if kv:
+        cfg = cfg.replace(n_kv_heads=kv)
+    m = build_model(cfg, serving_plan(shards, quantize_serve=quantize))
     return m, m.init(torch.Generator(device="cuda").manual_seed(0))
 
 
@@ -1541,6 +1634,16 @@ GRAPH_PATHS = {
     "gemma slots": ("gemma-7b", dict(paged=False)),
     "qwen3 paged h4": ("qwen3-1.7b", dict(horizon=4)),
     "qwen3-moe paged h4": ("qwen3-moe-235b-a22b", dict(horizon=4)),
+    # every paged path at shards 2 and 4 (kernel 3's owned/LSE form in the
+    # chunk tick, kernel 4 in the horizon, MoE over 2 ranks), and MLA's
+    # latent slot step
+    "llama chunked prefix shards 2": ("llama2-7b", dict(
+        horizon=4, prefill_chunk=8, prefix_share=True, shards=2)),
+    "llama chunked prefix shards 4": ("llama2-7b", dict(
+        horizon=4, prefill_chunk=8, prefix_share=True, shards=4, kv=4)),
+    "granite paged h4 shards 2": ("granite-moe-3b-a800m", dict(
+        horizon=4, shards=2)),
+    "minicpm3 slots": ("minicpm3-4b", dict()),
 }
 
 
@@ -1552,7 +1655,8 @@ def test_captured_engine_matches_eager(gen, path, sampled):
     streams, ``EngineStats`` counters and kernel launch counts; the
     captured engine replayed its graphs, the eager one captured none."""
     arch, kw = GRAPH_PATHS[path]
-    m, p = _graph_model(arch)
+    kw = dict(kw)
+    m, p = _graph_model(arch, shards=kw.pop("shards", 1), kv=kw.pop("kv", 0))
     load = _graph_load(m.cfg.vocab_size, sampled)
     got = _serve_graphs(m, p, load, True, **kw)
     want = _serve_graphs(m, p, load, False, **kw)
@@ -1566,6 +1670,13 @@ def test_captured_engine_matches_eager(gen, path, sampled):
     assert all(pr.captures == 0 for pr in eager.programs.values())
     if "chunked" in path:
         assert any(k[0] == "tick" for k in cap.programs)
+    if "shards" in path:
+        assert cap.shards == m.plan.tp > 1
+        assert got[2]["paged_decode_attention_lse.launches"] > 0
+        assert got[2]["paged_decode_attention.launches"] == 0
+    if "chunked" in path and "shards" in path:
+        assert got[2]["paged_prefill_attention_lse.launches"] > 0
+        assert got[2]["paged_prefill_attention.launches"] == 0
 
 
 def test_captured_sharded_engine_matches_eager(gen):

@@ -85,13 +85,16 @@ def test_local_plan_pads_match_reference(name):
 
 
 def test_registry_lists_ported_archs():
+    """Every config of the reference's registry, minicpm3-4b (MLA) the
+    last to come; an unknown name is still a ``KeyError``."""
     assert list_archs() == ["chameleon-34b", "deepseek-7b", "gemma-7b",
                             "granite-moe-3b-a800m", "hubert-xlarge",
                             "hymba-1.5b", "llama2-13b", "llama2-70b",
-                            "llama2-7b", "qwen3-1.7b", "qwen3-moe-235b-a22b",
-                            "rwkv6-3b"]
+                            "llama2-7b", "minicpm3-4b", "qwen3-1.7b",
+                            "qwen3-moe-235b-a22b", "rwkv6-3b"]
+    assert get_config("minicpm3-4b").attn_kind == "mla"
     with pytest.raises(KeyError):
-        get_config("minicpm3-4b")
+        get_config("no-such-arch")
 
 
 def test_port_init_matches_reference_tree(pair):
@@ -242,6 +245,16 @@ def test_init_paged_cache_layout(pair):
 
 
 def test_unported_family_raises():
-    cfg = get_config("llama2-7b").smoke_config().replace(attn_kind="mla")
+    """The MLA family, once refused, builds and runs (its parity:
+    tests/test_torch_mla.py); a block the reference has no family for (a
+    token decoder whose attention kind is "none" without RWKV) still
+    raises."""
+    cfg = get_config("minicpm3-4b").smoke_config()
+    m = build_model(cfg, local_plan(), device="cpu")
+    p = m.init(torch.Generator().manual_seed(0))
+    logits = m.logits(p, torch.zeros(1, 5, dtype=torch.int32))
+    assert logits.shape == (1, 5, cfg.vocab_size)
+    assert torch.isfinite(logits).all() and not m.supports_paged
+    bad = get_config("llama2-7b").smoke_config().replace(attn_kind="none")
     with pytest.raises(NotImplementedError):
-        build_model(cfg, local_plan(), device="cpu")
+        build_model(bad, local_plan(), device="cpu")

@@ -246,24 +246,31 @@ def test_decode_step_paged_matches_reference(models, variant):
 
 
 def test_moe_at_shards_above_one_is_refused(models):
-    """Expert parallelism is not ported: a sharded plan, an EngineSpec at
-    shards 2 and ``set_shards(2)`` all raise, the last before it preempts,
-    and ``can_shard(2)`` gives the same objection."""
+    """Expert parallelism, once refused, is ported: a sharded plan builds,
+    an EngineSpec at shards 2 builds and serves, and ``set_shards(2)``
+    mid-run (``can_shard(2)`` without an objection) preempts the request
+    in flight, recomputes it under the 2-way plan and completes it.  Its
+    streams against the reference: tests/test_torch_moe_ep.py."""
     _, _, tm, tp = models["full"]
-    with pytest.raises(NotImplementedError, match="item 12"):
-        build_model(tm.cfg, serving_plan(2), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 12"):
-        EngineSpec(tm.cfg, shards=2, max_seq=64, n_slots=2,
-                   block_size=8).build(device="cpu")
+    m = build_model(tm.cfg, serving_plan(2), device="cpu")
+    assert m.plan.tp == 2 and m.plan.e_pad(m.cfg) == m.cfg.n_experts
+    spec = EngineSpec(tm.cfg, shards=2, max_seq=64, n_slots=2, block_size=8)
+    built = spec.build(device="cpu")
+    req = Request(prompt=[1, 2, 3], max_new_tokens=6)
+    built.submit(req)
+    built.run()
+    assert built.shards == 2 and len(req.output) == 6
     eng = Engine(tm, tp, max_seq=64, n_slots=2, block_size=8)
-    eng.submit(Request(prompt=[1, 2, 3], max_new_tokens=6))
+    req = Request(prompt=[1, 2, 3], max_new_tokens=6)
+    eng.submit(req)
     eng.step()
     assert len(eng.active) == 1
-    assert "item 12" in eng.can_shard(2)       # the counts divide
-    with pytest.raises(NotImplementedError, match="item 12"):
-        eng.set_shards(2)
-    assert len(eng.active) == 1 and eng.stats.preemptions == 0
-    assert eng.shards == 1
+    assert eng.can_shard(2) is None            # the counts divide
+    eng.set_shards(2)
+    assert eng.shards == 2 and eng.stats.preemptions == 1
+    assert not eng.active and len(eng.queue) == 1
+    eng.run()
+    assert len(req.output) == 6 and eng.stats.shard_swaps == 1
 
 
 # ---------------------------------------------------------------------------

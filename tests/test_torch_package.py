@@ -152,6 +152,9 @@ DISPATCH = {
                                    ("paged_decode_attention_lse_ref",), 6),
     "paged_prefill_attention": (prefill_mod, "paged_prefill_attention",
                                 ("paged_prefill_attention_ref",), 5),
+    "paged_prefill_attention_lse": (prefill_mod,
+                                    "paged_prefill_attention_lse",
+                                    ("paged_prefill_attention_lse_ref",), 6),
     "paged_verify_attention": (prefill_mod, "paged_verify_attention",
                                ("paged_prefill_attention_ref",), 5),
     "decode_attention": (dense_mod, "decode_attention",
@@ -318,6 +321,10 @@ def test_kernel_wrappers_refuse_cpu_tensors():
                                             pool, tab,
                                             torch.zeros(1, dtype=torch.int32))
     with pytest.raises(ValueError):
+        prefill_mod.paged_prefill_attention_lse(
+            torch.zeros(1, 4, 2, 32), pool, pool, tab,
+            torch.zeros(1, dtype=torch.int32), torch.ones_like(tab))
+    with pytest.raises(ValueError):
         dense_mod.decode_attention(torch.zeros(1, 2, 32),
                                    torch.zeros(1, 8, 2, 32),
                                    torch.zeros(1, 8, 2, 32),
@@ -339,6 +346,8 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     assert paged_mod.paged_decode_attention.launches == 0
     assert paged_mod.paged_decode_attention_lse.launches == 0
     assert prefill_mod.paged_prefill_attention.launches == 0
+    assert prefill_mod.paged_prefill_attention_lse.launches == 0
+    assert prefill_mod.paged_prefill_attention_lse.tensor_core == 0
     assert dense_mod.decode_attention.launches == 0
     assert wkv_mod.rwkv6_wkv.launches == 0
     assert i8_mod.int8_matmul.launches == 0
@@ -369,6 +378,13 @@ def test_model_runs_plain_versions_on_cpu_without_counting():
         torch.tensor([3, 9], dtype=torch.int32),
         torch.tensor([[1, 4], [5, 2]], dtype=torch.int32))
     assert logits.shape == (2, 128) and torch.isfinite(logits).all()
+    logits, _ = sharded.prefill_chunk_paged(
+        p, sharded.init_paged_cache(6, 8), torch.zeros(2, 8, dtype=torch.int32),
+        torch.tensor([0, 4], dtype=torch.int32),
+        torch.tensor([8, 3], dtype=torch.int32),
+        torch.tensor([[1, 4], [5, 2]], dtype=torch.int32))
+    assert logits.shape == (2, 128) and torch.isfinite(logits).all()
+    assert prefill_mod.paged_prefill_attention_lse.launches == 0
     assert flash_mod.flash_attention.launches == 0
     assert flash_mod.flash_attention.tensor_core == 0
     assert prefill_mod.paged_prefill_attention.tensor_core == 0

@@ -396,19 +396,24 @@ def test_set_shards_preempts_in_flight():
 
 
 def test_sharded_paths_not_ported_raise():
-    """Chunked prefill and prefix sharing at shards > 1 raise
-    ``NotImplementedError``; the ``variants`` field and the speculative
-    fields (``spec_k``, ``draft``, ``drafters``) are ported: each builds
-    and serves (its streams held to the reference in
-    ``test_torch_spec.py``)."""
+    """Chunked prefill and prefix sharing at shards > 1, once refused, are
+    ported: ``EngineSpec(shards=2)`` with each builds and serves, and
+    ``set_shards(2)`` on a shards-1 engine with each swaps (their streams
+    held to the reference in ``test_torch_sharded_chunk.py``); the
+    ``variants`` field and the speculative fields (``spec_k``, ``draft``,
+    ``drafters``) build and serve (``test_torch_spec.py``)."""
     _, tcfg = _cfgs(2)
-    for kw in (dict(prefill_chunk=16), dict(prefix_share=True)):
-        with pytest.raises(NotImplementedError):
-            EngineSpec(tcfg, shards=2, **_base(**kw)).build(device="cpu")
+    for kw in (dict(prefill_chunk=16), dict(prefix_share=True),
+               dict(prefill_chunk=8, prefix_share=True)):
+        eng = EngineSpec(tcfg, shards=2, **_base(**kw)).build(device="cpu")
+        req = Request(prompt=[3, 7, 11, 13] * 5, max_new_tokens=6)
+        eng.submit(req)
+        eng.run()
+        assert eng.shards == 2 and len(req.output) == 6
         eng = EngineSpec(tcfg, **_base(**kw)).build(device="cpu")
-        with pytest.raises(NotImplementedError):
-            eng.set_shards(2)
-        assert eng.shards == 1 and eng.stats.shard_swaps == 0
+        assert eng.can_shard(2) is None
+        eng.set_shards(2)
+        assert eng.shards == 2 and eng.stats.shard_swaps == 1
     for kw in (dict(spec_k=2), dict(draft="ngram"),
                dict(drafters=(("d", tcfg),))):
         eng = EngineSpec(tcfg, **_base(**kw)).build(device="cpu")
@@ -422,9 +427,12 @@ def test_sharded_paths_not_ported_raise():
     m = build_model(tcfg, serving_plan(2), device="cpu")
     pool = m.init_paged_cache(4, 8)
     i = torch.zeros(1, dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        m.prefill_chunk_paged(None, pool, torch.zeros(1, 8, dtype=torch.int32),
-                              i, i + 8, torch.zeros(1, 2, dtype=torch.int32))
+    logits, _ = m.prefill_chunk_paged(
+        m.init(torch.Generator().manual_seed(0)), pool,
+        torch.zeros(1, 8, dtype=torch.int32), i, i + 8,
+        torch.tensor([[1, 2]], dtype=torch.int32))
+    assert torch.isfinite(logits).all()
+    assert pool["attn"]["k"][:, 1].abs().sum() > 0    # stripe 0's block 1
 
 
 @pytest.mark.parametrize("shards", [1, 2, 3, 4, 8])

@@ -205,20 +205,58 @@ def test_gqa_decode_matches_reference(models):
         np.testing.assert_array_equal(_np(tc[name]), _np(jc[name]))
 
 
-@pytest.mark.parametrize("kind", [dict(attn_kind="mla")], ids=["mla"])
-def test_unported_slot_caches_raise(models, kind):
-    """The MLA latent cache is not ported: the slot cache and the slot
-    decode refuse it instead of serving a dense cache.  (The SWA ring is
-    ported: tests/test_torch_hymba.py.)"""
-    _, _, tm, tp = models
-    cfg = tm.cfg.replace(**kind)
-    with pytest.raises(NotImplementedError):
-        TA.init_attn_cache(cfg, tm.plan, 2, 16, device="cpu")
-    lp = {k: v[0] for k, v in tp["layers"]["attn"].items()}
-    cache = TA.init_attn_cache(tm.cfg, tm.plan, 2, 16, device="cpu")
-    with pytest.raises(NotImplementedError):
-        TA.gqa_decode(lp, torch.zeros(2, cfg.d_model), cache,
-                      torch.zeros(2, dtype=torch.int32), cfg, tm.plan)
+MLA_CASES = {"fresh": ([0, 0], "float32"), "mid": ([5, 11], "float32"),
+             "last": ([15, 15], "float32"), "past": ([3, 16], "float32"),
+             "bf16": ([5, 11], "bfloat16")}
+
+
+@pytest.mark.parametrize("case", sorted(MLA_CASES))
+def test_unported_slot_caches_raise(case):
+    """The MLA latent slot cache, once refused, is ported: the slot cache
+    holds ``ckv`` and ``kr`` (the reference's shapes and dtype) and the
+    slot decode (the reference's ``mla_decode``) writes the new token's
+    latent in place, a position past the cache keeping the old row, with
+    the reference's output at 1e-5 (its cache rows at 1e-5 over f32,
+    within a bf16 step over bf16) from fresh,
+    mid, last-slot and past-the-end positions and over a bf16 cache.
+    (The SWA ring: tests/test_torch_hymba.py; whole models:
+    tests/test_torch_mla.py.)"""
+    positions, dtype = MLA_CASES[case]
+    jcfg = j_get_config("minicpm3-4b").smoke_config()
+    cfg = get_config("minicpm3-4b").smoke_config()
+    jm = j_build_model(jcfg, j_local_plan(param_dtype=jnp.float32,
+                                          compute_dtype=jnp.float32))
+    jlp = jax.tree.map(lambda a: a[0],
+                       jm.init(jax.random.PRNGKey(0))["layers"]["attn"])
+    tlp = from_jax_params(jax.tree.map(np.asarray, jlp), device="cpu")
+    jc, _ = JA.init_attn_cache(jcfg, jm.plan, 2, 16, getattr(jnp, dtype))
+    tc = TA.init_attn_cache(cfg, local_plan(), 2, 16, getattr(torch, dtype),
+                            device="cpu")
+    assert {n: (tuple(a.shape), str(a.dtype).replace("torch.", ""))
+            for n, a in tc.items()} == \
+        {n: (tuple(a.shape), str(a.dtype)) for n, a in jc.items()}
+    rng = np.random.default_rng(len(case))
+    for n in ("ckv", "kr"):
+        a = rng.standard_normal(tc[n].shape).astype(np.float32)
+        tc[n] = _t(a).to(getattr(torch, dtype))
+        jc[n] = jnp.asarray(tc[n].float().numpy()).astype(getattr(jnp, dtype))
+    x = _arr(rng, 2, cfg.d_model)
+    pos = np.asarray(positions, np.int32)
+    plan = local_plan(param_dtype=torch.float32, compute_dtype=torch.float32)
+    o_ref, jc = JA.mla_decode(jlp, jnp.asarray(x), jc, jnp.asarray(pos),
+                              jcfg, jm.plan)
+    before = {n: t.clone() for n, t in tc.items()}
+    o, tc2 = TA.gqa_decode(tlp, _t(x), tc, _t(pos), cfg, plan)
+    assert tc2 is tc
+    np.testing.assert_allclose(o.numpy(), np.asarray(o_ref), atol=ATOL,
+                               rtol=0)
+    for n in ("ckv", "kr"):
+        np.testing.assert_allclose(tc[n].float().numpy(),
+                                   np.asarray(jc[n], np.float32),
+                                   atol=ATOL if dtype == "float32" else 1e-2,
+                                   rtol=0)
+        if positions[1] >= 16:                  # past the end: unchanged
+            assert torch.equal(tc[n][1], before[n][1])
 
 
 @pytest.mark.parametrize("cache_dtype", ["float32", "bfloat16"])
