@@ -157,8 +157,9 @@ Builds the hand-written CUDA kernels from ``src/repro_torch/csrc`` (one
    the kernels against the plain versions in an f32 compute plan (held
    at 1e-4 of max |logit|) and in bf16 (a reading), and a trace of one
    forward with kernel 1's share of the device time.
-9. frees hubert and serves full-width llama2-13b (random bf16 weights,
-   seed 0) with its registered drafter, full-width llama2-7b (seed 100):
+9. frees hubert and serves full-width llama2-13b cut to 10 of its 40
+   layers (random bf16 weights, seed 0) with its registered drafter,
+   full-width llama2-7b cut to 8 of its 32 (seed 100; ``CUT_LAYERS``):
    ``plain_load``'s prompts at horizon 8 give a continuation load,
    served greedy and sampled at horizon 8 and speculatively with the
    drafter (spec_k 4, horizon 4), captured and eager (equal), kernel 2 launched by every
@@ -168,17 +169,18 @@ Builds the hand-written CUDA kernels from ``src/repro_torch/csrc`` (one
 10. frees llama2-13b and runs the TAPAS control loop on the card
    (``cluster_phases``): the 320-server sim's physics against the CPU,
    the loop with an ``EngineFleet`` of two full-width llama2-13b engines
-   (the fleet, its engines and pools end when the loop drops them, with
-   the cyclic collector held off), and ``examples/fault_storm.py``'s
+   (10 layers; the "small" variant llama2-7b at 8; the fleet, its
+   engines and pools end when the loop drops them, with the cyclic
+   collector held off), and ``examples/fault_storm.py``'s
    three arms on full-width llama2-7b.
 11. frees phase 10's engines and serves, one model at a time (each freed
    before the next is built), the reference's five other token-input
    configs at their published widths with random bf16 weights from seed
    0: deepseek-7b, qwen3-1.7b (qk_norm, tied), gemma-7b (head dim 256,
    the gelu GLU, (1 + w) norms, the scaled embedding, tied),
-   chameleon-34b (~69 GB) and qwen3-moe-235b-a22b (128 experts top-8)
-   cut to 8 of its 94 layers: ``plain_load`` at horizon 8 through the
-   paged pool, captured and eager (equal); gemma-7b also through the
+   chameleon-34b and qwen3-moe-235b-a22b (128 experts top-8), each cut
+   to 8 layers (of 30, 28, 28, 48 and 94): ``plain_load`` at horizon 8
+   through the paged pool, captured and eager (equal); gemma-7b also through the
    block-striped pool at shards 2 (captured and eager) and 4, chunked
    prefill with prefix sharing and the slot pool, each captured and
    eager, so kernels 1-5 all run at D = 256; the dense models' prefill
@@ -188,7 +190,8 @@ Builds the hand-written CUDA kernels from ``src/repro_torch/csrc`` (one
 12. the fleet (``fleet_phases``): ``repro_torch.launch.fleet``'s drill
    (3 regions, both routers) with each region's physics on the card
    against the CPU (summaries equal); its measured drill with one
-   ``EngineFleet`` of two full-width llama2-7b engines per region, all
+   ``EngineFleet`` of two full-width llama2-7b engines (8 layers) per
+   region, all
    six on one weight copy, ``nvidia-smi``'s power, SM clock and
    temperature read every tick, the reference's closing checks and the
    summary equal to the same drill's without engines (the drill cut to
@@ -211,6 +214,28 @@ Builds the hand-written CUDA kernels from ``src/repro_torch/csrc`` (one
    prefill and one decode step teacher-forced kernels vs plain (f32 plan
    over an f32 cache), one captured slot step traced beside its weights'
    byte bound.
+14. training.  (a) Kernel 1's backward (``flash_attention_bwd``, three
+   launches: delta, dK/dV, dQ) and its training forward
+   (``flash_attention_lse``, o and each row's lse) against their plain
+   versions at llama2-7b's phase-1 shape, granite's GQA (24/8, D = 64),
+   gemma-7b's D = 256, hymba's window (25/5, W = 1024, S = 2048) and
+   hubert's bidirectional form (16/16, D = 80, S = 1000), in bf16 and
+   f32 (dq, dk, dv each within ``BWD_TOL`` of its max |g|; two calls give
+   the same bits), each bf16 case and the f32 llama case timed: events
+   and device time, the plain version, SDPA's backward on the same
+   tensors (a reading) and the bound.  (b) Full-width qwen3-1.7b (f32
+   parameters, bf16 compute, AdamW, ``TokenPipeline`` at batch 4 x 1024)
+   trains 10 steps: finite and falling loss, 28 forward and 28 backward
+   launches of kernel 1 a step, no serve-form launch, no other kernel and
+   no call of a plain attention version; median step ms, tokens/s, peak
+   memory, ``nvidia-smi``'s power, SM clock and temperature during the
+   steps, and one traced step (device busy, idle share, kernel 1's
+   forward and backward shares).  (c) The same batch through 2 layers at
+   full width in an f32 plan: the loss and every grad leaf through the
+   kernels against the plain route's.  (d) The 2-layer model trains 10
+   steps with a checkpoint at step 5 (under ``_phase14_ckpt/`` in the
+   checkout, removed after); a fresh model and optimizer restored from it
+   give losses 6-10 bit for bit.
 
 The launch counts are per launch whether the launch ran eagerly or as a
 node of a replayed graph: a capture records each wrapper's count and
@@ -223,6 +248,7 @@ from __future__ import annotations
 
 import gc
 import json
+import math
 import subprocess
 import sys
 import time
@@ -243,6 +269,11 @@ PEAK_FLOPS = {"bf16": 989e12, "f32": 67e12, "int8": 1979e12}
 # a few percent passes the absolute bound at long contexts but not this one)
 TOL = {"bf16": 2e-2, "f32": 1e-4}
 REL_TOL = {"bf16": 1e-2, "f32": 1e-5}
+# depth of the models phases 9, 10 and 12 serve beside phases 2-4's
+# full-depth llama2-7b (and phase 11's ``TOKEN_CONFIGS``): widths as
+# published, the depth cut so the whole script stays well inside its
+# 1200 s on a slow host (PERF.md §4)
+CUT_LAYERS = {"llama2-13b": 10, "llama2-7b": 8}
 
 
 def compare(got, want) -> tuple[float, float]:
@@ -1635,6 +1666,8 @@ def kernel_wrappers() -> dict:
     from repro_torch.kernels import paged_prefill_attention as ppa
     from repro_torch.kernels import rwkv6_wkv as wkv
     return {"flash_attention": fa.flash_attention,
+            "flash_attention_lse": fa.flash_attention_lse,
+            "flash_attention_bwd": fa.flash_attention_bwd,
             "paged_decode_attention": pa.paged_decode_attention,
             "paged_decode_attention_lse": pa.paged_decode_attention_lse,
             "paged_prefill_attention": ppa.paged_prefill_attention,
@@ -1651,6 +1684,7 @@ def reset_launches() -> None:
     wrappers["flash_attention"].banded = 0
     wrappers["flash_attention"].bidirectional = 0
     wrappers["flash_attention"].tensor_core = 0
+    wrappers["flash_attention_lse"].tensor_core = 0
     wrappers["paged_prefill_attention"].tensor_core = 0
     wrappers["paged_prefill_attention_lse"].tensor_core = 0
 
@@ -3355,7 +3389,7 @@ def int8_on_served_data(torch, variants) -> dict:
         M._moe_core = core
     x, router_w, weights, kw = seen[0]
     cap = kw["capacity"]
-    topv, topi = M.route(x, router_w, kw["cfg"])
+    topv, topi, _ = M.route(x, router_w, kw["cfg"])
     buf_src, _, _ = M.dispatch(topv, topi, e_pad=kw["e_pad"], capacity=cap)
     filled = (buf_src < x.shape[0]).reshape(kw["e_pad"], cap).sum(1)
     e = int(filled.argmax())
@@ -3792,22 +3826,31 @@ def hubert_phases(torch) -> dict:
 # phase 9: full-width llama2-13b with the llama2-7b drafter
 # ---------------------------------------------------------------------------
 
+def cut(name: str):
+    """``name``'s config at its published widths and the depth of
+    ``CUT_LAYERS`` (phases 9, 10 and 12, beside the full-depth llama2-7b of
+    phases 2-4)."""
+    from repro_torch.configs import get_config
+    return get_config(name).replace(num_layers=CUT_LAYERS[name])
+
+
 def llama13b_models(torch) -> tuple:
     """Full-width llama2-13b (seed 0) and its registered drafter,
     llama2-7b (seed 100, the reference ``EngineSpec``'s first drafter
-    seed), random bf16 weights."""
+    seed), random bf16 weights, each at the depth of ``CUT_LAYERS``."""
     from repro_torch.configs import get_config
     from repro_torch.configs.drafters import drafter_for
     from repro_torch.models import build_model, local_plan
     out = []
     for name, seed in (("llama2-13b", 0), (drafter_for("llama2-13b"), 100)):
-        cfg = get_config(name)
+        cfg = cut(name)
         model = build_model(cfg, local_plan(param_dtype=torch.bfloat16))
         t0 = time.perf_counter()
         params = model.init(torch.Generator(device="cuda").manual_seed(seed))
         torch.cuda.synchronize()
         n_params = sum(t.numel() for t in _leaves(params))
-        print(f"{name} full width: {cfg.num_layers} layers d_model "
+        print(f"{name} full width: {cfg.num_layers} layers (of "
+              f"{get_config(name).num_layers}) d_model "
               f"{cfg.d_model} heads {cfg.n_heads}/{cfg.n_kv_heads} d_ff "
               f"{cfg.d_ff} vocab {cfg.vocab_size}; {n_params} params in "
               f"bf16, init {time.perf_counter() - t0:.1f} s, "
@@ -4125,9 +4168,8 @@ def loop_phase(torch, card) -> tuple:
     from repro_torch.core.simulator import ClusterSim
     from repro_torch.serving import EngineFleet, EngineSpec
     from repro_torch.serving import graphs as G
-    spec = EngineSpec(get_config("llama2-13b"), n_slots=16, max_seq=512,
-                      horizon=4,
-                      variants=(("small", get_config("llama2-7b")),))
+    spec = EngineSpec(cut("llama2-13b"), n_slots=16, max_seq=512,
+                      horizon=4, variants=(("small", cut("llama2-7b")),))
     t0 = time.perf_counter()
     fleet = EngineFleet(spec, n_engines=2, steps_per_tick=4,
                         backend_kw=dict(variant_for_size=SIZE_TO_VARIANT,
@@ -4148,7 +4190,7 @@ def loop_phase(torch, card) -> tuple:
           flush=True)
     if not one_copy:
         fail("the fleet's engines do not share one weight copy")
-    for name, cfg in (("full", spec.cfg), ("small", get_config("llama2-7b"))):
+    for name, cfg in (("full", spec.cfg), ("small", cut("llama2-7b"))):
         if n_params[name] != cfg.param_count():
             fail(f"{name} parameter count {n_params[name]} != "
                  f"{cfg.param_count()}")
@@ -4578,9 +4620,8 @@ def cluster_phases(torch) -> dict:
 # (arch, layers): every width as published; qwen3-moe-235b-a22b's depth cut
 # to 8 of its 94 layers (94 layers of 128 experts, ~470 GB in bf16, fit no
 # single card; 8 take ~42 GB)
-TOKEN_CONFIGS = (("deepseek-7b", None), ("qwen3-1.7b", None),
-                 ("gemma-7b", None), ("chameleon-34b", None),
-                 ("qwen3-moe-235b-a22b", 8))
+TOKEN_CONFIGS = (("deepseek-7b", 8), ("qwen3-1.7b", 8), ("gemma-7b", 8),
+                 ("chameleon-34b", 8), ("qwen3-moe-235b-a22b", 8))
 
 
 def full_width(torch, name: str, layers=None):
@@ -4776,7 +4817,7 @@ def measured_fleet_phase(torch) -> dict:
     from repro_torch.core.fleet import GlobalTapasRouter
     from repro_torch.launch import fleet as geo
     from repro_torch.serving import EngineSpec
-    spec = EngineSpec(get_config("llama2-7b"), max_seq=64, n_slots=4,
+    spec = EngineSpec(cut("llama2-7b"), max_seq=64, n_slots=4,
                       block_size=8)
     smi, walls = [], []
     last = [time.perf_counter()]
@@ -5222,6 +5263,420 @@ def mla_teacher_forced(torch, model, params) -> None:
                 _reading(torch, model.cfg.vocab_size, label, a, b)
 
 
+# ---------------------------------------------------------------------------
+# phase 14: training on the card
+# ---------------------------------------------------------------------------
+
+# kernel 1's backward, phase 1's shape first: (label, B, H, K, S, D,
+# causal, window)
+BWD_CASES = (("llama2-7b", 4, 32, 32, 512, 128, True, 0),
+             ("granite-moe-3b-a800m", 4, 24, 8, 512, 64, True, 0),
+             ("gemma-7b", 1, 16, 16, 2048, 256, True, 0),
+             ("hymba-1.5b window", 1, 25, 5, 2048, 64, True, 1024),
+             ("hubert-xlarge bidirectional", 4, 16, 16, 1000, 80, False, 0))
+# kernel vs plain, of each gradient's max |g|: f32 sums in other orders;
+# bf16 rounds dq, dk, dv and the P of dV to bf16
+BWD_TOL = {"bf16": 2e-2, "f32": 1e-5}
+TRAIN = dict(batch=4, seq=1024, steps=10, lr=1e-3, warmup=2)
+
+
+def attn_pairs(S: int, causal: bool, window: int) -> int:
+    """(query, key) pairs seen per (batch, head)."""
+    if causal:
+        return window_pairs(S, window) if window else S * (S + 1) // 2
+    if 0 < window < S:                  # keys k > q - W, every later one
+        return sum(S - max(0, q - window + 1) for q in range(S))
+    return S * S
+
+
+def bwd_bound(B, H, K, S, D, causal, window, el: int, peak: str):
+    """The backward's least time: 10 D flops per seen pair (S = Q K^T
+    recomputed, dP, dV, dK, dQ: 2.5 times the forward's 4 D), or its bytes
+    (q, o, dO and dq per query head, k, v, dk and dv per KV head, the f32
+    lse), whichever is larger."""
+    flops = 10 * D * B * H * attn_pairs(S, causal, window)
+    n_bytes = 4 * B * S * (H + K) * D * el + 4 * B * H * S
+    return bound_of(n_bytes, flops, peak) + (flops,)
+
+
+def sdpa_mask(torch, S, causal, window):
+    from repro_torch.kernels import flash_attention as fa
+    if not causal or window:
+        return fa._mask(S, causal, window, "cuda")
+    return None
+
+
+def check_flash_bwd(torch) -> list:
+    """Phase 14 (a): kernel 1's backward against its plain version at
+    ``BWD_CASES`` in bf16 and f32 (the forward's lse against the plain
+    lse too), each bf16 case and the f32 llama case timed: events and
+    device time, the plain version, SDPA's backward on the same tensors
+    (a reading) and the bound.  Returns the kernels line's entries of the
+    backward and of the training forward."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+    g = torch.Generator(device="cuda").manual_seed(14)
+    dtypes = {"bf16": torch.bfloat16, "f32": torch.float32}
+    entries = {}
+    for name, dt in dtypes.items():
+        for label, B, H, K, S, D, causal, window in BWD_CASES:
+            q, k, v = (torch.randn(B, S, n, D, generator=g, device="cuda",
+                                   dtype=dt).transpose(1, 2)
+                       for n in (H, K, K))
+            do = torch.randn(B, S, H, D, generator=g, device="cuda",
+                             dtype=dt).transpose(1, 2)
+            kw = dict(causal=causal, window=window)
+            o, lse = fa.flash_attention_lse(q, k, v, **kw)
+            o_ref, lse_ref = fa.flash_attention_lse_ref(q, k, v, **kw)
+            tag = (f"{name} B={B} H={H} K={K} S={S} D={D} "
+                   f"{'causal' if causal else 'bidirectional'}"
+                   f"{f' W={window}' if window else ''} ({label})")
+            err_o = held(f"flash_attention_lse {tag}: o", o, o_ref, name)
+            err_l = (lse - lse_ref).abs().max().item()
+            print(f"flash_attention_lse {tag}: lse max_abs_err={err_l:.3e} "
+                  f"tol={TOL[name]:.0e}", flush=True)
+            if not err_l <= TOL[name]:
+                fail(f"flash_attention_lse {tag}: lse disagrees")
+            got = fa.flash_attention_bwd(q, k, v, o, do, lse, **kw)
+            want = fa.flash_attention_bwd_ref(q, k, v, o, do, lse, **kw)
+            again = fa.flash_attention_bwd(q, k, v, o, do, lse, **kw)
+            torch.cuda.synchronize()
+            errs = []
+            for gname, a, b in zip(("dq", "dk", "dv"), got, want):
+                err = (a.float() - b.float()).abs().max().item()
+                scale = b.float().abs().max().item()
+                errs.append(err)
+                ok = err <= BWD_TOL[name] * scale
+                print(f"flash_attention_bwd {tag}: {gname} max_abs_err="
+                      f"{err:.3e} (max |{gname}| {scale:.3e}, tol "
+                      f"{BWD_TOL[name]:.0e} of it) {'ok' if ok else 'FAIL'}",
+                      flush=True)
+                if not ok:
+                    fail(f"flash_attention_bwd {tag}: {gname} disagrees "
+                         f"with its plain version")
+            if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                fail(f"flash_attention_bwd {tag}: two calls differ")
+            if name == "f32" and label != "llama2-7b":
+                continue
+            el = q.element_size()
+            bound, by, flops = bwd_bound(B, H, K, S, D, causal, window, el,
+                                         name)
+            ms, lo, hi = spread_ms(lambda: fa.flash_attention_bwd(
+                q, k, v, o, do, lse, **kw))
+            dev = device_ms(torch, lambda: fa.flash_attention_bwd(
+                q, k, v, o, do, lse, **kw))
+            plain = cuda_ms(lambda: fa.flash_attention_bwd_ref(
+                q, k, v, o, do, lse, **kw), iters=5, warmup=1)
+            ql, kl, vl = (t.detach().requires_grad_(True) for t in (q, k, v))
+            mask = sdpa_mask(torch, S, causal, window)
+            ol = F.scaled_dot_product_attention(
+                ql, kl, vl, attn_mask=mask, is_causal=mask is None,
+                enable_gqa=H != K)
+            lib = cuda_ms(lambda: torch.autograd.grad(
+                ol, (ql, kl, vl), do, retain_graph=True))
+            print(f"flash_attention_bwd {tag}: kernel {spread(ms, lo, hi)}, "
+                  f"device {dev:.4f} ms, plain {plain:.4f} ms, sdpa backward "
+                  f"{lib:.4f} ms, bound {bound:.4f} ms ({by}: {flops} flop; "
+                  f"{flops / ms / 1e9:.1f} TFLOP/s)", flush=True)
+            if "flash_attention_bwd" not in entries:
+                entries["flash_attention_bwd"] = {
+                    "name": "flash_attention_bwd", "route": "cuda",
+                    "source": "src/repro_torch/csrc/flash_attention_bwd.cu",
+                    "replaces": "none: port-only, the reference's gradient "
+                                "is XLA autodiff of causal_attention "
+                                "(src/repro/models/attention.py:182)",
+                    "max_abs_err": max(errs), "ms": ms, "ms_min": lo,
+                    "ms_max": hi, "call_ms": dev, "plain_ms": plain,
+                    "bound_ms": bound, "bound_by": by, "library_ms": lib}
+            if "flash_attention_lse" not in entries:
+                fwd_ms, flo, fhi = spread_ms(
+                    lambda: fa.flash_attention_lse(q, k, v, **kw))
+                serve_ms = cuda_ms(lambda: fa.flash_attention(q, k, v, **kw))
+                fplain = cuda_ms(lambda: fa.flash_attention_lse_ref(
+                    q, k, v, **kw), iters=5, warmup=1)
+                flib = cuda_ms(lambda: F.scaled_dot_product_attention(
+                    q, k, v, is_causal=True))
+                n_bytes = 4 * B * S * H * D * el + 4 * B * H * S
+                fflops = 4 * D * B * H * attn_pairs(S, causal, window)
+                fb, fby = bound_of(n_bytes, fflops, name)
+                print(f"flash_attention_lse {tag}: kernel "
+                      f"{spread(fwd_ms, flo, fhi)} (the serve form "
+                      f"{serve_ms:.4f} ms), plain {fplain:.4f} ms, sdpa "
+                      f"{flib:.4f} ms, bound {fb:.4f} ms ({fby})",
+                      flush=True)
+                entries["flash_attention_lse"] = {
+                    "name": "flash_attention_lse", "route": "cuda",
+                    "source": "src/repro_torch/csrc/flash_attention.cu",
+                    "replaces": "src/repro/kernels/flash_attention.py:79",
+                    "max_abs_err": max(err_o, err_l), "ms": fwd_ms,
+                    "ms_min": flo, "ms_max": fhi, "plain_ms": fplain,
+                    "bound_ms": fb, "bound_by": fby, "library_ms": flib}
+    return [entries["flash_attention_lse"], entries["flash_attention_bwd"]]
+
+
+class plain_attention_grad:
+    """Within the block, ``ops.FlashAttentionFn`` runs kernel 1's training
+    forward and backward through their plain versions on CUDA tensors."""
+
+    def __enter__(self):
+        from repro_torch.kernels import flash_attention as fa
+        self.fa = fa
+        self.saved = fa.flash_attention_lse, fa.flash_attention_bwd
+        fa.flash_attention_lse = fa.flash_attention_lse_ref
+        fa.flash_attention_bwd = fa.flash_attention_bwd_ref
+
+    def __exit__(self, *exc):
+        self.fa.flash_attention_lse, self.fa.flash_attention_bwd = self.saved
+
+
+def plain_calls() -> int:
+    from repro_torch.kernels import flash_attention as fa
+    return (fa.flash_attention_ref.calls + fa.flash_attention_lse_ref.calls
+            + fa.flash_attention_bwd_ref.calls)
+
+
+def train_model(torch, layers=None, compute=None):
+    """qwen3-1.7b at its published widths (depth ``layers`` where given)
+    with f32 parameters from seed 0, bf16 compute unless ``compute``."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model, local_plan
+    cfg = get_config("qwen3-1.7b")
+    if layers is not None:
+        cfg = cfg.replace(num_layers=layers)
+    plan = local_plan(param_dtype=torch.float32,
+                      compute_dtype=compute or torch.bfloat16)
+    model = build_model(cfg, plan)
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    n = sum(t.numel() for t in _leaves(params))
+    want = cfg.param_count() + 2 * cfg.num_layers * cfg.head_dim  # qk_norm
+    if n != want:
+        fail(f"qwen3-1.7b: parameter count {n} != config's {want}")
+    return model, params
+
+
+def train_run(torch, model, params, steps: int, *, start: int = 0,
+              state=None, save=None):
+    """``steps`` AdamW steps of ``TRAIN``'s setup from data step
+    ``start``: (losses, params, state, step ms).  ``save`` = (dir, step):
+    a checkpoint after that step, as ``launch/train.py`` writes one."""
+    from repro_torch.training.checkpoint import save_checkpoint
+    from repro_torch.training.data import DataConfig, TokenPipeline
+    from repro_torch.training.optimizer import AdamWConfig, init_opt_state
+    from repro_torch.training.train_step import make_train_step
+    opt_cfg = AdamWConfig(lr=TRAIN["lr"], warmup_steps=TRAIN["warmup"],
+                          total_steps=TRAIN["steps"])
+    step_fn = make_train_step(model, opt_cfg)
+    state = state if state is not None else init_opt_state(params)
+    pipe = TokenPipeline(DataConfig(model.cfg.vocab_size, TRAIN["batch"],
+                                    TRAIN["seq"]), step=start)
+    losses, ms = [], []
+    for i in range(start, steps):
+        batch = pipe.next_batch()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, state, met = step_fn(params, state, *batch)
+        losses.append(float(met["loss"]))
+        ms.append((time.perf_counter() - t0) * 1e3)
+        if save is not None and i + 1 == save[1]:
+            save_checkpoint(save[0], i + 1, (params, state),
+                            meta={"arch": model.cfg.name})
+    return losses, params, state, ms
+
+
+def train_trace(torch, model, params, state, batch) -> None:
+    """One traced train step: device busy, idle share against the step's
+    host wall, the kernels that take the time, kernel 1's forward and
+    backward shares."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.training.optimizer import AdamWConfig
+    from repro_torch.training.train_step import make_train_step
+    step_fn = make_train_step(model, AdamWConfig(lr=0.0))
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step_fn(params, state, *batch)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    rows = []
+    for e in prof.key_averages():
+        dev_us = getattr(e, "self_device_time_total",
+                         getattr(e, "self_cuda_time_total", 0))
+        if dev_us > 0 and e.device_type.name == "CUDA":
+            rows.append((dev_us, e.count, e.key))
+    busy = sum(r[0] for r in rows) / 1e3
+    n_ops = sum(r[1] for r in rows)
+    print(f"phase 14 traced train step: host wall {wall:.1f} ms (traced), "
+          f"device busy {busy:.1f} ms over {n_ops} device ops, idle share "
+          + (f"{1 - busy / wall:.3f}" if busy else "not measured"),
+          flush=True)
+    for dev_us, count, key in sorted(rows, reverse=True)[:12]:
+        print(f"  {dev_us / 1e3:9.3f} ms  {count:5d}x  {key[:90]}",
+              flush=True)
+    for label, keys in (("kernel 1 forward (flash_kernel)", ("flash_kernel",)),
+                        ("kernel 1 backward (bwd_delta, bwd_dkdv, bwd_dq)",
+                         ("bwd_delta", "bwd_dkdv", "bwd_dq")),
+                        ("GEMMs (gemm / nvjet / cutlass)",
+                         ("gemm", "nvjet", "cutlass", "sm90_xmma"))):
+        ms = sum(r[0] for r in rows if any(k in r[2] for k in keys)) / 1e3
+        n = sum(r[1] for r in rows if any(k in r[2] for k in keys))
+        print(f"  {label}: {ms:.3f} ms over {n} launches, share "
+              f"{ms / busy if busy else 0:.3f} of device busy", flush=True)
+
+
+def smi_during(fn) -> tuple:
+    """(``fn()``, the ``smi_reading`` tuples taken every 0.5 s while it
+    ran, on a thread of its own)."""
+    import threading
+    readings, stop = [], threading.Event()
+
+    def poll():
+        while not stop.is_set():
+            readings.append(smi_reading())
+            stop.wait(0.5)
+
+    th = threading.Thread(target=poll, daemon=True)
+    th.start()
+    try:
+        out = fn()
+    finally:
+        stop.set()
+        th.join()
+    return out, readings
+
+
+def training_phase(torch) -> dict:
+    """Phase 14 (b)-(d): full-width qwen3-1.7b trains on the card; kernel
+    vs plain route at full width in an f32 plan; a checkpoint and resume.
+    Returns the launches of (b)'s run."""
+    import shutil
+    import statistics
+    from repro_torch.configs import get_config
+    from repro_torch.models.layers import tree_leaves
+    from repro_torch.training.checkpoint import restore_checkpoint
+    from repro_torch.training.data import DataConfig, TokenPipeline
+    from repro_torch.training.optimizer import init_opt_state
+    from repro_torch.training.train_step import _value_and_grad
+    cfg = get_config("qwen3-1.7b")
+    n_tok = TRAIN["batch"] * TRAIN["seq"]
+
+    # (b) full width, 10 steps
+    gc.collect()
+    torch.cuda.empty_cache()
+    model, params = train_model(torch)
+    print(f"phase 14 qwen3-1.7b full width: {cfg.num_layers} layers d_model "
+          f"{cfg.d_model} heads {cfg.n_heads}/{cfg.n_kv_heads} x "
+          f"{cfg.head_dim} d_ff {cfg.d_ff} vocab {cfg.vocab_size} qk_norm "
+          f"tied; {sum(t.numel() for t in _leaves(params))} params in f32, "
+          f"bf16 compute, AdamW, TokenPipeline batch {TRAIN['batch']} x seq "
+          f"{TRAIN['seq']}", flush=True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    plain0 = plain_calls()
+    (losses, params, state, ms), smi = smi_during(
+        lambda: train_run(torch, model, params, TRAIN["steps"]))
+    la = read_launches()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    plain = plain_calls() - plain0
+    med = statistics.median(ms[1:])
+    print(f"phase 14 losses: {[round(x, 4) for x in losses]}", flush=True)
+    print(f"phase 14 train step: {med:.1f} ms median of steps 2-"
+          f"{TRAIN['steps']} (first {ms[0]:.1f} ms), "
+          f"{n_tok / med * 1e3:.0f} tokens/s, peak {peak:.2f} GiB allocated; "
+          f"kernel 1 forward launches {la['flash_attention_lse']}, backward "
+          f"{la['flash_attention_bwd']} ({cfg.num_layers} layers x "
+          f"{TRAIN['steps']} steps), serve-form launches "
+          f"{la['flash_attention']}, plain attention calls {plain}",
+          flush=True)
+    print(f"phase 14 card during the steps ({len(smi)} nvidia-smi readings, "
+          f"median): " + ", ".join(
+              f"{f} {statistics.median(r[i] for r in smi if r[i] is not None)}"
+              f"{u}" for i, (f, u) in enumerate(SMI_FIELDS)
+              if any(r[i] is not None for r in smi)), flush=True)
+    if not all(map(math.isfinite, losses)) or not losses[-1] < losses[0]:
+        fail(f"phase 14: the loss is not finite and falling: {losses}")
+    want = cfg.num_layers * TRAIN["steps"]
+    if la["flash_attention_lse"] != want or la["flash_attention_bwd"] != want:
+        fail(f"phase 14: kernel 1's training launches "
+             f"{la['flash_attention_lse']}/{la['flash_attention_bwd']} != "
+             f"{want}")
+    if plain or la["flash_attention"]:
+        fail(f"phase 14: {plain} plain attention calls and "
+             f"{la['flash_attention']} serve-form launches on the train path")
+    others = [n for n in ("paged_decode_attention",
+                          "paged_decode_attention_lse",
+                          "paged_prefill_attention",
+                          "paged_prefill_attention_lse", "decode_attention",
+                          "rwkv6_wkv", "int8_matmul") if la[n]]
+    if others:
+        fail(f"phase 14: kernels {others} launched on the train path")
+    batch = TokenPipeline(DataConfig(cfg.vocab_size, TRAIN["batch"],
+                                     TRAIN["seq"])).next_batch()
+    train_trace(torch, model, params, state, batch)
+    del model, params, state
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (c) kernel route against plain route: 2 layers at full width, f32
+    model, params = train_model(torch, layers=2, compute=torch.float32)
+    loss_k, g_k = _value_and_grad(model, params, *batch)
+    with plain_attention_grad():
+        loss_p, g_p = _value_and_grad(model, params, *batch)
+    worst = 0.0
+    for a, b in zip(tree_leaves(g_k), tree_leaves(g_p)):
+        worst = max(worst, ((a - b).abs().max()
+                            / b.abs().max().clamp_min(1e-30)).item())
+    rel = abs(float(loss_k) - float(loss_p)) / abs(float(loss_p))
+    print(f"phase 14 (c) qwen3-1.7b 2 layers at full width, f32 plan: loss "
+          f"kernels {float(loss_k):.6f} plain {float(loss_p):.6f} (rel "
+          f"{rel:.2e}, tol 1e-5); worst grad leaf max|diff| / max|g| "
+          f"{worst:.2e} (tol 1e-4: f32 sums in other orders)", flush=True)
+    if not (rel <= 1e-5 and worst <= 1e-4):
+        fail("phase 14 (c): grads through the kernels differ from the plain "
+             "route's")
+    del model, params, g_k, g_p
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (d) checkpoint at step 5 and resume in a fresh model and optimizer
+    ckpt = ROOT / "_phase14_ckpt"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    try:
+        model, params = train_model(torch, layers=2)
+        t0 = time.perf_counter()
+        whole, params, state, _ = train_run(torch, model, params,
+                                            TRAIN["steps"], save=(ckpt, 5))
+        whole_s = time.perf_counter() - t0
+        del params, state
+        fresh = model.init(torch.Generator(device="cuda").manual_seed(1))
+        t0 = time.perf_counter()
+        (params, state), manifest = restore_checkpoint(
+            ckpt, (fresh, init_opt_state(fresh)))
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        resumed, params, state, _ = train_run(torch, model, params,
+                                              TRAIN["steps"], start=5,
+                                              state=state)
+        size = sum(f.stat().st_size for f in ckpt.rglob("*") if f.is_file())
+        print(f"phase 14 (d) qwen3-1.7b 2 layers at full width: checkpoint "
+              f"at step {manifest['step']} ({size / 2**30:.2f} GiB; the "
+              f"10-step run with its save {whole_s:.1f} s, restore "
+              f"{restore_s:.1f} s); losses 6-10 uninterrupted "
+              f"{whole[5:]}, resumed {resumed}", flush=True)
+        if resumed != whole[5:]:
+            fail("phase 14 (d): the resumed run's losses differ from the "
+                 "uninterrupted run's")
+        print("phase 14 (d): resumed losses equal the uninterrupted run's "
+              "bit for bit", flush=True)
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    del model, params, state, fresh
+    gc.collect()
+    torch.cuda.empty_cache()
+    return la
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -5362,6 +5817,15 @@ def main() -> int:
     # phase 13: minicpm3-4b (the sharded paths ran in phases 2, 6 and 11)
     for name, n in mla_phase(torch).items():
         launches[name] += n
+    print(f"phase 13 done at {time.perf_counter() - t_start:.1f} s",
+          flush=True)
+
+    # phase 14: training (minicpm3-4b went at the end of phase 13)
+    entries += check_flash_bwd(torch)
+    for name, n in training_phase(torch).items():
+        launches[name] += n
+    print(f"phase 14 done at {time.perf_counter() - t_start:.1f} s",
+          flush=True)
     for e in entries:
         e["launches"] = launches[e["name"]]
     print(f"all phases done at {time.perf_counter() - t_start:.1f} s",

@@ -6,6 +6,7 @@ parameter tree.  The port keeps the reference layouts — layers stacked on a
 leading L axis, ``w_q (d, H, hd)``, ``w_k``/``w_v (d, K, hd)``, ``w_o (H,
 hd, d)``, ``embed (V_pad, d)``, ``unembed (d, V_pad)`` — so the bridge is a
 copy, not a re-layout, and the port never sees JAX.
+``from_jax_opt_state`` does the same for the reference's AdamW state.
 """
 from __future__ import annotations
 
@@ -26,3 +27,13 @@ def _to_tensor(a, device) -> torch.Tensor:
 def from_jax_params(tree: dict, *, device="cuda") -> dict:
     """Copy a reference parameter tree (numpy leaves) onto ``device``."""
     return tree_map(lambda a: _to_tensor(a, device), tree)
+
+
+def from_jax_opt_state(state: dict, *, device="cuda") -> dict:
+    """Copy a reference AdamW state (``{"m", "v", "step"}``, numpy leaves)
+    onto ``device``: the moments as ``from_jax_params`` copies a tree, the
+    step as an int32 scalar."""
+    return {"m": from_jax_params(state["m"], device=device),
+            "v": from_jax_params(state["v"], device=device),
+            "step": torch.tensor(int(np.asarray(state["step"])),
+                                 dtype=torch.int32, device=device)}

@@ -79,16 +79,24 @@
 // choice is by dtype alone; nothing falls back from one kernel to the
 // other.
 //
+// The training forward.  Given an lse pointer (flash_attention_lse), each
+// query row's log-sum-exp of its scaled scores is written there, f32
+// (B, H, S), for the backward (flash_attention_bwd.cu) to recompute P
+// from: lane 0 of a row's quad writes (m + log2 l) ln 2 in the wgmma
+// kernel, whose m and l are in units of log2; the row's first thread
+// writes m + log l in the f32 kernel.  The serve paths pass null and pay
+// one branch at the end.
+//
 // Registers and shared memory per instantiation, as ptxas -v reports them
-// for sm_90a (CUDA 12.9), D = 16 / 32 / 64 / 80 / 96 / 128 / 256:
-//   wgmma: 89 / 95 / 112 / 122 / 127 / 128 / 219 registers, no spill but a
-//          100-byte one at D = 128, where __launch_bounds__(256, 2) holds
+// for sm_90a (CUDA 12.8), D = 16 / 32 / 64 / 80 / 96 / 128 / 256:
+//   wgmma: 89 / 95 / 109 / 124 / 128 / 128 / 225 registers, no spill but a
+//          104-byte one at D = 128, where __launch_bounds__(256, 2) holds
 //          it to 128 registers for two CTAs an SM (ptxas then serialises
 //          the wgmmas for want of registers); 48 bytes of static shared
 //          memory (the mbarriers) and 768 D + 1024 bytes of dynamic (Q,
 //          two K/V stages, the 1024-byte alignment): 13,312 at D = 16 to
 //          197,632 at D = 256.
-//   f32:   64 / 78 / 117 / 111 / 127 / 128 / 254 registers, no spill;
+//   f32:   64 / 79 / 110 / 113 / 127 / 128 / 254 registers, no spill;
 //          4,096 / 8,192 / 16,384 / 20,480 / 24,576 / 32,768 / 32,768
 //          bytes of static shared memory.
 #include <cuda.h>
@@ -98,6 +106,8 @@
 namespace {
 
 using namespace repro;
+
+constexpr float LN2 = 0.6931471805599453f;   // lse: log2 units -> natural
 
 struct Strides {                      // element strides of (B, H, S); D is 1
   long long b, h, s;
@@ -121,9 +131,10 @@ constexpr int F32_THREADS = F32_BQ * F32_TPR;
 template <int D>
 __global__ void __launch_bounds__(F32_THREADS)
 flash_kernel_f32(const float* __restrict__ q, const float* __restrict__ k,
-                 const float* __restrict__ v, float* __restrict__ o, int H,
-                 int K, int S, int window, bool causal, Strides qs,
-                 Strides ks_, Strides vs_, Strides os, float scale) {
+                 const float* __restrict__ v, float* __restrict__ o,
+                 float* __restrict__ lse, int H, int K, int S, int window,
+                 bool causal, Strides qs, Strides ks_, Strides vs_,
+                 Strides os, float scale) {
   constexpr int BK = D > 128 ? 16 : 32;  // keys per tile
   constexpr int DPT = D / F32_TPR;    // head dims per thread
   constexpr int VEC = Vec<float>::N;
@@ -218,16 +229,20 @@ flash_kernel_f32(const float* __restrict__ q, const float* __restrict__ k,
     const float inv = 1.f / fmaxf(l, 1e-30f);
 #pragma unroll
     for (int i = 0; i < DPT; ++i) op[c + F32_TPR * i] = acc[i] * inv;
+    // the training forward: the row's log-sum-exp for the backward
+    if (lse != nullptr && c == 0)
+      lse[((long long)b * H + h) * S + qpos] = m + logf(fmaxf(l, 1e-30f));
   }
 }
 
 template <int D>
 int launch_f32(const void* q, const void* k, const void* v, void* o,
-               const Args& a, cudaStream_t stream) {
+               float* lse, const Args& a, cudaStream_t stream) {
   const dim3 grid((a.S + F32_BQ - 1) / F32_BQ, a.H, a.B);
   flash_kernel_f32<D><<<grid, F32_THREADS, 0, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(o), a.H, a.K, a.S,
+      static_cast<const float*>(v), static_cast<float*>(o), lse, a.H, a.K,
+      a.S,
       a.window, a.causal, a.qs, a.ks, a.vs, a.os, a.scale);
   return (int)cudaGetLastError();
 }
@@ -241,8 +256,9 @@ __global__ void __launch_bounds__(THREADS, Tiles<D>::MIN_BLOCKS)
 flash_kernel_wgmma(const __grid_constant__ CUtensorMap qmap,
                    const __grid_constant__ CUtensorMap kmap,
                    const __grid_constant__ CUtensorMap vmap,
-                   bf16* __restrict__ o, Strides os, int H, int K, int S,
-                   int window, bool causal, float scale_log2) {
+                   bf16* __restrict__ o, float* __restrict__ lse,
+                   Strides os, int H, int K, int S, int window, bool causal,
+                   float scale_log2) {
   using T = Tiles<D>;
   constexpr int E = T::E, SW = T::SW, NB = T::NB, MODE = T::MODE;
   extern __shared__ unsigned char smem_raw[];
@@ -422,6 +438,17 @@ flash_kernel_wgmma(const __grid_constant__ CUtensorMap qmap,
     l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
     inv[i] = 1.f / fmaxf(l[i], 1e-30f);
   }
+  // the training forward: each row's natural log-sum-exp (m and l are in
+  // units of log2) for the backward
+  if (lse != nullptr && lane % 4 == 0) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int r = r0 + 8 * i;
+      if (r < S)
+        lse[((long long)b * H + h) * S + r] =
+            (m[i] + log2f(fmaxf(l[i], 1e-30f))) * LN2;
+    }
+  }
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const int r = r0 + 8 * i;
@@ -485,7 +512,7 @@ bool tensor_map(CUtensorMap* map, const void* ptr, int D, int S, int heads,
 
 template <int D>
 int launch_bf16(const void* q, const void* k, const void* v, void* o,
-                const Args& a, cudaStream_t stream) {
+                float* lse, const Args& a, cudaStream_t stream) {
   using T = Tiles<D>;
   CUtensorMap qm, km, vm;
   if (!tensor_map(&qm, q, D, a.S, a.H, a.B, a.qs, T::E, BQ) ||
@@ -500,13 +527,13 @@ int launch_bf16(const void* q, const void* k, const void* v, void* o,
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((a.S + BQ - 1) / BQ, a.H, a.B);
   flash_kernel_wgmma<D><<<grid, THREADS, T::SMEM, stream>>>(
-      qm, km, vm, static_cast<bf16*>(o), a.os, a.H, a.K, a.S, a.window,
+      qm, km, vm, static_cast<bf16*>(o), lse, a.os, a.H, a.K, a.S, a.window,
       a.causal, a.scale * LOG2E);
   return (int)cudaGetLastError();
 }
 
 using LaunchFn = int (*)(const void*, const void*, const void*, void*,
-                         const Args&, cudaStream_t);
+                         float*, const Args&, cudaStream_t);
 
 // the launcher of dtype ``bf16`` (wgmma) or f32 (CUDA cores) at head dim D
 LaunchFn launcher(bool bf16_, int D) {
@@ -528,13 +555,16 @@ LaunchFn launcher(bool bf16_, int D) {
 // strides with a unit stride on D; causal != 0 attends keys k <= q only,
 // causal == 0 every key; window 0 sets no lower bound, a window W > 0 keeps
 // keys k > q - W.  bf16 runs on the tensor cores, f32 on the CUDA cores.
-// Returns the cudaError_t of the launch.
+// With lse non-null (the training forward) each query row's log-sum-exp of
+// its scaled scores is written there, f32 (B, H, S) contiguous; the serve
+// paths pass null.  Returns the cudaError_t of the launch.
 extern "C" int flash_attention(
     const void* q, const void* k, const void* v, void* o, int B, int H, int K,
     int S, int D, int causal, int window, long long q_sb, long long q_sh,
     long long q_ss, long long k_sb, long long k_sh, long long k_ss,
     long long v_sb, long long v_sh, long long v_ss, long long o_sb,
-    long long o_sh, long long o_ss, float scale, int dtype, void* stream) {
+    long long o_sh, long long o_ss, float scale, int dtype, void* lse,
+    void* stream) {
   if (B == 0 || S == 0) return 0;
   if (K <= 0 || H % K != 0 || window < 0) return (int)cudaErrorInvalidValue;
   if (dtype != DT_BF16 && dtype != DT_F32) return (int)cudaErrorInvalidValue;
@@ -543,5 +573,6 @@ extern "C" int flash_attention(
   const Args a{B, H, K, S, window, causal != 0, {q_sb, q_sh, q_ss},
                {k_sb, k_sh, k_ss}, {v_sb, v_sh, v_ss}, {o_sb, o_sh, o_ss},
                scale};
-  return launch(q, k, v, o, a, static_cast<cudaStream_t>(stream));
+  return launch(q, k, v, o, static_cast<float*>(lse), a,
+                static_cast<cudaStream_t>(stream));
 }

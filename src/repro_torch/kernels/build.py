@@ -7,6 +7,10 @@ rebuilds and an unchanged one is reused.  Nothing is built at import time:
 ``library(name)`` builds on first use, ``build_all()`` starts one ``nvcc``
 per source in parallel.  ``_build/`` sits beside ``csrc/`` and is listed in
 ``.gitignore``.
+
+``refuse_grad`` is every wrapper's guard: a kernel written into a tensor
+through ctypes has no ``grad_fn``, so a wrapper called where autograd
+would need one raises instead of cutting the gradient.
 """
 from __future__ import annotations
 
@@ -24,7 +28,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # streaming multiprocessors of the H100 SXM the sm_90a build targets: the
 # number of CTAs the split plans (kernels 5, 6 and 7) fill
 SMS = 132
-SOURCES = ("flash_attention", "paged_decode_attention",
+SOURCES = ("flash_attention", "flash_attention_bwd", "paged_decode_attention",
            "paged_prefill_attention", "paged_prefill_attention_lse",
            "decode_attention", "rwkv6_wkv", "int8_matmul")
 
@@ -99,3 +103,20 @@ def check(err: int, name: str) -> None:
     if err != 0:
         msg = library(name).repro_cuda_error_string(err).decode()
         raise RuntimeError(f"{name}: CUDA error {err} at launch ({msg})")
+
+
+def refuse_grad(name: str, *tensors, hint: str = "") -> None:
+    """Raise when grad mode is on and an input requires grad: ``name``
+    has no backward, so its output would carry none.  Serving runs under
+    ``torch.inference_mode`` / ``no_grad`` or on weights that need no
+    grad and passes."""
+    import torch
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{name}: this kernel has no backward, so its output would cut "
+            f"the gradient; training of the families that run it is not "
+            f"ported (ROADMAP.md)"
+            + (f"; {hint}" if hint else "")
+            + ". Call it under torch.no_grad() or on inputs that do not "
+              "require grad.")

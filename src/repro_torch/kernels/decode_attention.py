@@ -200,6 +200,7 @@ def _tickets(device: torch.device, stream: int, n: int) -> torch.Tensor:
 
 
 def _check(q, k, v, positions) -> None:
+    build.refuse_grad("decode_attention", q, k, v)
     named = (("q", q), ("k", k), ("v", v), ("positions", positions))
     for name, t in named:
         if not t.is_cuda or t.device != q.device:

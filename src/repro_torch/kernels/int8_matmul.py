@@ -128,6 +128,7 @@ def _kernel():
 
 
 def _check(x_q, w_q, sx, sw, out_dtype) -> None:
+    build.refuse_grad("int8_matmul", x_q, w_q, sx, sw)
     dev = x_q.device
     if dev.type != "cuda":
         raise ValueError(f"int8_matmul: x_q must be on a CUDA device, got "
@@ -201,6 +202,7 @@ int8_matmul.split = 0
 def int8_matmul_quantized(x: torch.Tensor, w: torch.Tensor, *,
                           out_dtype=torch.bfloat16):
     """Quantize both operands (plain torch), then launch the kernel."""
+    build.refuse_grad("int8_matmul_quantized", x, w)
     x_q, sx = quantize_rows(x)
     w_q, sw = quantize_cols(w)
     return int8_matmul(x_q, w_q, sx, sw, out_dtype=out_dtype)

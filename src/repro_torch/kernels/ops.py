@@ -5,6 +5,11 @@ hand-written kernel, whose wrapper raises on anything it cannot take.
 There is no fallback from a CUDA tensor to the plain version.  The model
 calls these through the module (``ops.flash_attention``) so one call site
 serves both devices.
+
+Under autograd ``flash_attention`` goes through ``FlashAttentionFn``:
+kernel 1's training forward and its backward kernel on CUDA, their plain
+versions on the CPU.  No other kernel has a backward, and its wrapper
+raises when it would be asked for one (``build.refuse_grad``).
 """
 from __future__ import annotations
 
@@ -30,10 +35,47 @@ def _on_cpu(*tensors: torch.Tensor) -> bool:
                      f"on the CPU or all on CUDA")
 
 
+class FlashAttentionFn(torch.autograd.Function):
+    """Kernel 1 under autograd.  The forward keeps each query row's
+    log-sum-exp (``flash_attention_lse``) and saves q, k, v, o and lse; the
+    backward is kernel 1's backward kernel (``flash_attention_bwd``), which
+    recomputes P from them.  On the CPU the same Function runs the plain
+    versions, so the CPU tests run its saved tensors and its GQA
+    reduction (dk and dv summed over each KV head's query heads)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale, causal, window):
+        kw = dict(scale=scale, causal=causal, window=window)
+        if _on_cpu(q, k, v):
+            o, lse = _flash.flash_attention_lse_ref(q, k, v, **kw)
+        else:
+            o, lse = _flash.flash_attention_lse(q, k, v, **kw)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.kw = kw
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        if _on_cpu(q, k, v, do):
+            grads = _flash.flash_attention_bwd_ref(q, k, v, o, do, lse,
+                                                   **ctx.kw)
+        else:
+            if do.stride() != o.stride():     # the kernel takes o's layout
+                do = torch.empty_like(o).copy_(do)
+            grads = _flash.flash_attention_bwd(q, k, v, o, do, lse, **ctx.kw)
+        return (*grads, None, None, None)
+
+
 def flash_attention(q, k, v, *, scale=None, causal=True, window=0):
     """GQA attention: q (B, H, S, D), k/v (B, K, S, D), any strides; over
     keys k <= q when ``causal`` (every key when not) and, with ``window``
-    W > 0, keys k > q - W only."""
+    W > 0, keys k > q - W only.  Under autograd (grad mode on and an input
+    that requires grad) it is ``FlashAttentionFn``; otherwise the serve
+    form, which writes no lse."""
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return FlashAttentionFn.apply(q, k, v, scale, causal, window)
     if _on_cpu(q, k, v):
         return _flash.flash_attention_ref(q, k, v, scale=scale, causal=causal,
                                           window=window)

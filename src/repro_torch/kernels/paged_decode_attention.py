@@ -233,6 +233,7 @@ def _lse_kernel():
 
 def _check(name, q, k_pool, v_pool, block_tables, positions,
            owned=None) -> None:
+    build.refuse_grad(name, q, k_pool, v_pool)
     named = [("q", q), ("k_pool", k_pool), ("v_pool", v_pool),
              ("block_tables", block_tables), ("positions", positions)]
     if owned is not None:

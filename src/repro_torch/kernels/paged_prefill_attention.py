@@ -143,6 +143,7 @@ def _lse_kernel():
 
 def _check(q, k_pool, v_pool, block_tables, starts, owned=None,
            name="paged_prefill_attention") -> None:
+    build.refuse_grad(name, q, k_pool, v_pool)
     named = [("q", q), ("k_pool", k_pool), ("v_pool", v_pool),
              ("block_tables", block_tables), ("starts", starts)]
     if owned is not None:

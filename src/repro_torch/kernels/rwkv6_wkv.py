@@ -164,6 +164,7 @@ def _params():
 
 
 def _check(r, k, v, w, u, s0, s_out) -> None:
+    build.refuse_grad("rwkv6_wkv", r, k, v, w, u, s0)
     dev = r.device
     if dev.type != "cuda":
         raise ValueError(f"rwkv6_wkv: r must be on a CUDA device, got {dev}")

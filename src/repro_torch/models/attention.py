@@ -99,6 +99,19 @@ def kv_index(cfg: ArchConfig, h_pad: int, k_pad: int | None = None,
     return torch.tensor(idx, dtype=torch.int32, device=device)
 
 
+def canonicalize_gqa_grads(g: dict, cfg: ArchConfig, plan: ShardPlan) -> dict:
+    """The reference zeroes the grads of padded query heads and averages
+    those of padded kv-head copies (``attention.py:56``).  The port pads
+    neither: ``h_pad == n_heads`` and ``k_pad == n_kv_heads`` on every plan
+    (``models/sharding.py``: a plan only takes degrees that divide the head
+    and kv-head counts), so the grads are the published model's as they
+    are.  Returns ``g``."""
+    assert plan.h_pad(cfg) == cfg.n_heads, (plan.h_pad(cfg), cfg.n_heads)
+    assert plan.k_pad(cfg) == cfg.n_kv_heads, (plan.k_pad(cfg),
+                                               cfg.n_kv_heads)
+    return g
+
+
 def _project(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """x (..., d) @ w (d, heads, hd) -> (..., heads, hd)."""
     d, heads, hd = w.shape

@@ -31,9 +31,13 @@ reference's combine adds the expert outputs into ``y`` in buffer (slot)
 order, expert-ascending per token, in the compute dtype; the port sums
 each token's ``top_k`` contributions in that same order, one add at a
 time, which on CUDA is also deterministic (an ``index_add_`` there would
-add in whatever order its atomics land).  The reference's load-balancing
-loss feeds only training (``Model.loss``), which is not ported, so the
-port does not compute it.
+add in whatever order its atomics land).
+
+The reference's Switch-style load-balancing loss (``moe.py:100-103``),
+E * sum_e mean(probs)_e * stop_grad(count_e / (T k)), feeds training
+(``Model.loss``): ``_moe_core`` and ``moe_ffn`` return ``(y, aux)`` as the
+reference does, and compute aux when ``want_aux`` (the loss asks for it);
+the serve paths pass nothing, get ``aux=None`` and launch nothing for it.
 """
 from __future__ import annotations
 
@@ -103,13 +107,29 @@ def _capacity(t_loc: int, cfg: ArchConfig) -> int:
 
 def route(x: torch.Tensor, router_w: torch.Tensor, cfg: ArchConfig):
     """Router over x (T, d): (top-k gates (T, k) f32, top-k experts
-    (T, k)), the gates renormalised under ``router_renorm``."""
+    (T, k), the router's probabilities (T, E)), the gates renormalised
+    under ``router_renorm``."""
     probs = torch.softmax(x.float() @ router_w, dim=-1)
     vals, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
     topv, topi = vals[:, :cfg.top_k], idx[:, :cfg.top_k]
     if cfg.router_renorm:
         topv = topv / topv.sum(dim=-1, keepdim=True)
-    return topv, topi
+    return topv, topi, probs
+
+
+def load_balance_loss(probs: torch.Tensor, topi: torch.Tensor) -> torch.Tensor:
+    """Switch-style aux loss (``moe.py:100-103``): E * sum_e f_e * p_e with
+    p_e the mean router probability of expert e and f_e, taken out of the
+    gradient, its share of the T k assignments.  The counts are integers,
+    so adding them by ``scatter_add_`` is exact in any order."""
+    T, k = topi.shape
+    E = probs.shape[1]
+    me = probs.mean(dim=0)
+    flat = topi.reshape(-1)
+    ce = torch.zeros(E, dtype=torch.float32, device=probs.device).scatter_add_(
+        0, flat, torch.ones(flat.shape, dtype=torch.float32,
+                            device=probs.device)) / (T * k)
+    return E * torch.sum(me * ce.detach())
 
 
 def dispatch(topv: torch.Tensor, topi: torch.Tensor, *, e_pad: int,
@@ -143,13 +163,17 @@ def dispatch(topv: torch.Tensor, topi: torch.Tensor, *, e_pad: int,
 
 
 def _moe_core(x, router_w, w_gate, w_up, w_down, *, cfg: ArchConfig,
-              e_pad: int, capacity: int, activation: str,
-              tp: int = 1) -> torch.Tensor:
-    """MoE over x (T, d): y (T, d).  At ``tp`` 1 every expert is local
-    (the reference's ``axis=None``); at ``tp`` > 1 the combine is its
-    ``axis`` branch over ``tp`` ranks of ``e_pad // tp`` experts."""
+              e_pad: int, capacity: int, activation: str, tp: int = 1,
+              want_aux: bool = False):
+    """MoE over x (T, d): ``(y (T, d), aux)``, aux the load-balancing loss
+    when ``want_aux`` and None otherwise.  At ``tp`` 1 every expert is
+    local (the reference's ``axis=None``); at ``tp`` > 1 the combine is its
+    ``axis`` branch over ``tp`` ranks of ``e_pad // tp`` experts (the
+    experts see every token, so the reference's pmean of aux over ranks is
+    the identity)."""
     T, d = x.shape
-    topv, topi = route(x, router_w, cfg)
+    topv, topi, probs = route(x, router_w, cfg)
+    aux = load_balance_loss(probs, topi) if want_aux else None
     buf_src, buf_gate, slots = dispatch(topv, topi, e_pad=e_pad,
                                         capacity=capacity)
     x_pad = torch.cat([x, x.new_zeros(1, d)])
@@ -170,7 +194,7 @@ def _moe_core(x, router_w, w_gate, w_up, w_down, *, cfg: ArchConfig,
         y = parts[:, 0]
         for j in range(1, parts.shape[1]):
             y = y + parts[:, j]
-        return y
+        return y, aux
     # rank r's partial y holds the contributions of its slots [r * e_loc *
     # capacity, (r + 1) * e_loc * capacity) in slot order (a masked-out
     # contribution adds an exact 0); the partials are then added in rank
@@ -183,13 +207,14 @@ def _moe_core(x, router_w, w_gate, w_up, w_down, *, cfg: ArchConfig,
         for j in range(1, parts.shape[1]):
             y_r = y_r + torch.where(mine[:, j], parts[:, j], 0)
         y = y_r if y is None else y + y_r
-    return y
+    return y, aux
 
 
-def moe_ffn(p: dict, x: torch.Tensor, cfg: ArchConfig,
-            plan: ShardPlan) -> torch.Tensor:
-    """x (B, S, d) -> y (B, S, d).  The capacity counts every row of x,
-    padded rows of a ragged prefill included, as in the reference."""
+def moe_ffn(p: dict, x: torch.Tensor, cfg: ArchConfig, plan: ShardPlan, *,
+            want_aux: bool = False):
+    """x (B, S, d) -> (y (B, S, d), aux), aux as ``_moe_core`` gives it.
+    The capacity counts every row of x, padded rows of a ragged prefill
+    included, as in the reference."""
     dt = plan.compute_dtype
     B, S, d = x.shape
     if plan.quantize_serve and "w_gate_q" in p:
@@ -197,8 +222,9 @@ def moe_ffn(p: dict, x: torch.Tensor, cfg: ArchConfig,
                    for n in EXPERT_WEIGHTS]
     else:
         weights = [p[n].to(dt) for n in EXPERT_WEIGHTS]
-    y = _moe_core(x.reshape(B * S, d).to(dt), p["router"], *weights,
-                  cfg=cfg, e_pad=plan.e_pad(cfg),
-                  capacity=_capacity(B * S, cfg), activation=cfg.activation,
-                  tp=plan.tp)
-    return y.reshape(B, S, d)
+    y, aux = _moe_core(x.reshape(B * S, d).to(dt), p["router"], *weights,
+                       cfg=cfg, e_pad=plan.e_pad(cfg),
+                       capacity=_capacity(B * S, cfg),
+                       activation=cfg.activation, tp=plan.tp,
+                       want_aux=want_aux)
+    return y.reshape(B, S, d), aux

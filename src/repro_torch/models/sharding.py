@@ -1,8 +1,10 @@
 """Shard plan (port of ``repro.models.sharding``).
 
 The plan carries the two dtypes every model function reads, the
-model-parallel degree ``tp`` and the serve-time quantization knob
-``quantize_serve`` (int8 MoE experts, ``models.moe``).  There is no mesh:
+model-parallel degree ``tp``, the serve-time quantization knob
+``quantize_serve`` (int8 MoE experts, ``models.moe``) and training's
+``remat`` (``"full"``: each layer's activations recomputed in the
+backward, ``Model._trunk``).  There is no mesh:
 at ``tp > 1`` the paged KV pool is block-striped (``paged_pool_sharded``)
 and a MoE layer combines its experts rank by rank (``moe._moe_core``), and
 every stripe and rank stays on the model's one device, where the reference
@@ -34,6 +36,12 @@ class ShardPlan:
     tp: int = 1                          # model-parallel degree
     shard_paged_pool: bool = True        # stripe the paged pool over tp
     quantize_serve: bool = False         # int8 MoE experts (TAPAS's knob)
+    remat: str = "none"                  # none | full: checkpoint each layer
+
+    def __post_init__(self):
+        if self.remat not in ("none", "full"):
+            raise ValueError(f"remat must be 'none' or 'full', got "
+                             f"{self.remat!r}")
 
     def h_pad(self, cfg: ArchConfig) -> int:
         return cfg.n_heads

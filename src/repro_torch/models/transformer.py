@@ -15,12 +15,20 @@ The sampling helpers (``lane_keys`` .. ``sample_from_dist``) and the
 speculative ones (``rejection_choose``, ``ngram_propose``) are the
 reference's, on ``repro_torch.models.prng``'s copy of ``jax.random``'s
 threefry: the same seeds give the same keys, draws and tokens.
+
+Training (``Model.loss``) is the reference's for the dense and MoE token
+decoders: the trunk (each layer under ``torch.utils.checkpoint`` when
+``plan.remat == "full"``, the MoE layers' load-balancing losses summed),
+then ``sharded_xent``'s chunked cross-entropy, each chunk checkpointed so
+the (T, V) logits never exist at once.  Attention's gradient is kernel 1's
+backward (``kernels.ops.FlashAttentionFn``).  Every other family raises.
 """
 from __future__ import annotations
 
 import math
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import attention as A
@@ -31,6 +39,7 @@ from repro_torch.models import ssm as S
 from repro_torch.models.sharding import ShardPlan
 
 NEG_INF = -1e30
+MOE_AUX_WEIGHT = 0.01
 
 
 def _norm(x, w, cfg: ArchConfig):
@@ -100,24 +109,35 @@ def init_layer(cfg: ArchConfig, plan: ShardPlan, *,
 # blocks
 # ---------------------------------------------------------------------------
 
-def _mlp(h, lp: dict, cfg: ArchConfig, plan: ShardPlan):
+def _mlp(h, lp: dict, cfg: ArchConfig, plan: ShardPlan, *,
+         want_aux: bool = False):
     """The block's feed-forward, the MoE layer, the two-layer GELU MLP or
     the gated MLP, on (B, S, d) or on the decode blocks' one token per row
-    (B, d)."""
+    (B, d).  Returns ``(y, aux)``: the MoE layer's load-balancing loss
+    when ``want_aux``, else None (the serve paths drop it)."""
     if cfg.n_experts:
         if h.dim() == 2:
-            return M.moe_ffn(lp["moe"], h[:, None], cfg, plan)[:, 0]
-        return M.moe_ffn(lp["moe"], h, cfg, plan)
+            y, aux = M.moe_ffn(lp["moe"], h[:, None], cfg, plan,
+                               want_aux=want_aux)
+            return y[:, 0], aux
+        return M.moe_ffn(lp["moe"], h, cfg, plan, want_aux=want_aux)
     w = {k: v.to(plan.compute_dtype) for k, v in lp["mlp"].items()}
     if cfg.mlp_kind == "gelu2":
-        return L.gelu_mlp(h, w)
-    return L.glu_mlp(h, w, activation=cfg.activation)
+        return L.gelu_mlp(h, w), None
+    return L.glu_mlp(h, w, activation=cfg.activation), None
 
 
 def block_forward(x, lp: dict, positions, cfg: ArchConfig, plan: ShardPlan,
                   *, want_cache: bool):
     """Prefill block, x (B, S, d).  Returns (x, cache_or_None); an RWKV
     block starts from a zero state and its cache is the new state."""
+    return _block(x, lp, positions, cfg, plan, want_cache=want_cache)[:2]
+
+
+def _block(x, lp: dict, positions, cfg: ArchConfig, plan: ShardPlan, *,
+           want_cache: bool, want_aux: bool = False):
+    """``block_forward`` and its aux loss: (x, cache_or_None, aux), aux a
+    MoE layer's load-balancing loss when ``want_aux``, else None."""
     if cfg.rwkv:
         y, tmix = S.rwkv_tmix_forward(lp["tmix"], _norm(x, lp["norm1"], cfg),
                                       cfg, plan)
@@ -125,7 +145,7 @@ def block_forward(x, lp: dict, positions, cfg: ArchConfig, plan: ShardPlan,
         y, cmix = S.rwkv_cmix_forward(lp["cmix"], _norm(x, lp["norm2"], cfg),
                                       cfg, plan)
         x = x + y
-        return x, ({"tmix": tmix, "cmix": cmix} if want_cache else None)
+        return x, ({"tmix": tmix, "cmix": cmix} if want_cache else None), None
     h = _norm(x, lp["norm1"], cfg)
     attn_out, attn_cache = A.gqa_forward(lp["attn"], h, positions, cfg, plan,
                                          want_cache=want_cache)
@@ -135,8 +155,9 @@ def block_forward(x, lp: dict, positions, cfg: ArchConfig, plan: ShardPlan,
         x = x + 0.5 * (attn_out + mamba_out)
     else:
         x = x + attn_out
-    x = x + _mlp(_norm(x, lp["norm2"], cfg), lp, cfg, plan)
-    return x, (cache if want_cache else None)
+    y, aux = _mlp(_norm(x, lp["norm2"], cfg), lp, cfg, plan,
+                  want_aux=want_aux)
+    return x + y, (cache if want_cache else None), aux
 
 
 def block_prefill_paged(x, lp: dict, lc: dict, starts, lengths,
@@ -148,7 +169,7 @@ def block_prefill_paged(x, lp: dict, lc: dict, starts, lengths,
                                                starts, lengths, block_tables,
                                                cfg, plan)
     x = x + attn_out
-    x = x + _mlp(_norm(x, lp["norm2"], cfg), lp, cfg, plan)
+    x = x + _mlp(_norm(x, lp["norm2"], cfg), lp, cfg, plan)[0]
     return x, {"attn": attn_cache}
 
 
@@ -174,7 +195,7 @@ def block_decode(x, lp: dict, lc: dict, positions, cfg: ArchConfig,
         x = x + 0.5 * (attn_out + mamba_out)
     else:
         x = x + attn_out
-    x = x + _mlp(_norm(x, lp["norm2"], cfg), lp, cfg, plan)
+    x = x + _mlp(_norm(x, lp["norm2"], cfg), lp, cfg, plan)[0]
     return x, lc
 
 
@@ -187,13 +208,61 @@ def block_decode_paged(x, lp: dict, lc: dict, positions, block_tables,
                                               positions, block_tables,
                                               cfg, plan, plan_lanes)
     x = x + attn_out
-    x = x + _mlp(_norm(x, lp["norm2"], cfg), lp, cfg, plan)
+    x = x + _mlp(_norm(x, lp["norm2"], cfg), lp, cfg, plan)[0]
     return x, {"attn": attn_cache}
 
 
 def _layer(tree: dict, i: int) -> dict:
-    """Views of layer ``i`` of a layer-stacked tree."""
+    """Views of layer ``i`` of a layer-stacked tree (or, where a leaf is a
+    list of per-layer tensors, as the train step hands them, its i-th)."""
     return L.tree_map(lambda a: a[i], tree)
+
+
+# ---------------------------------------------------------------------------
+# cross-entropy
+# ---------------------------------------------------------------------------
+
+def _chunk_loss(xc, w_u, lc, vocab_size: int):
+    """Summed next-token loss of one chunk: xc (c, d), labels lc (c,).  The
+    reference asks XLA for f32 logits of compute-dtype operands; here the
+    product is taken in the compute dtype and widened (the same in an f32
+    plan).  The row max is taken out of the gradient (it cancels)."""
+    logits = (xc @ w_u).float()
+    if logits.shape[-1] > vocab_size:             # padded vocab columns
+        cols = torch.arange(logits.shape[-1], device=logits.device)
+        logits = torch.where(cols < vocab_size, logits, NEG_INF)
+    m = logits.max(dim=-1).values.detach()
+    lse = torch.log(torch.exp(logits - m[:, None]).sum(dim=-1)) + m
+    lab = logits.gather(1, lc[:, None].long())[:, 0]
+    return torch.sum(lse - lab)
+
+
+def _xent_core(x, w_u, labels, *, vocab_size: int, n_chunks: int):
+    """Chunked, checkpointed cross-entropy (the reference's ``_xent_core``
+    on one device): x (T, d), w_u (d, V), labels (T,) -> summed loss.
+    Each chunk's logits are recomputed in the backward, so one chunk's
+    (T / n_chunks, V) logits are live at a time."""
+    chunk = x.shape[0] // n_chunks
+    total = torch.zeros((), dtype=torch.float32, device=x.device)
+    for c in range(n_chunks):
+        sl = slice(c * chunk, (c + 1) * chunk)
+        total = total + checkpoint(_chunk_loss, x[sl], w_u, labels[sl],
+                                   vocab_size, use_reentrant=False)
+    return total
+
+
+def sharded_xent(x, w_u, labels, cfg: ArchConfig, plan: ShardPlan, *,
+                 n_chunks: int = 8):
+    """Mean next-token loss; x (B, S, d), labels (B, S).  The chunk count
+    halves until it divides the B S tokens, as in the reference."""
+    B, Sq, d = x.shape
+    t = B * Sq
+    while n_chunks > 1 and t % n_chunks:
+        n_chunks //= 2
+    total = _xent_core(x.reshape(t, d), w_u.to(plan.compute_dtype),
+                       labels.reshape(t), vocab_size=cfg.vocab_size,
+                       n_chunks=n_chunks)
+    return total / t
 
 
 # ---------------------------------------------------------------------------
@@ -409,17 +478,35 @@ class Model:
                                device=x.device)
         return x
 
-    def _trunk(self, params, x, positions, *, want_cache: bool):
+    def _trunk(self, params, x, positions, *, want_cache: bool,
+               want_aux: bool = False):
+        """The layers and the final norm: (x, stacked caches or None, the
+        layers' summed aux loss, f32, or None without ``want_aux``).  Under
+        ``plan.remat == "full"`` each layer runs under
+        ``torch.utils.checkpoint`` (its activations recomputed in the
+        backward), as the reference checkpoints its scan body."""
         cfg, plan = self.cfg, self.plan
         caches = []
+        aux = (torch.zeros((), dtype=torch.float32, device=x.device)
+               if want_aux else None)
         for i in range(cfg.num_layers):
-            x, cache = block_forward(x, _layer(params["layers"], i), positions,
-                                     cfg, plan, want_cache=want_cache)
+            lp = _layer(params["layers"], i)
+
+            def layer(x, lp=lp):
+                return _block(x, lp, positions, cfg, plan,
+                              want_cache=want_cache, want_aux=want_aux)
+
+            if plan.remat == "full":
+                x, cache, aux_l = checkpoint(layer, x, use_reentrant=False)
+            else:
+                x, cache, aux_l = layer(x)
+            if aux_l is not None:
+                aux = aux + aux_l
             caches.append(cache)
         x = _norm(x, params["final_norm"], cfg)
         if not want_cache:
-            return x, None
-        return x, L.tree_map(lambda *a: torch.stack(a), *caches)
+            return x, None, aux
+        return x, L.tree_map(lambda *a: torch.stack(a), *caches), aux
 
     def _head(self, params, x):
         w = self._unembed_w(params).to(self.plan.compute_dtype)
@@ -442,8 +529,53 @@ class Model:
         """Full-sequence logits: the encoder's forward (frames in, per-frame
         logits out); for the decoders small inputs / tests only."""
         x = self._embed_inputs(params, inputs)
-        x, _ = self._trunk(params, x, self._positions(x), want_cache=False)
+        x, _, _ = self._trunk(params, x, self._positions(x), want_cache=False)
         return self._head(params, x)
+
+    # ----- training -----
+    def check_trainable(self) -> None:
+        """Raise for every family whose training is not ported yet
+        (ROADMAP.md Queue 1: item 13's follow-ups)."""
+        cfg = self.cfg
+        why = None
+        if cfg.rwkv:
+            why = "kernel 7 (the WKV recurrence) has no backward"
+        elif cfg.family == "hybrid":
+            why = "the Mamba branch's training is not ported"
+        elif cfg.attn_kind == "mla":
+            why = "MLA's training forward is not ported"
+        elif cfg.input_kind == "embeds":
+            why = ("the encoder's data (TokenPipeline.next_embed_batch) is "
+                   "not ported")
+        if why is not None:
+            raise NotImplementedError(
+                f"{cfg.name}: training of the {cfg.family} family "
+                f"(attn_kind={cfg.attn_kind!r}) is not ported: {why} "
+                f"(ROADMAP.md, Queue 1 item 13's follow-ups)")
+
+    def loss(self, params, inputs, labels):
+        """Mean next-token cross-entropy plus ``MOE_AUX_WEIGHT`` times the
+        MoE layers' summed load-balancing loss (the reference's
+        ``Model.loss``).  inputs, labels: (B, S) token ids."""
+        self.check_trainable()
+        x = self._embed_inputs(params, inputs)
+        x, _, aux = self._trunk(params, x, self._positions(x),
+                                want_cache=False, want_aux=True)
+        ce = sharded_xent(x, self._unembed_w(params), labels, self.cfg,
+                          self.plan)
+        return ce + MOE_AUX_WEIGHT * aux
+
+    def canonicalize_grads(self, grads: dict) -> dict:
+        """The reference zeroes pad-head grads and ties padded kv-copy
+        grads so a padded model stays the published one.  The port pads no
+        head and no kv head (``models/sharding.py``), so the attention's
+        grads are kept as they are (``attention.canonicalize_gqa_grads``
+        asserts why)."""
+        self.check_trainable()
+        if "attn" in grads["layers"]:
+            A.canonicalize_gqa_grads(grads["layers"]["attn"], self.cfg,
+                                     self.plan)
+        return grads
 
     # ----- serving -----
     @property
@@ -456,7 +588,8 @@ class Model:
     def prefill(self, params, inputs):
         """Returns (last-token logits (B, V_pad), cache stacked over layers)."""
         x = self._embed_inputs(params, inputs)
-        x, caches = self._trunk(params, x, self._positions(x), want_cache=True)
+        x, caches, _ = self._trunk(params, x, self._positions(x),
+                                   want_cache=True)
         return self._head(params, x[:, -1]), caches
 
     def prefill_ragged(self, params, inputs, lengths):
@@ -467,7 +600,8 @@ class Model:
         (B, V_pad) + the stacked cache.  Padded tail positions attend only
         causally, so each row's valid prefix is exact."""
         x = self._embed_inputs(params, inputs)
-        x, caches = self._trunk(params, x, self._positions(x), want_cache=True)
+        x, caches, _ = self._trunk(params, x, self._positions(x),
+                                   want_cache=True)
         rows = torch.arange(x.shape[0], device=x.device)
         return self._head(params, x[rows, lengths.long() - 1]), caches
 

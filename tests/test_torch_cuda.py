@@ -2333,3 +2333,175 @@ def test_cluster_sim_on_the_card_matches_the_cpu(gen):
             np.testing.assert_allclose(sa[k], sb[k], rtol=1e-5, atol=1e-12)
         np.testing.assert_allclose(a.max_gpu_temp_c, b.max_gpu_temp_c,
                                    rtol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# kernel 1's backward, and training through it
+# ---------------------------------------------------------------------------
+
+# query q sees key k: causal, a window of 24 (causal), bidirectional
+BWD_FORMS = {"causal": (True, 0), "window": (True, 24),
+             "bidirectional": (False, 0)}
+# of max |grad|: f32 sums in other orders; bf16 rounds dq/dk/dv and P
+BWD_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
+
+
+@pytest.fixture
+def bgen(gen):
+    """A generator of these tests' own, so the module's shared one gives
+    every earlier test the inputs it drew before."""
+    return torch.Generator(device="cuda").manual_seed(27)
+
+
+def _bwd_inputs(gen, dtype, B, H, K, S, D):
+    """The model's (B, S, H, D) activations as (B, H, S, D) views, a
+    forward with its lse, and a random dO laid out like o."""
+    q, k, v = (torch.randn(B, S, n, D, generator=gen, device="cuda",
+                           dtype=dtype).transpose(1, 2) for n in (H, K, K))
+    do = torch.randn(B, S, H, D, generator=gen, device="cuda",
+                     dtype=dtype).transpose(1, 2)
+    return q, k, v, do
+
+
+def _held_to_scale(got, want, tol):
+    got, want = got.float(), want.float()
+    err = (got - want).abs().max().item()
+    assert err <= tol * want.abs().max().item(), (err, want.abs().max())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", [16, 32, 64, 80, 96, 128, 256])
+@pytest.mark.parametrize("form", list(BWD_FORMS))
+def test_flash_bwd_kernel_matches_plain(bgen, dtype, D, form):
+    causal, window = BWD_FORMS[form]
+    q, k, v, do = _bwd_inputs(bgen, dtype, 2, 6, 2, 77, D)
+    kw = dict(causal=causal, window=window)
+    o, lse = fa.flash_attention_lse(q, k, v, **kw)
+    o_ref, lse_ref = fa.flash_attention_lse_ref(q, k, v, **kw)
+    assert_close(o, o_ref, dtype)
+    torch.testing.assert_close(lse, lse_ref, atol=1e-4 if dtype ==
+                               torch.float32 else 2e-2, rtol=0)
+    before = fa.flash_attention_bwd.launches
+    got = fa.flash_attention_bwd(q, k, v, o, do, lse, **kw)
+    torch.cuda.synchronize()
+    assert fa.flash_attention_bwd.launches == before + 1
+    want = fa.flash_attention_bwd_ref(q, k, v, o, do, lse, **kw)
+    for g, w, t in zip(got, want, (q, k, v)):
+        assert g.shape == t.shape and g.stride() == t.stride()
+        _held_to_scale(g, w, BWD_TOL[dtype])
+
+
+def test_flash_bwd_two_calls_give_the_same_bits(bgen):
+    q, k, v, do = _bwd_inputs(bgen, torch.bfloat16, 2, 8, 2, 300, 128)
+    o, lse = fa.flash_attention_lse(q, k, v)
+    a = fa.flash_attention_bwd(q, k, v, o, do, lse)
+    b = fa.flash_attention_bwd(q, k, v, o, do, lse)
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def test_serve_form_launch_writes_no_lse_and_matches_lse_form(bgen):
+    q, k, v, _ = _bwd_inputs(bgen, torch.bfloat16, 1, 4, 4, 130, 64)
+    o = fa.flash_attention(q, k, v)
+    o2, _ = fa.flash_attention_lse(q, k, v)
+    assert torch.equal(o, o2)
+
+
+def test_kernel_wrappers_refuse_grad(bgen):
+    q, k, v, _ = _bwd_inputs(bgen, torch.bfloat16, 1, 4, 4, 16, 64)
+    q.requires_grad_(True)
+    with pytest.raises(RuntimeError, match="no backward"):
+        fa.flash_attention(q, k, v)
+    with pytest.raises(RuntimeError, match="no backward"):
+        da.decode_attention(q[:, :, 0], k.transpose(1, 2), v.transpose(1, 2),
+                            torch.full((1,), 15, device="cuda",
+                                       dtype=torch.int32))
+    with torch.no_grad():
+        fa.flash_attention(q, k, v)
+    o = ops.flash_attention(q, k, v)            # the Function
+    assert o.grad_fn is not None
+
+
+def test_train_step_grads_through_kernels_match_plain(bgen, monkeypatch):
+    """A smoke-size qwen3-1.7b loss's grads through kernel 1's training
+    forward and backward against the same Function on the plain versions,
+    on the card in an f32 plan: within 1e-4 of each leaf's max |g|."""
+    from repro_torch.models.layers import tree_leaves
+    from repro_torch.training.train_step import _value_and_grad
+    cfg = get_config("qwen3-1.7b").smoke_config()
+    model = build_model(cfg, local_plan(param_dtype=torch.float32,
+                                        compute_dtype=torch.float32))
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    ids = torch.randint(0, cfg.vocab_size, (2, 2, 40), generator=bgen,
+                        device="cuda")
+    fwd, bwd = fa.flash_attention_lse.launches, fa.flash_attention_bwd.launches
+    loss, grads = _value_and_grad(model, params, ids[0], ids[1])
+    assert fa.flash_attention_lse.launches - fwd == cfg.num_layers
+    assert fa.flash_attention_bwd.launches - bwd == cfg.num_layers
+    monkeypatch.setattr(fa, "flash_attention_lse", fa.flash_attention_lse_ref)
+    monkeypatch.setattr(fa, "flash_attention_bwd", fa.flash_attention_bwd_ref)
+    loss_p, grads_p = _value_and_grad(model, params, ids[0], ids[1])
+    torch.testing.assert_close(loss, loss_p, rtol=1e-5, atol=0)
+    for g, w in zip(tree_leaves(grads), tree_leaves(grads_p)):
+        _held_to_scale(g, w, 1e-4)
+
+
+def test_remat_full_on_the_card(bgen):
+    """``remat="full"`` recomputes each layer's forward in the backward:
+    kernel 1's training forward runs twice a layer, its backward once, and
+    the loss and grads equal those without remat (f32 plan: 1e-6 of each
+    leaf's max |g|, the same kernels on the same inputs)."""
+    from repro_torch.models.layers import tree_leaves
+    from repro_torch.training.train_step import _value_and_grad
+    cfg = get_config("qwen3-1.7b").smoke_config()
+    plans = [local_plan(param_dtype=torch.float32,
+                        compute_dtype=torch.float32, remat=r)
+             for r in ("none", "full")]
+    params = build_model(cfg, plans[0]).init(
+        torch.Generator(device="cuda").manual_seed(0))
+    ids = torch.randint(0, cfg.vocab_size, (2, 2, 40), generator=bgen,
+                        device="cuda")
+    out = []
+    for plan in plans:
+        fwd, bwd = (fa.flash_attention_lse.launches,
+                    fa.flash_attention_bwd.launches)
+        out.append(_value_and_grad(build_model(cfg, plan), params, *ids))
+        n_fwd = fa.flash_attention_lse.launches - fwd
+        assert n_fwd == cfg.num_layers * (2 if plan.remat == "full" else 1)
+        assert fa.flash_attention_bwd.launches - bwd == cfg.num_layers
+    (l0, g0), (l1, g1) = out
+    torch.testing.assert_close(l1, l0, rtol=1e-6, atol=0)
+    for a, b in zip(tree_leaves(g1), tree_leaves(g0)):
+        _held_to_scale(a, b, 1e-6)
+
+
+def test_moe_train_step_on_the_card(bgen, monkeypatch):
+    """A smoke-size granite-moe train step on the card: the loss (with its
+    load-balancing term) finite, every parameter moved, and the grads
+    through kernel 1 against the plain route's in f32 (1e-4 of each
+    leaf's max |g|)."""
+    from repro_torch.models.layers import tree_leaves
+    from repro_torch.training.optimizer import AdamWConfig, init_opt_state
+    from repro_torch.training.train_step import (_value_and_grad,
+                                                 make_train_step)
+    cfg = get_config("granite-moe-3b-a800m").smoke_config()
+    model = build_model(cfg, local_plan(param_dtype=torch.float32,
+                                        compute_dtype=torch.float32))
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    ids = torch.randint(0, cfg.vocab_size, (2, 2, 40), generator=bgen,
+                        device="cuda")
+    loss, grads = _value_and_grad(model, params, *ids)
+    with monkeypatch.context() as m:
+        m.setattr(fa, "flash_attention_lse", fa.flash_attention_lse_ref)
+        m.setattr(fa, "flash_attention_bwd", fa.flash_attention_bwd_ref)
+        loss_p, grads_p = _value_and_grad(model, params, *ids)
+    torch.testing.assert_close(loss, loss_p, rtol=1e-5, atol=0)
+    for g, w in zip(tree_leaves(grads), tree_leaves(grads_p)):
+        _held_to_scale(g, w, 1e-4)
+    before = [t.clone() for t in tree_leaves(params)]
+    step = make_train_step(model, AdamWConfig(lr=1e-3, warmup_steps=1))
+    params, state, met = step(params, init_opt_state(params), *ids)
+    assert torch.isfinite(met["loss"]) and torch.isfinite(met["grad_norm"])
+    assert int(state["step"]) == 1
+    moved = [not torch.equal(a, b) for a, b in zip(tree_leaves(params),
+                                                   before)]
+    assert sum(moved) >= len(moved) - 1, moved   # pad experts may stay

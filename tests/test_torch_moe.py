@@ -181,7 +181,7 @@ def test_moe_ffn_matches_reference(models, monkeypatch, variant, B, S):
     jl = jax.tree.map(lambda a: a[1], jp["layers"]["moe"])
     tl = {k: v[1] for k, v in tp["layers"]["moe"].items()}
     jy, _ = JM.moe_ffn(jl, jnp.asarray(x), jm.cfg, jm.plan)
-    ty = TM.moe_ffn(tl, _t(x), tm.cfg, tm.plan)
+    ty, _ = TM.moe_ffn(tl, _t(x), tm.cfg, tm.plan)
     np.testing.assert_allclose(ty.numpy(), np.asarray(jy), atol=ATOL_FFN,
                                rtol=0)
     assert len(seen) == 1

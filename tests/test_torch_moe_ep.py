@@ -86,9 +86,9 @@ def test_moe_core_matches_reference_axis_branch(arch, tp, T):
     y = np.asarray(y)
     assert all(np.array_equal(y[0], y[r]) for r in range(tp))
     for t in (tp, 1):
-        got = TM._moe_core(torch.from_numpy(x), torch.from_numpy(rw),
-                           *map(torch.from_numpy, ws), cfg=tcfg, e_pad=E,
-                           capacity=cap, activation=tcfg.activation, tp=t)
+        got, _ = TM._moe_core(torch.from_numpy(x), torch.from_numpy(rw),
+                              *map(torch.from_numpy, ws), cfg=tcfg, e_pad=E,
+                              capacity=cap, activation=tcfg.activation, tp=t)
         np.testing.assert_allclose(got.numpy(), y[0], atol=1e-5, rtol=0)
 
 
@@ -101,8 +101,8 @@ def test_moe_combine_sums_partials_in_rank_order():
     x = torch.from_numpy(x).bfloat16()
     ws = [torch.from_numpy(w).bfloat16() for w in ws]
     E, cap, tp = cfg.n_experts, 32, 2
-    got = TM._moe_core(x, torch.from_numpy(rw), *ws, cfg=cfg, e_pad=E,
-                       capacity=cap, activation=cfg.activation, tp=tp)
+    got, _ = TM._moe_core(x, torch.from_numpy(rw), *ws, cfg=cfg, e_pad=E,
+                          capacity=cap, activation=cfg.activation, tp=tp)
     parts = []
     for r in range(tp):
         lo, hi = r * E // tp, (r + 1) * E // tp
@@ -112,7 +112,7 @@ def test_moe_combine_sums_partials_in_rank_order():
             w[hi:] = 0
         parts.append(TM._moe_core(x, torch.from_numpy(rw), *w_r, cfg=cfg,
                                   e_pad=E, capacity=cap,
-                                  activation=cfg.activation, tp=1))
+                                  activation=cfg.activation, tp=1)[0])
     assert torch.equal(got, parts[0] + parts[1])
 
 

@@ -137,8 +137,10 @@ def test_fleet_clis_default_to_cuda(main):
 
 class _FakeCuda:
     """Stands in for a CUDA tensor where there is no card: the dispatcher
-    routes on ``.device`` alone."""
+    routes on ``.device``, and on ``requires_grad`` (an input that needs no
+    gradient takes the serve form)."""
     device = torch.device("cuda", 0)
+    requires_grad = False
 
 
 # ops entry -> (module, kernel wrapper, plain versions it must not reach,

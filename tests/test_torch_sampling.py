@@ -99,6 +99,14 @@ def test_event_keys_and_uniform_lanes_match_jax(salt, rank):
                                   np.asarray(JT.uniform_lanes(jkeys)))
 
 
+def _fegetround() -> int:
+    """The C library's rounding mode (FE_TONEAREST is 0 on x86-64 and
+    aarch64), read through ctypes: a diagnostic of the failure message."""
+    import ctypes
+    import ctypes.util
+    return ctypes.CDLL(ctypes.util.find_library("m")).fegetround()
+
+
 @pytest.mark.parametrize("seed", [0, 3, 99])
 def test_gumbel_within_4_ulp_of_jax(seed):
     jk = jax.random.fold_in(jax.random.PRNGKey(seed), 17)
@@ -106,7 +114,9 @@ def test_gumbel_within_4_ulp_of_jax(seed):
     got = prng.gumbel(prng.fold_in(_key(seed), 17), 50000).numpy()
     ulp = np.spacing(np.maximum(np.abs(want), 1.0).astype(np.float32))
     bad = ~(np.abs(got - want) <= 4 * ulp)
-    assert not bad.any(), (want[bad][:5], got[bad][:5], torch.get_num_threads())
+    assert not bad.any(), (want[bad][:5], got[bad][:5], torch.get_num_threads(),
+                           "first bad index", int(np.flatnonzero(bad)[0]),
+                           "fegetround", _fegetround())
 
 
 @pytest.mark.parametrize("seed", [1, 2, 3, 4])
