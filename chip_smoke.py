@@ -217,22 +217,26 @@ Builds the hand-written CUDA kernels from ``src/repro_torch/csrc`` (one
 14. training.  (a) Kernel 1's backward (``flash_attention_bwd``, three
    launches: delta, dK/dV, dQ) and its training forward
    (``flash_attention_lse``, o and each row's lse) against their plain
-   versions at llama2-7b's phase-1 shape, granite's GQA (24/8, D = 64),
-   gemma-7b's D = 256, hymba's window (25/5, W = 1024, S = 2048) and
-   hubert's bidirectional form (16/16, D = 80, S = 1000), in bf16 and
-   f32 (dq, dk, dv each within ``BWD_TOL`` of its max |g|; two calls give
-   the same bits), each bf16 case and the f32 llama case timed: events
-   and device time, the plain version, SDPA's backward on the same
-   tensors (a reading) and the bound.  (b) Full-width qwen3-1.7b (f32
-   parameters, bf16 compute, AdamW, ``TokenPipeline`` at batch 4 x 1024)
-   trains 10 steps: finite and falling loss, 28 forward and 28 backward
-   launches of kernel 1 a step, no serve-form launch, no other kernel and
-   no call of a plain attention version; median step ms, tokens/s, peak
-   memory, ``nvidia-smi``'s power, SM clock and temperature during the
-   steps, and one traced step (device busy, idle share, kernel 1's
-   forward and backward shares).  (c) The same batch through 2 layers at
-   full width in an f32 plan: the loss and every grad leaf through the
-   kernels against the plain route's.  (d) The 2-layer model trains 10
+   versions at llama2-7b's phase-1 shape, qwen3-1.7b's training shape
+   (16/8, S = 1024), granite's GQA (24/8, D = 64), gemma-7b's D = 256,
+   hymba's window (25/5, W = 1024, S = 2048) and hubert's bidirectional
+   form (16/16, D = 80, S = 1000), in bf16 and f32 (dq, dk, dv each within
+   ``BWD_TOL`` of its max |g|; two calls give the same bits; bf16 calls
+   on the tensor cores, f32 calls not), each bf16 case and the f32 llama
+   case timed: events and device time, the plain version, SDPA's backward
+   on the same tensors (the median of 5 timed runs, and its device time)
+   and the bound.
+   (b) Full-width qwen3-1.7b (f32 parameters, bf16 compute, AdamW,
+   ``TokenPipeline`` at batch 4 x 1024) trains 10 steps: finite and
+   falling loss, 28 forward and 28 backward launches of kernel 1 a step,
+   every backward on the tensor cores, no serve-form launch, no other
+   kernel and no call of a plain attention version; median step ms,
+   tokens/s, peak memory, ``nvidia-smi``'s power, SM clock and
+   temperature during the steps, and one traced step (device busy, idle
+   share, kernel 1's forward and backward shares, the backward by pass).
+   (c) The same batch through 2 layers at full width in an f32 plan: the
+   loss and every grad leaf through the kernels against the plain
+   route's.  (d) The 2-layer model trains 10
    steps with a checkpoint at step 5 (under ``_phase14_ckpt/`` in the
    checkout, removed after); a fresh model and optimizer restored from it
    give losses 6-10 bit for bit.
@@ -1685,6 +1689,7 @@ def reset_launches() -> None:
     wrappers["flash_attention"].bidirectional = 0
     wrappers["flash_attention"].tensor_core = 0
     wrappers["flash_attention_lse"].tensor_core = 0
+    wrappers["flash_attention_bwd"].tensor_core = 0
     wrappers["paged_prefill_attention"].tensor_core = 0
     wrappers["paged_prefill_attention_lse"].tensor_core = 0
 
@@ -1695,7 +1700,8 @@ def read_launches() -> dict:
     those with ``causal=False``, ``flash_attention_tensor_core`` those that
     took the wgmma kernel; ``flash_attention`` counts all of them too.
     ``paged_prefill_attention_tensor_core`` counts kernel 3's launches that
-    took its wgmma kernel."""
+    took its wgmma kernel, ``flash_attention_bwd_tensor_core`` kernel 1's
+    backward calls that took its wgmma kernels."""
     wrappers = kernel_wrappers()
     out = {name: fn.launches for name, fn in wrappers.items()}
     out["flash_attention_window"] = wrappers["flash_attention"].banded
@@ -1703,7 +1709,8 @@ def read_launches() -> dict:
         wrappers["flash_attention"].bidirectional
     out["flash_attention_tensor_core"] = \
         wrappers["flash_attention"].tensor_core
-    for name in ("paged_prefill_attention", "paged_prefill_attention_lse"):
+    for name in ("flash_attention_bwd", "paged_prefill_attention",
+                 "paged_prefill_attention_lse"):
         out[f"{name}_tensor_core"] = wrappers[name].tensor_core
     return out
 
@@ -5270,12 +5277,13 @@ def mla_teacher_forced(torch, model, params) -> None:
 # kernel 1's backward, phase 1's shape first: (label, B, H, K, S, D,
 # causal, window)
 BWD_CASES = (("llama2-7b", 4, 32, 32, 512, 128, True, 0),
+             ("qwen3-1.7b train step", 4, 16, 8, 1024, 128, True, 0),
              ("granite-moe-3b-a800m", 4, 24, 8, 512, 64, True, 0),
              ("gemma-7b", 1, 16, 16, 2048, 256, True, 0),
              ("hymba-1.5b window", 1, 25, 5, 2048, 64, True, 1024),
              ("hubert-xlarge bidirectional", 4, 16, 16, 1000, 80, False, 0))
 # kernel vs plain, of each gradient's max |g|: f32 sums in other orders;
-# bf16 rounds dq, dk, dv and the P of dV to bf16
+# bf16 rounds dq, dk, dv, the P of dV and dS to bf16
 BWD_TOL = {"bf16": 2e-2, "f32": 1e-5}
 TRAIN = dict(batch=4, seq=1024, steps=10, lr=1e-3, warmup=2)
 
@@ -5306,13 +5314,19 @@ def sdpa_mask(torch, S, causal, window):
     return None
 
 
+BWD_PASSES = ("bwd_delta", "bwd_dkdv", "bwd_dq")
+
+
 def check_flash_bwd(torch) -> list:
     """Phase 14 (a): kernel 1's backward against its plain version at
     ``BWD_CASES`` in bf16 and f32 (the forward's lse against the plain
     lse too), each bf16 case and the f32 llama case timed: events and
     device time, the plain version, SDPA's backward on the same tensors
-    (a reading) and the bound.  Returns the kernels line's entries of the
-    backward and of the training forward."""
+    (the median of 5 timed runs) and the bound.  Every bf16 call must take
+    the tensor cores, no f32 call.  Each pass's device time is read from
+    phase 14 (b)'s traced step.
+    Returns the kernels line's entries of the backward and of the
+    training forward."""
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
     g = torch.Generator(device="cuda").manual_seed(14)
@@ -5337,10 +5351,14 @@ def check_flash_bwd(torch) -> list:
                   f"tol={TOL[name]:.0e}", flush=True)
             if not err_l <= TOL[name]:
                 fail(f"flash_attention_lse {tag}: lse disagrees")
+            tc = fa.flash_attention_bwd.tensor_core
             got = fa.flash_attention_bwd(q, k, v, o, do, lse, **kw)
             want = fa.flash_attention_bwd_ref(q, k, v, o, do, lse, **kw)
             again = fa.flash_attention_bwd(q, k, v, o, do, lse, **kw)
             torch.cuda.synchronize()
+            if fa.flash_attention_bwd.tensor_core - tc != 2 * (name == "bf16"):
+                fail(f"flash_attention_bwd {tag}: the route is not the "
+                     f"dtype's (tensor cores for bf16 only)")
             errs = []
             for gname, a, b in zip(("dq", "dk", "dv"), got, want):
                 err = (a.float() - b.float()).abs().max().item()
@@ -5372,12 +5390,16 @@ def check_flash_bwd(torch) -> list:
             ol = F.scaled_dot_product_attention(
                 ql, kl, vl, attn_mask=mask, is_causal=mask is None,
                 enable_gqa=H != K)
-            lib = cuda_ms(lambda: torch.autograd.grad(
+            lib, lib_lo, lib_hi = spread_ms(lambda: torch.autograd.grad(
+                ol, (ql, kl, vl), do, retain_graph=True))
+            lib_dev = device_ms(torch, lambda: torch.autograd.grad(
                 ol, (ql, kl, vl), do, retain_graph=True))
             print(f"flash_attention_bwd {tag}: kernel {spread(ms, lo, hi)}, "
                   f"device {dev:.4f} ms, plain {plain:.4f} ms, sdpa backward "
-                  f"{lib:.4f} ms, bound {bound:.4f} ms ({by}: {flops} flop; "
-                  f"{flops / ms / 1e9:.1f} TFLOP/s)", flush=True)
+                  f"{spread(lib, lib_lo, lib_hi)}, device {lib_dev:.4f} ms; "
+                  f"bound {bound:.4f} ms ({by}: {flops} flop; "
+                  f"{flops / ms / 1e9:.1f} TFLOP/s at 10 D a pair)",
+                  flush=True)
             if "flash_attention_bwd" not in entries:
                 entries["flash_attention_bwd"] = {
                     "name": "flash_attention_bwd", "route": "cuda",
@@ -5486,7 +5508,7 @@ def train_run(torch, model, params, steps: int, *, start: int = 0,
 def train_trace(torch, model, params, state, batch) -> None:
     """One traced train step: device busy, idle share against the step's
     host wall, the kernels that take the time, kernel 1's forward and
-    backward shares."""
+    backward shares, the backward's split by pass."""
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.training.optimizer import AdamWConfig
     from repro_torch.training.train_step import make_train_step
@@ -5515,13 +5537,19 @@ def train_trace(torch, model, params, state, batch) -> None:
               flush=True)
     for label, keys in (("kernel 1 forward (flash_kernel)", ("flash_kernel",)),
                         ("kernel 1 backward (bwd_delta, bwd_dkdv, bwd_dq)",
-                         ("bwd_delta", "bwd_dkdv", "bwd_dq")),
+                         BWD_PASSES),
                         ("GEMMs (gemm / nvjet / cutlass)",
                          ("gemm", "nvjet", "cutlass", "sm90_xmma"))):
         ms = sum(r[0] for r in rows if any(k in r[2] for k in keys)) / 1e3
         n = sum(r[1] for r in rows if any(k in r[2] for k in keys))
         print(f"  {label}: {ms:.3f} ms over {n} launches, share "
               f"{ms / busy if busy else 0:.3f} of device busy", flush=True)
+    # each pass beside the total: the launches of a train step run inside
+    # autograd's backward, where the trace holds every one of them
+    print("  kernel 1 backward by pass: " + ", ".join(
+        f"{k} {sum(r[0] for r in rows if k in r[2]) / 1e3:.3f} ms over "
+        f"{sum(r[1] for r in rows if k in r[2])}" for k in BWD_PASSES),
+        flush=True)
 
 
 def smi_during(fn) -> tuple:
@@ -5586,7 +5614,9 @@ def training_phase(torch) -> dict:
           f"{n_tok / med * 1e3:.0f} tokens/s, peak {peak:.2f} GiB allocated; "
           f"kernel 1 forward launches {la['flash_attention_lse']}, backward "
           f"{la['flash_attention_bwd']} ({cfg.num_layers} layers x "
-          f"{TRAIN['steps']} steps), serve-form launches "
+          f"{TRAIN['steps']} steps; on the tensor cores "
+          f"{la['flash_attention_bwd_tensor_core']} of them), serve-form "
+          f"launches "
           f"{la['flash_attention']}, plain attention calls {plain}",
           flush=True)
     print(f"phase 14 card during the steps ({len(smi)} nvidia-smi readings, "
@@ -5601,6 +5631,10 @@ def training_phase(torch) -> dict:
         fail(f"phase 14: kernel 1's training launches "
              f"{la['flash_attention_lse']}/{la['flash_attention_bwd']} != "
              f"{want}")
+    if la["flash_attention_bwd_tensor_core"] != la["flash_attention_bwd"]:
+        fail(f"phase 14: {la['flash_attention_bwd_tensor_core']} of "
+             f"{la['flash_attention_bwd']} bf16 backward launches took the "
+             f"tensor cores")
     if plain or la["flash_attention"]:
         fail(f"phase 14: {plain} plain attention calls and "
              f"{la['flash_attention']} serve-form launches on the train path")

@@ -9,7 +9,9 @@ its served decode step (4 lanes at 230/180/120/40), the bf16
 the phase-1 shape and over 2 and 4 stripes at the served step, the bf16
 ``paged_prefill_attention`` (kernel 3) at llama2-7b's chunk shape and the
 bf16 ``decode_attention`` (kernel 5) at llama2-7b's slot shape and over
-hymba-1.5b's ring.
+hymba-1.5b's ring, and kernel 1's bf16 backward (``flash_attention_bwd``)
+at ``chip_smoke.py``'s ``BWD_CASES`` shapes (qwen3-1.7b's training shape
+among them) beside SDPA's backward on the same tensors.
 
     python3 scripts/flash_turns.py OTHER_TREE
     python3 scripts/flash_turns.py --sweep
@@ -33,15 +35,19 @@ version, and the device time of 20 calls queued behind a spin kernel, so
 that the card runs them back to back (events around calls that are not
 held time the host where a kernel is shorter than its wrapper's host
 work, as kernel 5 over hymba's ring is).  Each process also saves kernels
-1, 5 and 6's outputs, and the script prints the largest |other - this| of
-them at each shape (0 when the two trees compute the same bits; kernel 6
-must give 0).  Then
+1, 5 and 6's outputs and the backward's dq, dk and dv, and the script
+prints the largest |other - this| of them at each shape, per gradient for
+the backward (0 when the two trees compute the same bits; kernel 6 must
+give 0).  The backward's error is the largest of its three gradients'
+against the plain version, each over its max |g|; its SDPA reading is the
+median of 5 event runs and the held device time.  Then
 each shape's medians side by side, events and device time, beside the
 bound (the larger of bytes over 3.35 TB/s and flops over 989 TFLOP/s;
 for kernels 2 and 4 the bytes of the keys these inputs make live, the
 owned ones for kernel 4; for kernel 6 ops over 1979 TOP/s of int8, for
-kernel 7 flops over 67 TFLOP/s of f32, as chip_smoke.py bounds them).
-Needs one CUDA card.
+kernel 7 flops over 67 TFLOP/s of f32, as chip_smoke.py bounds them;
+for the backward 10 D flops a seen pair and q, o, dO, dq, k, v, dk, dv
+and the f32 lse once).  Needs one CUDA card.
 """
 from __future__ import annotations
 
@@ -60,6 +66,15 @@ FLASH = {
     "hymba-1.5b window": (1, 25, 5, 2048, 64, True, 1024),
     "hubert-xlarge bidirectional": (4, 16, 16, 1000, 80, False, 0),
     "gemma-7b causal D=256": (1, 16, 16, 2048, 256, True, 0),
+}
+# kernel 1's backward, name: (B, H, K, S, D, causal, window), bf16
+BWD = {
+    "bwd llama2-7b": (4, 32, 32, 512, 128, True, 0),
+    "bwd qwen3-1.7b train step": (4, 16, 8, 1024, 128, True, 0),
+    "bwd granite-moe-3b-a800m": (4, 24, 8, 512, 64, True, 0),
+    "bwd gemma-7b": (1, 16, 16, 2048, 256, True, 0),
+    "bwd hymba-1.5b window": (1, 25, 5, 2048, 64, True, 1024),
+    "bwd hubert-xlarge bidirectional": (4, 16, 16, 1000, 80, False, 0),
 }
 # kernel 3: (B, C, H, K, D, bs, T, starts; the last lane padded)
 PREFILL = {"kernel 3 llama2-7b chunk": (4, 128, 32, 32, 128, 16, 128,
@@ -117,6 +132,12 @@ def bound_ms(n_bytes: int, flops: int) -> float:
 def flash_bound(B, H, K, S, D, causal, window) -> tuple[float, int]:
     n_bytes = 2 * B * S * (H + K) * D * 2            # q, k, v in, o out
     flops = 4 * D * B * H * pairs(S, causal, window)
+    return bound_ms(n_bytes, flops), flops
+
+
+def bwd_bound(B, H, K, S, D, causal, window) -> tuple[float, int]:
+    n_bytes = 4 * B * S * (H + K) * D * 2 + 4 * B * H * S
+    flops = 10 * D * B * H * pairs(S, causal, window)
     return bound_ms(n_bytes, flops), flops
 
 
@@ -262,6 +283,9 @@ def child(src: str, save: str) -> None:
         saved[name] = fa.flash_attention(q, k, v, **kw).cpu()
         out[name] = timed(lambda: fa.flash_attention(q, k, v, **kw),
                           lambda: fa.flash_attention_ref(q, k, v, **kw))
+    for name, (B, H, K, S, D, causal, window) in BWD.items():
+        out[name], saved[name] = timed_bwd(torch, fa, cuda_ms, held_ms, B, H,
+                                           K, S, D, causal, window)
     for name, (B, C, H, K, D, bs, T, starts) in PREFILL.items():
         g = torch.Generator(device="cuda").manual_seed(0)
         n_blocks = 1 + B * T
@@ -317,6 +341,46 @@ def child(src: str, save: str) -> None:
         out[name]["err"] = err.item()
     torch.save(saved, save)
     print("TURN " + json.dumps(out), flush=True)
+
+
+def timed_bwd(torch, fa, cuda_ms, held_ms, B, H, K, S, D, causal, window):
+    """Kernel 1's bf16 backward on seeded inputs (the model's (B, S, H, D)
+    layout, dO laid out like o): its times, its largest error over max |g|
+    against the plain version, SDPA's backward on the same tensors; and
+    its (dq, dk, dv) on the host."""
+    import torch.nn.functional as F
+    g = torch.Generator(device="cuda").manual_seed(0)
+    q, k, v = (torch.randn(B, S, n, D, generator=g, device="cuda",
+                           dtype=torch.bfloat16).transpose(1, 2)
+               for n in (H, K, K))
+    do = torch.randn(B, S, H, D, generator=g, device="cuda",
+                     dtype=torch.bfloat16).transpose(1, 2)
+    kw = {"causal": causal, "window": window}
+    o, lse = fa.flash_attention_lse(q, k, v, **kw)
+    got = fa.flash_attention_bwd(q, k, v, o, do, lse, **kw)
+    want = fa.flash_attention_bwd_ref(q, k, v, o, do, lse, **kw)
+    err = max(((a.float() - b.float()).abs().max()
+               / b.float().abs().max()).item() for a, b in zip(got, want))
+
+    def call():
+        return fa.flash_attention_bwd(q, k, v, o, do, lse, **kw)
+
+    runs = [cuda_ms(call) for _ in range(5)]
+    ql, kl, vl = (t.detach().requires_grad_(True) for t in (q, k, v))
+    mask = fa._mask(S, causal, window, "cuda") if (not causal or window) \
+        else None
+    ol = F.scaled_dot_product_attention(ql, kl, vl, attn_mask=mask,
+                                        is_causal=mask is None,
+                                        enable_gqa=H != K)
+
+    def sdpa():
+        return torch.autograd.grad(ol, (ql, kl, vl), do, retain_graph=True)
+
+    lib = [cuda_ms(sdpa) for _ in range(5)]
+    return ({"ms": statistics.median(runs), "min": min(runs),
+             "max": max(runs), "dev": held_ms(call), "err": err,
+             "sdpa": statistics.median(lib), "sdpa_dev": held_ms(sdpa)},
+            tuple(t.cpu() for t in got))
 
 
 def paged_inputs(torch, B, H, K, D, bs, T, n_blocks, stripes, positions):
@@ -457,6 +521,7 @@ def main(argv: list[str]) -> int:
             outputs.append((label, torch.load(save)))
             print(f"{label} ({tree}): {lines[0][5:]}", flush=True)
     shapes = {**{n: flash_bound(*s) for n, s in FLASH.items()},
+              **{n: bwd_bound(*s) for n, s in BWD.items()},
               **{n: prefill_bound(*s) for n, s in PREFILL.items()},
               **{n: decode_bound(*s) for n, s in DECODE.items()}}
     shapes.update({n: (turns[0][1][n]["bound"], None)
@@ -467,10 +532,14 @@ def main(argv: list[str]) -> int:
         def rate(t):
             return ("" if flops is None else
                     f"; {flops / t[name]['ms'] / 1e9:.1f} TFLOP/s")
+        def sdpa(t):
+            return ("" if "sdpa" not in t[name] else
+                    f"; sdpa backward {t[name]['sdpa']:.4f}, device "
+                    f"{t[name]['sdpa_dev']:.4f}")
         cells = ", ".join(
             f"{label} {t[name]['ms']:.4f} ({t[name]['min']:.4f}-"
             f"{t[name]['max']:.4f}; device {t[name]['dev']:.4f}"
-            f"{rate(t)}; err {t[name]['err']:.3e})"
+            f"{rate(t)}; err {t[name]['err']:.3e}{sdpa(t)})"
             for label, t in turns)
         print(f"{name}: {cells}; bound {bound:.4f} ms", flush=True)
     for name in (*FLASH, *DECODE, *INT8):
@@ -479,6 +548,15 @@ def main(argv: list[str]) -> int:
                    if la == "other" and lb == "this")
         print(f"{name}: max |other - this| = {diff:.3e}"
               f"{'' if diff == 0 else ' (outputs differ)'}", flush=True)
+    for name in BWD:
+        cells = []
+        for i, grad in enumerate(("dq", "dk", "dv")):
+            diff = max((a[name][i].float() - b[name][i].float()).abs().max()
+                       .item() for (la, a) in outputs for (lb, b) in outputs
+                       if la == "other" and lb == "this")
+            scale = outputs[1][1][name][i].float().abs().max().item()
+            cells.append(f"{grad} {diff:.3e} (max |{grad}| {scale:.3e})")
+        print(f"{name}: max |other - this| {', '.join(cells)}", flush=True)
     return 0
 
 

@@ -55,7 +55,8 @@
 // leading offset).  Every panel starts on 1024 bytes, so the swizzle phase
 // TMA writes is the one wgmma reads.  The three maps over (D, S, heads, B)
 // are encoded on the host per call from the strides the wrapper passes
-// (cuTensorMapEncodeTiled through cudaGetDriverEntryPoint: no -lcuda), so
+// (tensor_map in hopper.cuh: cuTensorMapEncodeTiled through
+// cudaGetDriverEntryPoint, no -lcuda), so
 // the model's (B, S, H, D) activations are read in place; rows and keys
 // past S arrive as zeros (TMA's out-of-bounds fill).
 //
@@ -108,10 +109,6 @@ namespace {
 using namespace repro;
 
 constexpr float LN2 = 0.6931471805599453f;   // lse: log2 units -> natural
-
-struct Strides {                      // element strides of (B, H, S); D is 1
-  long long b, h, s;
-};
 
 struct Args {                         // one launch's shape and flags
   int B, H, K, S, window;
@@ -459,55 +456,6 @@ flash_kernel_wgmma(const __grid_constant__ CUtensorMap qmap,
       *reinterpret_cast<__nv_bfloat162*>(op + 8 * j) = __floats2bfloat162_rn(
           oacc[4 * j + 2 * i] * inv[i], oacc[4 * j + 2 * i + 1] * inv[i]);
   }
-}
-
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
-                                 cuuint32_t, void*, const cuuint64_t*,
-                                 const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave,
-                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static const EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
-               ? reinterpret_cast<EncodeTiled>(p)
-               : nullptr;
-  }();
-  return fn;
-}
-
-// A 4-d map over (D, S, heads, B) of bf16 with boxes of E x rows, swizzled
-// at 2 E bytes; rows and keys past S read as zeros.  A dimension of size 1
-// takes a stride of 16 bytes: its coordinate is always 0.
-bool tensor_map(CUtensorMap* map, const void* ptr, int D, int S, int heads,
-                int B, Strides st, int E, int rows) {
-  const EncodeTiled encode = encode_tiled();
-  if (encode == nullptr) return false;
-  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)S,
-                              (cuuint64_t)heads, (cuuint64_t)B};
-  const cuuint64_t strides[3] = {S > 1 ? (cuuint64_t)st.s * 2 : 16,
-                                 heads > 1 ? (cuuint64_t)st.h * 2 : 16,
-                                 B > 1 ? (cuuint64_t)st.b * 2 : 16};
-  const cuuint32_t box[4] = {(cuuint32_t)E, (cuuint32_t)rows, 1, 1};
-  const cuuint32_t unit[4] = {1, 1, 1, 1};
-  const CUtensorMapSwizzle swizzle =
-      E == 64 ? CU_TENSOR_MAP_SWIZZLE_128B
-              : E == 32 ? CU_TENSOR_MAP_SWIZZLE_64B : CU_TENSOR_MAP_SWIZZLE_32B;
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
-                const_cast<void*>(ptr), dims, strides, box, unit,
-                CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 template <int D>

@@ -1,8 +1,9 @@
 // Hopper (sm_90a) building blocks shared by the tensor-core attention
-// kernels (flash_attention.cu, paged_prefill.cuh): the tile
-// shapes and their shared-memory panels per head dim, mbarriers, TMA
-// loads, wgmma descriptors and instructions, and the P V product that
-// takes P from registers.  See flash_attention.cu's note for the layouts.
+// kernels (flash_attention.cu, flash_attention_bwd.cu, paged_prefill.cuh):
+// the tile shapes and their shared-memory panels per head dim, mbarriers,
+// TMA loads and the host-side tensor maps they read through, wgmma
+// descriptors and instructions, and the P V product that takes P from
+// registers.  See flash_attention.cu's note for the layouts.
 #pragma once
 
 #include <cuda.h>
@@ -16,6 +17,10 @@ constexpr int BK = 64;                // keys per tile
 constexpr int NST = 2;                // K/V stages in the ring
 constexpr int THREADS = 256;
 constexpr float LOG2E = 1.4426950408889634f;
+
+struct Strides {                      // element strides of (B, H, S); D is 1
+  long long b, h, s;
+};
 
 template <int D>
 struct Tiles {
@@ -193,6 +198,55 @@ __device__ __forceinline__ void pv(float* oacc, const uint32_t* a,
                      T::MODE));
     pv<D, N0 + N>(oacc, a, sv);
   }
+}
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+inline EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(p)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// A 4-d map over (D, S, heads, B) of bf16 with boxes of E x rows, swizzled
+// at 2 E bytes; rows and keys past S read as zeros.  A dimension of size 1
+// takes a stride of 16 bytes: its coordinate is always 0.
+inline bool tensor_map(CUtensorMap* map, const void* ptr, int D, int S,
+                       int heads, int B, Strides st, int E, int rows) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)S,
+                              (cuuint64_t)heads, (cuuint64_t)B};
+  const cuuint64_t strides[3] = {S > 1 ? (cuuint64_t)st.s * 2 : 16,
+                                 heads > 1 ? (cuuint64_t)st.h * 2 : 16,
+                                 B > 1 ? (cuuint64_t)st.b * 2 : 16};
+  const cuuint32_t box[4] = {(cuuint32_t)E, (cuuint32_t)rows, 1, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  const CUtensorMapSwizzle swizzle =
+      E == 64 ? CU_TENSOR_MAP_SWIZZLE_128B
+              : E == 32 ? CU_TENSOR_MAP_SWIZZLE_64B : CU_TENSOR_MAP_SWIZZLE_32B;
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+                const_cast<void*>(ptr), dims, strides, box, unit,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 }  // namespace repro

@@ -20,7 +20,9 @@ each query row's log-sum-exp written too (f32, (B, H, S)); the serve
 paths call ``flash_attention``, which writes none.  ``flash_attention_bwd``
 launches kernel 1's backward (``csrc/flash_attention_bwd.cu``, three
 passes, no atomics) from q, k, v, o, dO and that lse: dq, dk and dv, the
-last two summed over each KV head's group of query heads.  The reference
+last two summed over each KV head's group of query heads.  Like the
+forward it takes two routes by dtype: bf16 on the tensor cores (``wgmma``
+fed by TMA), f32 on the CUDA cores.  The reference
 has no Pallas backward: it trains through XLA autodiff of
 ``causal_attention``.  ``ops.FlashAttentionFn`` ties the two together.
 """
@@ -106,9 +108,10 @@ def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     P = exp(s scale - lse) on the keys each query sees, delta =
     rowsum(dO * O), dV = P^T dO with P rounded to v's dtype (as
     ``flash_attention_ref`` rounds the P of PV), dP = dO V^T, dS = P (dP -
-    delta), dQ = dS K scale, dK = dS^T Q scale; dk and dv summed over each
-    KV head's H / K query heads.  Returns ``(dq, dk, dv)`` in the inputs'
-    dtype."""
+    delta) rounded to q's dtype (the kernel's tensor-core products take
+    bf16 operands; at f32 the identity), dQ = dS K scale, dK = dS^T Q
+    scale; dk and dv summed over each KV head's H / K query heads.
+    Returns ``(dq, dk, dv)`` in the inputs' dtype."""
     flash_attention_bwd_ref.calls += 1
     B, H, S, D = q.shape
     K = k.shape[1]
@@ -120,6 +123,7 @@ def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ve = v.repeat_interleave(H // K, dim=1).float()
     dv = torch.einsum("bhqk,bhqd->bhkd", p.to(v.dtype).float(), dof)
     ds = p * (torch.einsum("bhqd,bhkd->bhqk", dof, ve) - delta[..., None])
+    ds = ds.to(q.dtype).float()
     dq = torch.einsum("bhqk,bhkd->bhqd", ds, ke) * scale
     dk = torch.einsum("bhqk,bhqd->bhkd", ds, q.float()) * scale
     dk = dk.view(B, K, H // K, S, D).sum(dim=2)
@@ -263,7 +267,9 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     contiguous from ``flash_attention_lse`` of the same q, k, v and flags.
     Returns ``(dq, dk, dv)``, each laid out like its input, dk and dv
     summed over each KV head's group of query heads.  Three launches (delta,
-    dK/dV, dQ) on the current stream; ``launches`` counts calls."""
+    dK/dV, dQ) on the current stream; ``launches`` counts calls and
+    ``tensor_core`` the bf16 ones, which take the ``wgmma`` kernels (f32
+    takes the CUDA-core ones)."""
     _check_window(window)
     _check(q, k, v, o=o, do=do)
     B, H, S, D = q.shape
@@ -274,7 +280,9 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"{tuple(lse.shape)} on {lse.device}")
     scale = scale if scale is not None else 1.0 / math.sqrt(D)
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
-    delta = torch.empty(B, H, S, dtype=torch.float32, device=q.device)
+    # pass 0's delta (and, in bf16, lse) in 64-row tiles per (batch, head)
+    delta = torch.empty(B, H, 2 * -(-S // 64) * 64, dtype=torch.float32,
+                        device=q.device)
     strides = [st for t in (q, k, v, o, do, dq, dk, dv)
                for st in t.stride()[:3]]
     err = _bwd_kernel()(
@@ -285,7 +293,9 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         torch.cuda.current_stream(q.device).cuda_stream)
     build.check(err, "flash_attention_bwd")
     flash_attention_bwd.launches += 1
+    flash_attention_bwd.tensor_core += q.dtype == torch.bfloat16
     return dq, dk, dv
 
 
 flash_attention_bwd.launches = 0
+flash_attention_bwd.tensor_core = 0

@@ -3,7 +3,9 @@ training forward and ``flash_attention_bwd_ref``, the Function the card
 runs with the kernels) against ``jax.vjp`` of the reference oracle
 ``repro/kernels/ref.py::flash_attention_ref``, and
 ``flash_attention_bwd_ref`` against ``torch.autograd.grad`` of
-``flash_attention_ref``; the guard that keeps every kernel wrapper from
+``flash_attention_ref`` (in f32, where its rounding of dS to q's dtype is
+the identity) and, in bf16, against its own formulas with that rounding;
+the guard that keeps every kernel wrapper from
 cutting a gradient.
 
 Inputs from numpy seeds, in f32.  Tolerances, fixed before any result was
@@ -87,6 +89,41 @@ def test_bwd_ref_matches_autograd(B, H, K, S, D, causal, window):
                                      window=window)
     for g, w in zip(got, want):
         _within(g, w, 1e-6)
+
+
+@pytest.mark.parametrize("causal,window", [(True, 0), (False, 5)])
+def test_bf16_bwd_ref_rounds_ds(causal, window):
+    """In bf16 the plain backward rounds dS to bf16 before dq and dk, as
+    the kernel's tensor-core products take bf16 operands: dq and dk by hand
+    from the plain formulas with ``ds.to(bfloat16)`` equal it bit for bit,
+    and without that rounding they differ."""
+    B, H, K, S, D = 1, 4, 2, 40, 32
+    q, k, v, do = (torch.from_numpy(a).to(torch.bfloat16)
+                   for a in _inputs(11, B, H, K, S, D))
+    kw = dict(causal=causal, window=window)
+    o, lse = fa.flash_attention_lse_ref(q, k, v, **kw)
+    dq, dk, dv = fa.flash_attention_bwd_ref(q, k, v, o, do, lse, **kw)
+    scale = 1.0 / D ** 0.5
+    ke = k.repeat_interleave(H // K, dim=1).float()
+    ve = v.repeat_interleave(H // K, dim=1).float()
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), ke) * scale
+    s = torch.where(fa._mask(S, causal, window, "cpu"), s, fa.NEG_INF)
+    p = torch.exp(s - lse[..., None])
+    delta = (do.float() * o.float()).sum(dim=-1)
+    ds = p * (torch.einsum("bhqd,bhkd->bhqk", do.float(), ve)
+              - delta[..., None])
+
+    def grads(d):
+        gq = torch.einsum("bhqk,bhkd->bhqd", d, ke) * scale
+        gk = torch.einsum("bhqk,bhqd->bhkd", d, q.float()) * scale
+        return (gq.to(torch.bfloat16),
+                gk.view(B, K, H // K, S, D).sum(dim=2).to(torch.bfloat16))
+
+    want_q, want_k = grads(ds.to(torch.bfloat16).float())
+    assert torch.equal(dq, want_q) and torch.equal(dk, want_k)
+    raw_q, raw_k = grads(ds)
+    assert not (torch.equal(dq, raw_q) and torch.equal(dk, raw_k))
+    assert dv.dtype == torch.bfloat16
 
 
 @pytest.mark.parametrize("causal,window", [(True, 0), (True, 7), (False, 0)])
