@@ -219,8 +219,10 @@ Builds the hand-written CUDA kernels from ``src/repro_torch/csrc`` (one
    (``flash_attention_lse``, o and each row's lse) against their plain
    versions at llama2-7b's phase-1 shape, qwen3-1.7b's training shape
    (16/8, S = 1024), granite's GQA (24/8, D = 64), gemma-7b's D = 256,
-   hymba's window (25/5, W = 1024, S = 2048) and hubert's bidirectional
-   form (16/16, D = 80, S = 1000), in bf16 and f32 (dq, dk, dv each within
+   and the shapes phase 15 trains: hymba's window (25/5, W = 1024, 2 x
+   2048), hubert's bidirectional form (16/16, D = 80, 4 x 1000) and
+   minicpm3-4b's MLA (40/40, D = 96, 4 x 1024, v and dO zero-padded from
+   64 as ``_flash_padded`` pads them), in bf16 and f32 (dq, dk, dv each within
    ``BWD_TOL`` of its max |g|; two calls give the same bits; bf16 calls
    on the tensor cores, f32 calls not), each bf16 case and the f32 llama
    case timed: events and device time, the plain version, SDPA's backward
@@ -240,6 +242,34 @@ Builds the hand-written CUDA kernels from ``src/repro_torch/csrc`` (one
    steps with a checkpoint at step 5 (under ``_phase14_ckpt/`` in the
    checkout, removed after); a fresh model and optimizer restored from it
    give losses 6-10 bit for bit.
+15. the other four families train.  (a) Kernel 7's training form
+   (``rwkv6_wkv_train``: y and the final state bit for bit the serve
+   form's, the checkpoints every C steps) and its backward
+   (``rwkv6_wkv_bwd``, ``csrc/rwkv6_wkv_bwd.cu``: dr, dk, dv, dw, du and
+   ds0, no atomics) against their plain versions in bf16 and f32 r/k/v at
+   rwkv6-3b's training shape (B = 4, T = 1024, H = 40, D = 64, zero state),
+   a ragged T of 333 with a random s0 and dS_T, and head dims 48, 96 and
+   128 (each gradient by its max abs error over max |plain|; two calls
+   the same bits), the training shape timed in bf16 beside the plain
+   version and the bound.  (b) Full-width rwkv6-3b (32 layers, f32
+   parameters, bf16 compute, AdamW) trains 5 steps at batch 2 x 1024 (its
+   f32 parameters and moments take 34.6 GiB): finite losses, the first
+   step's batch's loss falling over the run and the mean of steps 2-5 on
+   fresh batches below step 1's, 32 training-form and 32 backward launches
+   of kernel 7 a step, no serve-form launch, no plain WKV call, no other
+   kernel; step ms, tokens/s, peak memory, ``nvidia-smi`` during the
+   steps, a traced step with kernel 7's forward and backward shares.
+   (c) The same for hymba-1.5b (8 of 32 layers, 2 x 2048 tokens, so its
+   window of 1024 masks keys; the Mamba branch's scan under autograd),
+   minicpm3-4b (8 of 62 layers, 4 x 1024; MLA's kernel 1 at D = 96 with v
+   padded) and hubert-xlarge (48 layers, 4 x 1000 frame embeddings from
+   ``next_embed_batch``; its labels are random, so only the first batch's
+   loss is held to fall): kernel 1's training forward and backward once a
+   layer and step, every backward on the tensor cores, no plain attention
+   call, no other kernel.  (d) Each of the four at 2 layers and full width
+   in an f32 plan: the loss and every grad leaf through the kernels
+   against the plain route's (1e-5 relative, 1e-4 of each leaf's max
+   |g|).
 
 The launch counts are per launch whether the launch ran eagerly or as a
 node of a replayed graph: a capture records each wrapper's count and
@@ -276,7 +306,8 @@ REL_TOL = {"bf16": 1e-2, "f32": 1e-5}
 # depth of the models phases 9, 10 and 12 serve beside phases 2-4's
 # full-depth llama2-7b (and phase 11's ``TOKEN_CONFIGS``): widths as
 # published, the depth cut so the whole script stays well inside its
-# 1200 s on a slow host (PERF.md §4)
+# 1200 s on a slow host (PERF.md §4); phase 15 trains hymba-1.5b and
+# minicpm3-4b at 8 layers (``TRAIN15``)
 CUT_LAYERS = {"llama2-13b": 10, "llama2-7b": 8}
 
 
@@ -1658,7 +1689,8 @@ def check_int8(torch, gen):
 # ---------------------------------------------------------------------------
 
 def kernel_wrappers() -> dict:
-    """Every kernel wrapper of the port by name; each counts its launches
+    """Every kernel wrapper of the port by name (kernels 1's and 7's
+    training forms and backward kernels too); each counts its launches
     (kernel 1's also those of its window form that band, ``banded``, those
     of its bidirectional form, ``bidirectional``, and kernels 1's and 3's
     those that took the tensor cores, ``tensor_core``: every bf16
@@ -1678,6 +1710,8 @@ def kernel_wrappers() -> dict:
             "paged_prefill_attention_lse": ppa.paged_prefill_attention_lse,
             "decode_attention": da.decode_attention,
             "rwkv6_wkv": wkv.rwkv6_wkv,
+            "rwkv6_wkv_train": wkv.rwkv6_wkv_train,
+            "rwkv6_wkv_bwd": wkv.rwkv6_wkv_bwd,
             "int8_matmul": i8.int8_matmul}
 
 
@@ -5275,13 +5309,17 @@ def mla_teacher_forced(torch, model, params) -> None:
 # ---------------------------------------------------------------------------
 
 # kernel 1's backward, phase 1's shape first: (label, B, H, K, S, D,
-# causal, window)
-BWD_CASES = (("llama2-7b", 4, 32, 32, 512, 128, True, 0),
-             ("qwen3-1.7b train step", 4, 16, 8, 1024, 128, True, 0),
-             ("granite-moe-3b-a800m", 4, 24, 8, 512, 64, True, 0),
-             ("gemma-7b", 1, 16, 16, 2048, 256, True, 0),
-             ("hymba-1.5b window", 1, 25, 5, 2048, 64, True, 1024),
-             ("hubert-xlarge bidirectional", 4, 16, 16, 1000, 80, False, 0))
+# causal, window, v's own head dim (0: D)); hymba-1.5b, minicpm3-4b and
+# hubert-xlarge at phase 15's training shapes, minicpm3-4b's v (and dO)
+# zero-padded from 64 to q's 96 as ``_flash_padded`` pads it
+BWD_CASES = (("llama2-7b", 4, 32, 32, 512, 128, True, 0, 0),
+             ("qwen3-1.7b train step", 4, 16, 8, 1024, 128, True, 0, 0),
+             ("granite-moe-3b-a800m", 4, 24, 8, 512, 64, True, 0, 0),
+             ("gemma-7b", 1, 16, 16, 2048, 256, True, 0, 0),
+             ("hymba-1.5b window", 2, 25, 5, 2048, 64, True, 1024, 0),
+             ("hubert-xlarge bidirectional", 4, 16, 16, 1000, 80, False, 0,
+              0),
+             ("minicpm3-4b MLA", 4, 40, 40, 1024, 96, True, 0, 64))
 # kernel vs plain, of each gradient's max |g|: f32 sums in other orders;
 # bf16 rounds dq, dk, dv, the P of dV and dS to bf16
 BWD_TOL = {"bf16": 2e-2, "f32": 1e-5}
@@ -5333,18 +5371,21 @@ def check_flash_bwd(torch) -> list:
     dtypes = {"bf16": torch.bfloat16, "f32": torch.float32}
     entries = {}
     for name, dt in dtypes.items():
-        for label, B, H, K, S, D, causal, window in BWD_CASES:
+        for label, B, H, K, S, D, causal, window, dv in BWD_CASES:
             q, k, v = (torch.randn(B, S, n, D, generator=g, device="cuda",
-                                   dtype=dt).transpose(1, 2)
-                       for n in (H, K, K))
+                                   dtype=dt) for n in (H, K, K))
             do = torch.randn(B, S, H, D, generator=g, device="cuda",
-                             dtype=dt).transpose(1, 2)
+                             dtype=dt)
+            if dv:          # o's padded columns are cut: their dO is 0
+                v, do = (F.pad(t[..., :dv], (0, D - dv)) for t in (v, do))
+            q, k, v, do = (t.transpose(1, 2) for t in (q, k, v, do))
             kw = dict(causal=causal, window=window)
             o, lse = fa.flash_attention_lse(q, k, v, **kw)
             o_ref, lse_ref = fa.flash_attention_lse_ref(q, k, v, **kw)
             tag = (f"{name} B={B} H={H} K={K} S={S} D={D} "
                    f"{'causal' if causal else 'bidirectional'}"
-                   f"{f' W={window}' if window else ''} ({label})")
+                   f"{f' W={window}' if window else ''}"
+                   f"{f' v padded from {dv}' if dv else ''} ({label})")
             err_o = held(f"flash_attention_lse {tag}: o", o, o_ref, name)
             err_l = (lse - lse_ref).abs().max().item()
             print(f"flash_attention_lse {tag}: lse max_abs_err={err_l:.3e} "
@@ -5436,19 +5477,40 @@ def check_flash_bwd(torch) -> list:
     return [entries["flash_attention_lse"], entries["flash_attention_bwd"]]
 
 
-class plain_attention_grad:
-    """Within the block, ``ops.FlashAttentionFn`` runs kernel 1's training
-    forward and backward through their plain versions on CUDA tensors."""
+class plain_grad_route:
+    """Within the block, ``ops.FlashAttentionFn`` and ``ops.WkvFn`` run
+    kernels 1 and 7's training forms and backward kernels through their
+    plain versions on CUDA tensors."""
 
     def __enter__(self):
         from repro_torch.kernels import flash_attention as fa
-        self.fa = fa
-        self.saved = fa.flash_attention_lse, fa.flash_attention_bwd
-        fa.flash_attention_lse = fa.flash_attention_lse_ref
-        fa.flash_attention_bwd = fa.flash_attention_bwd_ref
+        from repro_torch.kernels import rwkv6_wkv as wkv
+        self.saved = [(mod, name, getattr(mod, name)) for mod, name in (
+            (fa, "flash_attention_lse"), (fa, "flash_attention_bwd"),
+            (wkv, "rwkv6_wkv_train"), (wkv, "rwkv6_wkv_bwd"))]
+        for mod, name, _ in self.saved:
+            setattr(mod, name, getattr(mod, name + "_ref"))
 
     def __exit__(self, *exc):
-        self.fa.flash_attention_lse, self.fa.flash_attention_bwd = self.saved
+        for mod, name, fn in self.saved:
+            setattr(mod, name, fn)
+
+
+def grads_vs_plain(torch, model, params, batch) -> tuple:
+    """The loss and every grad leaf through the kernels against the plain
+    route's: (loss kernels, loss plain, the loss's relative error, the
+    worst leaf's max |diff| over its max |g|)."""
+    from repro_torch.models.layers import tree_leaves
+    from repro_torch.training.train_step import _value_and_grad
+    loss_k, g_k = _value_and_grad(model, params, *batch)
+    with plain_grad_route():
+        loss_p, g_p = _value_and_grad(model, params, *batch)
+    worst = 0.0
+    for a, b in zip(tree_leaves(g_k), tree_leaves(g_p)):
+        worst = max(worst, ((a - b).abs().max()
+                            / b.abs().max().clamp_min(1e-30)).item())
+    rel = abs(float(loss_k) - float(loss_p)) / abs(float(loss_p))
+    return float(loss_k), float(loss_p), rel, worst
 
 
 def plain_calls() -> int:
@@ -5476,24 +5538,40 @@ def train_model(torch, layers=None, compute=None):
     return model, params
 
 
+def pipe_batch(pipe, cfg):
+    """The pipeline's next batch: tokens, or for the encoder frame
+    embeddings (as ``launch/train.py`` chooses by ``input_kind``)."""
+    if cfg.input_kind == "embeds":
+        return pipe.next_embed_batch(cfg.d_model)
+    return pipe.next_batch()
+
+
+def first_batch(cfg, B: int, S: int):
+    """``TokenPipeline``'s first batch of B x S for ``cfg`` (seed 0)."""
+    from repro_torch.training.data import DataConfig, TokenPipeline
+    return pipe_batch(TokenPipeline(DataConfig(cfg.vocab_size, B, S)), cfg)
+
+
 def train_run(torch, model, params, steps: int, *, start: int = 0,
-              state=None, save=None):
-    """``steps`` AdamW steps of ``TRAIN``'s setup from data step
-    ``start``: (losses, params, state, step ms).  ``save`` = (dir, step):
-    a checkpoint after that step, as ``launch/train.py`` writes one."""
+              state=None, save=None, setup=TRAIN):
+    """``steps`` AdamW steps of ``setup`` (``TRAIN``'s by default) from
+    data step ``start``, on ``TokenPipeline``'s tokens or, for the
+    encoder, its frame embeddings: (losses, params, state, step ms).
+    ``save`` = (dir, step): a checkpoint after that step, as
+    ``launch/train.py`` writes one."""
     from repro_torch.training.checkpoint import save_checkpoint
     from repro_torch.training.data import DataConfig, TokenPipeline
     from repro_torch.training.optimizer import AdamWConfig, init_opt_state
     from repro_torch.training.train_step import make_train_step
-    opt_cfg = AdamWConfig(lr=TRAIN["lr"], warmup_steps=TRAIN["warmup"],
-                          total_steps=TRAIN["steps"])
+    opt_cfg = AdamWConfig(lr=setup["lr"], warmup_steps=setup["warmup"],
+                          total_steps=setup["steps"])
     step_fn = make_train_step(model, opt_cfg)
     state = state if state is not None else init_opt_state(params)
-    pipe = TokenPipeline(DataConfig(model.cfg.vocab_size, TRAIN["batch"],
-                                    TRAIN["seq"]), step=start)
+    pipe = TokenPipeline(DataConfig(model.cfg.vocab_size, setup["batch"],
+                                    setup["seq"]), step=start)
     losses, ms = [], []
     for i in range(start, steps):
-        batch = pipe.next_batch()
+        batch = pipe_batch(pipe, model.cfg)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         params, state, met = step_fn(params, state, *batch)
@@ -5505,10 +5583,17 @@ def train_run(torch, model, params, steps: int, *, start: int = 0,
     return losses, params, state, ms
 
 
-def train_trace(torch, model, params, state, batch) -> None:
+KERNEL1_GROUPS = (("kernel 1 forward (flash_kernel)", ("flash_kernel",)),
+                  ("kernel 1 backward (bwd_delta, bwd_dkdv, bwd_dq)",
+                   ("bwd_delta", "bwd_dkdv", "bwd_dq")))
+
+
+def train_trace(torch, model, params, state, batch, *, title="phase 14",
+                groups=KERNEL1_GROUPS, by_pass=True) -> None:
     """One traced train step: device busy, idle share against the step's
-    host wall, the kernels that take the time, kernel 1's forward and
-    backward shares, the backward's split by pass."""
+    host wall, the kernels that take the time, the shares of ``groups``'
+    kernels (kernel 1's forward and backward by default) and of the GEMMs,
+    and with ``by_pass`` kernel 1's backward split by pass."""
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.training.optimizer import AdamWConfig
     from repro_torch.training.train_step import make_train_step
@@ -5528,22 +5613,21 @@ def train_trace(torch, model, params, state, batch) -> None:
             rows.append((dev_us, e.count, e.key))
     busy = sum(r[0] for r in rows) / 1e3
     n_ops = sum(r[1] for r in rows)
-    print(f"phase 14 traced train step: host wall {wall:.1f} ms (traced), "
+    print(f"{title} traced train step: host wall {wall:.1f} ms (traced), "
           f"device busy {busy:.1f} ms over {n_ops} device ops, idle share "
           + (f"{1 - busy / wall:.3f}" if busy else "not measured"),
           flush=True)
     for dev_us, count, key in sorted(rows, reverse=True)[:12]:
         print(f"  {dev_us / 1e3:9.3f} ms  {count:5d}x  {key[:90]}",
               flush=True)
-    for label, keys in (("kernel 1 forward (flash_kernel)", ("flash_kernel",)),
-                        ("kernel 1 backward (bwd_delta, bwd_dkdv, bwd_dq)",
-                         BWD_PASSES),
-                        ("GEMMs (gemm / nvjet / cutlass)",
-                         ("gemm", "nvjet", "cutlass", "sm90_xmma"))):
+    for label, keys in (*groups, ("GEMMs (gemm / nvjet / cutlass)",
+                                  ("gemm", "nvjet", "cutlass", "sm90_xmma"))):
         ms = sum(r[0] for r in rows if any(k in r[2] for k in keys)) / 1e3
         n = sum(r[1] for r in rows if any(k in r[2] for k in keys))
         print(f"  {label}: {ms:.3f} ms over {n} launches, share "
               f"{ms / busy if busy else 0:.3f} of device busy", flush=True)
+    if not by_pass:
+        return
     # each pass beside the total: the launches of a train step run inside
     # autograd's backward, where the trace holds every one of them
     print("  kernel 1 backward by pass: " + ", ".join(
@@ -5580,11 +5664,9 @@ def training_phase(torch) -> dict:
     import shutil
     import statistics
     from repro_torch.configs import get_config
-    from repro_torch.models.layers import tree_leaves
     from repro_torch.training.checkpoint import restore_checkpoint
     from repro_torch.training.data import DataConfig, TokenPipeline
     from repro_torch.training.optimizer import init_opt_state
-    from repro_torch.training.train_step import _value_and_grad
     cfg = get_config("qwen3-1.7b")
     n_tok = TRAIN["batch"] * TRAIN["seq"]
 
@@ -5642,7 +5724,8 @@ def training_phase(torch) -> dict:
                           "paged_decode_attention_lse",
                           "paged_prefill_attention",
                           "paged_prefill_attention_lse", "decode_attention",
-                          "rwkv6_wkv", "int8_matmul") if la[n]]
+                          "rwkv6_wkv", "rwkv6_wkv_train", "rwkv6_wkv_bwd",
+                          "int8_matmul") if la[n]]
     if others:
         fail(f"phase 14: kernels {others} launched on the train path")
     batch = TokenPipeline(DataConfig(cfg.vocab_size, TRAIN["batch"],
@@ -5654,22 +5737,15 @@ def training_phase(torch) -> dict:
 
     # (c) kernel route against plain route: 2 layers at full width, f32
     model, params = train_model(torch, layers=2, compute=torch.float32)
-    loss_k, g_k = _value_and_grad(model, params, *batch)
-    with plain_attention_grad():
-        loss_p, g_p = _value_and_grad(model, params, *batch)
-    worst = 0.0
-    for a, b in zip(tree_leaves(g_k), tree_leaves(g_p)):
-        worst = max(worst, ((a - b).abs().max()
-                            / b.abs().max().clamp_min(1e-30)).item())
-    rel = abs(float(loss_k) - float(loss_p)) / abs(float(loss_p))
+    loss_k, loss_p, rel, worst = grads_vs_plain(torch, model, params, batch)
     print(f"phase 14 (c) qwen3-1.7b 2 layers at full width, f32 plan: loss "
-          f"kernels {float(loss_k):.6f} plain {float(loss_p):.6f} (rel "
+          f"kernels {loss_k:.6f} plain {loss_p:.6f} (rel "
           f"{rel:.2e}, tol 1e-5); worst grad leaf max|diff| / max|g| "
           f"{worst:.2e} (tol 1e-4: f32 sums in other orders)", flush=True)
     if not (rel <= 1e-5 and worst <= 1e-4):
         fail("phase 14 (c): grads through the kernels differ from the plain "
              "route's")
-    del model, params, g_k, g_p
+    del model, params
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -5709,6 +5785,291 @@ def training_phase(torch) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     return la
+
+
+# ---------------------------------------------------------------------------
+# phase 15: training of rwkv6-3b, hymba-1.5b, minicpm3-4b and hubert-xlarge
+# ---------------------------------------------------------------------------
+
+# kernel 7's backward against its plain version: (label, B, T, H, D, s0 and
+# dS_T random (else a zero state and no dS_T)), the training shape first
+WKV_BWD_CASES = (("rwkv6-3b train step", 4, 1024, 40, 64, False),
+                 ("ragged T", 2, 333, 40, 64, True),
+                 ("D=48", 2, 200, 8, 48, True),
+                 ("D=96", 2, 200, 8, 96, True),
+                 ("D=128", 2, 200, 8, 128, True))
+# the four families' training runs: (arch, layers (None: all), batch, seq,
+# steps), every width as published.  hymba-1.5b at seq 2048 so its window
+# of 1024 masks keys; hymba and minicpm3-4b cut to 8 layers for the time
+# limit (PERF.md §4).  rwkv6-3b's f32 parameters and AdamW moments take
+# 34.6 GiB and its grads 11.6 (3.1 B parameters); at batch 4 x 1024 its
+# activations left the allocator too little room and a step ran out of the
+# card's memory, so it trains at batch 2 x 1024
+TRAIN15 = (("rwkv6-3b", None, 2, 1024, 5), ("hymba-1.5b", 8, 2, 2048, 5),
+           ("minicpm3-4b", 8, 4, 1024, 5),
+           ("hubert-xlarge", None, 4, 1000, 5))
+# (d)'s 2-layer f32 checks: (arch, batch, seq)
+PLAIN15 = (("rwkv6-3b", 2, 512), ("hymba-1.5b", 1, 2048),
+           ("minicpm3-4b", 2, 512), ("hubert-xlarge", 2, 500))
+KERNEL7_GROUPS = (("kernel 7 training forward (wkv_kernel)", ("wkv_kernel",)),
+                  ("kernel 7 backward (wkv_bwd_kernel)", ("wkv_bwd_kernel",)))
+
+
+def wkv_bwd_bound(B: int, T: int, H: int, D: int, el: int, ds_in: bool):
+    """(bound ms, what bounds it, bytes, flops) of one backward call: r, k,
+    v and dy (``el`` bytes) and w (f32) read once, u, the checkpoints and
+    dS_T (when given) read once; dr, dk, dv (``el``) and dw (f32) written
+    once, du and ds0 once.  Its flops, per step and (b, h): 14 an entry of
+    the state (the state recomputed from its checkpoint, w S + k v^T, 3;
+    S dy, G v, G^T k and the row sums of G * S, 2 each; G's update, 3) and
+    12 a row (v . dy, c_t and the u terms)."""
+    from repro_torch.kernels import rwkv6_wkv as wkv
+    n_ck = -(-T // wkv.wkv_chunk(D))
+    n_bytes = (B * T * H * D * (4 * el + 4) + H * D * 4
+               + B * H * n_ck * D * D * 4 + ds_in * B * H * D * D * 4
+               + B * T * H * D * (3 * el + 4) + H * D * 4
+               + B * H * D * D * 4)
+    flops = B * T * H * (14 * D * D + 12 * D)
+    bound, by = bound_of(n_bytes, flops, "f32")
+    return bound, by, n_bytes, flops
+
+
+def check_wkv_bwd(torch) -> list:
+    """Phase 15 (a): kernel 7's training form and backward against their
+    plain versions at ``WKV_BWD_CASES`` in bf16 and f32 r/k/v: the
+    training form's y and final state bit for bit the serve form's, its
+    checkpoints and y against the plain training form; the backward's six
+    gradients (dr, dk, dv, dw, du, ds0) from the kernel's checkpoints
+    against ``rwkv6_wkv_bwd_ref`` from the same (each by its max abs error
+    over max |plain| and its norm error, ``held_scaled``), two calls the
+    same bits.  The training shape is timed in bf16: events and device
+    time, the plain version, the bound (no PyTorch call computes the
+    recurrence, so no library time).  Returns the kernels line's entries
+    of the training form and the backward."""
+    from repro_torch.kernels import rwkv6_wkv as wkv
+    g = torch.Generator(device="cuda").manual_seed(15)
+    entries = {}
+    for name, dt in (("bf16", torch.bfloat16), ("f32", torch.float32)):
+        for label, B, T, H, D, rand in WKV_BWD_CASES:
+            r, k, v, w, u, s0 = _wkv_inputs(torch, g, B, T, H, D, dt,
+                                            not rand)
+            dy = torch.randn(B, T, H, D, generator=g, device="cuda",
+                             dtype=dt)
+            ds = (torch.randn(B, H, D, D, generator=g, device="cuda")
+                  if rand else None)
+            tag = (f"{name} B={B} T={T} H={H} D={D} C={wkv.wkv_chunk(D)} "
+                   f"s0/dS_T={'random' if rand else 'none'} ({label})")
+            y, s, ck = wkv.rwkv6_wkv_train(r, k, v, w, u, s0)
+            y_serve, s_serve = wkv.rwkv6_wkv(r, k, v, w, u, s0)
+            if not (torch.equal(y, y_serve) and torch.equal(s, s_serve)):
+                fail(f"rwkv6_wkv_train {tag}: y or the state differ from the "
+                     f"serve form's bits")
+            y_ref, _, ck_ref = wkv.rwkv6_wkv_train_ref(r, k, v, w, u, s0)
+            err_y = held_scaled(f"rwkv6_wkv_train {tag} y", y, y_ref, name)
+            held_scaled(f"rwkv6_wkv_train {tag} checkpoints", ck, ck_ref,
+                        "f32")
+            got = wkv.rwkv6_wkv_bwd(r, k, v, w, u, ck, dy, ds)
+            again = wkv.rwkv6_wkv_bwd(r, k, v, w, u, ck, dy, ds)
+            want = wkv.rwkv6_wkv_bwd_ref(r, k, v, w, u, ck, dy, ds)
+            torch.cuda.synchronize()
+            errs = [held_scaled(f"rwkv6_wkv_bwd {tag} {gname}", a, b, name)
+                    for gname, a, b in zip(("dr", "dk", "dv", "dw", "du",
+                                            "ds0"), got, want)]
+            if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                fail(f"rwkv6_wkv_bwd {tag}: two calls differ")
+            print(f"rwkv6_wkv_bwd {tag}: two calls give the same bits",
+                  flush=True)
+            if name != "bf16" or label != WKV_BWD_CASES[0][0]:
+                continue
+            el = r.element_size()
+            bound, by, n_bytes, flops = wkv_bwd_bound(B, T, H, D, el,
+                                                      ds is not None)
+            call = lambda: wkv.rwkv6_wkv_bwd(  # noqa: E731
+                r, k, v, w, u, ck, dy, ds)
+            ms, lo, hi = spread_ms(call)
+            dev = device_ms(torch, call)
+            plain = cuda_ms(lambda: wkv.rwkv6_wkv_bwd_ref(
+                r, k, v, w, u, ck, dy, ds), iters=2, warmup=1)
+            print(f"rwkv6_wkv_bwd {tag}: kernel {spread(ms, lo, hi)}, device "
+                  f"{dev:.4f} ms, plain {plain:.4f} ms, library none (no "
+                  f"PyTorch call computes the recurrence), bound {bound:.4f} "
+                  f"ms ({by}: {n_bytes} B, {flops} flop; "
+                  f"{flops / ms / 1e9:.2f} TFLOP/s)", flush=True)
+            entries["rwkv6_wkv_bwd"] = {
+                "name": "rwkv6_wkv_bwd", "route": "cuda",
+                "source": "src/repro_torch/csrc/rwkv6_wkv_bwd.cu",
+                "replaces": "none: port-only, the reference's gradient is "
+                            "XLA autodiff of _wkv_chunk "
+                            "(src/repro/models/ssm.py:214)",
+                "max_abs_err": max(errs), "ms": ms, "ms_min": lo,
+                "ms_max": hi, "call_ms": dev, "plain_ms": plain,
+                "bound_ms": bound, "bound_by": by, "library_ms": None}
+            fwd = lambda: wkv.rwkv6_wkv_train(r, k, v, w, u, s0)  # noqa: E731
+            f_ms, f_lo, f_hi = spread_ms(fwd)
+            serve_ms = cuda_ms(lambda: wkv.rwkv6_wkv(r, k, v, w, u, s0))
+            f_plain = cuda_ms(lambda: wkv.rwkv6_wkv_train_ref(
+                r, k, v, w, u, s0), iters=2, warmup=1)
+            fb, fby, fbytes, fflops = wkv_bound(B, T, H, D, el, False)
+            ck_bytes = ck.numel() * 4
+            fb, fby = bound_of(fbytes + ck_bytes, fflops, "f32")
+            print(f"rwkv6_wkv_train {tag}: kernel {spread(f_ms, f_lo, f_hi)} "
+                  f"(the serve form {serve_ms:.4f} ms), plain {f_plain:.4f} "
+                  f"ms, bound {fb:.4f} ms ({fby}: {fbytes + ck_bytes} B with "
+                  f"{ck_bytes} B of checkpoints, {fflops} flop)", flush=True)
+            entries["rwkv6_wkv_train"] = {
+                "name": "rwkv6_wkv_train", "route": "cuda",
+                "source": "src/repro_torch/csrc/rwkv6_wkv.cu",
+                "replaces": "src/repro/kernels/rwkv6_wkv.py:52",
+                "max_abs_err": err_y, "ms": f_ms, "ms_min": f_lo,
+                "ms_max": f_hi, "plain_ms": f_plain, "bound_ms": fb,
+                "bound_by": fby, "library_ms": None}
+    return [entries["rwkv6_wkv_train"], entries["rwkv6_wkv_bwd"]]
+
+
+def plain_wkv_calls() -> int:
+    from repro_torch.kernels import rwkv6_wkv as wkv
+    return wkv.rwkv6_wkv_train_ref.calls + wkv.rwkv6_wkv_bwd_ref.calls
+
+
+def train_model15(torch, arch: str, layers=None, compute=None):
+    """``arch`` at its published widths (depth ``layers`` where given)
+    with f32 parameters from seed 0, bf16 compute unless ``compute``."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model, local_plan
+    cfg = get_config(arch)
+    if layers is not None:
+        cfg = cfg.replace(num_layers=layers)
+    plan = local_plan(param_dtype=torch.float32,
+                      compute_dtype=compute or torch.bfloat16)
+    model = build_model(cfg, plan)
+    return model, model.init(torch.Generator(device="cuda").manual_seed(0))
+
+
+def train15(torch, arch: str, layers, B: int, S: int, steps: int) -> dict:
+    """Phase 15 (b)/(c): ``arch`` trains ``steps`` AdamW steps at full
+    width (f32 parameters, bf16 compute) on B x S of ``TokenPipeline``'s
+    tokens or frames: finite losses; the first step's batch's loss after
+    the run below its loss at the first step; on tokens, the mean loss of
+    steps 2..N on their fresh batches below step 1's (the encoder's labels
+    are uniform draws independent of its frames, so nothing it learns
+    carries to a fresh batch: PERF.md §7); rwkv6-3b launches kernel
+    7's training form and backward once a layer and step and no other
+    kernel, the others kernel 1's training forward and backward (every
+    bf16 backward on the tensor cores) and no other kernel; no plain
+    attention or WKV call; median step ms, tokens/s, peak memory,
+    ``nvidia-smi`` during the steps, one traced step.  Returns the run's
+    launches."""
+    import statistics
+    from repro_torch.configs import get_config
+    gc.collect()
+    torch.cuda.empty_cache()
+    model, params = train_model15(torch, arch, layers)
+    cfg, L = model.cfg, model.cfg.num_layers
+    n_par = sum(t.numel() for t in _leaves(params))
+    print(f"phase 15 {arch} full width: {L} layers"
+          f"{f' (of {get_config(arch).num_layers})' if layers else ''} "
+          f"d_model {cfg.d_model} heads {cfg.n_heads}/{cfg.n_kv_heads} x "
+          f"{cfg.head_dim} d_ff {cfg.d_ff} vocab {cfg.vocab_size}; {n_par} "
+          f"params in f32, bf16 compute, AdamW, "
+          f"{'frame embeddings' if cfg.input_kind == 'embeds' else 'tokens'}"
+          f" batch {B} x seq {S}", flush=True)
+    from repro_torch.training.train_step import make_eval_step
+    setup = dict(batch=B, seq=S, steps=steps, lr=1e-3, warmup=2)
+    batch = first_batch(cfg, B, S)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    plain0, wplain0 = plain_calls(), plain_wkv_calls()
+    (losses, params, state, ms), smi = smi_during(
+        lambda: train_run(torch, model, params, steps, setup=setup))
+    la = read_launches()
+    after = float(make_eval_step(model)(params, *batch))
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    plain, wplain = plain_calls() - plain0, plain_wkv_calls() - wplain0
+    med = statistics.median(ms[1:])
+    want = L * steps
+    if cfg.rwkv:
+        names = ("rwkv6_wkv_train", "rwkv6_wkv_bwd")
+        what = (f"kernel 7 training forward {la[names[0]]}, backward "
+                f"{la[names[1]]}, serve form {la['rwkv6_wkv']}")
+    else:
+        names = ("flash_attention_lse", "flash_attention_bwd")
+        what = (f"kernel 1 training forward {la[names[0]]}, backward "
+                f"{la[names[1]]} (on the tensor cores "
+                f"{la['flash_attention_bwd_tensor_core']}), serve form "
+                f"{la['flash_attention']}")
+    print(f"phase 15 {arch} losses: {[round(x, 4) for x in losses]}; the "
+          f"first step's batch after the run {after:.4f} (at the first step "
+          f"{losses[0]:.4f})", flush=True)
+    print(f"phase 15 {arch} train step: {med:.1f} ms median of steps 2-"
+          f"{steps} (first {ms[0]:.1f} ms), {B * S / med * 1e3:.0f} "
+          f"tokens/s, peak {peak:.2f} GiB allocated; {what} ({L} layers x "
+          f"{steps} steps); plain attention calls {plain}, plain WKV calls "
+          f"{wplain}", flush=True)
+    print(f"phase 15 {arch} card during the steps ({len(smi)} nvidia-smi "
+          f"readings, median): " + ", ".join(
+              f"{f} {statistics.median(r[i] for r in smi if r[i] is not None)}"
+              f"{u}" for i, (f, u) in enumerate(SMI_FIELDS)
+              if any(r[i] is not None for r in smi)), flush=True)
+    fresh = statistics.fmean(losses[1:])
+    print(f"phase 15 {arch} mean loss of steps 2-{steps} {fresh:.4f} "
+          f"(step 1 {losses[0]:.4f}; held below it on tokens)", flush=True)
+    if (not all(map(math.isfinite, losses)) or not after < losses[0]
+            or (cfg.input_kind == "tokens" and not fresh < losses[0])):
+        fail(f"phase 15 {arch}: the loss is not finite and falling: {losses}"
+             f", the first batch's after the run {after}")
+    if la[names[0]] != want or la[names[1]] != want:
+        fail(f"phase 15 {arch}: training launches {la[names[0]]}/"
+             f"{la[names[1]]} != {L} layers x {steps} steps")
+    if not cfg.rwkv and la["flash_attention_bwd_tensor_core"] != want:
+        fail(f"phase 15 {arch}: {la['flash_attention_bwd_tensor_core']} of "
+             f"{want} bf16 backward launches took the tensor cores")
+    others = [n for n in kernel_wrappers() if la[n] and n not in names]
+    if others or plain or wplain:
+        fail(f"phase 15 {arch}: kernels {others}, {plain} plain attention "
+             f"and {wplain} plain WKV calls on the train path")
+    train_trace(torch, model, params, state, batch,
+                title=f"phase 15 {arch}",
+                groups=KERNEL7_GROUPS if cfg.rwkv else KERNEL1_GROUPS,
+                by_pass=not cfg.rwkv)
+    del model, params, state
+    gc.collect()
+    torch.cuda.empty_cache()
+    return la
+
+
+def kernels_vs_plain15(torch, arch: str, B: int, S: int) -> None:
+    """Phase 15 (d): 2 layers of ``arch`` at full width in an f32 plan on
+    one batch: the loss and every grad leaf through the kernels against
+    the plain route's (kernels 1 and 7's training forms and backward
+    kernels through their plain versions): loss within 1e-5 relative,
+    each leaf within 1e-4 of its max |g| (f32 sums in other orders)."""
+    model, params = train_model15(torch, arch, 2, compute=torch.float32)
+    batch = first_batch(model.cfg, B, S)
+    loss_k, loss_p, rel, worst = grads_vs_plain(torch, model, params, batch)
+    print(f"phase 15 (d) {arch} 2 layers at full width, f32 plan, batch {B} "
+          f"x {S}: loss kernels {loss_k:.6f} plain {loss_p:.6f} (rel "
+          f"{rel:.2e}, tol 1e-5); worst grad leaf max|diff| / max|g| "
+          f"{worst:.2e} (tol 1e-4)", flush=True)
+    if not (rel <= 1e-5 and worst <= 1e-4):
+        fail(f"phase 15 (d) {arch}: grads through the kernels differ from "
+             f"the plain route's")
+    del model, params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def training15_phase(torch) -> dict:
+    """Phase 15 (b)-(d): the four families train at full width, then
+    kernels against plain at 2 layers in f32.  Returns the launches of
+    the training runs."""
+    total = {}
+    for arch, layers, B, S, steps in TRAIN15:
+        for name, n in train15(torch, arch, layers, B, S, steps).items():
+            total[name] = total.get(name, 0) + n
+    for arch, B, S in PLAIN15:
+        kernels_vs_plain15(torch, arch, B, S)
+    return total
 
 
 def main() -> int:
@@ -5859,6 +6220,13 @@ def main() -> int:
     for name, n in training_phase(torch).items():
         launches[name] += n
     print(f"phase 14 done at {time.perf_counter() - t_start:.1f} s",
+          flush=True)
+
+    # phase 15: the other four families train (phase 14's models are gone)
+    entries += check_wkv_bwd(torch)
+    for name, n in training15_phase(torch).items():
+        launches[name] += n
+    print(f"phase 15 done at {time.perf_counter() - t_start:.1f} s",
           flush=True)
     for e in entries:
         e["launches"] = launches[e["name"]]

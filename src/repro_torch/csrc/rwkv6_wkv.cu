@@ -72,6 +72,14 @@
 // longer call gives; the other warps step meanwhile and wait for c_t only
 // to add v_j c_t to y; the producer warp returns at once.
 //
+// The training form (CK = true; rwkv6_wkv.py rwkv6_wkv_train) is the same
+// kernel that also writes each lane's entries of S to the checkpoints
+// before every step t with t % C == 0 (C a power of two, wkv_chunk: 64 at
+// D = 64), where the lane holds S_t: the steps' arithmetic, and so y and
+// the final state, are the serve form's bit for bit.  Kernel 7's backward
+// (rwkv6_wkv_bwd.cu) recomputes each chunk's states from them.  The
+// serve form (CK = false) compiles to the code it always had.
+//
 // A lane reads its entries of S straight into registers at the start and
 // writes them back at the end, and no other lane touches them, so s_out
 // may be s0: the slot pool's decode updates its state in place.  s0 ==
@@ -246,13 +254,14 @@ __device__ __forceinline__ void reduce_half(float (&v)[Q], int q) {
   }
 }
 
-template <typename T, int D, int Q>
+template <typename T, int D, int Q, bool CK>
 __global__ void __launch_bounds__(MAX_THREADS + 32)
 wkv_kernel(const T* __restrict__ r, const T* __restrict__ k,
            const T* __restrict__ v, const float* __restrict__ w,
            const float* __restrict__ u, const float* s0, float* s_out,
            T* __restrict__ y, int H, int Tlen, int JC, Strides sr,
-           Strides sk, Strides sv, Strides sw, bool vec) {
+           Strides sk, Strides sv, Strides sw, bool vec,
+           float* __restrict__ ck, int c_shift) {
   constexpr int R = D / Q;                       // rows a lane keeps
   constexpr int V = row_block(D);                // rows a block
   constexpr int A = R / V;                       // blocks a lane
@@ -331,6 +340,22 @@ wkv_kernel(const T* __restrict__ r, const T* __restrict__ k,
       S[a * V + e] =
           s0 ? s0[s_off + (size_t)(a * V * Q + V * q + e) * D] : 0.f;
 
+  // the training form: this lane's entries of S_t into checkpoint t / C
+  // when t is a multiple of C (the state before step t)
+  const int n_ck = CK ? (Tlen + (1 << c_shift) - 1) >> c_shift : 0;
+  auto checkpoint = [&](int t) {
+    if constexpr (CK) {
+      if ((t & ((1 << c_shift) - 1)) == 0) {
+        float* dst = ck + ((size_t)bh * n_ck + (t >> c_shift)) * D * D + j;
+#pragma unroll
+        for (int a = 0; a < A; ++a)
+#pragma unroll
+          for (int e = 0; e < V; ++e)
+            dst[(size_t)(a * V * Q + V * q + e) * D] = S[a * V + e];
+      }
+    }
+  };
+
   // this lane's rows of step tt of the tile in ``buf``
   auto load = [&](int buf, int tt) {
     Row<R> x;
@@ -405,6 +430,7 @@ wkv_kernel(const T* __restrict__ r, const T* __restrict__ k,
     }
     for (int tt = 0; tt < Tlen; ++tt) {
       if (tt > 0) x = load_global(tt);
+      checkpoint(tt);
       float yp = step(x);
 #pragma unroll
       for (int o = Q / 2; o > 0; o >>= 1)
@@ -427,6 +453,7 @@ wkv_kernel(const T* __restrict__ r, const T* __restrict__ k,
         for (int uu = 0; uu < Q; ++uu) {  // step uu + 1's rows load while
           Row<R> nx;                     // step uu computes
           if (uu + 1 < Q) nx = load(buf, tt0 + uu + 1);
+          checkpoint(t0 + tt0 + uu);
           yp[uu] = step(x);
           if (uu + 1 < Q) x = nx;
         }
@@ -441,6 +468,7 @@ wkv_kernel(const T* __restrict__ r, const T* __restrict__ k,
       }
       for (int tt = tt0; tt < cnt; ++tt) {  // the rest, one at a time
         const Row<R> x = load(buf, tt);
+        checkpoint(t0 + tt);
         float yp = step(x);
 #pragma unroll
         for (int o = Q / 2; o > 0; o >>= 1)
@@ -467,28 +495,32 @@ wkv_kernel(const T* __restrict__ r, const T* __restrict__ k,
 // the instantiated (D, Q) pairs: the plan's Q (wkv_plan's _LANES: 4 at
 // D = 64, D / 8 or the nearest power of two elsewhere), and D = 64 also
 // at Q = 2, 8 and 16 for the plan's sweep.  Every pair of one D gives the
-// same bits
+// same bits.  The training form takes the plan's Q only
 template <typename T>
 using Kernel = void (*)(const T*, const T*, const T*, const float*,
                         const float*, const float*, float*, T*, int, int, int,
-                        Strides, Strides, Strides, Strides, bool);
+                        Strides, Strides, Strides, Strides, bool, float*,
+                        int);
 
-template <typename T>
+template <typename T, bool CK>
 Kernel<T> kernel_of(int D, int Q) {
   switch (D * 64 + Q) {
-    case 16 * 64 + 2: return wkv_kernel<T, 16, 2>;
-    case 32 * 64 + 4: return wkv_kernel<T, 32, 4>;
-    case 48 * 64 + 4: return wkv_kernel<T, 48, 4>;
-    case 64 * 64 + 2: return wkv_kernel<T, 64, 2>;
-    case 64 * 64 + 4: return wkv_kernel<T, 64, 4>;
-    case 64 * 64 + 8: return wkv_kernel<T, 64, 8>;
-    case 64 * 64 + 16: return wkv_kernel<T, 64, 16>;
-    case 80 * 64 + 8: return wkv_kernel<T, 80, 8>;
-    case 96 * 64 + 8: return wkv_kernel<T, 96, 8>;
-    case 112 * 64 + 8: return wkv_kernel<T, 112, 8>;
-    case 128 * 64 + 8: return wkv_kernel<T, 128, 8>;
-    default: return nullptr;
+    case 16 * 64 + 2: return wkv_kernel<T, 16, 2, CK>;
+    case 32 * 64 + 4: return wkv_kernel<T, 32, 4, CK>;
+    case 48 * 64 + 4: return wkv_kernel<T, 48, 4, CK>;
+    case 64 * 64 + 4: return wkv_kernel<T, 64, 4, CK>;
+    case 80 * 64 + 8: return wkv_kernel<T, 80, 8, CK>;
+    case 96 * 64 + 8: return wkv_kernel<T, 96, 8, CK>;
+    case 112 * 64 + 8: return wkv_kernel<T, 112, 8, CK>;
+    case 128 * 64 + 8: return wkv_kernel<T, 128, 8, CK>;
   }
+  if (CK) return nullptr;             // the sweep's pairs serve only
+  switch (D * 64 + Q) {
+    case 64 * 64 + 2: return wkv_kernel<T, 64, 2, false>;
+    case 64 * 64 + 8: return wkv_kernel<T, 64, 8, false>;
+    case 64 * 64 + 16: return wkv_kernel<T, 64, 16, false>;
+  }
+  return nullptr;
 }
 
 bool aligned(const void* p, const Strides& s, int el) {
@@ -500,10 +532,13 @@ template <typename T>
 int launch(const void* r, const void* k, const void* v, const float* w,
            const float* u, const float* s0, float* s_out, void* y, int B,
            int Tlen, int H, int D, int JC, int Q, const Strides* st,
-           cudaStream_t stream) {
-  const Kernel<T> fn = kernel_of<T>(D, Q);
+           float* ck, int C, cudaStream_t stream) {
+  const Kernel<T> fn = ck != nullptr ? kernel_of<T, true>(D, Q)
+                                      : kernel_of<T, false>(D, Q);
+  int c_shift = 0;
+  while ((1 << c_shift) < C) ++c_shift;
   if (fn == nullptr || JC < 1 || D % JC != 0 || JC * Q % 32 != 0 ||
-      JC * Q > MAX_THREADS)
+      JC * Q > MAX_THREADS || (ck != nullptr && (C < 1 || C != 1 << c_shift)))
     return (int)cudaErrorInvalidValue;
   const int el = (int)sizeof(T);
   const bool vec = aligned(r, st[0], el) && aligned(k, st[1], el) &&
@@ -513,7 +548,7 @@ int launch(const void* r, const void* k, const void* v, const float* w,
   fn<<<(unsigned)grid, JC * Q + 32, 0, stream>>>(
       static_cast<const T*>(r), static_cast<const T*>(k),
       static_cast<const T*>(v), w, u, s0, s_out, static_cast<T*>(y), H, Tlen,
-      JC, st[0], st[1], st[2], st[3], vec);
+      JC, st[0], st[1], st[2], st[3], vec, ck, c_shift);
   return (int)cudaGetLastError();
 }
 
@@ -522,26 +557,29 @@ int launch(const void* r, const void* k, const void* v, const float* w,
 // r/k/v (B, T, H, D) in dtype (f32 or bf16) and w (B, T, H, D) f32, each
 // with D contiguous; u (H, D) f32; s0 (B, H, D, D) f32 or nullptr for a
 // zero state; s_out (B, H, D, D) f32, may equal s0; y (B, T, H, D)
-// contiguous in dtype.  p holds B, T, H, D, jc, q, dtype (DT_F32 or
-// DT_BF16), then the element strides of the B, T and H axes of r, k, v and
-// w; (jc, q): columns a CTA and lanes a column (wkv_plan).  Returns the
-// cudaError_t of the launch (0 = launched).
+// contiguous in dtype; ck nullptr (the serve form) or the training form's
+// checkpoints (B, H, ceil(T / C), D, D) f32.  p holds B, T, H, D, jc, q,
+// dtype (DT_F32 or DT_BF16), then the element strides of the B, T and H
+// axes of r, k, v and w, then C (the checkpoints' interval, a power of
+// two; read only with ck); (jc, q): columns a CTA and lanes a column
+// (wkv_plan).  Returns the cudaError_t of the launch (0 = launched).
 extern "C" int rwkv6_wkv(const void* r, const void* k, const void* v,
                          const float* w, const float* u, const float* s0,
-                         float* s_out, void* y, const long long* p,
-                         void* stream) {
+                         float* s_out, void* y, float* ck,
+                         const long long* p, void* stream) {
   const int B = (int)p[0], T = (int)p[1], H = (int)p[2], D = (int)p[3];
   const int jc = (int)p[4], q = (int)p[5], dtype = (int)p[6];
   if (B == 0 || H == 0) return 0;
   if (B < 0 || H < 0 || T < 0) return (int)cudaErrorInvalidValue;
   const Strides st[4] = {{p[7], p[8], p[9]}, {p[10], p[11], p[12]},
                          {p[13], p[14], p[15]}, {p[16], p[17], p[18]}};
+  const int C = (int)p[19];
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == DT_F32)
     return launch<float>(r, k, v, w, u, s0, s_out, y, B, T, H, D, jc, q, st,
-                         s);
+                         ck, C, s);
   if (dtype == DT_BF16)
     return launch<bf16>(r, k, v, w, u, s0, s_out, y, B, T, H, D, jc, q, st,
-                        s);
+                        ck, C, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -10,7 +10,9 @@ per source in parallel.  ``_build/`` sits beside ``csrc/`` and is listed in
 
 ``refuse_grad`` is every wrapper's guard: a kernel written into a tensor
 through ctypes has no ``grad_fn``, so a wrapper called where autograd
-would need one raises instead of cutting the gradient.
+would need one raises instead of cutting the gradient.  Kernels 1 and 7
+train through their ``kernels.ops`` Functions, which call the wrappers
+where no gradient is recorded.
 """
 from __future__ import annotations
 
@@ -30,7 +32,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 SMS = 132
 SOURCES = ("flash_attention", "flash_attention_bwd", "paged_decode_attention",
            "paged_prefill_attention", "paged_prefill_attention_lse",
-           "decode_attention", "rwkv6_wkv", "int8_matmul")
+           "decode_attention", "rwkv6_wkv", "rwkv6_wkv_bwd", "int8_matmul")
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 
@@ -115,8 +117,7 @@ def refuse_grad(name: str, *tensors, hint: str = "") -> None:
             t is not None and t.requires_grad for t in tensors):
         raise RuntimeError(
             f"{name}: this kernel has no backward, so its output would cut "
-            f"the gradient; training of the families that run it is not "
-            f"ported (ROADMAP.md)"
+            f"the gradient"
             + (f"; {hint}" if hint else "")
             + ". Call it under torch.no_grad() or on inputs that do not "
               "require grad.")

@@ -6,10 +6,11 @@ There is no fallback from a CUDA tensor to the plain version.  The model
 calls these through the module (``ops.flash_attention``) so one call site
 serves both devices.
 
-Under autograd ``flash_attention`` goes through ``FlashAttentionFn``:
-kernel 1's training forward and its backward kernel on CUDA, their plain
-versions on the CPU.  No other kernel has a backward, and its wrapper
-raises when it would be asked for one (``build.refuse_grad``).
+Under autograd ``flash_attention`` goes through ``FlashAttentionFn`` and
+``rwkv6_wkv`` through ``WkvFn``: kernels 1's and 7's training forms and
+their backward kernels on CUDA, their plain versions on the CPU.  No other
+kernel has a backward, and its wrapper raises when it would be asked for
+one (``build.refuse_grad``).
 """
 from __future__ import annotations
 
@@ -153,9 +154,54 @@ def decode_attention(q, k, v, positions, *, scale=None, ring=False):
     return _dense.decode_attention(q, k, v, positions, scale=scale)
 
 
+class WkvFn(torch.autograd.Function):
+    """Kernel 7 under autograd.  The forward is its training form, which
+    keeps the state every ``wkv_chunk(D)`` steps, and saves r, k, v, w, u
+    and those checkpoints; the backward is kernel 7's backward kernel
+    (``rwkv6_wkv_bwd``), which recomputes each chunk's states from its
+    checkpoint.  Returns (y, final state); the final state's gradient
+    feeds the backward where the state is used (None otherwise), and ds0
+    goes back to s0 where one was given.  On the CPU the same Function
+    runs the plain versions, so the CPU tests run its saved tensors and
+    checkpoints."""
+
+    @staticmethod
+    def forward(ctx, r, k, v, w, u, s0):
+        if _on_cpu(*(t for t in (r, k, v, w, u, s0) if t is not None)):
+            y, s, ckpt = _wkv.rwkv6_wkv_train_ref(r, k, v, w, u, s0)
+        else:
+            y, s, ckpt = _wkv.rwkv6_wkv_train(r, k, v, w, u, s0)
+        ctx.save_for_backward(r, k, v, w, u, ckpt)
+        ctx.has_s0 = s0 is not None
+        ctx.set_materialize_grads(False)
+        return y, s
+
+    @staticmethod
+    def backward(ctx, dy, ds):
+        r, k, v, w, u, ckpt = ctx.saved_tensors
+        if dy is None:
+            dy = torch.zeros_like(r)
+        if _on_cpu(r, k, v, w, u, dy):
+            grads = _wkv.rwkv6_wkv_bwd_ref(r, k, v, w, u, ckpt, dy, ds)
+        else:
+            grads = _wkv.rwkv6_wkv_bwd(
+                r, k, v, w, u, ckpt, dy,
+                None if ds is None else ds.float().contiguous())
+        dr, dk, dv, dw, du, ds0 = grads
+        return dr, dk, dv, dw, du, (ds0 if ctx.has_s0 else None)
+
+
 def rwkv6_wkv(r, k, v, w, u, s0=None, *, s_out=None):
     """RWKV6 WKV recurrence over (B, T, H, D); returns (y, final state).
-    With ``s_out`` (which may be ``s0``) the final state is written there."""
+    With ``s_out`` (which may be ``s0``) the final state is written there.
+    Under autograd (grad mode on and an input that requires grad) it is
+    ``WkvFn``, which writes no ``s_out``; otherwise the serve form."""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in (r, k, v, w, u, s0)):
+        if s_out is not None:
+            raise ValueError("rwkv6_wkv: under autograd the state is "
+                             "returned, not written into s_out")
+        return WkvFn.apply(r, k, v, w, u, s0)
     if _on_cpu(*(t for t in (r, k, v, w, u, s0, s_out) if t is not None)):
         return _wkv.rwkv6_wkv_ref(r, k, v, w, u, s0, s_out=s_out)
     return _wkv.rwkv6_wkv(r, k, v, w, u, s0, s_out=s_out)

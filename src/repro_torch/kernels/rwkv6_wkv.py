@@ -22,6 +22,27 @@ The plain version ports the oracle ``kernels/ref.py::rwkv6_wkv_ref``: a
 loop over time in f32, y cast to r's dtype once.  The reference model's
 ``_wkv_chunk`` (``models/ssm.py:214``) does the same arithmetic, chunked
 only by a carried state, so one plain version serves both parity targets.
+
+Training adds two calls (``ops.WkvFn`` ties them together).
+``rwkv6_wkv_train`` is the same launch, the same stepping body and the
+same bits for y, that also writes the state S_t before every step t that
+is a multiple of C = ``wkv_chunk(D)`` (64 at D = 64): checkpoints (B, H,
+ceil(T / C), D, D) f32, the first one s0 (or zeros).  ``rwkv6_wkv_bwd``
+launches kernel 7's backward (``csrc/rwkv6_wkv_bwd.cu``), which walks
+time backwards chunk by chunk, recomputing each chunk's states from its
+checkpoint (never recovering S_{t-1} from S_t by dividing by w, which
+underflows toward 0): with G_t = dL/dS_t (G_T = dS_T, or 0),
+
+    dr_t = S_{t-1} dy_t + u * k_t (v_t . dy_t)
+    dk_t = G_t v_t + r_t * u (v_t . dy_t)
+    dv_t = G_t^T k_t + c_t dy_t,           c_t = sum_i r_i u_i k_i
+    dw_t[i] = sum_j G_t[i, j] S_{t-1}[i, j]
+    du += r_t * k_t (v_t . dy_t)            (per (b, h), then summed over b)
+    G_{t-1} = diag(w_t) G_t + r_t dy_t^T,   ds0 = G_0.
+
+The reference has no Pallas backward: its gradient is XLA autodiff of
+``_wkv_chunk``.  ``rwkv6_wkv_bwd_ref`` is the same reverse loop in f32 in
+plain torch, for the CPU.
 """
 from __future__ import annotations
 
@@ -68,6 +89,40 @@ def wkv_plan(B: int, H: int, D: int) -> tuple[int, int]:
     return jc, q
 
 
+def wkv_chunk(D: int) -> int:
+    """C, the steps between two of the training form's checkpoints: the
+    largest power of two up to 4096 / D (64 at rwkv6-3b's D = 64), so a
+    chunk's staged r, k, v, w and dy take the backward 80 KB of shared
+    memory at every head dim."""
+    c = 1
+    while 2 * c * D <= 4096:
+        c *= 2
+    return c
+
+
+def _wkv_loop(r, k, v, w, u, s0, chunk: int | None):
+    """The oracle's loop: (y f32, final state, checkpoints or None); with
+    ``chunk`` the state before every step t % chunk == 0 is kept."""
+    B, T, H, D = r.shape
+    s = torch.zeros(B, H, D, D, dtype=torch.float32, device=r.device) \
+        if s0 is None else s0.float()
+    uf = u.float()[None]
+    ys, ck = [], []
+    for t in range(T):
+        if chunk is not None and t % chunk == 0:
+            ck.append(s)
+        rt, kt, vt, wt = (a[:, t].float() for a in (r, k, v, w))
+        at = kt[..., :, None] * vt[..., None, :]
+        bonus = (uf * kt)[..., :, None] * vt[..., None, :]
+        ys.append(torch.einsum("bhk,bhkv->bhv", rt, s + bonus))
+        s = wt[..., :, None] * s + at
+    y = torch.stack(ys, dim=1) if ys else r.new_zeros(r.shape, dtype=torch.float32)
+    if chunk is None:
+        return y, s, None
+    ck = torch.stack(ck, dim=2) if ck else s.new_zeros(B, H, 0, D, D)
+    return y, s, ck
+
+
 def rwkv6_wkv_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   w: torch.Tensor, u: torch.Tensor,
                   s0: torch.Tensor | None = None, *,
@@ -76,19 +131,62 @@ def rwkv6_wkv_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     (B, T, H, D); u (H, D); s0 (B, H, D, D) or None (zeros).  Returns
     (y (B, T, H, D) in r's dtype, s (B, H, D, D) f32); s is copied into
     ``s_out`` when given, as the kernel writes it there."""
-    B, T, H, D = r.shape
-    s = torch.zeros(B, H, D, D, dtype=torch.float32, device=r.device) \
-        if s0 is None else s0.float()
-    uf = u.float()[None]
-    ys = []
-    for t in range(T):
-        rt, kt, vt, wt = (a[:, t].float() for a in (r, k, v, w))
-        at = kt[..., :, None] * vt[..., None, :]
-        bonus = (uf * kt)[..., :, None] * vt[..., None, :]
-        ys.append(torch.einsum("bhk,bhkv->bhv", rt, s + bonus))
-        s = wt[..., :, None] * s + at
-    y = torch.stack(ys, dim=1) if ys else r.new_zeros(r.shape, dtype=torch.float32)
+    y, s, _ = _wkv_loop(r, k, v, w, u, s0, None)
     return y.to(r.dtype), (s if s_out is None else s_out.copy_(s))
+
+
+def rwkv6_wkv_train_ref(r, k, v, w, u, s0=None):
+    """Plain training form: ``rwkv6_wkv_ref``'s (y, s) and the checkpoints
+    (B, H, ceil(T / C), D, D) f32, the state before steps 0, C, 2C, ...
+    (C = ``wkv_chunk(D)``)."""
+    rwkv6_wkv_train_ref.calls += 1
+    y, s, ck = _wkv_loop(r, k, v, w, u, s0, wkv_chunk(r.shape[-1]))
+    return y.to(r.dtype), s, ck
+
+
+def rwkv6_wkv_bwd_ref(r, k, v, w, u, ckpt, dy, ds=None):
+    """Plain backward of the WKV recurrence, the kernel's reverse loop in
+    f32 (the module docstring's equations): chunk by chunk from the last,
+    the chunk's states recomputed from its checkpoint, then its steps
+    walked backwards.  r/k/v/w/dy (B, T, H, D); u (H, D); ``ckpt`` from
+    the training form; ds (B, H, D, D) the final state's gradient or None
+    (0).  Returns (dr, dk, dv in r/k/v's dtype, dw f32 (B, T, H, D), du f32
+    (H, D), ds0 f32 (B, H, D, D))."""
+    rwkv6_wkv_bwd_ref.calls += 1
+    B, T, H, D = r.shape
+    C = wkv_chunk(D)
+    rf, kf, vf, wf, dyf = (a.float() for a in (r, k, v, w, dy))
+    uf = u.float()[None]
+    G = torch.zeros(B, H, D, D, dtype=torch.float32, device=r.device) \
+        if ds is None else ds.float().clone()
+    dr, dk, dv, dw = (torch.empty(B, T, H, D, dtype=torch.float32,
+                                  device=r.device) for _ in range(4))
+    du = torch.zeros(B, H, D, dtype=torch.float32, device=r.device)
+    for n in reversed(range(ckpt.shape[2])):
+        t0, t1 = n * C, min(T, (n + 1) * C)
+        states = [ckpt[:, :, n].float()]
+        for t in range(t0, t1 - 1):
+            states.append(wf[:, t, ..., :, None] * states[-1]
+                          + kf[:, t, ..., :, None] * vf[:, t, ..., None, :])
+        for t in reversed(range(t0, t1)):
+            S = states[t - t0]
+            rt, kt, vt, wt, dyt = (a[:, t] for a in (rf, kf, vf, wf, dyf))
+            vdy = (vt * dyt).sum(-1, keepdim=True)
+            c = (rt * uf * kt).sum(-1, keepdim=True)
+            dr[:, t] = torch.einsum("bhij,bhj->bhi", S, dyt) + uf * kt * vdy
+            dk[:, t] = torch.einsum("bhij,bhj->bhi", G, vt) + rt * uf * vdy
+            dv[:, t] = torch.einsum("bhij,bhi->bhj", G, kt) + c * dyt
+            dw[:, t] = (G * S).sum(-1)
+            du += rt * kt * vdy
+            G = wt[..., :, None] * G + rt[..., :, None] * dyt[..., None, :]
+    return (dr.to(r.dtype), dk.to(k.dtype), dv.to(v.dtype), dw,
+            du.sum(0), G)
+
+
+# calls of the plain training versions: a training run on the card shows
+# that none ran there
+rwkv6_wkv_train_ref.calls = 0
+rwkv6_wkv_bwd_ref.calls = 0
 
 
 def rwkv6_wkv_split_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -144,27 +242,36 @@ def rwkv6_wkv_split_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 @functools.cache
 def _kernel():
     fn = build.library("rwkv6_wkv").rwkv6_wkv
-    fn.argtypes = [ctypes.c_void_p] * 10
+    fn.argtypes = [ctypes.c_void_p] * 11
+    fn.restype = ctypes.c_int
+    return fn
+
+
+@functools.cache
+def _bwd_kernel():
+    fn = build.library("rwkv6_wkv_bwd").rwkv6_wkv_bwd
+    fn.argtypes = [ctypes.c_void_p] * 17
     fn.restype = ctypes.c_int
     return fn
 
 
 # the launch's shape, plan, dtype and strides, one array a thread (the C
 # call reads it before it returns), filled by one slice assignment: the
-# ctypes call then converts 10 arguments, not 31
+# ctypes call then converts 11 arguments, not 32
 _LOCAL = threading.local()
 
 
-def _params():
-    arr = getattr(_LOCAL, "params", None)
+def _params(name: str = "params", n: int = 20):
+    arr = getattr(_LOCAL, name, None)
     if arr is None:
-        arr = _LOCAL.params = (ctypes.c_longlong * 19)()
-        _LOCAL.address = ctypes.addressof(arr)
-    return arr, _LOCAL.address
+        arr = (ctypes.c_longlong * n)()
+        setattr(_LOCAL, name, arr)
+        setattr(_LOCAL, name + "_address", ctypes.addressof(arr))
+    return arr, getattr(_LOCAL, name + "_address")
 
 
-def _check(r, k, v, w, u, s0, s_out) -> None:
-    build.refuse_grad("rwkv6_wkv", r, k, v, w, u, s0)
+def _check(r, k, v, w, u, s0, s_out, *, name="rwkv6_wkv", hint="") -> None:
+    build.refuse_grad(name, r, k, v, w, u, s0, hint=hint)
     dev = r.device
     if dev.type != "cuda":
         raise ValueError(f"rwkv6_wkv: r must be on a CUDA device, got {dev}")
@@ -214,21 +321,27 @@ def _check(r, k, v, w, u, s0, s_out) -> None:
             raise ValueError("rwkv6_wkv: s_out overlaps s0 without being it")
 
 
-def _launch(r, k, v, w, u, s0, s_out, jc: int, q: int):
-    """One launch at a given (JC, Q) (the wrapper's plan, or the sweep's)."""
+def _launch(r, k, v, w, u, s0, s_out, jc: int, q: int, ckpt=None):
+    """One launch at a given (JC, Q) (the wrapper's plan, or the sweep's);
+    with ``ckpt`` the training form, which writes the checkpoints there."""
     B, T, H, D = r.shape
     y = torch.empty_like(r, memory_format=torch.contiguous_format)
     if s_out is None:
         s_out = torch.empty(B, H, D, D, dtype=torch.float32, device=r.device)
     params, address = _params()
     params[:] = (B, T, H, D, jc, q, _DTYPES[r.dtype], *r.stride()[:3],
-                 *k.stride()[:3], *v.stride()[:3], *w.stride()[:3])
+                 *k.stride()[:3], *v.stride()[:3], *w.stride()[:3],
+                 0 if ckpt is None else wkv_chunk(D))
     err = _kernel()(
         r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(), u.data_ptr(),
         None if s0 is None else s0.data_ptr(), s_out.data_ptr(), y.data_ptr(),
-        address, torch.cuda.current_stream(r.device).cuda_stream)
+        None if ckpt is None else ckpt.data_ptr(), address,
+        torch.cuda.current_stream(r.device).cuda_stream)
     build.check(err, "rwkv6_wkv")
-    rwkv6_wkv.launches += 1
+    if ckpt is None:
+        rwkv6_wkv.launches += 1
+    else:
+        rwkv6_wkv_train.launches += 1
     return y, s_out
 
 
@@ -245,3 +358,79 @@ def rwkv6_wkv(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 rwkv6_wkv.launches = 0
+
+
+def rwkv6_wkv_train(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    w: torch.Tensor, u: torch.Tensor,
+                    s0: torch.Tensor | None = None):
+    """Kernel 7's training form: the serve form's launch (the same plan,
+    the same bits for y and s) that also writes the checkpoints.  Returns
+    (y, s, ckpt (B, H, ceil(T / C), D, D) f32).  ``launches`` counts these
+    launches apart from the serve form's.  ``ops.WkvFn`` calls it inside
+    its forward, where no gradient is recorded."""
+    _check(r, k, v, w, u, s0, None, name="rwkv6_wkv_train",
+           hint="ops.rwkv6_wkv carries kernel 7's backward")
+    B, T, H, D = r.shape
+    C = wkv_chunk(D)
+    ckpt = torch.empty(B, H, -(-T // C), D, D, dtype=torch.float32,
+                       device=r.device)
+    y, s = _launch(r, k, v, w, u, s0, None, *wkv_plan(B, H, D), ckpt=ckpt)
+    return y, s, ckpt
+
+
+rwkv6_wkv_train.launches = 0
+
+
+def rwkv6_wkv_bwd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  w: torch.Tensor, u: torch.Tensor, ckpt: torch.Tensor,
+                  dy: torch.Tensor, ds: torch.Tensor | None = None):
+    """Launch kernel 7's backward (one CTA a (b, h), the whole head's G in
+    its registers; no atomics).  ``ckpt`` from ``rwkv6_wkv_train``; dy
+    (B, T, H, D) in r's dtype; ds (B, H, D, D) f32 or None (0).  Returns
+    (dr, dk, dv in r's dtype, dw f32 (B, T, H, D), du f32 (H, D), ds0 f32
+    (B, H, D, D)) as ``rwkv6_wkv_bwd_ref`` does; du is the kernel's per-(b,
+    h) partials summed over b by ``sum(0)`` (no atomics: the same bits on
+    every run).  ``launches`` counts calls."""
+    _check(r, k, v, w, u, None, None, name="rwkv6_wkv_bwd")
+    B, T, H, D = r.shape
+    C = wkv_chunk(D)
+    if dy.shape != r.shape or dy.dtype != r.dtype or dy.device != r.device:
+        raise ValueError(f"rwkv6_wkv_bwd: dy {tuple(dy.shape)} {dy.dtype} on "
+                         f"{dy.device}, need r's {tuple(r.shape)} {r.dtype}")
+    if dy.stride(-1) != 1:
+        dy = dy.contiguous()
+    want = (B, H, -(-T // C), D, D)
+    if tuple(ckpt.shape) != want or ckpt.dtype != torch.float32 \
+            or not ckpt.is_contiguous() or ckpt.device != r.device:
+        raise ValueError(f"rwkv6_wkv_bwd: ckpt {tuple(ckpt.shape)} "
+                         f"{ckpt.dtype}, need contiguous f32 {want}")
+    if ds is not None and (tuple(ds.shape) != (B, H, D, D)
+                           or ds.dtype != torch.float32
+                           or not ds.is_contiguous()
+                           or ds.device != r.device):
+        raise ValueError(f"rwkv6_wkv_bwd: ds {tuple(ds.shape)} {ds.dtype}, "
+                         f"need contiguous f32 {(B, H, D, D)}")
+    dr, dk, dv = (torch.empty(B, T, H, D, dtype=r.dtype, device=r.device)
+                  for _ in range(3))
+    dw = torch.empty(B, T, H, D, dtype=torch.float32, device=r.device)
+    du_part = torch.empty(B, H, D, dtype=torch.float32, device=r.device)
+    ds0 = torch.empty(B, H, D, D, dtype=torch.float32, device=r.device)
+    # each CTA's recomputed states of one chunk, in its threads' own order
+    scratch = torch.empty(B * H * min(C, T) * D * D, dtype=torch.float32,
+                          device=r.device)
+    params, address = _params("bwd_params", 21)
+    params[:] = (B, T, H, D, C, _DTYPES[r.dtype], *r.stride()[:3],
+                 *k.stride()[:3], *v.stride()[:3], *w.stride()[:3],
+                 *dy.stride()[:3])
+    err = _bwd_kernel()(
+        r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(), u.data_ptr(),
+        ckpt.data_ptr(), None if ds is None else ds.data_ptr(), dy.data_ptr(),
+        dr.data_ptr(), dk.data_ptr(), dv.data_ptr(), dw.data_ptr(),
+        du_part.data_ptr(), ds0.data_ptr(), scratch.data_ptr(), address,
+        torch.cuda.current_stream(r.device).cuda_stream)
+    build.check(err, "rwkv6_wkv_bwd")
+    rwkv6_wkv_bwd.launches += 1
+    return dr, dk, dv, dw, du_part.sum(0), ds0
+
+
+rwkv6_wkv_bwd.launches = 0

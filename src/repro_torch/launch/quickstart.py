@@ -4,9 +4,9 @@
     PYTHONPATH=src python -m repro_torch.launch.quickstart [arch] \
         [--device cpu]
 
-Everything runs at smoke scale.  Training takes the dense and MoE token
-decoders (the default, qwen3-1.7b, is one); an architecture whose
-training is not ported raises ``NotImplementedError``.
+Everything runs at smoke scale.  Every registered architecture trains
+(the encoder on frame embeddings); an encoder-only one is not served,
+as in the reference.
 """
 import argparse
 
@@ -27,7 +27,6 @@ def main(arch: str = "qwen3-1.7b", device="cuda") -> dict:
     print(f"== {arch} (reduced config: {cfg.num_layers}L d={cfg.d_model}) ==")
     model = build_model(cfg, local_plan(param_dtype=torch.float32),
                         device=device)
-    model.check_trainable()
     params = model.init(torch.Generator(device=device).manual_seed(0))
     print(f"params: {sum(t.numel() for t in tree_leaves(params)):,}")
 
@@ -39,13 +38,19 @@ def main(arch: str = "qwen3-1.7b", device="cuda") -> dict:
                          device=device)
     losses = []
     for i in range(10):
-        x, y = pipe.next_batch()
+        if cfg.input_kind == "embeds":
+            x, y = pipe.next_embed_batch(cfg.d_model)
+        else:
+            x, y = pipe.next_batch()
         params, opt, m = step(params, opt, x, y)
         losses.append(float(m["loss"]))
         if i % 3 == 0:
             print(f"  step {i}: loss {losses[-1]:.4f}")
 
     # --- serve it ---
+    if cfg.encoder_only:
+        print("encoder-only arch: no decode; done.")
+        return {"losses": losses, "completed": 0, "decode_tokens": 0}
     eng = Engine(model, params, max_seq=96, n_slots=4,
                  knobs=EngineKnobs(max_batch=4))
     rng = np.random.default_rng(0)

@@ -11,8 +11,10 @@ compute in bf16 (the reference's ``local_plan(param_dtype=f32)``), AdamW,
 the synthetic ``TokenPipeline``; with ``--ckpt`` a committed checkpoint
 every ``--ckpt-every`` steps, and a rerun resumes from the last one.
 Prints each step as the reference does and returns ``{"first_loss",
-"last_loss"}`` of this run's steps.  The dense and MoE token decoders
-train; the other families raise (``Model.check_trainable``).
+"last_loss"}`` of this run's steps.  Every registered family trains:
+the dense, MoE, MLA, RWKV6 and hybrid token decoders on ``next_batch``'s
+tokens, the encoder (hubert-xlarge) on ``next_embed_batch``'s frame
+embeddings, as the reference chooses by ``input_kind``.
 """
 from __future__ import annotations
 
@@ -52,7 +54,6 @@ def main(argv=None) -> dict:
         cfg = cfg.smoke_config()
     plan = local_plan(param_dtype=torch.float32, remat=args.remat)
     model = build_model(cfg, plan, device=args.device)
-    model.check_trainable()
 
     params = model.init(torch.Generator(device=args.device).manual_seed(0))
     opt_state = init_opt_state(params)
@@ -71,7 +72,10 @@ def main(argv=None) -> dict:
 
     losses = []
     for step in range(start, args.steps):
-        inputs, labels = pipe.next_batch()
+        if cfg.input_kind == "embeds":
+            inputs, labels = pipe.next_embed_batch(cfg.d_model)
+        else:
+            inputs, labels = pipe.next_batch()
         t0 = time.perf_counter()
         params, opt_state, metrics = step_fn(params, opt_state, inputs, labels)
         loss = float(metrics["loss"])

@@ -8,7 +8,13 @@ divides S, so a prime S runs S chunks of one step) with an associative
 scan inside each, the port runs one log-depth doubling scan over the whole
 sequence, ~4 device ops per level: the same recurrence h_t = a_t h_{t-1} +
 b_t, summed in another order.  Its (B, S, d_inner, state) f32 operands
-live one layer at a time.
+live one layer at a time.  Under autograd the scan is ``SelectiveScanFn``:
+the same forward (the same bits), a and h saved, and a backward that is
+the same scan run backwards in time.
+
+RWKV6's WKV recurrence under autograd goes through ``ops.WkvFn`` (kernel
+7's training form and its backward kernel on CUDA, their plain versions
+on the CPU); serving calls the kernel's serve form as before.
 
 RWKV6:
 
@@ -113,6 +119,44 @@ def _selective_scan(a: torch.Tensor, b: torch.Tensor,
     return b
 
 
+class SelectiveScanFn(torch.autograd.Function):
+    """The doubling scan under autograd.  Forward: ``_selective_scan`` on
+    copies of a and b (the serve path's bits), saving a and h, not the
+    scan's log2(S) levels.  Backward, with g_t = dL/dh_t in total:
+    g_t = dh_t + a_{t+1} g_{t+1} (the same doubling scan over the time-
+    reversed sequence, a shifted by one), db_t = g_t, da_t = g_t h_{t-1}
+    (h_{-1} = h0, or 0), dh0 = a_0 g_0."""
+
+    @staticmethod
+    def forward(ctx, a, b, h0):
+        h = _selective_scan(a.clone(), b.clone(), h0)
+        ctx.save_for_backward(a, h, h0)
+        return h
+
+    @staticmethod
+    def backward(ctx, dh):
+        a, h, h0 = ctx.saved_tensors
+        # reversed in time: g^r_s = dh^r_s + a_{S-s} g^r_{s-1}, g^r_0 = dh_{S-1}
+        a_rev = torch.cat([torch.zeros_like(a[:, :1]),
+                           a.flip(1)[:, :-1]], dim=1)
+        g = _selective_scan(a_rev, dh.flip(1).contiguous(), None).flip(1)
+        prev = torch.cat([torch.zeros_like(h[:, :1]) if h0 is None
+                          else h0[:, None], h[:, :-1]], dim=1)
+        da = g * prev
+        dh0 = a[:, 0] * g[:, 0] if h0 is not None else None
+        return da, g, dh0
+
+
+def _scan(a: torch.Tensor, b: torch.Tensor,
+          h0: torch.Tensor | None) -> torch.Tensor:
+    """``_selective_scan`` (a and b overwritten) where no gradient is
+    taken, ``SelectiveScanFn`` where one is."""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in (a, b, h0)):
+        return SelectiveScanFn.apply(a, b, h0)
+    return _selective_scan(a, b, h0)
+
+
 def mamba_forward(p: dict, x: torch.Tensor, cfg: ArchConfig,
                   plan: ShardPlan, state: dict | None = None, *,
                   out_state: dict | None = None):
@@ -136,7 +180,7 @@ def mamba_forward(p: dict, x: torch.Tensor, cfg: ArchConfig,
     a = torch.exp(delta[..., None] * A)                   # (B, S, di, n)
     b = delta[..., None] * Bs[:, :, None, :].float() * xc[..., None].float()
     del delta
-    h = _selective_scan(a, b, h0)
+    h = _scan(a, b, h0)
     del a
     y = torch.einsum("bsin,bsn->bsi", h, Cs.float())
     y = (y + xc.float() * p["d_skip"].float()).to(dt)

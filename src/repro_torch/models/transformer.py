@@ -16,12 +16,15 @@ speculative ones (``rejection_choose``, ``ngram_propose``) are the
 reference's, on ``repro_torch.models.prng``'s copy of ``jax.random``'s
 threefry: the same seeds give the same keys, draws and tokens.
 
-Training (``Model.loss``) is the reference's for the dense and MoE token
-decoders: the trunk (each layer under ``torch.utils.checkpoint`` when
-``plan.remat == "full"``, the MoE layers' load-balancing losses summed),
-then ``sharded_xent``'s chunked cross-entropy, each chunk checkpointed so
-the (T, V) logits never exist at once.  Attention's gradient is kernel 1's
-backward (``kernels.ops.FlashAttentionFn``).  Every other family raises.
+Training (``Model.loss``) is the reference's for every family: the trunk
+(each layer under ``torch.utils.checkpoint`` when ``plan.remat ==
+"full"``, the MoE layers' load-balancing losses summed), then
+``sharded_xent``'s chunked cross-entropy, each chunk checkpointed so the
+(T, V) logits never exist at once.  Attention's gradient is kernel 1's
+backward (``kernels.ops.FlashAttentionFn``; MLA's v zero-padded to q's
+head dim passes its gradient back through the pad), the WKV recurrence's
+kernel 7's (``kernels.ops.WkvFn``), Mamba's scan the scan run backwards
+(``ssm.SelectiveScanFn``); the encoder takes frame embeddings.
 """
 from __future__ import annotations
 
@@ -533,31 +536,11 @@ class Model:
         return self._head(params, x)
 
     # ----- training -----
-    def check_trainable(self) -> None:
-        """Raise for every family whose training is not ported yet
-        (ROADMAP.md Queue 1: item 13's follow-ups)."""
-        cfg = self.cfg
-        why = None
-        if cfg.rwkv:
-            why = "kernel 7 (the WKV recurrence) has no backward"
-        elif cfg.family == "hybrid":
-            why = "the Mamba branch's training is not ported"
-        elif cfg.attn_kind == "mla":
-            why = "MLA's training forward is not ported"
-        elif cfg.input_kind == "embeds":
-            why = ("the encoder's data (TokenPipeline.next_embed_batch) is "
-                   "not ported")
-        if why is not None:
-            raise NotImplementedError(
-                f"{cfg.name}: training of the {cfg.family} family "
-                f"(attn_kind={cfg.attn_kind!r}) is not ported: {why} "
-                f"(ROADMAP.md, Queue 1 item 13's follow-ups)")
-
     def loss(self, params, inputs, labels):
         """Mean next-token cross-entropy plus ``MOE_AUX_WEIGHT`` times the
         MoE layers' summed load-balancing loss (the reference's
-        ``Model.loss``).  inputs, labels: (B, S) token ids."""
-        self.check_trainable()
+        ``Model.loss``).  inputs: (B, S) token ids, or for the encoder
+        (B, S, d_model) frame embeddings; labels: (B, S) ids."""
         x = self._embed_inputs(params, inputs)
         x, _, aux = self._trunk(params, x, self._positions(x),
                                 want_cache=False, want_aux=True)
@@ -566,15 +549,17 @@ class Model:
         return ce + MOE_AUX_WEIGHT * aux
 
     def canonicalize_grads(self, grads: dict) -> dict:
-        """The reference zeroes pad-head grads and ties padded kv-copy
-        grads so a padded model stays the published one.  The port pads no
-        head and no kv head (``models/sharding.py``), so the attention's
-        grads are kept as they are (``attention.canonicalize_gqa_grads``
-        asserts why)."""
-        self.check_trainable()
-        if "attn" in grads["layers"]:
-            A.canonicalize_gqa_grads(grads["layers"]["attn"], self.cfg,
-                                     self.plan)
+        """The reference zeroes pad-head grads (GQA, MLA and RWKV6's heads)
+        and ties padded kv-copy grads so a padded model stays the published
+        one.  The port pads no head and no kv head (``models/sharding.py``),
+        so every grad is kept as it is (``attention.canonicalize_gqa_grads``
+        asserts why; MLA and RWKV6 pad only query heads, asserted here)."""
+        cfg, plan = self.cfg, self.plan
+        if cfg.rwkv or cfg.attn_kind == "mla":
+            assert plan.h_pad(cfg) == cfg.n_heads, (plan.h_pad(cfg),
+                                                    cfg.n_heads)
+        elif "attn" in grads["layers"]:
+            A.canonicalize_gqa_grads(grads["layers"]["attn"], cfg, plan)
         return grads
 
     # ----- serving -----

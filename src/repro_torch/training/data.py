@@ -4,9 +4,10 @@
 The same numpy generator calls as the reference, so the batches are
 token-exact; they come back as int64 tensors on the pipeline's device.
 The iterator state is (seed, step): resuming at a step replays the same
-batch sequence.  The reference's ``next_embed_batch`` (frame embeddings
-for the encoder, drawn with ``jax.random``) is not ported: encoder
-training waits for it (ROADMAP.md).
+batch sequence.  ``next_embed_batch`` draws the encoder's frame
+embeddings and labels on ``models.prng``'s copy of jax.random's threefry,
+so its batches equal the reference's (the labels exactly, the bf16 frames
+bit for bit: ``prng.normal_bf16``).
 """
 from __future__ import annotations
 
@@ -14,6 +15,8 @@ from dataclasses import dataclass
 
 import numpy as np
 import torch
+
+from repro_torch.models import prng
 
 
 @dataclass
@@ -54,3 +57,20 @@ class TokenPipeline:
         self.step += 1
         tokens = torch.from_numpy(b.astype(np.int64)).to(self.device)
         return tokens[:, :-1], tokens[:, 1:]
+
+    def next_embed_batch(self, d_model: int):
+        """Frame-embedding batch for encoder archs (the reference's modality
+        stub): key = fold_in(PRNGKey(seed), step), split in two; frames
+        (batch, seq_len, d_model) bf16 standard normals from the first
+        key, labels (batch, seq_len) int64 in [0, vocab) from the second,
+        both on the device."""
+        cfg = self.cfg
+        key = prng.fold_in(prng.prng_key(torch.tensor(cfg.seed,
+                                                      device=self.device)),
+                           self.step)
+        self.step += 1
+        k1, k2 = prng.split(key)
+        x = prng.normal_bf16(k1, (cfg.batch, cfg.seq_len, d_model))
+        labels = prng.randint(k2, (cfg.batch, cfg.seq_len), 0,
+                              cfg.vocab_size)
+        return x, labels

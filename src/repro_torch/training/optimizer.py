@@ -72,18 +72,38 @@ def adamw_update(cfg: AdamWConfig, grads: dict, opt_state: dict,
     clip = torch.clamp(cfg.grad_clip / (gnorm + 1e-9), max=1.0)
     bc1 = 1 - torch.full_like(stepf, cfg.b1).pow(stepf)
     bc2 = 1 - torch.full_like(stepf, cfg.b2).pow(stepf)
-    for p, g, m, v in zip(tree_leaves(params), tree_leaves(grads),
-                          tree_leaves(opt_state["m"]),
-                          tree_leaves(opt_state["v"])):
-        g = g.float() * clip
-        m.mul_(cfg.b1).add_((1 - cfg.b1) * g)
-        v.mul_(cfg.b2).add_((1 - cfg.b2) * torch.square(g))
-        pf = p.float()
-        delta = (m / bc1) / (torch.sqrt(v / bc2) + cfg.eps) \
-            + cfg.weight_decay * pf
-        p.copy_((pf - lr * delta).to(p.dtype))
+    for leaf in zip(tree_leaves(params), tree_leaves(grads),
+                    tree_leaves(opt_state["m"]),
+                    tree_leaves(opt_state["v"])):
+        for p, g, m, v in _slices(*leaf):
+            g = g.float() * clip
+            m.mul_(cfg.b1).add_((1 - cfg.b1) * g)
+            v.mul_(cfg.b2).add_((1 - cfg.b2) * torch.square(g))
+            pf = p.float()
+            delta = (m / bc1) / (torch.sqrt(v / bc2) + cfg.eps) \
+                + cfg.weight_decay * pf
+            p.copy_((pf - lr * delta).to(p.dtype))
     return params, {"m": opt_state["m"], "v": opt_state["v"],
                     "step": step}, gnorm
+
+
+# elements of a leaf updated at once: the update's f32 temporaries stay
+# near 64 MiB each (a full-width rwkv6-3b's stacked 2560 x 8960 leaf would
+# take 2.7 GiB per temporary)
+SLICE = 1 << 24
+
+
+def _slices(p, g, m, v):
+    """(p, g, m, v) in slices of ``SLICE`` elements or more along the first
+    axis (views, updated in place).  Every op of the update is elementwise,
+    so the slices give the whole leaf's bits."""
+    n = p.numel()
+    if n <= SLICE or p.dim() == 0:
+        yield p, g, m, v
+        return
+    rows = max(1, SLICE // (n // p.shape[0]))
+    for i in range(0, p.shape[0], rows):
+        yield p[i:i + rows], g[i:i + rows], m[i:i + rows], v[i:i + rows]
 
 
 __all__ = ["AdamWConfig", "init_opt_state", "adamw_update", "global_norm"]

@@ -568,14 +568,18 @@ def test_smoke_rwkv_kernel_path_matches_plain_path(gen):
 
 
 def test_serve_cli_rwkv_on_cuda_matches_cpu(gen):
-    """rwkv6-3b's serve CLI on the card runs kernel 7 in slot mode and
-    prints the same dict as on the CPU."""
+    """rwkv6-3b's serve CLI on the card runs kernel 7 in slot mode (its
+    serve form only: no captured or eager serving step reaches
+    ``ops.WkvFn``'s training form) and prints the same dict as on the
+    CPU."""
     from repro_torch.launch import serve
     argv = ["--arch", "rwkv6-3b", "--smoke", "--requests", "4",
             "--max-new", "6"]
     wkv.rwkv6_wkv.launches = 0
+    train = wkv.rwkv6_wkv_train.launches
     got = serve.main(argv)
     assert wkv.rwkv6_wkv.launches > 0 and got["mode"] == "slots"
+    assert wkv.rwkv6_wkv_train.launches == train
     assert got == serve.main(argv + ["--device", "cpu"])
 
 
@@ -2453,6 +2457,15 @@ def test_kernel_wrappers_refuse_grad(bgen):
         fa.flash_attention(q, k, v)
     o = ops.flash_attention(q, k, v)            # the Function
     assert o.grad_fn is not None
+    # kernel 7: the raw wrappers refuse; ops.rwkv6_wkv is WkvFn
+    r, kk, vv, w, u, s0 = _wkv_inputs(bgen, 1, 5, 2, 16, torch.float32)
+    r.requires_grad_(True)
+    for fn in (wkv.rwkv6_wkv, wkv.rwkv6_wkv_train):
+        with pytest.raises(RuntimeError, match="no backward"):
+            fn(r, kk, vv, w, u, s0)
+    y, s = ops.rwkv6_wkv(r, kk, vv, w, u, s0)
+    assert y.grad_fn is not None and type(y.grad_fn).__name__ == \
+        "WkvFnBackward"
 
 
 def test_train_step_grads_through_kernels_match_plain(bgen, monkeypatch):
@@ -2539,3 +2552,120 @@ def test_moe_train_step_on_the_card(bgen, monkeypatch):
     moved = [not torch.equal(a, b) for a, b in zip(tree_leaves(params),
                                                    before)]
     assert sum(moved) >= len(moved) - 1, moved   # pad experts may stay
+
+
+# ---------------------------------------------------------------------------
+# kernel 7's training form and backward
+# ---------------------------------------------------------------------------
+
+# chip_smoke.py phase 15's shapes: (B, T, H, D, s0 and dS_T random)
+WKV_BWD_CASES = [(4, 1024, 40, 64, False), (2, 333, 40, 64, True),
+                 (2, 200, 8, 48, True), (2, 200, 8, 96, True),
+                 (2, 200, 8, 128, True)]
+
+
+def _wkv_bwd_case(gen, dtype, B, T, H, D, rand):
+    args = _wkv_inputs(gen, B, T, H, D, dtype, zero_state=not rand)
+    dy = torch.randn(B, T, H, D, generator=gen, device="cuda", dtype=dtype)
+    ds = (torch.randn(B, H, D, D, generator=gen, device="cuda") if rand
+          else None)
+    return args, dy, ds
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,T,H,D,rand", WKV_BWD_CASES)
+def test_wkv_bwd_kernel_matches_plain(bgen, dtype, B, T, H, D, rand):
+    """The training form's y and state are the serve form's bits and its
+    checkpoints the plain training form's; the backward's six gradients
+    from the kernel's checkpoints against the plain backward from the
+    same, held as the forward's outputs are (``assert_wkv_close``), and
+    two calls give the same bits."""
+    args, dy, ds = _wkv_bwd_case(bgen, dtype, B, T, H, D, rand)
+    launches = wkv.rwkv6_wkv_train.launches, wkv.rwkv6_wkv_bwd.launches
+    y, s, ck = wkv.rwkv6_wkv_train(*args)
+    y_serve, s_serve = wkv.rwkv6_wkv(*args)
+    assert torch.equal(y, y_serve) and torch.equal(s, s_serve)
+    _, _, ck_ref = wkv.rwkv6_wkv_train_ref(*args)
+    assert_wkv_close(ck, ck_ref, torch.float32)
+    got = wkv.rwkv6_wkv_bwd(*args[:5], ck, dy, ds)
+    again = wkv.rwkv6_wkv_bwd(*args[:5], ck, dy, ds)
+    torch.cuda.synchronize()
+    assert (wkv.rwkv6_wkv_train.launches - launches[0],
+            wkv.rwkv6_wkv_bwd.launches - launches[1]) == (1, 2)
+    want = wkv.rwkv6_wkv_bwd_ref(*args[:5], ck, dy, ds)
+    assert [g.dtype for g in got] == [dtype] * 3 + [torch.float32] * 3
+    for a, b, c in zip(got, again, want):
+        assert a.shape == c.shape and torch.equal(a, b)
+        assert_wkv_close(a, c, dtype)
+
+
+@pytest.mark.parametrize("D", wkv.HEAD_DIMS)
+@pytest.mark.parametrize("T", [1, 31, 64, 257])
+def test_wkv_bwd_kernel_at_every_head_dim(bgen, D, T):
+    """Every head dim at T within, at and across its chunk edges (C = 256
+    down to 32), bf16, from a random state with dS_T."""
+    args, dy, ds = _wkv_bwd_case(bgen, torch.bfloat16, 2, T, 3, D, True)
+    _, _, ck = wkv.rwkv6_wkv_train(*args)
+    got = wkv.rwkv6_wkv_bwd(*args[:5], ck, dy, ds)
+    want = wkv.rwkv6_wkv_bwd_ref(*args[:5], ck, dy, ds)
+    for a, c in zip(got, want):
+        assert_wkv_close(a, c, torch.bfloat16)
+
+
+def test_wkv_function_on_the_card(bgen):
+    """``ops.rwkv6_wkv`` under autograd runs the training form and the
+    backward kernel once each, no serve-form launch and no plain version,
+    and its grads are the backward kernel's; s0's gradient is ds0."""
+    args, dy, ds = _wkv_bwd_case(bgen, torch.bfloat16, 2, 70, 4, 64, True)
+    leaves = [a.clone().requires_grad_(True) for a in args]
+    before = (wkv.rwkv6_wkv.launches, wkv.rwkv6_wkv_train.launches,
+              wkv.rwkv6_wkv_bwd.launches, wkv.rwkv6_wkv_train_ref.calls,
+              wkv.rwkv6_wkv_bwd_ref.calls)
+    y, s = ops.rwkv6_wkv(*leaves)
+    got = torch.autograd.grad((y.float() * dy.float()).sum()
+                              + (s * ds).sum(), leaves)
+    after = (wkv.rwkv6_wkv.launches, wkv.rwkv6_wkv_train.launches,
+             wkv.rwkv6_wkv_bwd.launches, wkv.rwkv6_wkv_train_ref.calls,
+             wkv.rwkv6_wkv_bwd_ref.calls)
+    assert [a - b for a, b in zip(after, before)] == [0, 1, 1, 0, 0]
+    _, _, ck = wkv.rwkv6_wkv_train(*args)
+    # dy as autograd hands it back: the f32 product's gradient cast to bf16
+    want = wkv.rwkv6_wkv_bwd(*args[:5], ck, dy.float().bfloat16(), ds)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("arch", ["rwkv6-3b", "hymba-1.5b", "minicpm3-4b",
+                                  "hubert-xlarge"])
+def test_smoke_family_grads_through_kernels_match_plain(bgen, monkeypatch,
+                                                        arch):
+    """The smoke configs of the four families that once refused training,
+    in an f32 plan on the card: loss and grads through kernels 1 and 7's
+    training forms and backward kernels against the plain route's (1e-5
+    relative; 1e-4 of each leaf's max |g|), each kernel launched once a
+    layer, no plain version called."""
+    from repro_torch.models.layers import tree_leaves
+    from repro_torch.training.data import DataConfig, TokenPipeline
+    from repro_torch.training.train_step import _value_and_grad
+    cfg = get_config(arch).smoke_config()
+    model = build_model(cfg, local_plan(param_dtype=torch.float32,
+                                        compute_dtype=torch.float32))
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    pipe = TokenPipeline(DataConfig(cfg.vocab_size, 2, 40))
+    batch = (pipe.next_embed_batch(cfg.d_model) if cfg.input_kind == "embeds"
+             else pipe.next_batch())
+    fwd, bwd = ((wkv.rwkv6_wkv_train, wkv.rwkv6_wkv_bwd) if cfg.rwkv
+                else (fa.flash_attention_lse, fa.flash_attention_bwd))
+    counts = fwd.launches, bwd.launches
+    loss, grads = _value_and_grad(model, params, *batch)
+    assert (fwd.launches - counts[0], bwd.launches - counts[1]) == \
+        (cfg.num_layers, cfg.num_layers)
+    with monkeypatch.context() as m:
+        m.setattr(fa, "flash_attention_lse", fa.flash_attention_lse_ref)
+        m.setattr(fa, "flash_attention_bwd", fa.flash_attention_bwd_ref)
+        m.setattr(wkv, "rwkv6_wkv_train", wkv.rwkv6_wkv_train_ref)
+        m.setattr(wkv, "rwkv6_wkv_bwd", wkv.rwkv6_wkv_bwd_ref)
+        loss_p, grads_p = _value_and_grad(model, params, *batch)
+    torch.testing.assert_close(loss, loss_p, rtol=1e-5, atol=0)
+    for g, w in zip(tree_leaves(grads), tree_leaves(grads_p)):
+        _held_to_scale(g, w, 1e-4)

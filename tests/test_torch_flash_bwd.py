@@ -163,21 +163,32 @@ def test_serve_form_takes_no_function():
 def test_refuse_grad_guard():
     """Every kernel wrapper's guard: it raises, naming the kernel and the
     reason, when grad mode is on and an input requires grad, and passes
-    under no_grad / inference_mode or when nothing requires grad."""
+    under no_grad / inference_mode or when nothing requires grad.  Kernel
+    7's raw wrappers still refuse (its training goes through
+    ``ops.rwkv6_wkv``, which under autograd is ``WkvFn``)."""
     x = torch.ones(3, requires_grad=True)
     y = torch.ones(3)
-    with pytest.raises(RuntimeError, match="rwkv6_wkv: this kernel has no "
-                                           "backward.*not ported"):
-        build.refuse_grad("rwkv6_wkv", y, x)
-    build.refuse_grad("rwkv6_wkv", y, None, y)
+    with pytest.raises(RuntimeError, match="decode_attention: this kernel "
+                                           "has no backward.*no_grad"):
+        build.refuse_grad("decode_attention", y, x)
+    build.refuse_grad("decode_attention", y, None, y)
     with torch.no_grad():
-        build.refuse_grad("rwkv6_wkv", x, y)
+        build.refuse_grad("decode_attention", x, y)
     with torch.inference_mode():
-        build.refuse_grad("rwkv6_wkv", x)
+        build.refuse_grad("decode_attention", x)
     with pytest.raises(RuntimeError, match="ops.flash_attention"):
         build.refuse_grad("flash_attention", x,
                           hint="ops.flash_attention carries kernel 1's "
                                "backward")
+    from repro_torch.kernels import rwkv6_wkv as wkv
+    r = torch.ones(1, 2, 1, 16, requires_grad=True)
+    args = (r, torch.ones(1, 2, 1, 16), torch.ones(1, 2, 1, 16),
+            torch.full((1, 2, 1, 16), 0.5), torch.zeros(1, 16))
+    for fn in (wkv.rwkv6_wkv, wkv.rwkv6_wkv_train):
+        with pytest.raises(RuntimeError, match="no backward"):
+            fn(*args)
+    out, _ = ops.rwkv6_wkv(*args)
+    assert type(out.grad_fn).__name__ == "WkvFnBackward"
 
 
 class _FakeCuda:

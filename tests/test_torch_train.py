@@ -4,8 +4,8 @@ for the smoke configs of llama2-7b, qwen3-1.7b (qk_norm, tied embedding),
 gemma-7b (embed_scale, (1 + w) norm, the gelu GLU) and
 granite-moe-3b-a800m (the load-balancing loss, and a batch past the
 capacity so assignments drop); ``remat="full"`` against ``"none"``; the
-MoE aux loss against the reference's ``_moe_core``; the families whose
-training is not ported refuse.
+MoE aux loss against the reference's ``_moe_core``; the four families
+that once refused now train (their parity: test_torch_train_families.py).
 
 Weights carried over from a JAX ``Model.init`` tree (``from_jax_params``)
 in f32 plans (``compute_dtype`` and ``param_dtype`` float32); token ids
@@ -129,10 +129,16 @@ def test_canonicalize_grads_is_identity():
 @pytest.mark.parametrize("arch", ["rwkv6-3b", "hymba-1.5b", "minicpm3-4b",
                                   "hubert-xlarge"])
 def test_loss_refuses_families_not_ported(arch):
+    """The four families that once refused training now refuse nothing:
+    ``Model.check_trainable`` is gone and ``Model.loss`` gives a finite
+    loss with a gradient (their parity: tests/test_torch_train_families.py)."""
     cfg = get_config(arch).smoke_config()
     m = build_model(cfg, local_plan(param_dtype=torch.float32), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        m.loss({}, torch.zeros(1, 4, dtype=torch.long),
-               torch.zeros(1, 4, dtype=torch.long))
-    with pytest.raises(NotImplementedError, match="not ported"):
-        m.check_trainable()
+    assert not hasattr(m, "check_trainable")
+    p = m.init(torch.Generator().manual_seed(0))
+    w = p["layers"]["norm1"]["scale"].requires_grad_(True)
+    inputs = (torch.zeros(1, 4, cfg.d_model) if cfg.input_kind == "embeds"
+              else torch.zeros(1, 4, dtype=torch.long))
+    loss = m.loss(p, inputs, torch.zeros(1, 4, dtype=torch.long))
+    assert torch.isfinite(loss) and loss.grad_fn is not None
+    assert torch.autograd.grad(loss, w)[0].shape == w.shape
