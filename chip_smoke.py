@@ -1217,8 +1217,10 @@ def check_prefill_lse(torch, gen, H=32, D=128, stripes=(2, 4),
                                 for a in calls]) / n
     lib_ms, n_bytes, flops = prefill_lse_yardstick(torch, calls)
     bound, by = bound_of(n_bytes // n, flops // n, "bf16")
+    L, splits = ppa.paged_prefill_split_plan(B, C, H, K, T, bs)
     print(f"paged_prefill_attention_lse ({label}) bf16 B={B} C={C} H={H} "
-          f"K={K} D={D}, {n} stripes of {n_blocks // n} blocks, per launch: "
+          f"K={K} D={D}, {n} stripes of {n_blocks // n} blocks, owned walks "
+          f"split in {splits} pieces of {L} keys, per launch: "
           f"kernel {spread(ms, lo, hi)}, plain {plain_ms:.4f} ms, sdpa over "
           f"the gathered owned keys {lib_ms:.4f} ms (o only, no lse), bound "
           f"{bound:.4f} ms ({by}: {n_bytes // n} B, {flops // n} flop)",
@@ -5844,7 +5846,8 @@ def check_wkv_bwd(torch) -> list:
     over max |plain| and its norm error, ``held_scaled``), two calls the
     same bits.  The training shape is timed in bf16: events and device
     time, the plain version, the bound (no PyTorch call computes the
-    recurrence, so no library time).  Returns the kernels line's entries
+    recurrence, so no library time); there the backward call must
+    allocate nothing beside its outputs (its states stay on chip).  Returns the kernels line's entries
     of the training form and the backward."""
     from repro_torch.kernels import rwkv6_wkv as wkv
     g = torch.Generator(device="cuda").manual_seed(15)
@@ -5881,6 +5884,26 @@ def check_wkv_bwd(torch) -> list:
                   flush=True)
             if name != "bf16" or label != WKV_BWD_CASES[0][0]:
                 continue
+            # no device memory beside the outputs (and du's per-(b, h)
+            # partials): the chunk's recomputed states stay on chip
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            out = wkv.rwkv6_wkv_bwd(r, k, v, w, u, ck, dy, ds)
+            torch.cuda.synchronize()
+            extra = torch.cuda.max_memory_allocated() - base
+            outputs = (sum(g.numel() * g.element_size() for g in out)
+                       + B * H * D * 4)
+            del out
+            P, rs = wkv.wkv_bwd_plan(D)
+            print(f"rwkv6_wkv_bwd {tag}: a cluster of {P} CTAs of {rs} rows "
+                  f"a (b, h), {B * H * P} CTAs; the call allocated {extra} "
+                  f"B, its outputs {outputs} B (a B*H*C*D*D f32 scratch "
+                  f"would be {B * H * wkv.wkv_chunk(D) * D * D * 4} B)",
+                  flush=True)
+            if extra > outputs + (1 << 20):
+                fail(f"rwkv6_wkv_bwd {tag}: the call allocated {extra} B "
+                     f"beside {outputs} B of outputs")
             el = r.element_size()
             bound, by, n_bytes, flops = wkv_bwd_bound(B, T, H, D, el,
                                                       ds is not None)

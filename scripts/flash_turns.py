@@ -9,12 +9,21 @@ its served decode step (4 lanes at 230/180/120/40), the bf16
 the phase-1 shape and over 2 and 4 stripes at the served step, the bf16
 ``paged_prefill_attention`` (kernel 3) at llama2-7b's chunk shape and the
 bf16 ``decode_attention`` (kernel 5) at llama2-7b's slot shape and over
-hymba-1.5b's ring, and kernel 1's bf16 backward (``flash_attention_bwd``)
+hymba-1.5b's ring, kernel 1's bf16 backward (``flash_attention_bwd``)
 at ``chip_smoke.py``'s ``BWD_CASES`` shapes (qwen3-1.7b's training shape
-among them) beside SDPA's backward on the same tensors.
+among them) beside SDPA's backward on the same tensors, the bf16 owned/LSE
+form of kernel 3 (``paged_prefill_attention_lse``, "3s") per launch over 2
+stripes at llama2-7b's phase-1 chunk and at gemma-7b's head dim 256,
+beside SDPA over each stripe's gathered owned keys, and kernel 7's bf16
+backward (``rwkv6_wkv_bwd``, "7 bwd") at ``chip_smoke.py``'s
+``WKV_BWD_CASES``.
 
-    python3 scripts/flash_turns.py OTHER_TREE
+    python3 scripts/flash_turns.py OTHER_TREE [--only NAME,NAME]
     python3 scripts/flash_turns.py --sweep
+
+``--only`` keeps the shapes whose names contain one of the comma-separated
+strings (``--only "kernel 3,kernel 7"`` times kernels 3, 3s, 7 and 7's
+backward and builds only their sources).
 
 With ``--sweep``, this tree alone times kernels 2 and 4 at each of their
 shapes with the split length forced to 64, 128, 256 and 512 keys and at
@@ -23,6 +32,9 @@ kernel 6 at each of its shapes with K split 1, 2, 3, 4, 6, 8 and 12 ways
 beside ``int8_split_plan``'s; and kernel 7 at its two shapes at every
 instantiated (JC, Q) of head dim 64 beside ``wkv_plan``'s, by device
 time: the readings the plans' rules were chosen from.
+
+With ``--sweep`` it also times 3s at split lengths 128-1024 beside
+``paged_prefill_split_plan``'s.
 
 OTHER_TREE is a checkout of another commit, for instance the parent
 unpacked with ``git archive`` into a directory that ``.gitignore`` lists.
@@ -35,7 +47,8 @@ version, and the device time of 20 calls queued behind a spin kernel, so
 that the card runs them back to back (events around calls that are not
 held time the host where a kernel is shorter than its wrapper's host
 work, as kernel 5 over hymba's ring is).  Each process also saves kernels
-1, 5 and 6's outputs and the backward's dq, dk and dv, and the script
+1, 3, 5 and 6's outputs, kernel 7's y and final state in its serve and
+its training form, and the backward's dq, dk and dv, and the script
 prints the largest |other - this| of them at each shape, per gradient for
 the backward (0 when the two trees compute the same bits; kernel 6 must
 give 0).  The backward's error is the largest of its three gradients'
@@ -79,6 +92,25 @@ BWD = {
 # kernel 3: (B, C, H, K, D, bs, T, starts; the last lane padded)
 PREFILL = {"kernel 3 llama2-7b chunk": (4, 128, 32, 32, 128, 16, 128,
                                         (0, 1100, 515, 0))}
+# kernel 3s, per launch over every stripe of a pool of 516 blocks: (B, C,
+# H, K, D, bs, T, stripes, starts), chip_smoke.py phase 1's tables (lane 1
+# on blocks 1-128, all in stripe 0; lane 3 padded)
+PREFILL_LSE = {
+    "kernel 3s llama2-7b chunk, 2 stripes": (4, 128, 32, 32, 128, 16, 128, 2,
+                                             (0, 1100, 515, 0)),
+    "kernel 3s gemma-7b D=256, 2 stripes": (4, 128, 16, 16, 256, 16, 128, 2,
+                                            (0, 1100, 515, 0)),
+}
+LSE_SWEEP = (128, 256, 512, 1024)
+# kernel 7's backward, bf16: chip_smoke.py's WKV_BWD_CASES (B, T, H, D, s0
+# and dS_T random)
+WKV_BWD = {
+    "kernel 7 bwd rwkv6-3b train step": (4, 1024, 40, 64, False),
+    "kernel 7 bwd ragged T": (2, 333, 40, 64, True),
+    "kernel 7 bwd D=48": (2, 200, 8, 48, True),
+    "kernel 7 bwd D=96": (2, 200, 8, 96, True),
+    "kernel 7 bwd D=128": (2, 200, 8, 128, True),
+}
 # kernel 2: (B, H, K, D, bs, T, positions); kernel 4, timed per launch
 # over all stripes: (B, H, K, D, bs, T, n_blocks, stripes, positions).
 # Scrambled tables over the whole pool, drawn from seed 0
@@ -150,6 +182,47 @@ def prefill_bound(B, C, H, K, D, bs, T, starts) -> tuple[float, int]:
                + 4 * sum(-(-(s0 + C) // bs) for s0 in starts) + 4 * B)
     flops = 4 * D * H * seen
     return bound_ms(n_bytes, flops), flops
+
+
+def prefill_lse_bound(calls) -> tuple[float, int]:
+    """Per launch over the stripes (``calls``' arguments, as chip_smoke.py's
+    prefill_lse_yardstick counts them): the owned K/V rows some query of a
+    lane sees, q in, o and lse out, the table ids, owned flags and starts;
+    4 D flops an owned (query, key) pair and head."""
+    import torch
+    n_bytes, flops = 0, 0
+    for q, k_s, _, local, starts, owned in calls:
+        B, C, H, D = q.shape
+        T, bs, K = local.shape[1], k_s.shape[1], k_s.shape[2]
+        kpos = torch.arange(T * bs, device=q.device)
+        qpos = starts[:, None] + torch.arange(C, device=q.device)[None, :]
+        own = (owned != 0).repeat_interleave(bs, dim=1)
+        sees = (kpos[None, None, :] <= qpos[:, :, None]) & own[:, None, :]
+        loc, own_l, st = local.tolist(), owned.tolist(), starts.tolist()
+        rows = {(loc[b][k // bs], k % bs) for b in range(B)
+                for k in range(st[b] + C) if own_l[b][k // bs]}
+        n_bytes += (2 * len(rows) * K * D * 2 + 2 * B * C * H * D * 2
+                    + 4 * B * C * H
+                    + 8 * sum(-(-(s0 + C) // bs) for s0 in st) + 4 * B)
+        flops += 4 * D * H * int(sees.sum())
+    n = len(calls)
+    return bound_ms(n_bytes // n, flops // n), flops // n
+
+
+def wkv_bwd_bound(B, T, H, D, ds_in) -> tuple[float, int]:
+    """chip_smoke.py's wkv_bwd_bound in bf16: r, k, v, dy, w, u, the
+    checkpoints (every C = wkv_chunk(D) steps) and dS_T read once, dr, dk,
+    dv, dw, du and ds0 written once; 14 flops an entry of the state and 12
+    a row per step at 67 TFLOP/s of f32."""
+    c = 1
+    while 2 * c * D <= 4096:
+        c *= 2
+    n_ck = -(-T // c)
+    n_bytes = (B * T * H * D * (4 * 2 + 4) + H * D * 4
+               + B * H * n_ck * D * D * 4 + ds_in * B * H * D * D * 4
+               + B * T * H * D * (3 * 2 + 4) + H * D * 4 + B * H * D * D * 4)
+    flops = B * T * H * (14 * D * D + 12 * D)
+    return max(n_bytes / 3.35e12, flops / 67e12) * 1e3, flops
 
 
 def decode_bound(B, H, K, D, S, positions) -> tuple[float, int]:
@@ -253,7 +326,7 @@ def timers(torch):
     return cuda_ms, held_ms
 
 
-def child(src: str, save: str) -> None:
+def child(src: str, save: str, only: str) -> None:
     sys.path.insert(0, src)
     import torch
     from repro_torch.kernels import decode_attention as da
@@ -272,9 +345,13 @@ def child(src: str, save: str) -> None:
                 "max": max(runs), "dev": held_ms(kernel) / per,
                 "err": err.item()}
 
+    def keep(shapes):
+        return {n: v for n, v in shapes.items()
+                if not only or any(o in n for o in only.split(","))}
+
     out, saved = {}, {}
     bf16 = torch.bfloat16
-    for name, (B, H, K, S, D, causal, window) in FLASH.items():
+    for name, (B, H, K, S, D, causal, window) in keep(FLASH).items():
         g = torch.Generator(device="cuda").manual_seed(0)
         q, k, v = (torch.randn(B, S, n, D, generator=g, device="cuda",
                                dtype=bf16).transpose(1, 2)
@@ -283,10 +360,10 @@ def child(src: str, save: str) -> None:
         saved[name] = fa.flash_attention(q, k, v, **kw).cpu()
         out[name] = timed(lambda: fa.flash_attention(q, k, v, **kw),
                           lambda: fa.flash_attention_ref(q, k, v, **kw))
-    for name, (B, H, K, S, D, causal, window) in BWD.items():
+    for name, (B, H, K, S, D, causal, window) in keep(BWD).items():
         out[name], saved[name] = timed_bwd(torch, fa, cuda_ms, held_ms, B, H,
                                            K, S, D, causal, window)
-    for name, (B, C, H, K, D, bs, T, starts) in PREFILL.items():
+    for name, (B, C, H, K, D, bs, T, starts) in keep(PREFILL).items():
         g = torch.Generator(device="cuda").manual_seed(0)
         n_blocks = 1 + B * T
         tables = (torch.randperm(n_blocks - 1, generator=g, device="cuda")
@@ -297,9 +374,22 @@ def child(src: str, save: str) -> None:
         kp, vp = (torch.randn(n_blocks, bs, K, D, generator=g, device="cuda",
                               dtype=bf16) for _ in range(2))
         args = (q, kp, vp, tables, st)
+        saved[name] = ppa.paged_prefill_attention(*args).cpu()
         out[name] = timed(lambda: ppa.paged_prefill_attention(*args),
                           lambda: ppa.paged_prefill_attention_ref(*args))
-    for name, (B, H, K, D, S, positions) in DECODE.items():
+    for name, spec in keep(PREFILL_LSE).items():
+        calls = prefill_lse_inputs(torch, *spec)
+        n = len(calls)
+        out[name] = timed(
+            lambda: torch.stack([ppa.paged_prefill_attention_lse(*a)[0]
+                                 for a in calls]),
+            lambda: torch.stack([ppa.paged_prefill_attention_lse_ref(*a)[0]
+                                 for a in calls]), per=n)
+        out[name]["bound"] = prefill_lse_bound(calls)[0]
+        lib = sdpa_owned(torch, calls)
+        out[name]["lib"] = statistics.median(cuda_ms(lib) / n
+                                             for _ in range(5))
+    for name, (B, H, K, D, S, positions) in keep(DECODE).items():
         g = torch.Generator(device="cuda").manual_seed(0)
         q = torch.randn(B, H, D, generator=g, device="cuda", dtype=bf16)
         k, v = (torch.randn(B, S, K, D, generator=g, device="cuda",
@@ -308,13 +398,14 @@ def child(src: str, save: str) -> None:
         saved[name] = da.decode_attention(q, k, v, pos).cpu()
         out[name] = timed(lambda: da.decode_attention(q, k, v, pos),
                           lambda: da.flash_decode_ref(q, k, v, pos))
-    for name, (B, H, K, D, bs, T, positions) in PAGED.items():
+    for name, (B, H, K, D, bs, T, positions) in keep(PAGED).items():
         args, n_bytes, flops = paged_inputs(torch, B, H, K, D, bs, T,
                                             1 + B * T, 1, positions)[0]
         out[name] = timed(lambda: pa.paged_decode_attention(*args),
                           lambda: pa.paged_decode_attention_ref(*args))
         out[name]["bound"] = bound_ms(n_bytes, flops)
-    for name, (B, H, K, D, bs, T, nb, stripes, positions) in STRIPED.items():
+    for name, (B, H, K, D, bs, T, nb, stripes, positions) in \
+            keep(STRIPED).items():
         calls = paged_inputs(torch, B, H, K, D, bs, T, nb, stripes, positions)
         out[name] = timed(
             lambda: stripes_of(pa.paged_decode_attention_lse, calls),
@@ -322,13 +413,17 @@ def child(src: str, save: str) -> None:
             per=stripes)
         out[name]["bound"] = bound_ms(sum(c[1] for c in calls) // stripes,
                                       sum(c[2] for c in calls) // stripes)
-    for name, (M, K, N) in INT8.items():
+    for name, (M, K, N) in keep(INT8).items():
         args = int8_inputs(torch, M, K, N)
         saved[name] = i8.int8_matmul(*args).cpu()
         out[name] = timed(lambda: i8.int8_matmul(*args),
                           lambda: i8.int8_matmul_ref(*args))
-    for name, (B, T, H, D) in WKV.items():
+    for name, (B, T, H, D) in keep(WKV).items():
         r, k, v, w, u, s0 = wkv_inputs(torch, B, T, H, D)
+        # the serve form's and the training form's y and final state
+        saved[name] = (*wkv.rwkv6_wkv(r, k, v, w, u, s0),
+                       *wkv.rwkv6_wkv_train(r, k, v, w, u, s0)[:2])
+        saved[name] = tuple(t.cpu() for t in saved[name])
         # the error against the plain version from the same state; then
         # the timed calls write their state in place, as the slot pool's
         # decode does
@@ -339,6 +434,28 @@ def child(src: str, save: str) -> None:
             return wkv.rwkv6_wkv(r, k, v, w, u, s0, s_out=s0)[0]
         out[name] = timed(call, call)
         out[name]["err"] = err.item()
+    for name, (B, T, H, D, rand) in keep(WKV_BWD).items():
+        g = torch.Generator(device="cuda").manual_seed(15)
+        r, k, v = (torch.randn(B, T, H, D, generator=g, device="cuda",
+                               dtype=bf16) for _ in range(3))
+        w = torch.exp(-torch.exp(-6.0 + torch.randn(B, T, H, D, generator=g,
+                                                     device="cuda")))
+        u = 0.1 * torch.randn(H, D, generator=g, device="cuda")
+        s0 = (torch.randn(B, H, D, D, generator=g, device="cuda") if rand
+              else None)
+        dy = torch.randn(B, T, H, D, generator=g, device="cuda", dtype=bf16)
+        ds = (torch.randn(B, H, D, D, generator=g, device="cuda") if rand
+              else None)
+        _, _, ck = wkv.rwkv6_wkv_train(r, k, v, w, u, s0)
+        got = wkv.rwkv6_wkv_bwd(r, k, v, w, u, ck, dy, ds)
+        want = wkv.rwkv6_wkv_bwd_ref(r, k, v, w, u, ck, dy, ds)
+        err = max(((a.float() - b.float()).abs().max()
+                   / b.float().abs().max()).item() for a, b in zip(got, want))
+
+        def call():
+            return wkv.rwkv6_wkv_bwd(r, k, v, w, u, ck, dy, ds)[0]
+        out[name] = timed(call, call)
+        out[name]["err"] = err
     torch.save(saved, save)
     print("TURN " + json.dumps(out), flush=True)
 
@@ -422,6 +539,50 @@ def paged_inputs(torch, B, H, K, D, bs, T, n_blocks, stripes, positions):
     return calls
 
 
+def prefill_lse_inputs(torch, B, C, H, K, D, bs, T, stripes, starts):
+    """Seeded bf16 inputs of kernel 3s per stripe of a pool of 516 blocks,
+    as chip_smoke.py's phase 1 makes them: scrambled tables, lane 1 on
+    blocks 1 .. T (all in stripe 0), the last lane padded (zeros)."""
+    g = torch.Generator(device="cuda").manual_seed(0)
+    nb = 516
+    tables = (torch.randperm(nb - 1, generator=g, device="cuda")
+              + 1)[: B * T].reshape(B, T).to(torch.int32)
+    tables[1] = torch.arange(1, T + 1, dtype=torch.int32, device="cuda")
+    tables[-1] = 0
+    st = torch.tensor(starts, dtype=torch.int32, device="cuda")
+    q = torch.randn(B, C, H, D, generator=g, device="cuda",
+                    dtype=torch.bfloat16)
+    kp, vp = (torch.randn(nb, bs, K, D, generator=g, device="cuda",
+                          dtype=torch.bfloat16) for _ in range(2))
+    nl = nb // stripes
+    calls = []
+    for r in range(stripes):
+        local = tables - r * nl
+        owned = ((local >= 0) & (local < nl)).to(torch.int32)
+        calls.append((q, kp[r * nl:(r + 1) * nl], vp[r * nl:(r + 1) * nl],
+                      local.clamp(0, nl - 1), st, owned))
+    return calls
+
+
+def sdpa_owned(torch, calls):
+    """One SDPA call a stripe over its owned keys gathered into a dense,
+    masked (B, K, T*bs, D) cache (the gather not timed; o only, no lse)."""
+    import torch.nn.functional as F
+    dense = []
+    for q, k_s, v_s, local, starts, owned in calls:
+        B, C, H, D = q.shape
+        T, bs, K = local.shape[1], k_s.shape[1], k_s.shape[2]
+        kpos = torch.arange(T * bs, device="cuda")
+        qpos = starts[:, None] + torch.arange(C, device="cuda")[None, :]
+        own = (owned != 0).repeat_interleave(bs, dim=1)
+        mask = (kpos[None, None, :] <= qpos[:, :, None]) & own[:, None, :]
+        kd = k_s[local.long()].reshape(B, T * bs, K, D).transpose(1, 2)
+        vd = v_s[local.long()].reshape(B, T * bs, K, D).transpose(1, 2)
+        dense.append((q.transpose(1, 2), kd, vd, mask[:, None]))
+    return lambda: [F.scaled_dot_product_attention(qq, kd, vd, attn_mask=m)
+                    for qq, kd, vd, m in dense]
+
+
 def stripes_of(fn, calls):
     """``fn`` over every stripe's inputs; the outputs (o of each) stacked."""
     import torch
@@ -429,7 +590,7 @@ def stripes_of(fn, calls):
 
 
 def sweep() -> int:
-    """Kernels 2 and 4 of this tree at forced split lengths and at the
+    """Kernels 2, 4 and 3s of this tree at forced split lengths and at the
     plan's, per launch: events (median of 5 x 20 calls) and device time;
     kernel 6 at forced K splits and kernel 7 at forced (JC, Q), beside
     their plans', by device time."""
@@ -458,6 +619,22 @@ def sweep() -> int:
                          f"{held_ms(run) / stripes:.4f})")
         print(f"sweep {name}: {', '.join(cells)}; bound {bound:.4f} ms",
               flush=True)
+    from repro_torch.kernels import paged_prefill_attention as ppa
+    for name, spec in PREFILL_LSE.items():
+        calls = prefill_lse_inputs(torch, *spec)
+        B, C, H, K, _, bs, T = spec[:7]
+        plan = ppa.paged_prefill_split_plan(B, C, H, K, T, bs)[0]
+        cells = []
+        for split in (*LSE_SWEEP, plan):
+            def run(split=split):
+                return [ppa._launch_lse(*a, split=split) for a in calls]
+            runs = [cuda_ms(run) / len(calls) for _ in range(5)]
+            cells.append(f"L={split}{' (plan)' if split == plan else ''} "
+                         f"{statistics.median(runs):.4f} ({min(runs):.4f}-"
+                         f"{max(runs):.4f}; device "
+                         f"{held_ms(run) / len(calls):.4f})")
+        print(f"sweep {name}: {', '.join(cells)}; bound "
+              f"{prefill_lse_bound(calls)[0]:.4f} ms", flush=True)
     from repro_torch.kernels import int8_matmul as i8
     from repro_torch.kernels import rwkv6_wkv as wkv
     for name, (M, K, N) in INT8.items():
@@ -492,11 +669,14 @@ def sweep() -> int:
 
 
 def main(argv: list[str]) -> int:
-    if len(argv) == 3 and argv[0] == "--child":
-        child(argv[1], argv[2])
+    if len(argv) == 4 and argv[0] == "--child":
+        child(argv[1], argv[2], argv[3])
         return 0
     if argv == ["--sweep"]:
         return sweep()
+    only = ""
+    if len(argv) == 3 and argv[1] == "--only":
+        only, argv = argv[2], argv[:1]
     if len(argv) != 1:
         print(__doc__, file=sys.stderr)
         return 2
@@ -510,7 +690,7 @@ def main(argv: list[str]) -> int:
                                            ("other", other))):
             save = str(Path(tmp) / f"turn{i}.pt")
             run = subprocess.run([sys.executable, __file__, "--child",
-                                  str(tree / "src"), save],
+                                  str(tree / "src"), save, only],
                                  capture_output=True, text=True, timeout=900)
             lines = [ln for ln in run.stdout.splitlines()
                      if ln.startswith("TURN ")]
@@ -525,14 +705,22 @@ def main(argv: list[str]) -> int:
               **{n: prefill_bound(*s) for n, s in PREFILL.items()},
               **{n: decode_bound(*s) for n, s in DECODE.items()}}
     shapes.update({n: (turns[0][1][n]["bound"], None)
-                   for n in (*PAGED, *STRIPED)})
+                   for n in (*PAGED, *STRIPED, *PREFILL_LSE)
+                   if n in turns[0][1]})
     shapes.update({n: int8_bound(*s) for n, s in INT8.items()})
     shapes.update({n: wkv_bound(*s) for n, s in WKV.items()})
+    shapes.update({n: wkv_bwd_bound(*s) for n, s in WKV_BWD.items()})
     for name, (bound, flops) in shapes.items():
+        if name not in turns[0][1]:
+            continue
+
         def rate(t):
             return ("" if flops is None else
                     f"; {flops / t[name]['ms'] / 1e9:.1f} TFLOP/s")
+
         def sdpa(t):
+            if "lib" in t[name]:
+                return f"; sdpa over the owned keys {t[name]['lib']:.4f}"
             return ("" if "sdpa" not in t[name] else
                     f"; sdpa backward {t[name]['sdpa']:.4f}, device "
                     f"{t[name]['sdpa_dev']:.4f}")
@@ -542,13 +730,26 @@ def main(argv: list[str]) -> int:
             f"{rate(t)}; err {t[name]['err']:.3e}{sdpa(t)})"
             for label, t in turns)
         print(f"{name}: {cells}; bound {bound:.4f} ms", flush=True)
-    for name in (*FLASH, *DECODE, *INT8):
-        diff = max((a[name].float() - b[name].float()).abs().max().item()
-                   for (la, a) in outputs for (lb, b) in outputs
-                   if la == "other" and lb == "this")
-        print(f"{name}: max |other - this| = {diff:.3e}"
-              f"{'' if diff == 0 else ' (outputs differ)'}", flush=True)
+    for name in (*FLASH, *PREFILL, *DECODE, *INT8, *WKV):
+        if name not in outputs[0][1]:
+            continue
+        parts = (outputs[0][1][name] if isinstance(outputs[0][1][name], tuple)
+                 else (outputs[0][1][name],))
+        labels = (("serve y", "serve state", "training y", "training state")
+                  if name in WKV else ("",))
+        cells = []
+        for i, what in enumerate(labels):
+            diff = max((_part(a[name], i).float()
+                        - _part(b[name], i).float()).abs().max().item()
+                       for (la, a) in outputs for (lb, b) in outputs
+                       if la == "other" and lb == "this")
+            cells.append(f"{what + ' ' if what else ''}{diff:.3e}"
+                         f"{'' if diff == 0 else ' (outputs differ)'}")
+        assert len(parts) == len(labels)
+        print(f"{name}: max |other - this| = {', '.join(cells)}", flush=True)
     for name in BWD:
+        if name not in outputs[0][1]:
+            continue
         cells = []
         for i, grad in enumerate(("dq", "dk", "dv")):
             diff = max((a[name][i].float() - b[name][i].float()).abs().max()
@@ -558,6 +759,11 @@ def main(argv: list[str]) -> int:
             cells.append(f"{grad} {diff:.3e} (max |{grad}| {scale:.3e})")
         print(f"{name}: max |other - this| {', '.join(cells)}", flush=True)
     return 0
+
+
+def _part(saved, i: int):
+    """Output ``i`` of a saved entry (a tensor, or a tuple of them)."""
+    return saved[i] if isinstance(saved, tuple) else saved
 
 
 if __name__ == "__main__":

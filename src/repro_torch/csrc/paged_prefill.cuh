@@ -61,16 +61,44 @@
 // C * G are neither stored nor allowed to widen the walk.  Every head dim
 // kernel 1 takes: its panels and swizzle per D (hopper.cuh's Tiles<D>).
 //
-// The owned/LSE form (paged_prefill_attention_lse) is the same two bodies
-// over one stripe of the block-striped pool, what kernel 4 is to kernel 2:
-// it replaces the per-rank attention of the reference's sharded chunk
-// prefill (src/repro/models/attention.py:677, _paged_prefill_core).  The
-// pools are one stripe, the table holds local ids (clamped into the stripe
-// where not owned) and owned (B, T) marks the slots whose block the stripe
-// holds.  A key of an unowned slot is neither read (its copy zero-fills)
-// nor seen; a 64-key tile with no owned key is skipped whole; a row that
-// sees no key gives o = 0 and lse = -1e30.  It writes lse = m + log l per
-// query row beside o, which combine_lse merges over the stripes.
+// The owned/LSE form (paged_prefill_attention_lse) is kernel 3 over one
+// stripe of the block-striped pool, what kernel 4 is to kernel 2: it
+// replaces the per-rank attention of the reference's sharded chunk prefill
+// (src/repro/models/attention.py:677, _paged_prefill_core).  The pools are
+// one stripe, the table holds local ids (clamped into the stripe where not
+// owned) and owned (B, T) marks the slots whose block the stripe holds; a
+// row that sees no owned key gives o = 0 and lse = -1e30.  It writes lse =
+// m + log l per query row beside o, which combine_lse merges over the
+// stripes.
+//
+// Its bf16 route (paged_prefill_lse_wgmma) was first the plain body with
+// the owned mask on the gather, and that bounded it: every 64-key tile up
+// to the walk's end ran QK^T and PV when any of its blocks was owned (at 2
+// stripes over scrambled tables ~15 of 16 tiles), so a stripe did nearly
+// all of kernel 3's tensor-core work, and one CTA walked a long lane alone
+// (0.0843 ms a stripe at llama2-7b's phase-1 shape on an H100 80GB HBM3 at
+// 700 W, above kernel 3's 0.0795 ms over the whole pool).  It now walks
+// only the owned blocks, split over CTAs, as kernel 4 does
+// (split_decode.cuh): each CTA lists its lane's owned blocks up to its
+// query tile's walk end in table order (a prefix sum over owned by warp
+// ballots), and the walk's 64-key tiles are consecutive walk positions,
+// each key carrying its logical position (table index * bs + offset) for
+// the causal test, so a tile holds unowned slots nowhere and unfilled
+// slots only at a split's end, and "every row sees every key" is a test
+// on the tile's last position.  The walk splits into pieces of L keys
+// (paged_prefill_split_plan, from shapes alone: the chunk tick is one CUDA
+// graph), grid (K, B, splits * query tiles), the splits slowest so every
+// walk's first piece starts first; a split past the walk returns at once.  A lone live split writes o and lse itself; otherwise each
+// writes its partial (m, l, acc) per query row to f32 scratch the wrapper
+// allocates, and the last CTA of the (lane, KV head, query tile) to draw a
+// ticket merges them in split order (o = sum e^{m_s - M} acc_s / sum
+// e^{m_s - M} l_s, lse = M + log of that sum) and resets its counter, the
+// tickets kernels 2, 4 and 5 keep zeroed.  The tile body is the plain
+// form's: wgmma over the swizzled panels, K/V gathered through the table
+// by cp.async into a 2-stage ring (TMA cannot gather 16-row blocks).  Its
+// f32 route keeps the first design (paged_prefill_f32 with LSE, the owned
+// mask on the copy, a tile with no owned key adding nothing): it serves
+// only the f32 plans' parity.
 //
 // f32 q (over an f32 or a bf16 pool): the CUDA-core kernel
 // (paged_prefill_f32).  Tensor cores in f32 would be TF32, which the f32
@@ -220,7 +248,10 @@ struct Args {                         // one launch's shape
   int B, C, H, K, n_blocks, bs, T;
   float scale;
   const int* owned;                   // the LSE form's (B, T) mask
-  float* lse;                         // ... and its (B, C, H) output
+  float* lse;                         // ... and its (B, C, H) output;
+  float* part;                        // its bf16 route's split partials,
+  int* tickets;                       // their counters (zero between
+  int L, splits;                      // launches), the split plan
 };
 
 template <typename KT, int D, bool LSE>
@@ -264,26 +295,121 @@ __device__ __forceinline__ uint32_t swizzled(int r, int u) {
   return o ^ (((o >> 7) & (SW / 16 - 1)) << 4);
 }
 
-template <int D, bool LSE>
+// One 64-key tile for a warpgroup ``g``'s 64 query rows (this thread's
+// rows r0 + 8 i, its keys c0 + {0, 1} of each 8-key column group): S = Q
+// K^T as wgmma m64n64k16 from shared memory, the online softmax on the
+// accumulator fragment, O += P V with P from registers and V through the
+// transpose bit.  Unless ``full``, the keys ``dead(x, i)`` names (x the
+// key's index in the tile) are masked for row i, and each adds exactly 0.
+template <int D, class Dead>
+__device__ __forceinline__ void attend_tile(uint32_t sq, uint32_t sk,
+                                            uint32_t sv, int g, int c0,
+                                            bool full, const Dead& dead,
+                                            float scale_log2, float* oacc,
+                                            float* m, float* l) {
+  using Tl = Tiles<D>;
+  constexpr int E = Tl::E, SW = Tl::SW, MODE = Tl::MODE;
+  float sacc[32];                     // S: 64 x 64 per warpgroup
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const int p = kk * 16 / E;        // the panel, and 32 bytes a k16 step
+    const uint32_t off = kk * 16 % E * 2;
+    const uint64_t da =
+        desc(sq + p * BQ * SW + 64 * g * SW + off, 16, 8 * SW, MODE);
+    const uint64_t db = desc(sk + p * BK * SW + off, 16, 8 * SW, MODE);
+    wgmma_ss_n64(sacc, da, db, kk > 0);
+  }
+  wgmma_commit();
+  wgmma_wait();
+  fence_regs<32>(sacc);
+
+  // online softmax on the fragment: sacc[4 j + 2 i + c] is row r0 + 8 i,
+  // key 8 j + c0 + c of the tile
+  uint32_t live = 0xffffffffu;
+  if (!full) {
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int c = 0; c < 2; ++c)
+          if (dead(8 * j + c0 + c, i)) live &= ~(1u << (4 * j + 2 * i + c));
+  }
+  float mt[2] = {NEG_INF, NEG_INF};
+#pragma unroll
+  for (int e = 0; e < 32; ++e) {
+    sacc[e] = (live >> e & 1u) ? sacc[e] * scale_log2 : NEG_INF;
+    mt[e / 2 % 2] = fmaxf(mt[e / 2 % 2], sacc[e]);
+  }
+  float corr[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    mt[i] = fmaxf(mt[i], __shfl_xor_sync(0xffffffffu, mt[i], 1));
+    mt[i] = fmaxf(mt[i], __shfl_xor_sync(0xffffffffu, mt[i], 2));
+    const float m_new = fmaxf(m[i], mt[i]);
+    corr[i] = exp2f(m[i] - m_new);
+    m[i] = m_new;
+    l[i] *= corr[i];
+  }
+#pragma unroll
+  for (int e = 0; e < 32; ++e) {
+    const float p = (live >> e & 1u) ? exp2f(sacc[e] - m[e / 2 % 2]) : 0.f;
+    l[e / 2 % 2] += p;
+    sacc[e] = p;
+  }
+  uint32_t pa[16];                    // P as bf16 pairs: the A fragments
+#pragma unroll
+  for (int e = 0; e < 16; ++e) pa[e] = pack_bf16(sacc[2 * e], sacc[2 * e + 1]);
+#pragma unroll
+  for (int e = 0; e < D / 2; ++e) oacc[e] *= corr[e / 2 % 2];
+
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < BK / 16; ++kk)
+    pv<D, 0>(oacc, pa + 4 * kk, sv + kk * 16 * SW);
+  wgmma_commit();
+  wgmma_wait();
+  fence_regs<D / 2>(oacc);
+}
+
+// Q rows q0 .. q0 + 127 of (lane b, KV head kh) (zeros past R), unit u of
+// row r into its swizzled panel, by cp.async (the caller commits)
+template <int D>
+__device__ __forceinline__ void load_q(uint32_t sq, const bf16* q, int b,
+                                       int kh, int q0, int R, int G, int C,
+                                       int H) {
+  using Tl = Tiles<D>;
+  constexpr int SW = Tl::SW, UPR = D / 8, UPP = Tl::E / 8;
+  for (int i = threadIdx.x; i < BQ * UPR; i += THREADS) {
+    const int r = i / UPR, u = i % UPR;
+    const int qr = q0 + r;
+    const bool live = qr < R;
+    const int tok = live ? qr / G : 0;
+    const int h = kh * G + (live ? qr % G : 0);
+    cp_async16(sq + u / UPP * BQ * SW + swizzled<SW>(r, u % UPP),
+               q + (((size_t)b * C + tok) * H + h) * D + u * 8, live);
+  }
+}
+
+template <int D>
 __global__ void __launch_bounds__(THREADS, Tiles<D>::MIN_BLOCKS)
 paged_prefill_wgmma(const bf16* __restrict__ q,
                     const bf16* __restrict__ k_pool,
                     const bf16* __restrict__ v_pool,
                     const int* __restrict__ tables,
-                    const int* __restrict__ starts,
-                    const int* __restrict__ owned, bf16* __restrict__ out,
-                    float* __restrict__ lse, int C, int H, int K,
-                    int n_blocks, int bs, int T, float scale_log2) {
+                    const int* __restrict__ starts, bf16* __restrict__ out,
+                    int C, int H, int K, int n_blocks, int bs, int T,
+                    float scale_log2) {
   using Tl = Tiles<D>;
-  constexpr int E = Tl::E, SW = Tl::SW, MODE = Tl::MODE;
+  constexpr int SW = Tl::SW;
   constexpr int UPR = D / 8;          // 16-byte units per row
-  constexpr int UPP = E / 8;          // ... per panel row
+  constexpr int UPP = Tl::E / 8;      // ... per panel row
   extern __shared__ unsigned char smem_raw[];
 
   const uint32_t sq = (smem_u32(smem_raw) + 1023u) & ~1023u;
   const uint32_t skv = sq + Tl::Q_BYTES;     // stage s: K, then V
-  // the physical block of each of the walk's logical blocks, clamped (the
-  // LSE form: -1 where the stripe does not own it)
+  // the physical block of each of the walk's logical blocks, clamped
   int* blocks = reinterpret_cast<int*>(smem_raw + (sq - smem_u32(smem_raw))
                                        + Tl::SMEM - 1024);
 
@@ -304,29 +430,18 @@ paged_prefill_wgmma(const bf16* __restrict__ q,
   };
   const int k_end = kmax_of(q0 + BQ - 1) + 1;
   const int n_tiles = (k_end + BK - 1) / BK;
-  for (int i = tid; i < (k_end + bs - 1) / bs; i += THREADS) {
-    const bool own = !LSE || owned[(size_t)b * T + i] != 0;
-    blocks[i] = own ? min(max(table[i], 0), n_blocks - 1) : -1;  // in the pool
-  }
+  for (int i = tid; i < (k_end + bs - 1) / bs; i += THREADS)
+    blocks[i] = min(max(table[i], 0), n_blocks - 1);   // in the pool
   __syncthreads();
 
-  // Q rows q0 .. q0 + 127 (zeros past R), unit u of row r into its panel
-  for (int i = tid; i < BQ * UPR; i += THREADS) {
-    const int r = i / UPR, u = i % UPR;
-    const int qr = q0 + r;
-    const bool live = qr < R;
-    const int tok = live ? qr / G : 0;
-    const int h = kh * G + (live ? qr % G : 0);
-    cp_async16(sq + u / UPP * BQ * SW + swizzled<SW>(r, u % UPP),
-               q + (((size_t)b * C + tok) * H + h) * D + u * 8, live);
-  }
+  load_q<D>(sq, q, b, kh, q0, R, G, C, H);
   auto load_kv = [&](int t) {
     const uint32_t dk = skv + t % NST * 2 * Tl::KV_BYTES;
     const int k0 = t * BK;
     for (int i = tid; i < BK * UPR; i += THREADS) {
       const int r = i / UPR, u = i % UPR;
       const int kpos = k0 + r;
-      const bool live = kpos < k_end && (!LSE || blocks[kpos / bs] >= 0);
+      const bool live = kpos < k_end;
       const int blk = live ? blocks[kpos / bs] : 0;
       const size_t row =
           (((size_t)blk * bs + (live ? kpos % bs : 0)) * K + kh) * D + u * 8;
@@ -368,87 +483,13 @@ paged_prefill_wgmma(const bf16* __restrict__ q,
     __syncthreads();                  // everyone's copies of tile t
     const int k0 = t * BK;
     const uint32_t sk = skv + t % NST * 2 * Tl::KV_BYTES;
-    const uint32_t sv = sk + Tl::KV_BYTES;
-    // the LSE form: does the stripe own any key of the tile, all of them
-    bool own_any = true, own_all = true;
-    if (LSE) {
-      own_any = false;
-      for (int j = k0 / bs; j <= (min(k0 + BK, k_end) - 1) / bs; ++j) {
-        own_any |= blocks[j] >= 0;
-        own_all &= blocks[j] >= 0;
-      }
-    }
     // warpgroup-uniform: does any row see a key of the tile; do all rows
     // see all of them
-    const bool any = rows && k0 <= kmax_hi && own_any;
-    const bool full = k0 + BK - 1 <= kmax_lo && own_all;
-    if (any) {
-      float sacc[32];                 // S: 64 x 64 per warpgroup
-      wgmma_fence();
-#pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
-        const int p = kk * 16 / E;    // the panel, and 32 bytes a k16 step
-        const uint32_t off = kk * 16 % E * 2;
-        const uint64_t da =
-            desc(sq + p * BQ * SW + 64 * g * SW + off, 16, 8 * SW, MODE);
-        const uint64_t db = desc(sk + p * BK * SW + off, 16, 8 * SW, MODE);
-        wgmma_ss_n64(sacc, da, db, kk > 0);
-      }
-      wgmma_commit();
-      wgmma_wait();
-      fence_regs<32>(sacc);
-
-      // online softmax on the fragment: sacc[4 j + 2 i + c] is row r0 + 8 i,
-      // key k0 + 8 j + c0 + c
-      uint32_t live = 0xffffffffu;
-      if (!full) {
-#pragma unroll
-        for (int j = 0; j < 8; ++j)
-#pragma unroll
-          for (int i = 0; i < 2; ++i)
-#pragma unroll
-            for (int c = 0; c < 2; ++c) {
-              const int key = k0 + 8 * j + c0 + c;
-              if (key > kmax[i] || (LSE && blocks[key / bs] < 0))
-                live &= ~(1u << (4 * j + 2 * i + c));
-            }
-      }
-      float mt[2] = {NEG_INF, NEG_INF};
-#pragma unroll
-      for (int e = 0; e < 32; ++e) {
-        sacc[e] = (live >> e & 1u) ? sacc[e] * scale_log2 : NEG_INF;
-        mt[e / 2 % 2] = fmaxf(mt[e / 2 % 2], sacc[e]);
-      }
-      float corr[2];
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        mt[i] = fmaxf(mt[i], __shfl_xor_sync(0xffffffffu, mt[i], 1));
-        mt[i] = fmaxf(mt[i], __shfl_xor_sync(0xffffffffu, mt[i], 2));
-        const float m_new = fmaxf(m[i], mt[i]);
-        corr[i] = exp2f(m[i] - m_new);
-        m[i] = m_new;
-        l[i] *= corr[i];
-      }
-#pragma unroll
-      for (int e = 0; e < 32; ++e) {
-        const float p = (live >> e & 1u) ? exp2f(sacc[e] - m[e / 2 % 2]) : 0.f;
-        l[e / 2 % 2] += p;
-        sacc[e] = p;
-      }
-      uint32_t pa[16];                // P as bf16 pairs: the A fragments
-#pragma unroll
-      for (int e = 0; e < 16; ++e) pa[e] = pack_bf16(sacc[2 * e], sacc[2 * e + 1]);
-#pragma unroll
-      for (int e = 0; e < D / 2; ++e) oacc[e] *= corr[e / 2 % 2];
-
-      wgmma_fence();
-#pragma unroll
-      for (int kk = 0; kk < BK / 16; ++kk)
-        pv<D, 0>(oacc, pa + 4 * kk, sv + kk * 16 * SW);
-      wgmma_commit();
-      wgmma_wait();
-      fence_regs<D / 2>(oacc);
-    }
+    if (rows && k0 <= kmax_hi)
+      attend_tile<D>(sq, sk, sk + Tl::KV_BYTES, g, c0,
+                     k0 + BK - 1 <= kmax_lo,
+                     [&](int x, int i) { return k0 + x > kmax[i]; },
+                     scale_log2, oacc, m, l);
     __syncthreads();                  // both warpgroups are done with the stage
     if (t + NST < n_tiles) load_kv(t + NST);
     cp_async_commit();
@@ -467,9 +508,6 @@ paged_prefill_wgmma(const bf16* __restrict__ q,
     const int r = r0 + 8 * i;
     if (r >= R) continue;
     const size_t row = ((size_t)b * C + r / G) * H + kh * G + r % G;
-    // m is in log2 units (the scores carry scale * log2 e)
-    if (LSE && lane % 4 == 0)
-      lse[row] = l[i] > 0.f ? m[i] * LN2 + logf(l[i]) : NEG_INF;
     bf16* op = out + row * D + c0;
 #pragma unroll
     for (int j = 0; j < D / 8; ++j)
@@ -478,25 +516,307 @@ paged_prefill_wgmma(const bf16* __restrict__ q,
   }
 }
 
+// ---------------------------------------------------------------------------
+// the owned/LSE form on the tensor cores: the owned walk split over CTAs
+// ---------------------------------------------------------------------------
+
+constexpr int LSE_MAX_SPLITS = 16;    // the merge's weights in the K/V ring
+
+// Grid (K, B, splits * query tiles).  Each CTA lists its lane's owned
+// blocks up to its query tile's walk end (a prefix sum over owned by
+// ballots), walks the keys of its split [split * L, (split + 1) * L) of
+// that walk (64-key tiles of consecutive walk positions, each key with its
+// logical position for the causal test), and either writes o and lse
+// (one live split) or its partial (m, l, acc) per query row; the last CTA
+// of the (lane, KV head, query tile) to draw a ticket merges the partials
+// in split order.
+template <int D>
+__global__ void __launch_bounds__(THREADS, Tiles<D>::MIN_BLOCKS)
+paged_prefill_lse_wgmma(const bf16* __restrict__ q,
+                        const bf16* __restrict__ k_pool,
+                        const bf16* __restrict__ v_pool,
+                        const int* __restrict__ tables,
+                        const int* __restrict__ starts,
+                        const int* __restrict__ owned, bf16* __restrict__ out,
+                        float* __restrict__ lse, float* __restrict__ part,
+                        int* __restrict__ tickets, int C, int H, int K,
+                        int n_blocks, int bs, int T, int L, int splits,
+                        float scale_log2) {
+  using Tl = Tiles<D>;
+  constexpr int SW = Tl::SW;
+  constexpr int UPR = D / 8;          // 16-byte units per row
+  constexpr int UPP = Tl::E / 8;      // ... per panel row
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ int klog[NST][BK];       // a staged key's logical position
+  __shared__ int warp_n[THREADS / 32];
+  __shared__ int ticket;
+  __shared__ float inv_l[BQ];
+
+  unsigned char* base = smem_raw + (((smem_u32(smem_raw) + 1023u) & ~1023u)
+                                    - smem_u32(smem_raw));
+  const uint32_t sq = smem_u32(base);
+  const uint32_t skv = sq + Tl::Q_BYTES;     // stage s: K, then V
+  // the walk: the table index and the physical block of its j-th block
+  int* oblk = reinterpret_cast<int*>(base + Tl::SMEM - 1024);
+  int* pblk = oblk + T;
+
+  const int G = H / K;
+  const int R = C * G;
+  const int n_qt = (R + BQ - 1) / BQ;
+  // the splits vary slowest: every lane's first split (the one a walk
+  // always has) is dispatched before any lane's second
+  const int split = blockIdx.z / n_qt;
+  const int qt = n_qt - 1 - (int)blockIdx.z % n_qt;    // latest rows first
+  const int q0 = qt * BQ;
+  const int kh = blockIdx.x;
+  const int b = blockIdx.y;
+  const int tid = threadIdx.x;
+  const int warp = tid / 32, lane = tid % 32;
+  const int start = starts[b];
+  const int n_keys = T * bs;
+  const int* table = tables + (size_t)b * T;
+  auto kmax_of = [&](int r) {
+    return min(start + min(r, R - 1) / G, n_keys - 1);
+  };
+  const int k_end = kmax_of(q0 + BQ - 1) + 1;
+  const int nb_end = (k_end + bs - 1) / bs;
+
+  // the owned blocks before nb_end, in table order: a prefix sum of owned
+  int n_own = 0;
+  for (int i0 = 0; i0 < nb_end; i0 += THREADS) {
+    const int i = i0 + tid;
+    const bool own = i < nb_end && owned[(size_t)b * T + i] != 0;
+    const unsigned bal = __ballot_sync(0xffffffffu, own);
+    if (lane == 0) warp_n[warp] = __popc(bal);
+    __syncthreads();
+    int before = n_own, total = 0;
+#pragma unroll
+    for (int x = 0; x < THREADS / 32; ++x) {
+      before += x < warp ? warp_n[x] : 0;
+      total += warp_n[x];
+    }
+    if (own) {
+      const int j = before + __popc(bal & ((1u << lane) - 1u));
+      oblk[j] = i;
+      pblk[j] = min(max(table[i], 0), n_blocks - 1);   // in the stripe
+    }
+    n_own += total;
+    __syncthreads();
+  }
+  // the walk's keys: the owned blocks' whole, less those of the last
+  // block past k_end where that block is the walk's last
+  const int n_walk = n_own == 0 ? 0
+                     : n_own * bs - (oblk[n_own - 1] == nb_end - 1
+                                         ? nb_end * bs - k_end : 0);
+  const int n_live = (n_walk + L - 1) / L;
+  const int pair = (b * K + kh) * n_qt + qt;
+  const int n_rows = min(BQ, R - q0);
+
+  if (split >= n_live) {
+    if (split == 0) {                 // the stripe owns no key of the walk
+      for (int x = tid; x < n_rows * UPR; x += THREADS) {
+        const int r = q0 + x / UPR;
+        const size_t row = ((size_t)b * C + r / G) * H + kh * G + r % G;
+        reinterpret_cast<uint4*>(out + row * D)[x % UPR] =
+            make_uint4(0u, 0u, 0u, 0u);
+        if (x % UPR == 0) lse[row] = NEG_INF;
+      }
+    }
+    return;
+  }
+  const int lo = split * L;
+  const int hi = min(lo + L, n_walk);
+  const int n_tiles = (hi - lo + BK - 1) / BK;
+
+  load_q<D>(sq, q, b, kh, q0, R, G, C, H);
+  auto load_kv = [&](int t) {
+    const uint32_t dk = skv + t % NST * 2 * Tl::KV_BYTES;
+    const int k0 = lo + t * BK;
+    for (int i = tid; i < BK * UPR; i += THREADS) {
+      const int r = i / UPR, u = i % UPR;
+      const int wp = k0 + r;          // the key's walk position
+      const bool live = wp < hi;
+      const int j = live ? wp / bs : 0, off = live ? wp - j * bs : 0;
+      const size_t row =
+          (((size_t)pblk[j] * bs + off) * K + kh) * D + u * 8;
+      if (u == 0) klog[t % NST][r] = live ? oblk[j] * bs + off : 0x7fffffff;
+      const uint32_t dst = u / UPP * BK * SW + swizzled<SW>(r, u % UPP);
+      cp_async16(dk + dst, k_pool + row, live);
+      cp_async16(dk + Tl::KV_BYTES + dst, v_pool + row, live);
+    }
+  };
+  for (int t = 0; t < NST; ++t) {
+    if (t < n_tiles) load_kv(t);
+    cp_async_commit();
+  }
+
+  const int g = tid / 128;
+  const int w = tid % 128 / 32;
+  const int rlo = q0 + 64 * g;
+  const int rhi = min(rlo + 63, R - 1);
+  const bool rows = rlo < R;
+  const int kmax_lo = kmax_of(rlo);
+  const int kmax_hi = kmax_of(rhi);
+  const int r0 = rlo + 16 * w + lane / 4;
+  const int c0 = 2 * (lane % 4);
+  const int kmax[2] = {kmax_of(r0), kmax_of(r0 + 8)};
+
+  float oacc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) oacc[i] = 0.f;
+  float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
+
+  for (int t = 0; t < n_tiles; ++t) {
+    cp_async_wait_ring();
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    __syncthreads();
+    const uint32_t sk = skv + t % NST * 2 * Tl::KV_BYTES;
+    const int* kl = klog[t % NST];
+    // logical positions rise along the walk: the tile's first key is its
+    // least, and an unfilled slot (past the split's end) reads as past
+    // every row
+    if (rows && kl[0] <= kmax_hi)
+      attend_tile<D>(sq, sk, sk + Tl::KV_BYTES, g, c0, kl[BK - 1] <= kmax_lo,
+                     [&](int x, int i) { return kl[x] > kmax[i]; },
+                     scale_log2, oacc, m, l);
+    __syncthreads();
+    if (t + NST < n_tiles) load_kv(t + NST);
+    cp_async_commit();
+  }
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
+  }
+  if (n_live == 1) {                  // the whole walk: o and lse here
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int r = r0 + 8 * i;
+      if (r >= R) continue;
+      const float inv = 1.f / fmaxf(l[i], 1e-30f);
+      const size_t row = ((size_t)b * C + r / G) * H + kh * G + r % G;
+      // m is in log2 units (the scores carry scale * log2 e)
+      if (lane % 4 == 0)
+        lse[row] = l[i] > 0.f ? m[i] * LN2 + logf(l[i]) : NEG_INF;
+      bf16* op = out + row * D + c0;
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j)
+        *reinterpret_cast<__nv_bfloat162*>(op + 8 * j) = __floats2bfloat162_rn(
+            oacc[4 * j + 2 * i] * inv, oacc[4 * j + 2 * i + 1] * inv);
+    }
+    return;
+  }
+
+  // the split's partial per query row: (m, l) then acc (BQ x D), f32
+  const size_t pstride = (size_t)BQ * (D + 2);
+  float* all = part + (size_t)pair * splits * pstride;
+  float* mine = all + split * pstride;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int rl = r0 + 8 * i - q0;   // the row in the tile
+    if (lane % 4 == 0) {
+      mine[2 * rl] = m[i];
+      mine[2 * rl + 1] = l[i];
+    }
+    float* ap = mine + 2 * BQ + (size_t)rl * D + c0;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      *reinterpret_cast<float2*>(ap + 8 * j) =
+          make_float2(oacc[4 * j + 2 * i], oacc[4 * j + 2 * i + 1]);
+  }
+  // the ticket: every writer's partial is visible device-wide before the
+  // counter moves
+  __threadfence();
+  __syncthreads();
+  if (tid == 0) ticket = atomicAdd(&tickets[pair], 1);
+  __syncthreads();
+  if (ticket != n_live - 1) return;
+  __threadfence();
+
+  // the last CTA merges the live splits in split order: per row the
+  // weights e^{m_s - M} into shared memory (the ring is free), then o
+  float* wts = reinterpret_cast<float*>(base + Tl::Q_BYTES);  // [BQ][splits]
+  for (int rl = tid; rl < n_rows; rl += THREADS) {
+    float M = NEG_INF;
+    for (int s = 0; s < n_live; ++s)
+      M = fmaxf(M, __ldcg(all + s * pstride + 2 * rl));
+    float Lsum = 0.f;
+    for (int s = 0; s < n_live; ++s) {
+      const float wgt = exp2f(__ldcg(all + s * pstride + 2 * rl) - M);
+      wts[rl * splits + s] = wgt;
+      Lsum += wgt * __ldcg(all + s * pstride + 2 * rl + 1);
+    }
+    inv_l[rl] = 1.f / fmaxf(Lsum, 1e-30f);
+    const int r = q0 + rl;
+    lse[((size_t)b * C + r / G) * H + kh * G + r % G] =
+        Lsum > 0.f ? M * LN2 + logf(Lsum) : NEG_INF;
+  }
+  __syncthreads();
+  for (int x = tid; x < n_rows * (D / 4); x += THREADS) {
+    const int rl = x / (D / 4), d = 4 * (x % (D / 4));
+    float o[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll 4
+    for (int s = 0; s < n_live; ++s) {  // 16-byte loads, several in flight
+      const float wgt = wts[rl * splits + s];
+      const float4 acc = __ldcg(reinterpret_cast<const float4*>(
+          all + s * pstride + 2 * BQ + (size_t)rl * D + d));
+      o[0] += wgt * acc.x;
+      o[1] += wgt * acc.y;
+      o[2] += wgt * acc.z;
+      o[3] += wgt * acc.w;
+    }
+    const int r = q0 + rl;
+    const size_t row = ((size_t)b * C + r / G) * H + kh * G + r % G;
+    const __nv_bfloat162 lo = __floats2bfloat162_rn(o[0] * inv_l[rl],
+                                                    o[1] * inv_l[rl]);
+    const __nv_bfloat162 hi = __floats2bfloat162_rn(o[2] * inv_l[rl],
+                                                    o[3] * inv_l[rl]);
+    *reinterpret_cast<uint2*>(out + row * D + d) =
+        make_uint2(*reinterpret_cast<const uint32_t*>(&lo),
+                   *reinterpret_cast<const uint32_t*>(&hi));
+  }
+  if (tid == 0) tickets[pair] = 0;    // ready for the next launch
+}
+
 template <int D, bool LSE>
 int launch_wgmma(const void* q, const void* k_pool, const void* v_pool,
                  const int* tables, const int* starts, void* out,
                  const Args& a, cudaStream_t stream) {
   // above 48 KB shared memory is dynamic only, and per device: set on
   // every launch (a host-side attribute, no device work); the tiles, then
-  // the block ids of one table row
-  const int smem = Tiles<D>::SMEM + 4 * a.T;
-  const cudaError_t err = cudaFuncSetAttribute(
-      paged_prefill_wgmma<D, LSE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
-  if (err != cudaSuccess) return (int)err;
+  // the walk's block ids (the LSE form: table indices and physical ids)
+  const int smem = Tiles<D>::SMEM + (LSE ? 8 : 4) * a.T;
   const int rows = a.C * (a.H / a.K);
-  const dim3 grid((rows + BQ - 1) / BQ, a.K, a.B);
-  paged_prefill_wgmma<D, LSE><<<grid, THREADS, smem, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k_pool),
-      static_cast<const bf16*>(v_pool), tables, starts, a.owned,
-      static_cast<bf16*>(out), a.lse, a.C, a.H, a.K, a.n_blocks, a.bs, a.T,
-      a.scale * LOG2E);
+  const int n_qt = (rows + BQ - 1) / BQ;
+  if constexpr (LSE) {
+    if (a.L <= 0 || a.L % BK != 0 || a.splits < 1
+        || a.splits > LSE_MAX_SPLITS || a.part == nullptr
+        || a.tickets == nullptr)
+      return (int)cudaErrorInvalidValue;
+    const cudaError_t err = cudaFuncSetAttribute(
+        paged_prefill_lse_wgmma<D>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return (int)err;
+    const dim3 grid(a.K, a.B, a.splits * n_qt);
+    paged_prefill_lse_wgmma<D><<<grid, THREADS, smem, stream>>>(
+        static_cast<const bf16*>(q), static_cast<const bf16*>(k_pool),
+        static_cast<const bf16*>(v_pool), tables, starts, a.owned,
+        static_cast<bf16*>(out), a.lse, a.part, a.tickets, a.C, a.H, a.K,
+        a.n_blocks, a.bs, a.T, a.L, a.splits, a.scale * LOG2E);
+  } else {
+    const cudaError_t err = cudaFuncSetAttribute(
+        paged_prefill_wgmma<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        smem);
+    if (err != cudaSuccess) return (int)err;
+    const dim3 grid(n_qt, a.K, a.B);
+    paged_prefill_wgmma<D><<<grid, THREADS, smem, stream>>>(
+        static_cast<const bf16*>(q), static_cast<const bf16*>(k_pool),
+        static_cast<const bf16*>(v_pool), tables, starts,
+        static_cast<bf16*>(out), a.C, a.H, a.K, a.n_blocks, a.bs, a.T,
+        a.scale * LOG2E);
+  }
   return (int)cudaGetLastError();
 }
 

@@ -16,7 +16,8 @@ extern "C" int paged_prefill_attention(
     const int* starts, void* out, int B, int C, int H, int K, int D,
     int n_blocks, int bs, int T, float scale, int q_dtype, int kv_dtype,
     void* stream) {
-  const Args a{B, C, H, K, n_blocks, bs, T, scale, nullptr, nullptr};
+  const Args a{B, C, H, K, n_blocks, bs, T, scale, nullptr, nullptr,
+               nullptr, nullptr, 0, 0};
   return launch_form<false>(q, k_pool, v_pool, tables, starts, out, D,
                             q_dtype, kv_dtype, a, stream);
 }

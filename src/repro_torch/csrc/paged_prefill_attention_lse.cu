@@ -11,13 +11,19 @@ using namespace repro;
 
 // The owned/LSE form over one stripe: k_pool/v_pool (n_blocks, bs, K, D)
 // the stripe; tables (B, T) local ids clamped into it; owned (B, T) int32,
-// nonzero where the stripe holds the slot's block; lse (B, C, H) f32.
+// nonzero where the stripe holds the slot's block; lse (B, C, H) f32.  The
+// bf16 route splits each lane's owned walk into pieces of L keys (a
+// multiple of 64; splits pieces, at most 16): part holds B * K * query
+// tiles * splits partials of 128 * (D + 2) f32 and tickets B * K * query
+// tiles counters, zero between launches.  The f32 route reads neither.
 extern "C" int paged_prefill_attention_lse(
     const void* q, const void* k_pool, const void* v_pool, const int* tables,
-    const int* starts, const int* owned, void* out, float* lse, int B, int C,
-    int H, int K, int D, int n_blocks, int bs, int T, float scale,
-    int q_dtype, int kv_dtype, void* stream) {
-  const Args a{B, C, H, K, n_blocks, bs, T, scale, owned, lse};
+    const int* starts, const int* owned, void* out, float* lse, float* part,
+    int* tickets, int B, int C, int H, int K, int D, int n_blocks, int bs,
+    int T, int L, int splits, float scale, int q_dtype, int kv_dtype,
+    void* stream) {
+  const Args a{B, C, H, K, n_blocks, bs, T, scale, owned, lse, part, tickets,
+               L, splits};
   return launch_form<true>(q, k_pool, v_pool, tables, starts, out, D,
                            q_dtype, kv_dtype, a, stream);
 }

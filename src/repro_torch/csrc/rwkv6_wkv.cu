@@ -74,7 +74,7 @@
 //
 // The training form (CK = true; rwkv6_wkv.py rwkv6_wkv_train) is the same
 // kernel that also writes each lane's entries of S to the checkpoints
-// before every step t with t % C == 0 (C a power of two, wkv_chunk: 64 at
+// before every step t with t % C == 0 (C a power of two, wkv_chunk: 32 at
 // D = 64), where the lane holds S_t: the steps' arithmetic, and so y and
 // the final state, are the serve form's bit for bit.  Kernel 7's backward
 // (rwkv6_wkv_bwd.cu) recomputes each chunk's states from them.  The

@@ -24,9 +24,12 @@ step of a chunk over the block-striped pool (what kernel 4 is to kernel
 stripe where not owned) and ``owned`` (B, T) int32 is nonzero where the
 stripe holds the slot's block; it attends over the owned slots only and
 returns ``(o (B, C, H, D) in q's dtype, lse (B, C, H) f32)``, which
-``paged_decode_attention.combine_lse`` merges over the stripes.  It is
-the same two bodies with the owned mask on the gather, built from
-``csrc/paged_prefill_attention_lse.cu``.
+``paged_decode_attention.combine_lse`` merges over the stripes.  Built
+from ``csrc/paged_prefill_attention_lse.cu``: its bf16 route walks only a
+lane's owned blocks, split over CTAs into pieces of
+``paged_prefill_split_plan``'s length and merged inside the same launch
+(``paged_prefill_attention_lse_split_ref`` is that arithmetic in plain
+PyTorch); its f32 route is the CUDA-core body with the owned mask.
 """
 from __future__ import annotations
 
@@ -37,6 +40,8 @@ import math
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels.decode_attention import _tickets, split_merge
+from repro_torch.kernels.paged_decode_attention import _walk
 
 NEG_INF = -1e30
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -120,6 +125,72 @@ def paged_prefill_attention_lse_ref(q: torch.Tensor, k_pool: torch.Tensor,
     return o, lse
 
 
+def paged_prefill_attention_lse_split_ref(q: torch.Tensor,
+                                          k_pool: torch.Tensor,
+                                          v_pool: torch.Tensor,
+                                          block_tables: torch.Tensor,
+                                          starts: torch.Tensor,
+                                          owned: torch.Tensor, L: int, *,
+                                          scale: float | None = None):
+    """The bf16 kernel's split-and-merge arithmetic in plain PyTorch (for
+    the tests): a lane's walk is the keys of its owned slots in table
+    order, split i holds walk positions ``[i * L, (i + 1) * L)``, query c
+    sees the walked keys ``kpos <= starts[b] + c``, and ``split_merge``
+    merges the splits with exp(s - m_i) rounded to the pool's dtype before
+    PV.  Returns ``(o, lse)`` as ``paged_prefill_attention_lse_ref`` does
+    (o = 0 and lse = -1e30 where a row sees no owned key)."""
+    B, C, H, D = q.shape
+    bs, K = k_pool.shape[1], k_pool.shape[2]
+    T = block_tables.shape[1]
+    scale = scale if scale is not None else 1.0 / math.sqrt(D)
+    ids = block_tables.long()
+    ke = k_pool[ids].reshape(B, T * bs, K, D).repeat_interleave(H // K, dim=2)
+    ve = v_pool[ids].reshape(B, T * bs, K, D).repeat_interleave(H // K, dim=2)
+    s = torch.einsum("bchd,bshd->bchs", q.float(), ke.float()) * scale
+    # each (lane, token) as a lane of its own at position starts + c
+    pos = starts[:, None] + torch.arange(C, device=q.device)[None, :]
+    live, walk = _walk(block_tables.repeat_interleave(C, dim=0),
+                       pos.reshape(-1), bs, owned.repeat_interleave(C, dim=0))
+    o, lse = split_merge(s.reshape(B * C, H, T * bs), live, walk,
+                         ve.float().repeat_interleave(C, dim=0), L,
+                         v_pool.dtype)
+    return o.reshape(B, C, H, D).to(q.dtype), lse.reshape(B, C, H)
+
+
+# CTAs a launch of the owned/LSE form aims at, every split counted as
+# live (a stripe walks about 1 / stripes of a table;
+# ``scripts/flash_turns.py --sweep`` times split lengths 128-1024 beside
+# the plan's), its shortest split (two key tiles, so the ring overlaps a
+# copy with a product) and its most splits (the merge's weights live in
+# the K/V ring)
+_LSE_CTAS = 512
+_LSE_MIN_SPLIT = 128
+_LSE_MAX_SPLITS = 16
+
+
+@functools.lru_cache(maxsize=256)
+def paged_prefill_split_plan(B: int, C: int, H: int, K: int, T: int,
+                             bs: int) -> tuple[int, int]:
+    """``(L, splits)`` for a bf16 launch of the owned/LSE form over C
+    tokens of B lanes, H query heads over K KV heads and tables (B, T) of
+    ``bs``-key blocks, from shapes alone (never from starts or owned,
+    which stay on the card: the chunk tick is one CUDA graph).  L starts
+    at 128 keys and doubles while ``B * K * query tiles * ceil(T * bs / L)``
+    exceeds 512 CTAs and one split does not hold the table's ``T * bs``
+    keys, and further while there would be more than 16 splits; L is a
+    multiple of the kernel's 64-key tile (a split's walk positions, not
+    blocks: any ``bs``)."""
+    tiles = -(-C * (H // K) // 128)
+    pairs = B * K * tiles
+    N = T * bs
+    L = _LSE_MIN_SPLIT
+    while L < N and pairs * -(-N // L) > _LSE_CTAS:
+        L *= 2
+    while -(-N // L) > _LSE_MAX_SPLITS:
+        L *= 2
+    return L, -(-N // L)
+
+
 @functools.cache
 def _kernel():
     fn = build.library("paged_prefill_attention").paged_prefill_attention
@@ -134,7 +205,7 @@ def _kernel():
 def _lse_kernel():
     fn = build.library("paged_prefill_attention_lse")\
         .paged_prefill_attention_lse
-    fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 8
+    fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 10
                    + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
                       ctypes.c_void_p])
     fn.restype = ctypes.c_int
@@ -217,24 +288,49 @@ def paged_prefill_attention_lse(q: torch.Tensor, k_pool: torch.Tensor,
                                 starts: torch.Tensor, owned: torch.Tensor, *,
                                 scale: float | None = None):
     """Launch the per-stripe CUDA kernel (all tensors on the current CUDA
-    device); returns ``(o, lse)``.  ``launches`` counts every launch,
-    ``tensor_core`` the bf16 ones (the ``wgmma`` body)."""
+    device); returns ``(o, lse)``.  bf16 walks each lane's owned blocks
+    split as ``paged_prefill_split_plan`` says, the splits merged inside
+    the launch.  ``launches`` counts every launch, ``tensor_core`` the
+    bf16 ones (the ``wgmma`` body)."""
     _check(q, k_pool, v_pool, block_tables, starts, owned,
            name="paged_prefill_attention_lse")
+    out = _launch_lse(q, k_pool, v_pool, block_tables, starts, owned,
+                      scale=scale)
+    paged_prefill_attention_lse.launches += 1
+    paged_prefill_attention_lse.tensor_core += q.dtype == torch.bfloat16
+    return out
+
+
+def _launch_lse(q, k_pool, v_pool, block_tables, starts, owned, *,
+                scale=None, split=None):
+    """One launch of the owned/LSE form: bf16 splits each lane's owned walk
+    into pieces of ``paged_prefill_split_plan``'s length (or ``split``
+    keys, a multiple of 64, for a sweep).  Returns (o, lse)."""
     B, C, H, D = q.shape
     n_blocks, bs, K, _ = k_pool.shape
+    T = block_tables.shape[1]
     scale = scale if scale is not None else 1.0 / math.sqrt(D)
     out = torch.empty_like(q)
     lse = torch.empty(B, C, H, dtype=torch.float32, device=q.device)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    L, splits, part, tickets = 0, 0, None, None
+    if q.dtype == torch.bfloat16:
+        L, splits = paged_prefill_split_plan(B, C, H, K, T, bs)
+        if split is not None:
+            L, splits = split, -(-T * bs // split)
+        groups = B * K * -(-C * (H // K) // 128)
+        part = torch.empty(groups * splits * 128 * (D + 2),
+                           dtype=torch.float32, device=q.device)
+        tickets = _tickets(q.device, stream, groups)
     err = _lse_kernel()(
         q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
         block_tables.data_ptr(), starts.data_ptr(), owned.data_ptr(),
-        out.data_ptr(), lse.data_ptr(), B, C, H, K, D, n_blocks, bs,
-        block_tables.shape[1], scale, _DTYPES[q.dtype], _DTYPES[k_pool.dtype],
-        torch.cuda.current_stream(q.device).cuda_stream)
+        out.data_ptr(), lse.data_ptr(),
+        None if part is None else part.data_ptr(),
+        None if tickets is None else tickets.data_ptr(), B, C, H, K, D,
+        n_blocks, bs, T, L, splits, scale, _DTYPES[q.dtype],
+        _DTYPES[k_pool.dtype], stream)
     build.check(err, "paged_prefill_attention_lse")
-    paged_prefill_attention_lse.launches += 1
-    paged_prefill_attention_lse.tensor_core += q.dtype == torch.bfloat16
     return out, lse
 
 

@@ -26,12 +26,13 @@ only by a carried state, so one plain version serves both parity targets.
 Training adds two calls (``ops.WkvFn`` ties them together).
 ``rwkv6_wkv_train`` is the same launch, the same stepping body and the
 same bits for y, that also writes the state S_t before every step t that
-is a multiple of C = ``wkv_chunk(D)`` (64 at D = 64): checkpoints (B, H,
+is a multiple of C = ``wkv_chunk(D)`` (32 at D = 64): checkpoints (B, H,
 ceil(T / C), D, D) f32, the first one s0 (or zeros).  ``rwkv6_wkv_bwd``
 launches kernel 7's backward (``csrc/rwkv6_wkv_bwd.cu``), which walks
 time backwards chunk by chunk, recomputing each chunk's states from its
-checkpoint (never recovering S_{t-1} from S_t by dividing by w, which
-underflows toward 0): with G_t = dL/dS_t (G_T = dS_T, or 0),
+checkpoint on chip (never recovering S_{t-1} from S_t by dividing by w,
+which underflows toward 0), the rows of the state split over a cluster
+of P CTAs (``wkv_bwd_plan``): with G_t = dL/dS_t (G_T = dS_T, or 0),
 
     dr_t = S_{t-1} dy_t + u * k_t (v_t . dy_t)
     dk_t = G_t v_t + r_t * u (v_t . dy_t)
@@ -42,7 +43,9 @@ underflows toward 0): with G_t = dL/dS_t (G_T = dS_T, or 0),
 
 The reference has no Pallas backward: its gradient is XLA autodiff of
 ``_wkv_chunk``.  ``rwkv6_wkv_bwd_ref`` is the same reverse loop in f32 in
-plain torch, for the CPU.
+plain torch, for the CPU; ``rwkv6_wkv_bwd_split_ref`` is that loop with
+dv summed as the kernel's cluster sums it, per group of rows (with the
+group's part of c_t) and then in rank order (for the tests).
 """
 from __future__ import annotations
 
@@ -91,11 +94,11 @@ def wkv_plan(B: int, H: int, D: int) -> tuple[int, int]:
 
 def wkv_chunk(D: int) -> int:
     """C, the steps between two of the training form's checkpoints: the
-    largest power of two up to 4096 / D (64 at rwkv6-3b's D = 64), so a
-    chunk's staged r, k, v, w and dy take the backward 80 KB of shared
-    memory at every head dim."""
+    largest power of two up to 2048 / D (32 at rwkv6-3b's D = 64), so the
+    backward's two staged chunks of v and dy take 16 KB of shared memory
+    in bf16 at every head dim (two of its CTAs an SM at D = 64)."""
     c = 1
-    while 2 * c * D <= 4096:
+    while 2 * c * D <= 2048:
         c *= 2
     return c
 
@@ -144,15 +147,11 @@ def rwkv6_wkv_train_ref(r, k, v, w, u, s0=None):
     return y.to(r.dtype), s, ck
 
 
-def rwkv6_wkv_bwd_ref(r, k, v, w, u, ckpt, dy, ds=None):
-    """Plain backward of the WKV recurrence, the kernel's reverse loop in
-    f32 (the module docstring's equations): chunk by chunk from the last,
-    the chunk's states recomputed from its checkpoint, then its steps
-    walked backwards.  r/k/v/w/dy (B, T, H, D); u (H, D); ``ckpt`` from
-    the training form; ds (B, H, D, D) the final state's gradient or None
-    (0).  Returns (dr, dk, dv in r/k/v's dtype, dw f32 (B, T, H, D), du f32
-    (H, D), ds0 f32 (B, H, D, D))."""
-    rwkv6_wkv_bwd_ref.calls += 1
+def _wkv_bwd_loop(r, k, v, w, u, ckpt, dy, ds, groups):
+    """The reverse loop of ``rwkv6_wkv_bwd_ref``; with ``groups`` dv is
+    summed as the kernel's cluster sums it: per group of D / groups rows,
+    G_t^T k_t over the group's rows plus the group's part of c_t times
+    dy_t, the groups' partials then added in order."""
     B, T, H, D = r.shape
     C = wkv_chunk(D)
     rf, kf, vf, wf, dyf = (a.float() for a in (r, k, v, w, dy))
@@ -172,15 +171,58 @@ def rwkv6_wkv_bwd_ref(r, k, v, w, u, ckpt, dy, ds=None):
             S = states[t - t0]
             rt, kt, vt, wt, dyt = (a[:, t] for a in (rf, kf, vf, wf, dyf))
             vdy = (vt * dyt).sum(-1, keepdim=True)
-            c = (rt * uf * kt).sum(-1, keepdim=True)
             dr[:, t] = torch.einsum("bhij,bhj->bhi", S, dyt) + uf * kt * vdy
             dk[:, t] = torch.einsum("bhij,bhj->bhi", G, vt) + rt * uf * vdy
-            dv[:, t] = torch.einsum("bhij,bhi->bhj", G, kt) + c * dyt
+            if groups is None:
+                c = (rt * uf * kt).sum(-1, keepdim=True)
+                dv[:, t] = torch.einsum("bhij,bhi->bhj", G, kt) + c * dyt
+            else:
+                gk = (G * kt[..., :, None]).unflatten(
+                    -2, (groups, D // groups)).sum(-2)       # (B, H, P, D)
+                cp = (rt * uf * kt).unflatten(-1, (groups, D // groups)) \
+                    .sum(-1)                                 # (B, H, P)
+                parts = gk + cp[..., None] * dyt[..., None, :]
+                acc = parts[..., 0, :]
+                for p in range(1, groups):
+                    acc = acc + parts[..., p, :]
+                dv[:, t] = acc
             dw[:, t] = (G * S).sum(-1)
             du += rt * kt * vdy
             G = wt[..., :, None] * G + rt[..., :, None] * dyt[..., None, :]
     return (dr.to(r.dtype), dk.to(k.dtype), dv.to(v.dtype), dw,
             du.sum(0), G)
+
+
+def rwkv6_wkv_bwd_ref(r, k, v, w, u, ckpt, dy, ds=None):
+    """Plain backward of the WKV recurrence, the kernel's reverse loop in
+    f32 (the module docstring's equations): chunk by chunk from the last,
+    the chunk's states recomputed from its checkpoint, then its steps
+    walked backwards.  r/k/v/w/dy (B, T, H, D); u (H, D); ``ckpt`` from
+    the training form; ds (B, H, D, D) the final state's gradient or None
+    (0).  Returns (dr, dk, dv in r/k/v's dtype, dw f32 (B, T, H, D), du f32
+    (H, D), ds0 f32 (B, H, D, D))."""
+    rwkv6_wkv_bwd_ref.calls += 1
+    return _wkv_bwd_loop(r, k, v, w, u, ckpt, dy, ds, None)
+
+
+def wkv_bwd_plan(D: int) -> tuple[int, int]:
+    """``(P, RS)`` of kernel 7's backward at head dim D: a cluster of P =
+    D / 16 CTAs a (b, h), each holding RS = 16 rows of the state (P <= 8,
+    the portable cluster size).  The kernel instantiates the same."""
+    return D // 16, 16
+
+
+def rwkv6_wkv_bwd_split_ref(r, k, v, w, u, ckpt, dy, ds=None, *, P: int):
+    """Kernel 7's backward with the kernel's partition of the rows (for
+    the tests): the rows of G split into P groups of D / P, each group's
+    dv partial (G_t^T k_t over its rows plus its part of c_t times dy_t)
+    added in rank order; every other gradient is whole inside a group.
+    Returns what ``rwkv6_wkv_bwd_ref`` returns."""
+    D = r.shape[-1]
+    if P < 1 or D % P:
+        raise ValueError(f"rwkv6_wkv_bwd_split_ref: P={P} does not divide "
+                         f"head dim {D}")
+    return _wkv_bwd_loop(r, k, v, w, u, ckpt, dy, ds, P)
 
 
 # calls of the plain training versions: a training run on the card shows
@@ -250,7 +292,7 @@ def _kernel():
 @functools.cache
 def _bwd_kernel():
     fn = build.library("rwkv6_wkv_bwd").rwkv6_wkv_bwd
-    fn.argtypes = [ctypes.c_void_p] * 17
+    fn.argtypes = [ctypes.c_void_p] * 16
     fn.restype = ctypes.c_int
     return fn
 
@@ -381,16 +423,27 @@ def rwkv6_wkv_train(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 rwkv6_wkv_train.launches = 0
 
 
+def _on_16_bytes(t: torch.Tensor) -> torch.Tensor:
+    """``t`` itself where its start and its (B, T, H) strides are whole
+    16-byte units (the backward stages rows by 16-byte copies), else a
+    contiguous copy (D % 16 == 0 puts every row of that on 16 bytes)."""
+    el = t.element_size()
+    if t.data_ptr() % 16 or any(st * el % 16 for st in t.stride()[:3]):
+        return t.contiguous()
+    return t
+
+
 def rwkv6_wkv_bwd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   w: torch.Tensor, u: torch.Tensor, ckpt: torch.Tensor,
                   dy: torch.Tensor, ds: torch.Tensor | None = None):
-    """Launch kernel 7's backward (one CTA a (b, h), the whole head's G in
-    its registers; no atomics).  ``ckpt`` from ``rwkv6_wkv_train``; dy
-    (B, T, H, D) in r's dtype; ds (B, H, D, D) f32 or None (0).  Returns
-    (dr, dk, dv in r's dtype, dw f32 (B, T, H, D), du f32 (H, D), ds0 f32
-    (B, H, D, D)) as ``rwkv6_wkv_bwd_ref`` does; du is the kernel's per-(b,
-    h) partials summed over b by ``sum(0)`` (no atomics: the same bits on
-    every run).  ``launches`` counts calls."""
+    """Launch kernel 7's backward (a cluster of ``wkv_bwd_plan(D)[0]``
+    CTAs a (b, h), each holding its rows of G in registers and its chunk's
+    states on chip; no atomics, no scratch).  ``ckpt`` from
+    ``rwkv6_wkv_train``; dy (B, T, H, D) in r's dtype; ds (B, H, D, D) f32
+    or None (0).  Returns (dr, dk, dv in r's dtype, dw f32 (B, T, H, D), du
+    f32 (H, D), ds0 f32 (B, H, D, D)) as ``rwkv6_wkv_bwd_ref`` does; du is
+    the kernel's per-(b, h) partials summed over b by ``sum(0)`` (no
+    atomics: the same bits on every run).  ``launches`` counts calls."""
     _check(r, k, v, w, u, None, None, name="rwkv6_wkv_bwd")
     B, T, H, D = r.shape
     C = wkv_chunk(D)
@@ -410,14 +463,12 @@ def rwkv6_wkv_bwd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                            or ds.device != r.device):
         raise ValueError(f"rwkv6_wkv_bwd: ds {tuple(ds.shape)} {ds.dtype}, "
                          f"need contiguous f32 {(B, H, D, D)}")
+    r, k, v, w, dy = (_on_16_bytes(t) for t in (r, k, v, w, dy))
     dr, dk, dv = (torch.empty(B, T, H, D, dtype=r.dtype, device=r.device)
                   for _ in range(3))
     dw = torch.empty(B, T, H, D, dtype=torch.float32, device=r.device)
     du_part = torch.empty(B, H, D, dtype=torch.float32, device=r.device)
     ds0 = torch.empty(B, H, D, D, dtype=torch.float32, device=r.device)
-    # each CTA's recomputed states of one chunk, in its threads' own order
-    scratch = torch.empty(B * H * min(C, T) * D * D, dtype=torch.float32,
-                          device=r.device)
     params, address = _params("bwd_params", 21)
     params[:] = (B, T, H, D, C, _DTYPES[r.dtype], *r.stride()[:3],
                  *k.stride()[:3], *v.stride()[:3], *w.stride()[:3],
@@ -426,7 +477,7 @@ def rwkv6_wkv_bwd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(), u.data_ptr(),
         ckpt.data_ptr(), None if ds is None else ds.data_ptr(), dy.data_ptr(),
         dr.data_ptr(), dk.data_ptr(), dv.data_ptr(), dw.data_ptr(),
-        du_part.data_ptr(), ds0.data_ptr(), scratch.data_ptr(), address,
+        du_part.data_ptr(), ds0.data_ptr(), address,
         torch.cuda.current_stream(r.device).cuda_stream)
     build.check(err, "rwkv6_wkv_bwd")
     rwkv6_wkv_bwd.launches += 1

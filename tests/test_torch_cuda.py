@@ -312,6 +312,94 @@ def test_paged_prefill_lse_kernel_edges(gen):
                                         owned[:, :-1].contiguous())
 
 
+def _striped(gen, pattern, nb_loc):
+    """Tables whose slot (b, j) names a distinct block of stripe
+    ``pattern[b][j]`` of a pool of ``len(pattern)``-independent stripes of
+    ``nb_loc`` blocks; returns the global tables."""
+    shards = int(pattern.max()) + 1
+    tables = torch.empty_like(pattern)
+    for r in range(shards):
+        where = pattern == r
+        ids = torch.randperm(nb_loc - 1, generator=gen, device="cuda")[
+            : int(where.sum())] + 1
+        tables[where] = (r * nb_loc + ids).to(torch.int32)
+    return tables
+
+
+# kernel 3's owned/LSE form at its split edges: name -> (B, C, H, K, D, bs,
+# T, starts).  "boundary": lane 0's walk in stripe 0 is 16 whole blocks of
+# 16 ending on its last visible block, two splits of the plan's 128 keys
+# exactly, and lane 1 (start 0, one visible block) owns one block in
+# stripe 1 and none in stripe 0; bs 24 and 40 cut the 64-key tiles; C 129
+# is two query tiles with a ragged second; D = 256 is gemma-7b's.
+LSE_SPLIT_CASES = {
+    "boundary": (2, 16, 8, 2, 64, 16, 64, (400, 0)),
+    "bs24": (3, 40, 16, 16, 128, 24, 20, (0, 200, 439)),
+    "bs40 G3": (2, 33, 24, 8, 96, 40, 12, (7, 300)),
+    "ragged C 129": (2, 129, 4, 4, 64, 8, 64, (0, 300)),
+    "D256": (2, 40, 16, 16, 256, 16, 24, (0, 300)),
+}
+
+
+@pytest.mark.parametrize("shards", [2, 4])
+@pytest.mark.parametrize("case", sorted(LSE_SPLIT_CASES))
+def test_paged_prefill_lse_kernel_at_split_edges(gen, case, shards):
+    """The bf16 owned/LSE form (its owned walk split over CTAs, the
+    splits merged in the launch) per stripe against the one-pass plain
+    version and the split version at the plan's L (bf16 tolerance), lse
+    at 1e-4 and the rows without an owned key exactly empty; the stripes'
+    ``combine_lse`` against kernel 3 over the whole pool; the f32 route
+    against its plain version; every ticket counter 0 afterwards.  A
+    generator of its own."""
+    gen = torch.Generator(device="cuda").manual_seed(30)
+    B, C, H, K, D, bs, T, st = LSE_SPLIT_CASES[case]
+    nb_loc = B * T + 1
+    pattern = torch.randint(0, shards, (B, T), generator=gen, device="cuda",
+                            dtype=torch.int32)
+    if case == "boundary":
+        pattern[0, :26] = torch.tensor([0, 1] * 10 + [0] * 6,
+                                       dtype=torch.int32, device="cuda")
+        pattern[1, 0] = 1
+        L, _ = ppa.paged_prefill_split_plan(B, C, H, K, T, bs)
+        assert (L, st[0] + C) == (128, 26 * bs)   # 16 owned blocks = 2 L
+    tables = _striped(gen, pattern, nb_loc)
+    starts = torch.tensor(st, dtype=torch.int32, device="cuda")
+    q = torch.randn(B, C, H, D, generator=gen, device="cuda",
+                    dtype=torch.bfloat16)
+    kp, vp = (torch.randn(shards * nb_loc, bs, K, D, generator=gen,
+                          device="cuda", dtype=torch.bfloat16)
+              for _ in range(2))
+    L, _ = ppa.paged_prefill_split_plan(B, C, H, K, T, bs)
+    os_, lses = [], []
+    for r in range(shards):
+        k_s, v_s, local, owned = _stripe_args(kp, vp, tables, r, shards)
+        args = (q, k_s, v_s, local, starts, owned)
+        o, lse = ppa.paged_prefill_attention_lse(*args)
+        o_ref, lse_ref = ppa.paged_prefill_attention_lse_ref(*args)
+        o_split, _ = ppa.paged_prefill_attention_lse_split_ref(*args, L)
+        assert_close(o, o_ref, torch.bfloat16)
+        assert_close(o, o_split, torch.bfloat16)
+        empty = lse_ref == -1e30
+        assert torch.equal(lse == -1e30, empty)
+        assert (o[empty] == 0).all()
+        torch.testing.assert_close(lse[~empty], lse_ref[~empty], atol=1e-4,
+                                   rtol=0)
+        if case == "boundary":
+            assert bool(empty[1].all()) == (r != 1)
+        f_args = (q.float(), *args[1:])
+        fo, flse = ppa.paged_prefill_attention_lse(*f_args)
+        fo_ref, flse_ref = ppa.paged_prefill_attention_lse_ref(*f_args)
+        assert_close(fo, fo_ref, torch.bfloat16)   # P rounded to the pool
+        assert torch.equal(flse == -1e30, flse_ref == -1e30)
+        os_.append(o)
+        lses.append(lse)
+    got = pa.combine_lse(torch.stack(os_), torch.stack(lses))
+    assert_close(got, ppa.paged_prefill_attention(q, kp, vp, tables, starts),
+                 torch.bfloat16)
+    torch.cuda.synchronize()
+    assert all(int(t.abs().sum()) == 0 for t in da._TICKETS.values())
+
+
 def test_paged_decode_lse_kernel_edges(gen):
     """A stripe that owns nothing gives o = 0 and lse = -1e30 everywhere;
     a lane at a negative position sees no key; the wrapper refuses owned
@@ -2602,14 +2690,38 @@ def test_wkv_bwd_kernel_matches_plain(bgen, dtype, B, T, H, D, rand):
 @pytest.mark.parametrize("D", wkv.HEAD_DIMS)
 @pytest.mark.parametrize("T", [1, 31, 64, 257])
 def test_wkv_bwd_kernel_at_every_head_dim(bgen, D, T):
-    """Every head dim at T within, at and across its chunk edges (C = 256
-    down to 32), bf16, from a random state with dS_T."""
+    """Every head dim at T within, at and across its chunk edges (C = 128
+    down to 16), bf16, from a random state with dS_T: against the plain
+    backward and the plain version of the kernel's cluster partition
+    (``rwkv6_wkv_bwd_split_ref`` at ``wkv_bwd_plan``'s P), two calls the
+    same bits."""
     args, dy, ds = _wkv_bwd_case(bgen, torch.bfloat16, 2, T, 3, D, True)
     _, _, ck = wkv.rwkv6_wkv_train(*args)
     got = wkv.rwkv6_wkv_bwd(*args[:5], ck, dy, ds)
+    again = wkv.rwkv6_wkv_bwd(*args[:5], ck, dy, ds)
     want = wkv.rwkv6_wkv_bwd_ref(*args[:5], ck, dy, ds)
-    for a, c in zip(got, want):
+    split = wkv.rwkv6_wkv_bwd_split_ref(*args[:5], ck, dy, ds,
+                                        P=wkv.wkv_bwd_plan(D)[0])
+    for a, b, c, d in zip(got, again, want, split):
+        assert torch.equal(a, b)
         assert_wkv_close(a, c, torch.bfloat16)
+        assert_wkv_close(a, d, torch.bfloat16)
+
+
+def test_wkv_bwd_kernel_allocates_no_state_scratch(bgen):
+    """At rwkv6-3b's training shape the call allocates its outputs (and
+    du's per-(b, h) partials) and nothing else: no B*H*C*D*D f32 buffer
+    of recomputed states (168 MB here)."""
+    B, T, H, D = 4, 1024, 40, 64
+    args, dy, ds = _wkv_bwd_case(bgen, torch.bfloat16, B, T, H, D, True)
+    _, _, ck = wkv.rwkv6_wkv_train(*args)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    got = wkv.rwkv6_wkv_bwd(*args[:5], ck, dy, ds)
+    torch.cuda.synchronize()
+    outputs = sum(g.numel() * g.element_size() for g in got) + B * H * D * 4
+    assert torch.cuda.max_memory_allocated() - base <= outputs + (1 << 20)
 
 
 def test_wkv_function_on_the_card(bgen):

@@ -7,7 +7,9 @@ against ``jax.vjp`` of the reference oracle ``kernels/ref.py::
 rwkv6_wkv_ref`` in f32 at head dims 16 and 64, T ragged (not a multiple
 of C), s0 zero and random, dS_T zero and random, within 1e-5 of each
 gradient's max |g| (the same sums in other orders over up to 300 steps);
-against ``torch.autograd`` of the plain forward (1e-5); ``ops.WkvFn`` on
+against ``torch.autograd`` of the plain forward (1e-5); the kernel's
+partition of the rows over its cluster (``rwkv6_wkv_bwd_split_ref``) at
+every head dim (1e-6 of the plain backward, 1e-5 of ``jax.vjp``); ``ops.WkvFn`` on
 CPU tensors (its saved tensors and checkpoints), sending CUDA tensors to
 the kernels only.
 
@@ -51,8 +53,8 @@ def _held(got, want, tol):
 
 
 def test_wkv_chunk_per_head_dim():
-    assert [wkv.wkv_chunk(d) for d in wkv.HEAD_DIMS] == [256, 128, 64, 64,
-                                                          32, 32, 32, 32]
+    assert [wkv.wkv_chunk(d) for d in wkv.HEAD_DIMS] == [128, 64, 32, 32,
+                                                          16, 16, 16, 16]
 
 
 @pytest.mark.parametrize("D,T", [(16, 37), (16, 300), (64, 70)])
@@ -77,8 +79,8 @@ def test_train_form_keeps_y_and_checkpoints(D, T):
 @pytest.mark.parametrize("s0_zero,ds_zero", [(True, True), (False, True),
                                              (True, False), (False, False)])
 def test_plain_backward_matches_jax_vjp(D, T, s0_zero, ds_zero):
-    """T ragged against C (256 at D = 16 gives two chunks, the second
-    short; 64 at D = 64 gives two), a zero or random s0 and dS_T."""
+    """T ragged against C (128 at D = 16 gives three chunks, the last
+    short; 32 at D = 64 gives three), a zero or random s0 and dS_T."""
     rng = np.random.default_rng(D * 7 + T + 2 * s0_zero + ds_zero)
     B, H = 2, 3
     r, k, v, w, u, dy = _wkv_inputs(rng, B, T, H, D)
@@ -125,6 +127,31 @@ def test_plain_backward_matches_autograd_and_casts_bf16():
         assert torch.equal(a, b.bfloat16())
     for a, b in zip(gb[3:], gf[3:]):
         assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("D", wkv.HEAD_DIMS)
+def test_split_backward_at_the_kernels_cluster(D):
+    """The kernel's partition of the rows (``wkv_bwd_plan``: a cluster of
+    P CTAs of D / P rows, dv's and c_t's sums per group then in rank
+    order) in f32, random s0 and dS_T: within 1e-6 of the plain backward
+    and 1e-5 of ``jax.vjp`` of the oracle, each gradient over its max
+    |g|."""
+    P, rs = wkv.wkv_bwd_plan(D)
+    assert P * rs == D and P <= 8 and rs == 16
+    rng = np.random.default_rng(D)
+    B, H, T = 1, 2, 21          # across a chunk edge where C = 16
+    r, k, v, w, u, dy = _wkv_inputs(rng, B, T, H, D)
+    s0, ds = (rng.standard_normal((B, H, D, D)).astype(np.float32)
+              for _ in range(2))
+    t = [torch.from_numpy(a) for a in (r, k, v, w, u)]
+    _, _, ck = wkv.rwkv6_wkv_train_ref(*t, torch.from_numpy(s0))
+    args = (*t, ck, torch.from_numpy(dy), torch.from_numpy(ds))
+    got = wkv.rwkv6_wkv_bwd_split_ref(*args, P=P)
+    for g, w_ in zip(got, wkv.rwkv6_wkv_bwd_ref(*args)):
+        _held(g, w_.numpy(), 1e-6)
+    _, vjp = jax.vjp(j_wkv_ref, *map(jnp.asarray, (r, k, v, w, u, s0)))
+    for g, w_ in zip(got, vjp((jnp.asarray(dy), jnp.asarray(ds)))):
+        _held(g, w_, 1e-5)
 
 
 def test_wkv_function_on_cpu_tensors():
