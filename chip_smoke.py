@@ -270,6 +270,21 @@ Builds the hand-written CUDA kernels from ``src/repro_torch/csrc`` (one
    in an f32 plan: the loss and every grad leaf through the kernels
    against the plain route's (1e-5 relative, 1e-4 of each leaf's max
    |g|).
+16. The analysis against the card (``repro_torch/analysis/oncard.py``).
+   (a) While ``nvcc`` builds the kernels, ``launch.dryrun.sweep`` runs
+   every ``ASSIGNED`` x runnable cell on the meta device in this process,
+   before CUDA is first initialised; CUDA must still not be initialised
+   after it, and every cell must give a row (printed at the end).
+   (b) qwen3-1.7b's parameter and AdamW bytes at phase 14's shape and
+   llama2-7b's phase-4 pool bytes: the meta build's equal to the card's,
+   and the caching allocator's delta within ``allocator_span`` of the
+   real build's storages; one train step's peak-live estimate beside
+   ``max_memory_allocated`` (a reading).  (c) Printed in phases 4 and 14:
+   ``op_cost``'s flops and bytes of the captured llama2-7b decode step and
+   of the train step beside their device time, the share of the roofline
+   and the MFU.  (d) Every audit entry run eagerly under the audit on the
+   card, then captured: the verdicts agree, and a synthetic ``.item()``
+   and host-built tensor are flagged and refused.
 
 The launch counts are per launch whether the launch ran eagerly or as a
 node of a replayed graph: a capture records each wrapper's count and
@@ -280,6 +295,7 @@ times, and the card's name and power limit as ``nvidia-smi`` prints them.
 """
 from __future__ import annotations
 
+import functools
 import gc
 import json
 import math
@@ -292,11 +308,15 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-# published H100 SXM peaks (NVIDIA data sheet, dense): the bound of a call
-# is the larger of its bytes over HBM bandwidth and its flops over the
-# peak of its input type
-HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {"bf16": 989e12, "f32": 67e12, "int8": 1979e12}
+# every kernel's work formula, the H100 SXM's peaks and ``bound_of`` (the
+# larger of a call's bytes over HBM bandwidth and its flops over the peak
+# of its input type) live in ``repro_torch.analysis.roofline``; a call's
+# data-dependent counts (live keys, owned rows, seen pairs) come from
+# ``op_cost.kernel_work``, the dry run's and the audit's count too
+from repro_torch.analysis import roofline as R  # noqa: E402
+from repro_torch.analysis.op_cost import kernel_work  # noqa: E402
+from repro_torch.analysis.roofline import (bound_of,  # noqa: E402
+                                           window_pairs)
 # kernel vs plain version, by the lowest input precision: the max abs err,
 # and the error's norm relative to the plain output's norm (the latter scales
 # with the outputs, which shrink as more keys are averaged: a bf16 defect of
@@ -430,11 +450,8 @@ def check_flash(torch, dtypes, gen, shapes=None):
     plain_ms = cuda_ms(lambda: fa.flash_attention_ref(q, k, v))
     lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v,
                                                             is_causal=True))
-    n_bytes = 4 * B * S * H * D * q.element_size()
-    flops = 4 * D * B * H * S * (S + 1) // 2
-    bound = max(n_bytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS["bf16"]) * 1e3
-    by = "bytes" if n_bytes / HBM_BYTES_PER_S > flops / PEAK_FLOPS["bf16"] \
-        else "operations"
+    n_bytes, flops, peak = kernel_work("flash_attention", (q, k, v))
+    bound, by = bound_of(n_bytes, flops, peak)
     print(f"flash_attention bf16 B={B} H={H} S={S} D={D}: kernel "
           f"{spread(ms, lo, hi)}, "
           f"plain {plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, bound {bound:.4f} "
@@ -446,12 +463,6 @@ def check_flash(torch, dtypes, gen, shapes=None):
             "max_abs_err": err, "ms": ms, "ms_min": lo, "ms_max": hi,
             "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
             "library_ms": lib_ms}
-
-
-def window_pairs(S: int, W: int) -> int:
-    """(query, key) pairs a causal window of W keys sees over S queries."""
-    W = min(W, S)
-    return W * (W + 1) // 2 + (S - W) * W
 
 
 def check_flash_window(torch, dtypes):
@@ -496,9 +507,9 @@ def check_flash_window(torch, dtypes):
         .triu(1 - W)
     lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
         q, ke, ve, attn_mask=band))
-    n_bytes = 2 * B * S * (H + K) * D * q.element_size()  # q, k, v in, o out
-    flops = 4 * D * B * H * window_pairs(S, W)
-    bound, by = bound_of(n_bytes, flops, "bf16")
+    n_bytes, flops, peak = kernel_work("flash_attention", (q, k, v),
+                                       {"window": W})
+    bound, by = bound_of(n_bytes, flops, peak)
     print(f"flash_attention window={W} bf16 B={B} H={H} K={K} S={S} D={D}: "
           f"kernel {spread(ms, lo, hi)}, plain {plain_ms:.4f} ms, sdpa with "
           f"a banded mask over expanded K/V {lib_ms:.4f} ms, bound "
@@ -555,9 +566,9 @@ def check_flash_bidirectional(torch, dtypes):
     plain_ms = cuda_ms(lambda: fa.flash_attention_ref(q, k, v, causal=False))
     lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
         q, k, v, is_causal=False))
-    n_bytes = 4 * B * S * H * D * q.element_size()   # q, k, v in, o out
-    flops = 4 * D * B * H * S * S                      # every pair
-    bound, by = bound_of(n_bytes, flops, "bf16")
+    n_bytes, flops, peak = kernel_work("flash_attention", (q, k, v),
+                                       {"causal": False})
+    bound, by = bound_of(n_bytes, flops, peak)
     print(f"flash_attention bidirectional bf16 B={B} H={H} S={S} D={D}: "
           f"kernel {spread(ms, lo, hi)}, plain {plain_ms:.4f} ms, sdpa "
           f"{lib_ms:.4f} ms, bound {bound:.4f} ms ({by}: {n_bytes} B, "
@@ -610,9 +621,8 @@ def check_flash_head_dims(torch, dtypes) -> None:
         plain_ms = cuda_ms(lambda: fa.flash_attention_ref(q, k, v))
         lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
             q, k, v, is_causal=True))
-        n_bytes = 4 * B * S * H * D * q.element_size()
-        flops = 4 * D * B * H * S * (S + 1) // 2
-        bound, by = bound_of(n_bytes, flops, "bf16")
+        n_bytes, flops, peak = kernel_work("flash_attention", (q, k, v))
+        bound, by = bound_of(n_bytes, flops, peak)
         print(f"reading: flash_attention causal bf16 B={B} H=K={H} S={S} "
               f"D={D}: kernel {when}, plain {plain_ms:.4f} ms, sdpa "
               f"{lib_ms:.4f} ms, bound {bound:.4f} ms ({by}: {n_bytes} B, "
@@ -718,9 +728,8 @@ def check_paged_edges(torch) -> None:
 def paged_yardstick(torch, q, kp, vp, tables, pos) -> tuple[float, int, int]:
     """(SDPA ms, bytes, flops) of one kernel-2 call: SDPA over the same
     keys gathered into a dense, masked (B, H, T*bs, D) cache (the gather
-    itself is not timed), and what the call must move and compute: K and
-    V of the live keys, q in and o out, the live blocks' table ids and
-    the positions; 4 D flops per live key and query head."""
+    itself is not timed), and what the call must move and compute
+    (``roofline.paged_decode_work``)."""
     import torch.nn.functional as F
     B, H, D = q.shape
     bs, K = kp.shape[1], kp.shape[2]
@@ -731,11 +740,9 @@ def paged_yardstick(torch, q, kp, vp, tables, pos) -> tuple[float, int, int]:
             <= pos[:, None])[:, None, None, :]
     lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
         q[:, :, None], kd, vd, attn_mask=mask))
-    keys = int((pos.long() + 1).sum().item())
-    live_blocks = int(((pos.long() + bs) // bs).sum().item())
-    n_bytes = (2 * keys * K * D * kp.element_size()
-               + 2 * B * H * D * q.element_size() + 4 * live_blocks + 4 * B)
-    return lib_ms, n_bytes, 4 * D * H * keys
+    n_bytes, flops, _ = kernel_work("paged_decode_attention",
+                                    (q, kp, vp, tables, pos))
+    return lib_ms, n_bytes, flops
 
 
 def served_paged(torch, gen) -> None:
@@ -824,7 +831,8 @@ def lse_yardstick(torch, calls: list) -> tuple:
     ``calls`` (each the launch's arguments), summed over the stripes:
     SDPA over each stripe's owned keys gathered into a dense, masked (B,
     K, T*bs, D) cache (the gather itself is not timed; it gives o but no
-    lse), and what the launches must move and compute."""
+    lse), and what the launches must move and compute
+    (``roofline.paged_decode_lse_work``)."""
     import torch.nn.functional as F
     sdpa, n_bytes, flops = [], 0, 0
     for q, k_s, v_s, local, pos, owned in calls:
@@ -835,15 +843,10 @@ def lse_yardstick(torch, calls: list) -> tuple:
         kd = k_s[local.long()].reshape(B, T * bs, K, D).transpose(1, 2)
         vd = v_s[local.long()].reshape(B, T * bs, K, D).transpose(1, 2)
         sdpa.append((q[:, :, None], kd, vd, keys_live[:, None, None, :]))
-        keys = int(keys_live.sum().item())
-        slots_seen = int(((torch.arange(T, device="cuda")[None, :] * bs)
-                          <= pos[:, None]).sum().item())
-        blocks = int(keys_live.reshape(B, T, bs).any(-1).sum().item())
-        n_bytes += (2 * keys * K * D * k_s.element_size()  # owned live K, V
-                    + 2 * B * H * D * q.element_size()     # q in, o out
-                    + 4 * B * H                            # lse out
-                    + 4 * (slots_seen + blocks + B))       # owned, ids, pos
-        flops += 4 * D * H * keys
+        b, f, _ = kernel_work("paged_decode_attention_lse",
+                              (q, k_s, v_s, local, pos, owned))
+        n_bytes += b
+        flops += f
     lib_ms = cuda_ms(lambda: [F.scaled_dot_product_attention(
         qq, kd, vd, attn_mask=m) for qq, kd, vd, m in sdpa]) / len(calls)
     return lib_ms, n_bytes, flops
@@ -982,14 +985,6 @@ def lse_empty_stripe(torch, n_blocks: int) -> None:
                  pa.paged_decode_attention(q, kp, vp, tables, pos), name)
 
 
-def bound_of(n_bytes: int, flops: int, peak: str) -> tuple[float, str]:
-    """(least time in ms, what bounds it): bytes over HBM bandwidth or
-    flops over the peak of the input type, whichever is larger."""
-    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[peak]
-    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
-                                       else "operations")
-
-
 def held(label: str, got, want, name: str) -> float:
     """Compare a kernel's output with its plain version's; fail outside
     ``TOL``/``REL_TOL`` of the lowest input precision ``name``."""
@@ -1014,8 +1009,7 @@ def prefill_yardstick(torch, q, kp, vp, tables, starts) -> tuple:
     """(SDPA ms, bytes, flops) of one kernel-3 call: SDPA with a boolean
     mask over the same keys gathered into a dense (B, K, T*bs, D) cache
     (the gather itself is not timed), and what the call must move and
-    compute: the distinct K/V rows the lanes read, q in and o out, the
-    table ids and starts; 4 D flops per (query, key) pair and head."""
+    compute (``roofline.paged_prefill_work``)."""
     import torch.nn.functional as F
     B, C, H, D = q.shape
     bs, K = kp.shape[1], kp.shape[2]
@@ -1028,17 +1022,9 @@ def prefill_yardstick(torch, q, kp, vp, tables, starts) -> tuple:
     qt = q.transpose(1, 2)
     lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
         qt, kd, vd, attn_mask=mask))
-    st = [int(x) for x in starts.tolist()]
-    tab = tables.tolist()
-    # distinct (block, offset) key rows the lanes need: the padded lane
-    # names block 0 throughout, so its keys are one block's
-    keys = len({(tab[b][kpos // bs], kpos % bs)
-                for b, s0 in enumerate(st) for kpos in range(s0 + C)})
-    seen = sum(C * s0 + C * (C + 1) // 2 for s0 in st)   # (query, key) pairs
-    n_bytes = (2 * keys * K * D * kp.element_size()      # K and V, read once
-               + 2 * B * C * H * D * q.element_size()    # q in, o out
-               + 4 * sum(-(-(s0 + C) // bs) for s0 in st) + 4 * B)
-    return lib_ms, n_bytes, 4 * D * H * seen
+    n_bytes, flops, _ = kernel_work("paged_prefill_attention",
+                                    (q, kp, vp, tables, starts))
+    return lib_ms, n_bytes, flops
 
 
 def check_prefill(torch, gen, heads=((32, 32), (64, 8)), chunks=(16, 128),
@@ -1104,10 +1090,8 @@ def prefill_lse_yardstick(torch, calls: list) -> tuple:
     per stripe in ``calls`` (each the launch's arguments), summed over the
     stripes: SDPA over each stripe's owned keys gathered into a dense,
     masked (B, K, T*bs, D) cache (the gather itself is not timed; it
-    gives o but no lse), and what the launches must move and compute: the
-    owned K/V rows some query of the lane sees, q in, o and lse out, the
-    table ids, the owned mask and the starts; 4 D flops per owned (query,
-    key) pair and head."""
+    gives o but no lse), and what the launches must move and compute
+    (``roofline.paged_prefill_lse_work``)."""
     import torch.nn.functional as F
     sdpa, n_bytes, flops = [], 0, 0
     for q, k_s, v_s, local, starts, owned in calls:
@@ -1120,18 +1104,10 @@ def prefill_lse_yardstick(torch, calls: list) -> tuple:
         kd = k_s[local.long()].reshape(B, T * bs, K, D).transpose(1, 2)
         vd = v_s[local.long()].reshape(B, T * bs, K, D).transpose(1, 2)
         sdpa.append((q.transpose(1, 2), kd, vd, sees[:, None]))
-        # the lanes' distinct owned rows: a padded lane names block 0
-        loc, own_l, st = local.tolist(), owned.tolist(), starts.tolist()
-        rows = {(loc[b][k // bs], k % bs)
-                for b in range(B) for k in range(st[b] + C)
-                if own_l[b][k // bs]}
-        pairs = int(sees.sum().item())
-        n_bytes += (2 * len(rows) * K * D * k_s.element_size()
-                    + 2 * B * C * H * D * q.element_size()   # q in, o out
-                    + 4 * B * C * H                          # lse out
-                    + 8 * sum(-(-(int(s0) + C) // bs) for s0 in starts)
-                    + 4 * B)                                 # ids, owned, starts
-        flops += 4 * D * H * pairs
+        b, f, _ = kernel_work("paged_prefill_attention_lse",
+                              (q, k_s, v_s, local, starts, owned))
+        n_bytes += b
+        flops += f
     lib_ms = cuda_ms(lambda: [F.scaled_dot_product_attention(
         qq, kd, vd, attn_mask=m) for qq, kd, vd, m in sdpa]) / len(calls)
     return lib_ms, n_bytes, flops
@@ -1337,11 +1313,9 @@ def check_dense(torch, gen, heads=((32, 32), (64, 8)), lengths=(2048, 1000),
             <= pos[:, None])[:, None, None, :]
     lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
         q[:, :, None], kt, vt, attn_mask=mask))
-    keys = int((pos.long() + 1).sum().item())
-    n_bytes = (2 * keys * K * D * k.element_size()      # K and V of live keys
-               + 2 * B * H * D * q.element_size() + 4 * B)
-    flops = 4 * D * H * keys
-    bound, by = bound_of(n_bytes, flops, "bf16")
+    n_bytes, flops, peak = kernel_work("decode_attention", (q, k, v, pos))
+    keys = flops // (4 * D * H)
+    bound, by = bound_of(n_bytes, flops, peak)
     dev = device_ms(torch, lambda: da.decode_attention(q, k, v, pos))
     print(f"decode_attention bf16 B={B} H={H} K={K} D={D} S={S} "
           f"keys={keys}: kernel {spread(ms, lo, hi)}, device {dev:.4f} ms "
@@ -1383,8 +1357,8 @@ def check_ring(torch) -> None:
             ring = (qr, kr, vr)
     qr, kr, vr = ring
     keys = int((clamped.long() + 1).sum().item())
-    r_bound, r_by = bound_of(2 * keys * 5 * 64 * 2 + 2 * B * 25 * 64 * 2
-                             + 4 * B, 4 * 64 * 25 * keys, "bf16")
+    r_bound, r_by = bound_of(*kernel_work("decode_attention",
+                                          (qr, kr, vr, clamped)))
     ring_ms = spread_ms(lambda: da.decode_attention(qr, kr, vr, clamped))
     ring_plain = cuda_ms(lambda: da.swa_decode_ref(qr, kr, vr, clamped))
     # yardstick: SDPA over the ring's (B, K, W, D) transposed view with a
@@ -1429,21 +1403,6 @@ def _wkv_inputs(torch, gen, B, T, H, D, dt, zero_state):
     s0 = None if zero_state else torch.randn(B, H, D, D, generator=gen,
                                              device="cuda")
     return r, k, v, w, u, s0
-
-
-def wkv_bound(B: int, T: int, H: int, D: int, el: int, state_in: bool):
-    """(bound ms, what bounds it, bytes, flops) of one WKV call: r/k/v
-    (``el`` bytes) and w (f32) read once, y written once, u read, the
-    state read (when given) and written once.  The flops are the
-    function's, in the form y_j = sum_i r_i S_ij + v_j sum_i r_i u_i k_i:
-    per step and (b, h), 5 per state entry (the FMA of r_i S_ij; w_i S_ij
-    plus k_i v_j, a multiply and an FMA) and 5 per row (r_i u_i k_i summed,
-    3; the FMA of v_j with that sum, 2)."""
-    n_bytes = (B * T * H * D * (4 * el + 4) + H * D * 4
-               + (1 + state_in) * B * H * D * D * 4)
-    flops = 5 * B * T * H * D * D + 5 * B * T * H * D
-    bound, by = bound_of(n_bytes, flops, "f32")
-    return bound, by, n_bytes, flops
 
 
 def wkv_grid(wkv, B: int, T: int, H: int, D: int) -> str:
@@ -1532,8 +1491,8 @@ def check_wkv(torch, gen):
         # wrapper calls also time the wrapper's host work where that is longer
         ms = device_ms(torch, call)
         call_ms = cuda_ms(call)
-        bound, by, n_bytes, flops = wkv_bound(B, T, H, D, r.element_size(),
-                                              s0 is not None)
+        n_bytes, flops, peak = kernel_work("rwkv6_wkv", (r, k, v, w, u, s0))
+        bound, by = bound_of(n_bytes, flops, peak)
         rows[label] = (ms, call_ms, plain_ms, bound, by, err)
         print(f"rwkv6_wkv {label} bf16 r/k/v B={B} T={T} H={H} D={D}: "
               f"kernel {ms:.4f} ms on the device ({call_ms:.4f} ms per "
@@ -1562,16 +1521,6 @@ INT8_SHAPES = [(128, 256, 128), (256, 512, 256),     # the reference's tests
                #                                       capacity of 256 rows
                (200, 1536, 520),                     # ragged (byte staging)
                (4096, 4096, 4096)]                   # for the rate
-
-
-def int8_bound(M: int, K: int, N: int, out_bytes: int):
-    """(bound ms, what bounds it, bytes, ops) of one w8a8 GEMM: x and w
-    read once (int8), the scales read once (f32), the output written
-    once; 2*M*N*K integer operations at the int8 dense peak."""
-    n_bytes = M * K + K * N + 4 * (M + N) + out_bytes * M * N
-    ops = 2 * M * N * K
-    bound, by = bound_of(n_bytes, ops, "int8")
-    return bound, by, n_bytes, ops
 
 
 def check_int8(torch, gen):
@@ -1645,7 +1594,8 @@ def check_int8(torch, gen):
                    f"CUDA events; the GEMM alone {mm_ms:.4f} ms)")
         except RuntimeError as e:          # shapes cuBLASLt does not take
             lib_ms, lib = None, f"n/a ({e})"
-        bound, by, n_bytes, n_ops = int8_bound(M, K, N, 2)
+        n_bytes, n_ops, peak = R.int8_matmul_work(M, K, N, torch.bfloat16)
+        bound, by = bound_of(n_bytes, n_ops, peak)
         rows[(M, K, N)] = (ms, call_ms, plain_ms, bound, by, lib_ms)
         print(f"int8_matmul bf16-out M={M} K={K} N={N}: kernel {ms:.4f} ms "
               f"on the device ({n_ops / ms / 1e9:.1f} TOPS; {call_ms:.4f} "
@@ -5256,7 +5206,7 @@ def mla_phase(torch) -> dict:
     w_bytes = sum(t.numel() * t.element_size() for t in _leaves(params))
     print(f"phase 13 minicpm3-4b captured slot step: {busy:.3f} ms of device "
           f"work, {wall:.3f} ms host wall, idle share {1 - busy / wall:.3f}; "
-          f"the weights' byte bound {w_bytes / HBM_BYTES_PER_S * 1e3:.2f} ms "
+          f"the weights' byte bound {w_bytes / R.HW.hbm_bw * 1e3:.2f} ms "
           f"({w_bytes} B); card {card_line()}", flush=True)
     del fn, slots
     total = {}
@@ -5326,25 +5276,6 @@ BWD_CASES = (("llama2-7b", 4, 32, 32, 512, 128, True, 0, 0),
 # bf16 rounds dq, dk, dv, the P of dV and dS to bf16
 BWD_TOL = {"bf16": 2e-2, "f32": 1e-5}
 TRAIN = dict(batch=4, seq=1024, steps=10, lr=1e-3, warmup=2)
-
-
-def attn_pairs(S: int, causal: bool, window: int) -> int:
-    """(query, key) pairs seen per (batch, head)."""
-    if causal:
-        return window_pairs(S, window) if window else S * (S + 1) // 2
-    if 0 < window < S:                  # keys k > q - W, every later one
-        return sum(S - max(0, q - window + 1) for q in range(S))
-    return S * S
-
-
-def bwd_bound(B, H, K, S, D, causal, window, el: int, peak: str):
-    """The backward's least time: 10 D flops per seen pair (S = Q K^T
-    recomputed, dP, dV, dK, dQ: 2.5 times the forward's 4 D), or its bytes
-    (q, o, dO and dq per query head, k, v, dk and dv per KV head, the f32
-    lse), whichever is larger."""
-    flops = 10 * D * B * H * attn_pairs(S, causal, window)
-    n_bytes = 4 * B * S * (H + K) * D * el + 4 * B * H * S
-    return bound_of(n_bytes, flops, peak) + (flops,)
 
 
 def sdpa_mask(torch, S, causal, window):
@@ -5419,9 +5350,9 @@ def check_flash_bwd(torch) -> list:
                 fail(f"flash_attention_bwd {tag}: two calls differ")
             if name == "f32" and label != "llama2-7b":
                 continue
-            el = q.element_size()
-            bound, by, flops = bwd_bound(B, H, K, S, D, causal, window, el,
-                                         name)
+            n_bytes, flops, peak = kernel_work(
+                "flash_attention_bwd", (q, k, v, o, do, lse), kw)
+            bound, by = bound_of(n_bytes, flops, peak)
             ms, lo, hi = spread_ms(lambda: fa.flash_attention_bwd(
                 q, k, v, o, do, lse, **kw))
             dev = device_ms(torch, lambda: fa.flash_attention_bwd(
@@ -5461,9 +5392,8 @@ def check_flash_bwd(torch) -> list:
                     q, k, v, **kw), iters=5, warmup=1)
                 flib = cuda_ms(lambda: F.scaled_dot_product_attention(
                     q, k, v, is_causal=True))
-                n_bytes = 4 * B * S * H * D * el + 4 * B * H * S
-                fflops = 4 * D * B * H * attn_pairs(S, causal, window)
-                fb, fby = bound_of(n_bytes, fflops, name)
+                fb, fby = bound_of(*kernel_work("flash_attention_lse",
+                                                (q, k, v), kw))
                 print(f"flash_attention_lse {tag}: kernel "
                       f"{spread(fwd_ms, flo, fhi)} (the serve form "
                       f"{serve_ms:.4f} ms), plain {fplain:.4f} ms, sdpa "
@@ -5591,11 +5521,12 @@ KERNEL1_GROUPS = (("kernel 1 forward (flash_kernel)", ("flash_kernel",)),
 
 
 def train_trace(torch, model, params, state, batch, *, title="phase 14",
-                groups=KERNEL1_GROUPS, by_pass=True) -> None:
+                groups=KERNEL1_GROUPS, by_pass=True) -> float:
     """One traced train step: device busy, idle share against the step's
     host wall, the kernels that take the time, the shares of ``groups``'
     kernels (kernel 1's forward and backward by default) and of the GEMMs,
-    and with ``by_pass`` kernel 1's backward split by pass."""
+    and with ``by_pass`` kernel 1's backward split by pass.  Returns the
+    device's busy ms."""
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.training.optimizer import AdamWConfig
     from repro_torch.training.train_step import make_train_step
@@ -5628,14 +5559,14 @@ def train_trace(torch, model, params, state, batch, *, title="phase 14",
         n = sum(r[1] for r in rows if any(k in r[2] for k in keys))
         print(f"  {label}: {ms:.3f} ms over {n} launches, share "
               f"{ms / busy if busy else 0:.3f} of device busy", flush=True)
-    if not by_pass:
-        return
-    # each pass beside the total: the launches of a train step run inside
-    # autograd's backward, where the trace holds every one of them
-    print("  kernel 1 backward by pass: " + ", ".join(
-        f"{k} {sum(r[0] for r in rows if k in r[2]) / 1e3:.3f} ms over "
-        f"{sum(r[1] for r in rows if k in r[2])}" for k in BWD_PASSES),
-        flush=True)
+    if by_pass:
+        # each pass beside the total: the launches of a train step run
+        # inside autograd's backward, where the trace holds every one
+        print("  kernel 1 backward by pass: " + ", ".join(
+            f"{k} {sum(r[0] for r in rows if k in r[2]) / 1e3:.3f} ms over "
+            f"{sum(r[1] for r in rows if k in r[2])}" for k in BWD_PASSES),
+            flush=True)
+    return busy
 
 
 def smi_during(fn) -> tuple:
@@ -5732,7 +5663,8 @@ def training_phase(torch) -> dict:
         fail(f"phase 14: kernels {others} launched on the train path")
     batch = TokenPipeline(DataConfig(cfg.vocab_size, TRAIN["batch"],
                                      TRAIN["seq"])).next_batch()
-    train_trace(torch, model, params, state, batch)
+    busy = train_trace(torch, model, params, state, batch)
+    roofline_train(torch, cfg, busy)
     del model, params, state
     gc.collect()
     torch.cuda.empty_cache()
@@ -5817,25 +5749,6 @@ KERNEL7_GROUPS = (("kernel 7 training forward (wkv_kernel)", ("wkv_kernel",)),
                   ("kernel 7 backward (wkv_bwd_kernel)", ("wkv_bwd_kernel",)))
 
 
-def wkv_bwd_bound(B: int, T: int, H: int, D: int, el: int, ds_in: bool):
-    """(bound ms, what bounds it, bytes, flops) of one backward call: r, k,
-    v and dy (``el`` bytes) and w (f32) read once, u, the checkpoints and
-    dS_T (when given) read once; dr, dk, dv (``el``) and dw (f32) written
-    once, du and ds0 once.  Its flops, per step and (b, h): 14 an entry of
-    the state (the state recomputed from its checkpoint, w S + k v^T, 3;
-    S dy, G v, G^T k and the row sums of G * S, 2 each; G's update, 3) and
-    12 a row (v . dy, c_t and the u terms)."""
-    from repro_torch.kernels import rwkv6_wkv as wkv
-    n_ck = -(-T // wkv.wkv_chunk(D))
-    n_bytes = (B * T * H * D * (4 * el + 4) + H * D * 4
-               + B * H * n_ck * D * D * 4 + ds_in * B * H * D * D * 4
-               + B * T * H * D * (3 * el + 4) + H * D * 4
-               + B * H * D * D * 4)
-    flops = B * T * H * (14 * D * D + 12 * D)
-    bound, by = bound_of(n_bytes, flops, "f32")
-    return bound, by, n_bytes, flops
-
-
 def check_wkv_bwd(torch) -> list:
     """Phase 15 (a): kernel 7's training form and backward against their
     plain versions at ``WKV_BWD_CASES`` in bf16 and f32 r/k/v: the
@@ -5904,9 +5817,9 @@ def check_wkv_bwd(torch) -> list:
             if extra > outputs + (1 << 20):
                 fail(f"rwkv6_wkv_bwd {tag}: the call allocated {extra} B "
                      f"beside {outputs} B of outputs")
-            el = r.element_size()
-            bound, by, n_bytes, flops = wkv_bwd_bound(B, T, H, D, el,
-                                                      ds is not None)
+            n_bytes, flops, peak = kernel_work(
+                "rwkv6_wkv_bwd", (r, k, v, w, u, ck, dy, ds))
+            bound, by = bound_of(n_bytes, flops, peak)
             call = lambda: wkv.rwkv6_wkv_bwd(  # noqa: E731
                 r, k, v, w, u, ck, dy, ds)
             ms, lo, hi = spread_ms(call)
@@ -5932,12 +5845,14 @@ def check_wkv_bwd(torch) -> list:
             serve_ms = cuda_ms(lambda: wkv.rwkv6_wkv(r, k, v, w, u, s0))
             f_plain = cuda_ms(lambda: wkv.rwkv6_wkv_train_ref(
                 r, k, v, w, u, s0), iters=2, warmup=1)
-            fb, fby, fbytes, fflops = wkv_bound(B, T, H, D, el, False)
+            # a zero s0 read as no state read, as the serve form's row
+            fbytes, fflops, fpeak = R.wkv_train_work(
+                B, T, H, D, r.dtype, ck.shape[2], state_in=False)
             ck_bytes = ck.numel() * 4
-            fb, fby = bound_of(fbytes + ck_bytes, fflops, "f32")
+            fb, fby = bound_of(fbytes, fflops, fpeak)
             print(f"rwkv6_wkv_train {tag}: kernel {spread(f_ms, f_lo, f_hi)} "
                   f"(the serve form {serve_ms:.4f} ms), plain {f_plain:.4f} "
-                  f"ms, bound {fb:.4f} ms ({fby}: {fbytes + ck_bytes} B with "
+                  f"ms, bound {fb:.4f} ms ({fby}: {fbytes} B with "
                   f"{ck_bytes} B of checkpoints, {fflops} flop)", flush=True)
             entries["rwkv6_wkv_train"] = {
                 "name": "rwkv6_wkv_train", "route": "cuda",
@@ -6095,6 +6010,212 @@ def training15_phase(torch) -> dict:
     return total
 
 
+# ---------------------------------------------------------------------------
+# phase 16: the dry run, the accounting and the audit against the card
+# ---------------------------------------------------------------------------
+
+def dryrun_beside_build(torch, build) -> tuple:
+    """Phase 16 (a)'s dry run, ``launch.dryrun.sweep`` (every ``ASSIGNED``
+    x shape cell on the meta device), in this process while
+    ``build.build_all`` runs in a thread (its ``nvcc`` processes take the
+    other cores).  CUDA is not initialised before the sweep and must not
+    be after it: nothing of the sweep reached the card.  Returns the
+    build's reports and seconds and the sweep's rows."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from repro_torch.launch import dryrun
+
+    def timed_build():
+        t0 = time.perf_counter()
+        return build.build_all(), time.perf_counter() - t0
+
+    if torch.cuda.is_initialized():
+        fail("phase 16 (a): CUDA was initialised before the dry run")
+    with ThreadPoolExecutor(1) as pool:
+        building = pool.submit(timed_build)
+        t0 = time.perf_counter()
+        rows = list(dryrun.sweep())
+        sweep_s = time.perf_counter() - t0
+        touched = torch.cuda.is_initialized()
+        reports, build_s = building.result()
+    print(f"phase 16 (a) dry run: {len(rows)} rows in {sweep_s:.1f} s beside "
+          f"the build ({build_s:.1f} s); CUDA initialised after it: "
+          f"{touched}", flush=True)
+    if touched:
+        fail("phase 16 (a): the dry run initialised CUDA")
+    return reports, build_s, rows
+
+
+def reading_line(label: str, r: dict) -> str:
+    return (f"phase 16 (c) roofline, {label}: op_cost {r['flops']:.4e} flop, "
+            f"{r['bytes']:.4e} B; H100 terms compute {r['t_compute_ms']:.4f} "
+            f"ms, memory {r['t_memory_ms']:.4f} ms, bound {r['bound_ms']:.4f} "
+            f"ms ({r['bound_by']}); measured device {r['device_ms']:.4f} ms; "
+            f"share of the roofline {r['roofline_share']:.4f}, mfu "
+            f"{r['mfu']:.4f} (model flops over the bf16 peak); card "
+            f"{card_line()}")
+
+
+def roofline_decode(torch, model, calls) -> None:
+    """Phase 16 (c) for phase 2's captured llama2-7b decode step (phase
+    4's horizon program): one eager step counted by ``op_cost`` on the
+    card (kernel 2 by its formula at the lanes' live keys), the replayed
+    graph's device time per step (``device_ms``), the roofline terms,
+    the share and the MFU."""
+    from repro_torch.analysis import oncard, op_cost
+    prog = calls["decode captured"][1].program
+    B = prog.bufs["positions"].shape[0]
+    with torch.inference_mode():
+        cost = op_cost.count(prog.body)[1]
+    ms = device_ms(torch, prog.run)
+    r = oncard.roofline_reading(
+        flops=cost["flops"], n_bytes=cost["bytes"],
+        model_flops=2.0 * model.cfg.param_count(active=True) * B,
+        device_ms=ms)
+    k2 = cost["kernels"]["paged_decode_attention"]
+    print(reading_line(
+        f"llama2-7b captured decode step ({B} lanes at positions "
+        f"{prog.bufs['positions'].tolist()}; GEMMs {cost['gemm_flops']:.4e} "
+        f"flop, kernel 2 {k2['calls']} calls {k2['bytes']} B)", r),
+        flush=True)
+    if not 0 < r["roofline_share"] < math.inf:
+        fail(f"phase 16 (c): the decode step's share of the roofline is "
+             f"{r['roofline_share']}")
+
+
+@functools.cache
+def train_row(cfg) -> dict:
+    """``launch.dryrun.run_cell`` of phase 14's train step (TRAIN's batch
+    x seq, no remat, one microbatch) on the meta device: phase 16 (c)'s
+    count and (b)'s peak-live estimate."""
+    from repro_torch.configs import Shape
+    from repro_torch.launch.dryrun import run_cell
+    return run_cell(cfg, Shape("train", "train", TRAIN["seq"],
+                               TRAIN["batch"]),
+                    plan_overrides={"remat": "none", "grad_accum": 1})
+
+
+def roofline_train(torch, cfg, busy_ms: float) -> None:
+    """Phase 16 (c) for phase 14's train step (qwen3-1.7b, TRAIN's batch
+    x seq, no remat, one AdamW update): counted on the meta device (the
+    same shapes; its attention is kernel 1's forward and backward by
+    formula), beside the traced step's device busy time."""
+    from repro_torch.analysis import oncard
+    row = train_row(cfg)
+    r = oncard.roofline_reading(flops=row["flops"], n_bytes=row["bytes"],
+                                model_flops=row["model_flops"],
+                                device_ms=busy_ms)
+    print(reading_line(f"qwen3-1.7b train step ({TRAIN['batch']} x "
+                       f"{TRAIN['seq']}, counted on the meta device; GEMMs "
+                       f"{row['gemm_flops']:.4e} flop)", r), flush=True)
+    if not 0 < r["roofline_share"] < math.inf:
+        fail(f"phase 16 (c): the train step's share of the roofline is "
+             f"{r['roofline_share']}")
+
+
+def analysis_phase(torch, sweep: list) -> dict:
+    """Phase 16: (a) the rows of ``dryrun_beside_build``'s sweep, every
+    cell present and none failed; (b) qwen3-1.7b's parameter and AdamW
+    bytes at phase 14's shape and llama2-7b's phase-4 pool bytes, the meta
+    build's against the card's exactly, the allocator's delta within
+    ``oncard.allocator_span`` of the real build's storages, and the peak-live
+    estimate of one train step beside ``max_memory_allocated``; (d) every
+    audit entry run eagerly under the audit on the card, then captured:
+    the verdicts agree, and the synthetic host sync and host-built tensor
+    are flagged and refused.  Returns the launches of (b) and (d)."""
+    import gc
+    from repro_torch.analysis import oncard
+    from repro_torch.configs import ASSIGNED, Shape, get_config, \
+        runnable_cells
+    # (a)
+    done = [r for r in sweep if "skipped" not in r and "error" not in r]
+    errors = [r for r in sweep if "error" in r]
+    want = sum(len(runnable_cells(get_config(a))) for a in ASSIGNED)
+    for row in done:
+        print(f"phase 16 (a) dry run {row['arch']} x {row['shape']}: fits "
+              f"one H100 {row['fits']} (peak live {row['peak_live_bytes'] / 1e9:.2f}"
+              f" GB; params {row['param_bytes'] / 1e9:.2f}, AdamW "
+              f"{row['opt_bytes'] / 1e9:.2f}, KV/state {row['kv_bytes'] / 1e9:.2f}"
+              f" GB), grad_accum {row.get('grad_accum', '-')}, compute "
+              f"{row['t_compute_s']:.4f} s, memory {row['t_memory_s']:.4f} s "
+              f"({row['bottleneck']}), roofline_fraction "
+              f"{row['roofline_fraction']:.4f}, traced in {row['t_s']} s",
+              flush=True)
+    print(f"phase 16 (a) dry run: {len(done)} of {want} cells, skipped "
+          f"{[(r['arch'], r['shape']) for r in sweep if 'skipped' in r]}",
+          flush=True)
+    if errors or len(done) != want:
+        fail(f"phase 16 (a): {len(done)} of {want} cells, errors {errors}")
+    reset_launches()
+    # (b)
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = get_config("qwen3-1.7b")
+    shape = Shape("train", "train", TRAIN["seq"], TRAIN["batch"])
+    over = {"remat": "none"}
+    acc = oncard.state_vs_allocation(cfg, shape, plan_overrides=over)
+    lo, hi = acc["span"]
+    print(f"phase 16 (b) qwen3-1.7b at {TRAIN['batch']} x {TRAIN['seq']}: "
+          f"dry run params {acc['meta']['params']} B, AdamW "
+          f"{acc['meta']['opt']} B; on the card {acc['real']['params']} B, "
+          f"{acc['real']['opt']} B; allocator delta {acc['allocated']} B "
+          f"(storages rounded {lo} B, +{acc['allocated'] - lo} B, at most "
+          f"{hi} B)", flush=True)
+    if acc["meta"] != acc["real"]:
+        fail(f"phase 16 (b): the dry run's bytes {acc['meta']} are not the "
+             f"card's {acc['real']}")
+    if not lo <= acc["allocated"] <= hi:
+        fail(f"phase 16 (b): the allocator's delta {acc['allocated']} B is "
+             f"outside [{lo}, {hi}]")
+    pk = oncard.train_peak(cfg, shape, acc.pop("build"), train_row(cfg))
+    print(f"phase 16 (b) peak-live estimate of one train step "
+          f"{pk['estimate']} B beside max_memory_allocated {pk['measured']} B:"
+          f" ratio {pk['ratio']:.4f} (a reading); card {card_line()}",
+          flush=True)
+    del acc, pk
+    gc.collect()
+    torch.cuda.empty_cache()
+    pool = oncard.pool_vs_allocation(get_config("llama2-7b"), n_lanes=4,
+                                     max_seq=2048, block_size=16,
+                                     n_blocks=516)
+    lo, hi = pool["span"]
+    print(f"phase 16 (b) llama2-7b phase-4 pool ({pool['n_blocks']} blocks "
+          f"of 16): dry run {pool['meta']} B, on the card {pool['real']} B; "
+          f"allocator delta {pool['allocated']} B (storages rounded {lo} B, "
+          f"at most {hi} B)", flush=True)
+    if pool["meta"] != pool["real"]:
+        fail("phase 16 (b): the dry run's pool bytes are not the card's")
+    if not lo <= pool["allocated"] <= hi:
+        fail(f"phase 16 (b): the allocator's delta {pool['allocated']} B is "
+             f"outside [{lo}, {hi}]")
+    torch.cuda.empty_cache()
+    # (d)
+    agree = 0
+    rows = oncard.audit_vs_capture("cuda")
+    for name, findings, captured, error in rows:
+        synthetic = name.startswith("synthetic_")
+        ok = (bool(findings) == (not captured)
+              and bool(findings) == synthetic)
+        agree += ok
+        print(f"phase 16 (d) {name}: audit "
+              f"{'; '.join(findings) if findings else 'clean'}; capture "
+              f"{'and replay ok' if captured else 'refused: ' + error}"
+              f"{'' if ok else ' DISAGREE'}", flush=True)
+    print(f"phase 16 (d) audit and capture agree on {agree} of {len(rows)}",
+          flush=True)
+    if agree != len(rows):
+        fail("phase 16 (d): the audit and the capture disagree")
+    la = read_launches()
+    want_kernels = ("flash_attention", "paged_decode_attention",
+                    "paged_prefill_attention", "paged_prefill_attention_lse",
+                    "paged_decode_attention_lse", "flash_attention_lse",
+                    "flash_attention_bwd")
+    if not all(la[k] for k in want_kernels):
+        fail(f"phase 16: kernels {[k for k in want_kernels if not la[k]]} "
+             f"not launched")
+    return la
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -6108,17 +6229,20 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     card = card_line()
     print(f"card: {card}", flush=True)
-    print(f"torch {torch.__version__} cuda {torch.version.cuda} "
-          f"device {torch.cuda.get_device_name(0)}", flush=True)
 
-    t_start = t0 = time.perf_counter()
-    reports = build.build_all()
-    print(f"built {sorted(reports)} in {time.perf_counter() - t0:.1f} s",
-          flush=True)
+    t_start = time.perf_counter()
+    # phase 16 (a)'s dry run of every cell on the meta device runs here,
+    # beside the build and before anything initialises CUDA
+    reports, build_s, sweep = dryrun_beside_build(torch, build)
+    print(f"built {sorted(reports)} in {build_s:.1f} s", flush=True)
     for name, log in reports.items():
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"  {name}: {line.strip()}")
+    print(f"torch {torch.__version__} cuda {torch.version.cuda} "
+          f"device {torch.cuda.get_device_name(0)}", flush=True)
+    print(f"build and dry run ended at {time.perf_counter() - t_start:.1f} "
+          f"s", flush=True)
 
     # phase 1
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -6178,6 +6302,7 @@ def main() -> int:
 
     # phase 4
     where_time_goes(torch, calls)
+    roofline_decode(torch, model, calls)
     host_probe(torch, "after phase 4", decode)
     print(f"phase 4 done at {time.perf_counter() - t_start:.1f} s",
           flush=True)
@@ -6250,6 +6375,12 @@ def main() -> int:
     for name, n in training15_phase(torch).items():
         launches[name] += n
     print(f"phase 15 done at {time.perf_counter() - t_start:.1f} s",
+          flush=True)
+
+    # phase 16: the dry run, the accounting and the audit on the card
+    for name, n in analysis_phase(torch, sweep).items():
+        launches[name] += n
+    print(f"phase 16 done at {time.perf_counter() - t_start:.1f} s",
           flush=True)
     for e in entries:
         e["launches"] = launches[e["name"]]

@@ -11,6 +11,12 @@ Under autograd ``flash_attention`` goes through ``FlashAttentionFn`` and
 their backward kernels on CUDA, their plain versions on the CPU.  No other
 kernel has a backward, and its wrapper raises when it would be asked for
 one (``build.refuse_grad``).
+
+The meta device takes the plain path as the CPU does (shapes only, nothing
+built or launched): ``launch.dryrun`` and ``analysis`` trace whole steps
+there.  Every call goes through ``_call``, so ``analysis.op_cost`` and
+``analysis.iraudit`` see a kernel call as one unit, counted by its
+formula in ``analysis.roofline``, whichever route runs it.
 """
 from __future__ import annotations
 
@@ -25,15 +31,29 @@ from repro_torch.kernels import rwkv6_wkv as _wkv
 
 
 def _on_cpu(*tensors: torch.Tensor) -> bool:
-    """True when every tensor is on the CPU, False when every one is on
+    """True when every tensor is on the CPU (or every one on the meta
+    device: the plain path, shapes only), False when every one is on
     CUDA; anything else is an error."""
     kinds = {t.device.type for t in tensors}
-    if kinds == {"cpu"}:
+    if kinds == {"cpu"} or kinds == {"meta"}:
         return True
     if kinds == {"cuda"}:
         return False
     raise ValueError(f"kernel inputs on devices {sorted(kinds)}: need all "
-                     f"on the CPU or all on CUDA")
+                     f"on the CPU, all on the meta device or all on CUDA")
+
+
+# ``_HOOK(name, args, kwargs, run)``, when set, is handed every kernel call
+# (``name`` the wrapper's, ``run()`` makes the call); None costs one test
+_HOOK = None
+
+
+def _call(name: str, fn, *args, **kwargs):
+    """``fn(*args, **kwargs)``, the kernel call ``name``, through
+    ``_HOOK`` when one is set."""
+    if _HOOK is None:
+        return fn(*args, **kwargs)
+    return _HOOK(name, args, kwargs, lambda: fn(*args, **kwargs))
 
 
 class FlashAttentionFn(torch.autograd.Function):
@@ -47,10 +67,9 @@ class FlashAttentionFn(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, scale, causal, window):
         kw = dict(scale=scale, causal=causal, window=window)
-        if _on_cpu(q, k, v):
-            o, lse = _flash.flash_attention_lse_ref(q, k, v, **kw)
-        else:
-            o, lse = _flash.flash_attention_lse(q, k, v, **kw)
+        fn = (_flash.flash_attention_lse_ref if _on_cpu(q, k, v)
+              else _flash.flash_attention_lse)
+        o, lse = _call("flash_attention_lse", fn, q, k, v, **kw)
         ctx.save_for_backward(q, k, v, o, lse)
         ctx.kw = kw
         return o
@@ -59,12 +78,13 @@ class FlashAttentionFn(torch.autograd.Function):
     def backward(ctx, do):
         q, k, v, o, lse = ctx.saved_tensors
         if _on_cpu(q, k, v, do):
-            grads = _flash.flash_attention_bwd_ref(q, k, v, o, do, lse,
-                                                   **ctx.kw)
+            fn = _flash.flash_attention_bwd_ref
         else:
+            fn = _flash.flash_attention_bwd
             if do.stride() != o.stride():     # the kernel takes o's layout
                 do = torch.empty_like(o).copy_(do)
-            grads = _flash.flash_attention_bwd(q, k, v, o, do, lse, **ctx.kw)
+        grads = _call("flash_attention_bwd", fn, q, k, v, o, do, lse,
+                      **ctx.kw)
         return (*grads, None, None, None)
 
 
@@ -77,11 +97,10 @@ def flash_attention(q, k, v, *, scale=None, causal=True, window=0):
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
         return FlashAttentionFn.apply(q, k, v, scale, causal, window)
-    if _on_cpu(q, k, v):
-        return _flash.flash_attention_ref(q, k, v, scale=scale, causal=causal,
-                                          window=window)
-    return _flash.flash_attention(q, k, v, scale=scale, causal=causal,
-                                  window=window)
+    fn = (_flash.flash_attention_ref if _on_cpu(q, k, v)
+          else _flash.flash_attention)
+    return _call("flash_attention", fn, q, k, v, scale=scale, causal=causal,
+                 window=window)
 
 
 def paged_decode_attention(q, k_pool, v_pool, block_tables, positions, *,
@@ -89,12 +108,12 @@ def paged_decode_attention(q, k_pool, v_pool, block_tables, positions, *,
     """One-token attention over a paged KV pool.  ``plan_lanes`` pins the
     kernel's split plan to that of so many lanes (the plain version has
     no splits)."""
-    if _on_cpu(q, k_pool, v_pool, block_tables, positions):
-        return _paged.paged_decode_attention_ref(
-            q, k_pool, v_pool, block_tables, positions, scale=scale)
-    return _paged.paged_decode_attention(q, k_pool, v_pool, block_tables,
-                                         positions, scale=scale,
-                                         plan_lanes=plan_lanes)
+    args = (q, k_pool, v_pool, block_tables, positions)
+    if _on_cpu(*args):
+        return _call("paged_decode_attention",
+                     _paged.paged_decode_attention_ref, *args, scale=scale)
+    return _call("paged_decode_attention", _paged.paged_decode_attention,
+                 *args, scale=scale, plan_lanes=plan_lanes)
 
 
 def paged_decode_attention_lse(q, k_pool, v_pool, block_tables, positions,
@@ -102,44 +121,43 @@ def paged_decode_attention_lse(q, k_pool, v_pool, block_tables, positions,
     """One-token attention over the owned slots of one pool stripe;
     returns ``(o, lse)``.  ``plan_lanes`` as for
     ``paged_decode_attention``."""
-    if _on_cpu(q, k_pool, v_pool, block_tables, positions, owned):
-        return _paged.paged_decode_attention_lse_ref(
-            q, k_pool, v_pool, block_tables, positions, owned, scale=scale)
-    return _paged.paged_decode_attention_lse(
-        q, k_pool, v_pool, block_tables, positions, owned, scale=scale,
-        plan_lanes=plan_lanes)
+    args = (q, k_pool, v_pool, block_tables, positions, owned)
+    if _on_cpu(*args):
+        return _call("paged_decode_attention_lse",
+                     _paged.paged_decode_attention_lse_ref, *args,
+                     scale=scale)
+    return _call("paged_decode_attention_lse",
+                 _paged.paged_decode_attention_lse, *args, scale=scale,
+                 plan_lanes=plan_lanes)
 
 
 def paged_prefill_attention(q, k_pool, v_pool, block_tables, starts, *,
                             scale=None):
     """Chunk attention over a paged KV pool: q (B, C, H, D) at
     ``starts + c``."""
-    if _on_cpu(q, k_pool, v_pool, block_tables, starts):
-        return _prefill.paged_prefill_attention_ref(
-            q, k_pool, v_pool, block_tables, starts, scale=scale)
-    return _prefill.paged_prefill_attention(q, k_pool, v_pool, block_tables,
-                                            starts, scale=scale)
+    args = (q, k_pool, v_pool, block_tables, starts)
+    fn = (_prefill.paged_prefill_attention_ref if _on_cpu(*args)
+          else _prefill.paged_prefill_attention)
+    return _call("paged_prefill_attention", fn, *args, scale=scale)
 
 
 def paged_prefill_attention_lse(q, k_pool, v_pool, block_tables, starts,
                                 owned, *, scale=None):
     """Chunk attention over the owned slots of one pool stripe; returns
     ``(o, lse)``."""
-    if _on_cpu(q, k_pool, v_pool, block_tables, starts, owned):
-        return _prefill.paged_prefill_attention_lse_ref(
-            q, k_pool, v_pool, block_tables, starts, owned, scale=scale)
-    return _prefill.paged_prefill_attention_lse(
-        q, k_pool, v_pool, block_tables, starts, owned, scale=scale)
+    args = (q, k_pool, v_pool, block_tables, starts, owned)
+    fn = (_prefill.paged_prefill_attention_lse_ref if _on_cpu(*args)
+          else _prefill.paged_prefill_attention_lse)
+    return _call("paged_prefill_attention_lse", fn, *args, scale=scale)
 
 
 def paged_verify_attention(q, k_pool, v_pool, block_tables, positions, *,
                            scale=None):
     """Speculative verify: chunk attention with ``starts = positions``."""
-    if _on_cpu(q, k_pool, v_pool, block_tables, positions):
-        return _prefill.paged_prefill_attention_ref(
-            q, k_pool, v_pool, block_tables, positions, scale=scale)
-    return _prefill.paged_verify_attention(q, k_pool, v_pool, block_tables,
-                                           positions, scale=scale)
+    args = (q, k_pool, v_pool, block_tables, positions)
+    fn = (_prefill.paged_prefill_attention_ref if _on_cpu(*args)
+          else _prefill.paged_verify_attention)
+    return _call("paged_prefill_attention", fn, *args, scale=scale)
 
 
 def decode_attention(q, k, v, positions, *, scale=None, ring=False):
@@ -149,9 +167,10 @@ def decode_attention(q, k, v, positions, *, scale=None, ring=False):
     last slot by the caller, and the CPU takes ``swa_decode_ref``, which
     rounds as the reference's ring decode does; the kernel is the same."""
     if _on_cpu(q, k, v, positions):
-        ref = _dense.swa_decode_ref if ring else _dense.flash_decode_ref
-        return ref(q, k, v, positions, scale=scale)
-    return _dense.decode_attention(q, k, v, positions, scale=scale)
+        fn = _dense.swa_decode_ref if ring else _dense.flash_decode_ref
+    else:
+        fn = _dense.decode_attention
+    return _call("decode_attention", fn, q, k, v, positions, scale=scale)
 
 
 class WkvFn(torch.autograd.Function):
@@ -167,10 +186,10 @@ class WkvFn(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, r, k, v, w, u, s0):
-        if _on_cpu(*(t for t in (r, k, v, w, u, s0) if t is not None)):
-            y, s, ckpt = _wkv.rwkv6_wkv_train_ref(r, k, v, w, u, s0)
-        else:
-            y, s, ckpt = _wkv.rwkv6_wkv_train(r, k, v, w, u, s0)
+        fn = (_wkv.rwkv6_wkv_train_ref
+              if _on_cpu(*(t for t in (r, k, v, w, u, s0) if t is not None))
+              else _wkv.rwkv6_wkv_train)
+        y, s, ckpt = _call("rwkv6_wkv_train", fn, r, k, v, w, u, s0)
         ctx.save_for_backward(r, k, v, w, u, ckpt)
         ctx.has_s0 = s0 is not None
         ctx.set_materialize_grads(False)
@@ -182,11 +201,11 @@ class WkvFn(torch.autograd.Function):
         if dy is None:
             dy = torch.zeros_like(r)
         if _on_cpu(r, k, v, w, u, dy):
-            grads = _wkv.rwkv6_wkv_bwd_ref(r, k, v, w, u, ckpt, dy, ds)
+            fn = _wkv.rwkv6_wkv_bwd_ref
         else:
-            grads = _wkv.rwkv6_wkv_bwd(
-                r, k, v, w, u, ckpt, dy,
-                None if ds is None else ds.float().contiguous())
+            fn = _wkv.rwkv6_wkv_bwd
+            ds = None if ds is None else ds.float().contiguous()
+        grads = _call("rwkv6_wkv_bwd", fn, r, k, v, w, u, ckpt, dy, ds)
         dr, dk, dv, dw, du, ds0 = grads
         return dr, dk, dv, dw, du, (ds0 if ctx.has_s0 else None)
 
@@ -202,25 +221,26 @@ def rwkv6_wkv(r, k, v, w, u, s0=None, *, s_out=None):
             raise ValueError("rwkv6_wkv: under autograd the state is "
                              "returned, not written into s_out")
         return WkvFn.apply(r, k, v, w, u, s0)
-    if _on_cpu(*(t for t in (r, k, v, w, u, s0, s_out) if t is not None)):
-        return _wkv.rwkv6_wkv_ref(r, k, v, w, u, s0, s_out=s_out)
-    return _wkv.rwkv6_wkv(r, k, v, w, u, s0, s_out=s_out)
+    fn = (_wkv.rwkv6_wkv_ref
+          if _on_cpu(*(t for t in (r, k, v, w, u, s0, s_out) if t is not None))
+          else _wkv.rwkv6_wkv)
+    return _call("rwkv6_wkv", fn, r, k, v, w, u, s0, s_out=s_out)
 
 
 def int8_matmul(x_q, w_q, sx, sw, *, out_dtype=torch.bfloat16):
     """w8a8 GEMM: x_q (M, K) and w_q (K, N) int8, sx (M, 1) and sw (1, N)
     f32 -> (M, N) in ``out_dtype``."""
-    if _on_cpu(x_q, w_q, sx, sw):
-        return _i8.int8_matmul_ref(x_q, w_q, sx, sw, out_dtype=out_dtype)
-    return _i8.int8_matmul(x_q, w_q, sx, sw, out_dtype=out_dtype)
+    fn = (_i8.int8_matmul_ref if _on_cpu(x_q, w_q, sx, sw)
+          else _i8.int8_matmul)
+    return _call("int8_matmul", fn, x_q, w_q, sx, sw, out_dtype=out_dtype)
 
 
 def int8_matmul_quantized(x, w, *, out_dtype=torch.bfloat16):
     """Quantize bf16/f32 operands on the fly (per row of x, per column of
     w), then the w8a8 GEMM."""
-    if _on_cpu(x, w):
-        return _i8.int8_matmul_quantized_ref(x, w, out_dtype=out_dtype)
-    return _i8.int8_matmul_quantized(x, w, out_dtype=out_dtype)
+    fn = (_i8.int8_matmul_quantized_ref if _on_cpu(x, w)
+          else _i8.int8_matmul_quantized)
+    return _call("int8_matmul_quantized", fn, x, w, out_dtype=out_dtype)
 
 
 def quantize_rows(x):

@@ -147,6 +147,23 @@ def _bad_lane_scan(cache: dict, tables: torch.Tensor, lengths: torch.Tensor,
     return (g & valid).flatten(1).any(dim=1) & mask
 
 
+def _paged_insert(cache: dict, prefill_cache: dict, idx: torch.Tensor,
+                  row: int) -> None:
+    """Scatter row ``row`` of a layer-stacked prefill cache (leaves
+    ``(L, B, S_pad, K, hd)``) into the physical blocks ``idx`` (a device
+    tensor of block ids) of ``cache``, in place."""
+    n = idx.shape[0]
+    for name, dst in cache["attn"].items():
+        bs = dst.shape[2]
+        seq = prefill_cache["attn"][name][:, row]           # (L, S_pad, K, hd)
+        need = n * bs
+        if seq.shape[1] < need:
+            seq = torch.nn.functional.pad(
+                seq, (0, 0, 0, 0, 0, need - seq.shape[1]))
+        seq = seq[:, :need].reshape((dst.shape[0], n, bs) + dst.shape[3:])
+        dst[:, idx] = seq.to(dst.dtype)
+
+
 def _chain_key(prev: bytes, tokens) -> bytes:
     """Collision-resistant running hash over block-sized token chunks."""
     h = hashlib.blake2b(prev, digest_size=16)
@@ -316,18 +333,11 @@ class PagedCachePool:
                  cache: dict | None = None) -> None:
         """Write row ``row`` of a layer-stacked prefill cache (leaves
         ``(L, B, S_pad, K, hd)``) into the physical blocks ``blks`` of
-        ``cache`` (default: the pool's)."""
-        n, bs = len(blks), self.block_size
+        ``cache`` (default: the pool's): the block ids go to the device
+        once, then ``_paged_insert``."""
         idx = torch.tensor(blks, dtype=torch.long, device=self.device)
-        cache = self.cache if cache is None else cache
-        for name, dst in cache["attn"].items():
-            seq = prefill_cache["attn"][name][:, row]       # (L, S_pad, K, hd)
-            need = n * bs
-            if seq.shape[1] < need:
-                seq = torch.nn.functional.pad(
-                    seq, (0, 0, 0, 0, 0, need - seq.shape[1]))
-            seq = seq[:, :need].reshape((dst.shape[0], n, bs) + dst.shape[3:])
-            dst[:, idx] = seq.to(dst.dtype)
+        _paged_insert(self.cache if cache is None else cache, prefill_cache,
+                      idx, row)
 
     def insert(self, req_id: int, prefill_cache: dict, row: int,
                prompt_len: int) -> int:

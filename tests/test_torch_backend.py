@@ -12,6 +12,7 @@ telemetry only), in the port and against the reference.  The batched
 ``EngineFleet``/``FleetBackend`` path (one weight copy through
 ``build(share=)``) and the drafter rule (``draft_min_freq``) likewise.
 ``measured_goodput`` is wall-clock, so only its sign is held."""
+import torch_threads  # noqa: F401  (one torch thread a worker)
 import dataclasses
 import gc
 import weakref
@@ -20,6 +21,7 @@ import numpy as np
 import pytest
 
 jax = pytest.importorskip("jax")
+from test_torch_jit_memo import shared_jit  # noqa: E402,F401
 import jax.numpy as jnp  # noqa: E402
 import torch  # noqa: E402
 

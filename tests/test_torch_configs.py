@@ -21,10 +21,12 @@ behind every token of the reference's streams and holds it above 1e-4,
 3's path: a shared 17-token head, chunks of 8 and 16), on the slot pool
 (kernel 5's) and through ``EngineSpec(shards=2)`` (kernel 4's) against the
 JAX ``shards=1`` engine, and through the serve CLI."""
+import torch_threads  # noqa: F401  (one torch thread a worker)
 import numpy as np
 import pytest
 
 jax = pytest.importorskip("jax")
+from test_torch_jit_memo import shared_jit  # noqa: E402,F401
 import jax.numpy as jnp  # noqa: E402
 import torch  # noqa: E402
 

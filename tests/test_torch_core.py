@@ -8,6 +8,7 @@ within 1e-5 relative (on this CPU they agree to the bit but for ``sin``).
 Validation raises the same exception with the same message, and the
 ``DegradationLadder`` walks down and back up exactly as the reference's,
 on the reference's stub engine (``tests/test_resilience.py``)."""
+import torch_threads  # noqa: F401  (one torch thread a worker)
 import dataclasses
 import types
 
@@ -15,6 +16,7 @@ import numpy as np
 import pytest
 
 jax = pytest.importorskip("jax")
+from test_torch_jit_memo import shared_jit  # noqa: E402,F401
 import torch  # noqa: E402
 
 from repro.core import allocator as JA  # noqa: E402

@@ -2781,3 +2781,86 @@ def test_smoke_family_grads_through_kernels_match_plain(bgen, monkeypatch,
     torch.testing.assert_close(loss, loss_p, rtol=1e-5, atol=0)
     for g, w in zip(tree_leaves(grads), tree_leaves(grads_p)):
         _held_to_scale(g, w, 1e-4)
+
+
+# ---------------------------------------------------------------------------
+# the dry run, the accounting and the audit against the card (chip_smoke.py
+# phase 16 at smoke size)
+# ---------------------------------------------------------------------------
+
+def test_dryrun_allocates_nothing_and_its_bytes_are_the_cards(gen):
+    """A full-width cell on the meta device allocates nothing on the card
+    (``max_memory_allocated`` does not move); a smoke train cell's
+    parameter and AdamW bytes, and a paged pool's, equal a real build's on
+    the card, and the allocator's delta lies in ``allocator_span``."""
+    from repro_torch.analysis import oncard
+    from repro_torch.configs import Shape
+    from repro_torch.launch.dryrun import run_cell
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    run_cell("llama2-7b", "decode_32k")
+    assert torch.cuda.max_memory_allocated() == before
+    assert torch.cuda.memory_allocated() == before
+    cfg = get_config("qwen3-1.7b").smoke_config()
+    shape = Shape("train", "train", 64, 2)
+    acc = oncard.state_vs_allocation(cfg, shape,
+                                     plan_overrides={"remat": "none"})
+    assert acc["meta"] == acc["real"] and acc["real"]["opt"] > 0
+    assert acc["span"][0] >= acc["real"]["params"] + acc["real"]["opt"]
+    assert acc["span"][0] <= acc["allocated"] <= acc["span"][1]
+    row = run_cell(cfg, shape, plan_overrides={"remat": "none",
+                                               "grad_accum": 1})
+    pk = oncard.train_peak(cfg, shape, acc["build"], row)
+    assert pk["estimate"] > 0 and pk["measured"] > 0
+    pool = oncard.pool_vs_allocation(get_config("llama2-7b").smoke_config(),
+                                     n_lanes=3, max_seq=64, block_size=8)
+    assert pool["meta"] == pool["real"] > 0
+    assert pool["span"][0] <= pool["allocated"] <= pool["span"][1]
+
+
+def test_audit_agrees_with_capture(gen):
+    """Every registered audit entry runs clean under the audit on the card
+    and captures; the synthetic host sync and host-built tensor are
+    flagged by the audit and refused by the capture."""
+    from repro_torch.analysis import oncard
+    launches = (fa.flash_attention.launches,
+                pa.paged_decode_attention.launches,
+                ppa.paged_prefill_attention.launches)
+    rows = oncard.audit_vs_capture("cuda")
+    for name, findings, captured, error in rows:
+        if name.startswith("synthetic_"):
+            assert findings and not captured, (name, findings, error)
+        else:
+            assert not findings and captured, (name, findings, error)
+    assert fa.flash_attention.launches > launches[0]
+    assert pa.paged_decode_attention.launches > launches[1]
+    assert ppa.paged_prefill_attention.launches > launches[2]
+
+
+def test_roofline_reading_of_a_captured_step(gen):
+    """A captured smoke decode step, counted by op_cost on the card: its
+    share of the roofline is in (0, 1]."""
+    import time
+
+    from repro_torch.analysis import oncard, op_cost
+    from repro_torch.analysis.iraudit import (ENTRYPOINTS_BY_NAME,
+                                              AuditContext)
+    from repro_torch.serving.graphs import Program
+    ctx = AuditContext(device="cuda")
+    built = ENTRYPOINTS_BY_NAME["decode_multi_paged_h4"].build(ctx)
+    cost = op_cost.count(built.body)[1]
+    prog = Program("h4", built.body, {}, built.tensors, capture=True,
+                   stream=torch.cuda.Stream())
+    prog.run()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(10):
+        prog.run()
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 100
+    r = oncard.roofline_reading(flops=cost["flops"], n_bytes=cost["bytes"],
+                                model_flops=1.0, device_ms=ms)
+    assert 0 < r["roofline_share"] <= 1
+    assert cost["kernels"]["paged_decode_attention"]["calls"] == \
+        4 * ctx.cfg.num_layers

@@ -12,6 +12,7 @@ kernels 1e-5, model logits and caches 1e-4, over the f32 plan with weights
 carried over from a JAX ``Model.init`` tree (``from_jax_params``).  The
 smoke config has 2 layers, d_model 64 and 4 query heads over 2 KV heads of
 16 (GQA, where the full config has 16/16 heads of 80)."""
+import torch_threads  # noqa: F401  (one torch thread a worker)
 import numpy as np
 import pytest
 

@@ -6,12 +6,14 @@ Both engines serve ``launch/serve.py``'s workload (8 requests, prompts of
 same weights (a JAX ``Model.init`` tree carried over with
 ``from_jax_params``, f32 plan; the KV pool is bf16 on both sides).  Greedy
 streams must match token for token, and the engine counters exactly."""
+import torch_threads  # noqa: F401  (one torch thread a worker)
 import dataclasses
 
 import numpy as np
 import pytest
 
 jax = pytest.importorskip("jax")
+from test_torch_jit_memo import shared_jit  # noqa: E402,F401
 import jax.numpy as jnp  # noqa: E402
 import torch  # noqa: E402
 

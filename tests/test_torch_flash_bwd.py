@@ -13,6 +13,7 @@ read: the Function's dq, dk and dv within 1e-5 of the reference's max
 |grad| (the two sum in other orders); ``flash_attention_bwd_ref`` within
 1e-6 of autograd's (the same f32 products, delta taken as rowsum(dO O)
 where autograd takes rowsum(P dP))."""
+import torch_threads  # noqa: F401  (one torch thread a worker)
 import numpy as np
 import pytest
 

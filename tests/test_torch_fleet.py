@@ -23,6 +23,7 @@ exactly.  The
 entry points ``repro_torch.launch.fleet`` and ``repro_torch.launch.oversub``
 print what the reference examples print (the planner, the drills and the
 sweep at shorter horizons)."""
+import torch_threads  # noqa: F401  (one torch thread a worker)
 import importlib.util
 import pathlib
 
@@ -30,6 +31,7 @@ import numpy as np
 import pytest
 
 jax = pytest.importorskip("jax")
+from test_torch_jit_memo import shared_jit  # noqa: E402,F401
 import jax.numpy as jnp  # noqa: E402
 import torch  # noqa: E402
 

@@ -12,10 +12,12 @@ Tolerances: layers 1e-6 (Mamba's scan at the bound stated there), plain
 kernels 1e-5, model logits 1e-4, over the f32 plan with weights carried
 over from a JAX ``Model.init`` tree (``from_jax_params``); engine streams
 and counters exact.  The smoke config has window 16 and state 4."""
+import torch_threads  # noqa: F401  (one torch thread a worker)
 import numpy as np
 import pytest
 
 jax = pytest.importorskip("jax")
+from test_torch_jit_memo import shared_jit  # noqa: E402,F401
 import jax.numpy as jnp  # noqa: E402
 import torch  # noqa: E402
 

@@ -8,6 +8,7 @@ The plain version must be bit-exact against ``kernels/ref.py``'s
 the f32 epilogue is the same sequence of operations.  The quantizers are
 bit-exact against the reference's ``jnp`` ones, and the quantized GEMM
 stays within the reference's 2% of the f32 GEMM."""
+import torch_threads  # noqa: F401  (one torch thread a worker)
 import numpy as np
 import pytest
 

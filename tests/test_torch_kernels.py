@@ -9,6 +9,7 @@ and MQA, head dim 32/64/128, block size 8/16/32, scrambled block tables,
 and sequence lengths that are not a multiple of the CUDA kernel's 64-row
 tile.  The CUDA kernels themselves are held to these plain versions on the
 card (``tests/test_torch_cuda.py``, ``chip_smoke.py``)."""
+import torch_threads  # noqa: F401  (one torch thread a worker)
 import math
 
 import numpy as np

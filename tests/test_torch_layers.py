@@ -2,6 +2,7 @@
 
 Inputs come from one numpy seed and go through ``repro.models.layers`` and
 ``repro_torch.models.layers`` alike."""
+import torch_threads  # noqa: F401  (one torch thread a worker)
 import numpy as np
 import pytest
 

@@ -15,10 +15,12 @@ The engine workload is ``launch/serve.py``'s (8 prompts of 4-23 tokens,
 behind every token of the reference's streams, teacher-forced over the
 reference's f32 logits, above 1e-4 (``ROADMAP.md``, Queue 3,
 "Near-ties")."""
+import torch_threads  # noqa: F401  (one torch thread a worker)
 import numpy as np
 import pytest
 
 jax = pytest.importorskip("jax")
+from test_torch_jit_memo import shared_jit  # noqa: E402,F401
 import jax.numpy as jnp  # noqa: E402
 import torch  # noqa: E402
 

@@ -4,6 +4,7 @@ A JAX ``Model.init`` tree is carried over with ``from_jax_params`` under
 ``local_plan(param_dtype=f32, compute_dtype=f32)``; logits are held to the
 reference at atol 1e-4 (f32 through two layers and the unembedding, with
 the pool in bf16 exactly as the reference keeps it)."""
+import torch_threads  # noqa: F401  (one torch thread a worker)
 import numpy as np
 import pytest
 

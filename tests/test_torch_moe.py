@@ -13,10 +13,12 @@ bit-exact, engine streams and counters exact.  The engine workload is
 teacher-forced over f32 logits, the smallest top-2 margin along the
 reference's paged streams is 2.5e-5 (full) and 8.0e-5 (int8), against
 ~3e-7 between the port's and the reference's f32 logits."""
+import torch_threads  # noqa: F401  (one torch thread a worker)
 import numpy as np
 import pytest
 
 jax = pytest.importorskip("jax")
+from test_torch_jit_memo import shared_jit  # noqa: E402,F401
 import jax.numpy as jnp  # noqa: E402
 import torch  # noqa: E402
 

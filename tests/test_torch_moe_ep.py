@@ -18,12 +18,14 @@ tree holds only ``w_*_q``/``w_*_s`` (``src/repro/models/moe.py:51-57``),
 so the rebuilt model looks up bf16 experts it does not hold.  The port
 keeps each variant's flag; both sides of that are shown here.
 """
+import torch_threads  # noqa: F401  (one torch thread a worker)
 import functools
 
 import numpy as np
 import pytest
 
 jax = pytest.importorskip("jax")
+from test_torch_jit_memo import shared_jit  # noqa: E402,F401
 import jax.numpy as jnp  # noqa: E402
 import torch  # noqa: E402
 

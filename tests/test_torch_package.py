@@ -1,6 +1,7 @@
 """Package rules of the port: it never imports JAX or the JAX package, its
 entry points default to CUDA, and the kernel dispatcher never hands a CUDA
 tensor to a plain version."""
+import torch_threads  # noqa: F401  (one torch thread a worker)
 import ast
 import inspect
 import os
@@ -272,7 +273,9 @@ def test_dispatcher_runs_bf16_flash_plain_on_cpu(causal, window):
             flash_mod.flash_attention.tensor_core) == (0, 0)
 
 
-@pytest.mark.parametrize("devices", [("cpu", "meta"), ("meta", "meta")])
+# a mix of devices is refused; the meta device alone takes the plain path
+# (test_dispatcher_takes_the_plain_path_on_meta)
+@pytest.mark.parametrize("devices", [("cpu", "meta"), ("meta", "cpu")])
 def test_dispatcher_refuses_other_devices(devices):
     q = torch.zeros(1, 2, 4, 8, device=devices[0])
     k = torch.zeros(1, 2, 4, 8, device=devices[1])
@@ -293,10 +296,25 @@ def test_dispatcher_refuses_other_devices(devices):
         ops.int8_matmul(q[0, 0], k[0, 0].T, q[0, 0, :, :1], k[0, 0, :1])
     with pytest.raises(ValueError):
         ops.int8_matmul_quantized(q[0, 0], k[0, 0].T)
-    if devices[0] == devices[1]:
-        for fn in (ops.quantize_rows, ops.quantize_cols):
-            with pytest.raises(ValueError):
-                fn(k[0, 0])
+
+
+def test_dispatcher_takes_the_plain_path_on_meta():
+    """Every kernel call on meta tensors alone runs its plain version
+    (shapes only: nothing built, nothing launched), as ``launch.dryrun``
+    and ``analysis`` trace steps there."""
+    q = torch.zeros(1, 2, 4, 8, device="meta")
+    i = torch.zeros(1, 2, dtype=torch.int32, device="meta")
+    outs = [ops.flash_attention(q, q, q),
+            ops.paged_prefill_attention(q, q, q, i, i[:, 0]),
+            ops.paged_verify_attention(q, q, q, i, i[:, 0]),
+            ops.decode_attention(q[:, 0], q, q, i[:, 0]),
+            ops.paged_decode_attention(q[:, 0], q, q, i, i[:, 0]),
+            *ops.paged_decode_attention_lse(q[:, 0], q, q, i, i[:, 0], i),
+            ops.int8_matmul_quantized(q[0, 0], q[0, 0].T),
+            *ops.quantize_rows(q[0, 0]), *ops.quantize_cols(q[0, 0])]
+    assert all(t.is_meta for t in outs)
+    assert outs[0].shape == q.shape and outs[3].shape == q[:, 0].shape
+    assert flash_mod.flash_attention.launches == 0
 
 
 def test_kernel_wrappers_refuse_cpu_tensors():

@@ -9,10 +9,12 @@ and with a prefilling request preempted mid-prompt.
 Both engines serve the same weights (a JAX ``Model.init`` tree carried over
 with ``from_jax_params``, f32 plan, bf16 pool); greedy streams must match
 token for token and the counters exactly."""
+import torch_threads  # noqa: F401  (one torch thread a worker)
 import numpy as np
 import pytest
 
 jax = pytest.importorskip("jax")
+from test_torch_jit_memo import shared_jit  # noqa: E402,F401
 import jax.numpy as jnp  # noqa: E402
 import torch  # noqa: E402
 

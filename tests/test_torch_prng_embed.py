@@ -7,6 +7,7 @@ and keeps 7, so only 128 values can come out; every one of them is held
 bit for bit (jax's erf_inv is XLA's f32 polynomial, which ``normal_bf16``
 evaluates in the same order; none of the 128 differs, so no ulp
 tolerance is needed)."""
+import torch_threads  # noqa: F401  (one torch thread a worker)
 import numpy as np
 import pytest
 

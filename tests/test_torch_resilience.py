@@ -12,12 +12,14 @@ smoke size.  Streams, outcomes and counters are held exactly, except the
 streams of requests that decoded from NaN KV with the guard off: those
 are held by their outcomes and audit counts (on this CPU both engines
 pick token 0 from all-NaN logits; ROADMAP.md, Queue 3)."""
+import torch_threads  # noqa: F401  (one torch thread a worker)
 import numpy as np
 import pytest
 
 jax = pytest.importorskip("jax")
 import jax.numpy as jnp  # noqa: E402
 import torch  # noqa: E402
+from test_torch_jit_memo import shared_jit  # noqa: E402,F401
 
 from repro.configs import get_config as j_get_config  # noqa: E402
 from repro.core import faults as JF  # noqa: E402

@@ -12,10 +12,12 @@ the bf16 pool the engine keeps, within the bound each test states.
 Engines (f32 plan, bf16 pool) must give the same greedy streams token for
 token and the same counters.  Few distinct prompt lengths: each one
 compiles the reference's scan anew."""
+import torch_threads  # noqa: F401  (one torch thread a worker)
 import numpy as np
 import pytest
 
 jax = pytest.importorskip("jax")
+from test_torch_jit_memo import shared_jit  # noqa: E402,F401
 import jax.numpy as jnp  # noqa: E402
 import torch  # noqa: E402
 

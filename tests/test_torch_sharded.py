@@ -19,10 +19,12 @@ shards only, so shards = 4 runs the same config with 4 kv heads (MHA).
 ``n_blocks = 8`` holds the 6 live blocks without preemption and fills
 every stripe; each run checks that it did.
 """
+import torch_threads  # noqa: F401  (one torch thread a worker)
 import numpy as np
 import pytest
 
 jax = pytest.importorskip("jax")
+from test_torch_jit_memo import shared_jit  # noqa: E402,F401
 import jax.numpy as jnp  # noqa: E402
 import torch  # noqa: E402
 

@@ -17,12 +17,14 @@ pools: see ``f32_pools``): streams, counters and the pool's sharing
 counters exactly.  The smoke config's 2 kv heads admit shards 2 only, so
 shards 4 runs the same config with 4 kv heads.
 """
+import torch_threads  # noqa: F401  (one torch thread a worker)
 import functools
 
 import numpy as np
 import pytest
 
 jax = pytest.importorskip("jax")
+from test_torch_jit_memo import shared_jit  # noqa: E402,F401
 import jax.numpy as jnp  # noqa: E402
 import torch  # noqa: E402
 

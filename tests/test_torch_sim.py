@@ -10,12 +10,14 @@ physics is float32 on both sides; a value that is zero but for round-off,
 below 1e-12, is held absolutely).  Each tick's routing, quality and
 telemetry-age are held too.  Step-wise driving equals ``run()`` inside
 the port, and ``run_drill`` equals the reference's."""
+import torch_threads  # noqa: F401  (one torch thread a worker)
 import dataclasses
 
 import numpy as np
 import pytest
 
 jax = pytest.importorskip("jax")
+from test_torch_jit_memo import shared_jit  # noqa: E402,F401
 
 from repro.core import failures as JFL  # noqa: E402
 from repro.core import faults as JF  # noqa: E402

@@ -11,12 +11,14 @@ logits at 1e-4 over an f32 cache; over the bf16 cache the engine keeps,
 within the bound each test states and explains.  Engines (f32 plan, bf16
 cache) must give the same greedy streams token for token and the same
 counters."""
+import torch_threads  # noqa: F401  (one torch thread a worker)
 import math
 
 import numpy as np
 import pytest
 
 jax = pytest.importorskip("jax")
+from test_torch_jit_memo import shared_jit  # noqa: E402,F401
 import jax.numpy as jnp  # noqa: E402
 import torch  # noqa: E402
 

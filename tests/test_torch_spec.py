@@ -15,10 +15,12 @@ same weights (a JAX ``Model.init`` tree carried over with
 Each JAX engine compiles its speculative loop once; its workloads run on
 it one after another (the counters are compared per workload, as
 differences), so the module takes about 35 s on one worker."""
+import torch_threads  # noqa: F401  (one torch thread a worker)
 import numpy as np
 import pytest
 
 jax = pytest.importorskip("jax")
+from test_torch_jit_memo import shared_jit  # noqa: E402,F401
 import jax.numpy as jnp  # noqa: E402
 import torch  # noqa: E402
 

@@ -11,6 +11,7 @@ at the JAX oracle's own kernel tolerance (1e-5) against
 against ``ref.paged_prefill_attention_ref`` and the interpret-mode Pallas
 kernel, as ``test_torch_prefill_chunk.py`` holds it at the narrower head
 dims."""
+import torch_threads  # noqa: F401  (one torch thread a worker)
 import ast
 import inspect
 import textwrap

@@ -16,6 +16,7 @@ the same sums, so it stays within 1e-6 (relative, in f32) of
 interpret mode (run as ``tests/test_torch_rwkv.py`` runs it), gives the
 same bits at every Q, and its state is the plain version's bit for bit.
 Both plans are functions of shapes alone."""
+import torch_threads  # noqa: F401  (one torch thread a worker)
 import math
 
 import numpy as np

@@ -11,6 +11,7 @@ order, so they are held at 1e-6, and at the JAX oracle's own kernel
 tolerance (1e-5) against ``ref.paged_decode_attention_ref`` and the
 interpret-mode Pallas ``paged_decode_attention_lse``, as
 ``test_torch_sharded.py`` runs it."""
+import torch_threads  # noqa: F401  (one torch thread a worker)
 import ast
 import inspect
 import textwrap

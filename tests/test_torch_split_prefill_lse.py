@@ -10,6 +10,7 @@ stripes' ``combine_lse`` to the reference's ``_paged_prefill_core(None,
 runs it), and a stripe that owns no key of a row gives lse = -1e30 and
 o = 0 exactly.  ``paged_prefill_split_plan`` reads shapes only.
 """
+import torch_threads  # noqa: F401  (one torch thread a worker)
 import inspect
 
 import numpy as np

@@ -13,6 +13,7 @@ from numpy seeds.  Tolerances, fixed before any result was read: the loss
 within 1e-5 relative, each grad leaf within 1e-4 of its own max |g|
 (sums in other orders: attention's backward, the chunked cross-entropy),
 remat against none within 1e-6 of max |g| (the same ops, recomputed)."""
+import torch_threads  # noqa: F401  (one torch thread a worker)
 import numpy as np
 import pytest
 

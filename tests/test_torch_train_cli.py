@@ -4,6 +4,7 @@ hubert-xlarge on ``next_embed_batch``'s frame embeddings, as the
 reference's driver chooses by ``input_kind``), and ``launch/quickstart.py``
 on the encoder, which trains and is not served, as in the reference.
 Finite losses; the printed step lines."""
+import torch_threads  # noqa: F401  (one torch thread a worker)
 import numpy as np
 import pytest
 

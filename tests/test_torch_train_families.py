@@ -18,6 +18,7 @@ in f32 plans.  Tolerances, PR 27's, fixed before any result was read:
 the loss within 1e-5 relative, each grad leaf within 1e-4 of its own
 max |g|; remat against none within 1e-6 of max |g| (the same ops,
 recomputed)."""
+import torch_threads  # noqa: F401  (one torch thread a worker)
 import numpy as np
 import pytest
 

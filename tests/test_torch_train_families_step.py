@@ -8,6 +8,7 @@ rwkv6-3b's: test_torch_train_rwkv.py; ``launch/train.py`` and
 Smoke configs, weights carried over by ``from_jax_params``, f32 plans.
 Tolerances, PR 27's, fixed before any result was read: each step's loss
 within 1e-5 relative and its grad norm within 1e-4."""
+import torch_threads  # noqa: F401  (one torch thread a worker)
 import numpy as np
 import pytest
 

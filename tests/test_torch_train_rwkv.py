@@ -9,6 +9,7 @@ Tolerances, PR 27's, fixed before any result was read: the loss within
 1e-5 relative and each grad leaf within 1e-4 of its own max |g|; the
 three steps' losses within 1e-5 relative and their grad norms within
 1e-4."""
+import torch_threads  # noqa: F401  (one torch thread a worker)
 import pytest
 
 pytest.importorskip("jax")

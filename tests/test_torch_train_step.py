@@ -12,6 +12,7 @@ of each leaf's max |x| over 3 steps on identical inputs (an element that
 cancels to near 0 carries a few ulps of the terms that made it); the
 schedule and the global norm within 1e-6 relative; train losses within 1e-5 relative; batches,
 checkpoint leaves and the resumed run's losses exact."""
+import torch_threads  # noqa: F401  (one torch thread a worker)
 import numpy as np
 import pytest
 

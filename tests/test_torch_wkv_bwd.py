@@ -19,6 +19,7 @@ out-of-place scan (f64, 1e-12) and against ``jax.vjp`` of the reference's
 chunked scan (``models/ssm.py``'s ``_selective_scan_chunk`` carried over
 chunks, as ``mamba_forward`` runs it; f32, 1e-5 of each gradient's max
 |g|)."""
+import torch_threads  # noqa: F401  (one torch thread a worker)
 import numpy as np
 import pytest
 
