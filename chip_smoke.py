@@ -285,6 +285,25 @@ Builds the hand-written CUDA kernels from ``src/repro_torch/csrc`` (one
    and the MFU.  (d) Every audit entry run eagerly under the audit on the
    card, then captured: the verdicts agree, and a synthetic ``.item()``
    and host-built tensor are flagged and refused.
+17. The last entry points and the runtime guards.  (a)
+   ``launch.serve_cluster`` (``examples/serve_cluster.py``): four
+   full-width llama2-7b engines on one weight copy under ``TapasRouter``
+   and the thermal model on the card, eight ticks of the heat ramp; its
+   printed table (every tick's t_out, risk, load and served, and the
+   closing line) must equal the port's own ``--smoke --device cpu`` run,
+   made in a process of its own beside the card's (completions do not
+   depend on the weights, and the physics on the card is bit-equal to the
+   CPU's); kernels 1 and 2 launch, every kernel-1 launch on the tensor
+   cores, no plain version on the card; wall time, decode tok/s and
+   ``nvidia-smi``'s power, SM clock and temperature.  (b) ``launch.drill``
+   (``examples/failure_drill.py``) at 18 h with its physics on the card:
+   its rows must equal the CPU run's.  (c) On engines that share (a)'s
+   weights (3 lanes, horizon 4, without and with n-gram drafts), after a
+   warm-up step, the rest of a drain (the 4th request's admission
+   included) under ``lint.runtime.no_implicit_syncs`` and
+   ``capture_budget(budget=0)``: every request completes, no program is
+   built or captured again.  (d) A synthetic ``.item()`` under the guard
+   raises.
 
 The launch counts are per launch whether the launch ran eagerly or as a
 node of a replayed graph: a capture records each wrapper's count and
@@ -4037,7 +4056,7 @@ def summaries_agree(got: dict, want: dict, label: str) -> None:
     is bit-equal to the CPU's, and engines are telemetry only."""
     got, want = _flat(got), _flat(want)
     nan = object()
-    differ = sorted(k for k in set(got) | set(want)
+    differ = sorted(k for k in set(got) | set(want)  # tapaslint: disable=TL001 sorted: order-free
                     if got.get(k, nan) != want.get(k, nan)
                     and not (got.get(k) != got.get(k)
                              and want.get(k) != want.get(k)))
@@ -4125,16 +4144,18 @@ class EngineLog:
                 if ev[0] == "submit"]
 
     def replay(self, twin) -> list:
-        from repro_torch.serving import Request
+        import dataclasses
+
+        from repro_torch.serving.request import _ids
         copies = []
         for ev in self.events:
             if ev[0] == "submit":
-                r = ev[1]
-                c = Request(prompt=list(r.prompt),
-                            max_new_tokens=r.max_new_tokens,
-                            customer=r.customer, arrival_s=r.arrival_s,
-                            deadline_ms=r.deadline_ms,
-                            max_retries=r.max_retries)
+                # every field carried over (sampling ones too) but those a
+                # request fills while it is served
+                c = dataclasses.replace(
+                    ev[1], prompt=list(ev[1].prompt), req_id=next(_ids),
+                    output=[], first_token_s=None, finish_s=None, retries=0,
+                    outcome=None)
                 copies.append(c)
                 twin.submit(c)
             elif ev[0] == "set_variant":
@@ -6216,6 +6237,296 @@ def analysis_phase(torch, sweep: list) -> dict:
     return la
 
 
+# ---------------------------------------------------------------------------
+# phase 17: the last entry points and the runtime guards
+# ---------------------------------------------------------------------------
+# ``launch.serve_cluster`` (examples/serve_cluster.py) at full width and
+# ``launch.drill`` (examples/failure_drill.py) on the card, each printing
+# what the port's own CPU run prints (the CPU runs go in processes of their
+# own, beside the card's); then the steady-state drain under the runtime
+# guards of ``repro_torch.analysis.lint.runtime``
+
+DRILL_H = 18.0          # the example's horizon
+# tests/test_runtime_guards.py's load with longer outputs: at full width a
+# horizon of n-gram rounds can emit 20 tokens a lane, and the guarded drain
+# must still hold decode steps and the 4th request's admission
+GUARD_LOAD = dict(n_req=4, max_new=48, stagger=8)
+
+
+def cpu_entry(module: str, *args: str) -> subprocess.Popen:
+    """``python -m repro_torch.launch.<module> ... --device cpu`` in a
+    process of its own (3 torch threads), its stdout piped."""
+    import os
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="3")
+    return subprocess.Popen(
+        [sys.executable, "-m", f"repro_torch.launch.{module}", *args,
+         "--device", "cpu"], cwd=ROOT, env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True)
+
+
+def cpu_output(proc: subprocess.Popen, label: str) -> str:
+    out, err = proc.communicate(timeout=600)
+    if proc.returncode != 0:
+        fail(f"{label}: the CPU run exited {proc.returncode}: "
+             f"{err.strip()[-2000:]}")
+    return out
+
+
+def captured_stdout(fn):
+    """(``fn()``, what it printed)."""
+    import contextlib
+    import io
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        out = fn()
+    return out, buf.getvalue()
+
+
+class plain_on_card:
+    """Counts, within the block, the calls of every kernel's plain version
+    (each ``*_ref`` of ``repro_torch.kernels``) on CUDA tensors."""
+
+    def __enter__(self):
+        import torch
+        from repro_torch.kernels import (decode_attention, flash_attention,
+                                         int8_matmul, paged_decode_attention,
+                                         paged_prefill_attention, rwkv6_wkv)
+        self.calls = 0
+        self.saved = []
+        for mod in (decode_attention, flash_attention, int8_matmul,
+                    paged_decode_attention, paged_prefill_attention,
+                    rwkv6_wkv):
+            for name, fn in list(vars(mod).items()):
+                if name.endswith("_ref") and callable(fn):
+                    self.saved.append((mod, name, fn))
+                    setattr(mod, name, self._counted(torch, fn))
+        return self
+
+    def _counted(self, torch, fn):
+        @functools.wraps(fn)
+        def call(*a, **kw):
+            if any(isinstance(t, torch.Tensor) and t.is_cuda for t in a):
+                self.calls += 1
+            return fn(*a, **kw)
+        return call
+
+    def __exit__(self, *exc):
+        for mod, name, fn in self.saved:
+            setattr(mod, name, fn)
+
+
+def smi_summary(readings: list) -> str:
+    import statistics
+    parts = []
+    for i, (field, unit) in enumerate(SMI_FIELDS[:3]):
+        vals = [r[i] for r in readings if r[i] is not None]
+        if vals:
+            parts.append(f"{field} {min(vals):.0f}/{statistics.median(vals):.0f}"
+                         f"/{max(vals):.0f} {unit}")
+    return (f"nvidia-smi over {len(readings)} readings (min/median/max): "
+            + ", ".join(parts))
+
+
+def serve_cluster_phase(torch, cpu: subprocess.Popen) -> tuple:
+    """(a): ``launch.serve_cluster`` with four full-width llama2-7b engines
+    on one weight copy; its table must equal the CPU smoke run's.  Returns
+    (the launches, the engines)."""
+    from repro_torch.launch import serve_cluster
+    t0 = time.perf_counter()
+    engines = serve_cluster.build_engines(smoke=False)
+    torch.cuda.synchronize()
+    cfg = engines[0].model.cfg
+    print(f"phase 17 (a) serve_cluster: {serve_cluster.N_VMS} llama2-7b "
+          f"engines at full width ({cfg.num_layers} layers, d_model "
+          f"{cfg.d_model}, vocab {cfg.vocab_size}) on one weight copy, "
+          f"built in {time.perf_counter() - t0:.1f} s", flush=True)
+    reset_launches()
+    t = time.perf_counter()
+    with plain_on_card() as plain:
+        (res, table), smi = smi_during(lambda: captured_stdout(
+            lambda: serve_cluster.run(engines=engines)))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    la = read_launches()
+    for line in table.splitlines():
+        print(f"phase 17 (a) | {line}", flush=True)
+    want = cpu_output(cpu, "phase 17 (a)")
+    same = table == want
+    tokens = sum(e.stats.decode_tokens for e in engines)
+    caps = sum(p.captures for e in engines for p in e.programs.values())
+    print(f"phase 17 (a) table {'equals' if same else 'DIFFERS FROM'} the "
+          f"CPU smoke run's ({len(want.splitlines())} lines); wall "
+          f"{wall:.1f} s, {tokens} decode tokens, decode tok/s "
+          f"{tokens / wall:.1f}; {res['total']} requests completed; graph "
+          f"captures {caps}; launches flash_attention="
+          f"{la['flash_attention']} paged_decode_attention="
+          f"{la['paged_decode_attention']}; plain versions on the card "
+          f"{plain.calls}; {smi_summary(smi)}; "
+          f"card {card_line()}", flush=True)
+    if not same:
+        fail("phase 17 (a): the card's table differs from the CPU's:\n"
+             + want)
+    tensor_core_route(la, "phase 17 (a) serve_cluster")
+    for name in ("flash_attention", "paged_decode_attention"):
+        if not la[name]:
+            fail(f"phase 17 (a): {name} never launched")
+    if plain.calls:
+        fail("phase 17 (a): a plain version ran on the card")
+    return la, engines
+
+
+def drill_phase(torch, cpu: subprocess.Popen) -> None:
+    """(b): ``launch.drill`` with its physics on the card; its rows must
+    equal the CPU run's."""
+    from repro_torch.launch import drill
+    t = time.perf_counter()
+    rows, table = captured_stdout(
+        lambda: drill.run_drills(horizon_h=DRILL_H, device="cuda"))
+    wall = time.perf_counter() - t
+    for line in table.splitlines():
+        print(f"phase 17 (b) | {line}", flush=True)
+    want = cpu_output(cpu, "phase 17 (b)")
+    same = table == want
+    print(f"phase 17 (b) drill at {DRILL_H} h ({len(rows)} rows, 8 "
+          f"ClusterSim runs of 80 servers): rows on the card "
+          f"{'equal' if same else 'DIFFER FROM'} the CPU's; {wall:.1f} s on "
+          f"the card", flush=True)
+    if not same:
+        fail("phase 17 (b): the card's drill differs from the CPU's:\n"
+             + want)
+
+
+def guard_load(eng, vocab: int, seed: int = 0) -> None:
+    """4 prompts of 4-19 tokens, 48, 56, 64 and 72 new tokens, greedy."""
+    import numpy as np
+    from repro_torch.serving import Request
+    rng = np.random.default_rng(seed)
+    for i in range(GUARD_LOAD["n_req"]):
+        plen = int(rng.integers(4, 20))
+        eng.submit(Request(
+            prompt=[int(t) for t in rng.integers(0, vocab, plen)],
+            max_new_tokens=GUARD_LOAD["max_new"] + GUARD_LOAD["stagger"] * i,
+            temperature=0.0))
+
+
+def guarded_drain(torch, share, draft) -> dict:
+    """One engine on ``share``'s weights (3 lanes, horizon 4, ``draft``):
+    a warm-up step (3 requests admitted, the decode program captured), then
+    the drain under ``no_implicit_syncs`` and ``capture_budget(budget=0)``
+    over its programs; it admits the 4th request."""
+    from repro_torch.analysis.lint import runtime as rt
+    from repro_torch.serving import EngineSpec
+    cfg = share.variants["full"][0].cfg
+    spec = EngineSpec(cfg, max_seq=128, n_slots=3, block_size=8, horizon=4,
+                      draft=draft)
+    eng = spec.build(share=share)
+    guard_load(eng, cfg.vocab_size)
+    eng.step()
+    keys = set(rt.programs(eng))
+    prefills = eng.stats.prefill_batches
+    steps = 0
+    t = time.perf_counter()
+    with rt.no_implicit_syncs(), \
+            rt.capture_budget(*rt.programs(eng).values(), budget=0):
+        while (eng.queue or eng.active or eng.prefilling) and steps < 300:
+            eng.step()
+            steps += 1
+    torch.cuda.synchronize()
+    return {"steps": steps, "s": time.perf_counter() - t,
+            "completed": len(eng.stats.completed),
+            "prefills": eng.stats.prefill_batches - prefills,
+            "new_programs": sorted(map(str, set(rt.programs(eng)) - keys)),
+            "programs": len(keys), "syncs": eng.stats.host_syncs,
+            "accepted_per_sync": eng.stats.accepted_per_sync
+            if draft else None}
+
+
+def guard_phase(torch, share) -> dict:
+    """(c) the steady-state drains under the guards, greedy and with
+    n-gram drafts; (d) a synthetic ``.item()`` under the guard raises."""
+    from repro_torch.analysis.lint import runtime as rt
+    reset_launches()
+    for draft in (None, "ngram"):
+        r = guarded_drain(torch, share, draft)
+        print(f"phase 17 (c) guarded drain, llama2-7b full width, horizon 4, "
+              f"{draft or 'no'} drafts: {r['completed']} of "
+              f"{GUARD_LOAD['n_req']} requests completed in {r['steps']} "
+              f"steps ({r['s']:.2f} s, {r['prefills']} prefill batches) "
+              f"under no_implicit_syncs and "
+              f"capture_budget(0) over {r['programs']} programs; new "
+              f"programs {r['new_programs'] or 'none'}; host syncs "
+              f"{r['syncs']}"
+              + (f", accepted per sync {r['accepted_per_sync']:.2f}"
+                 if draft else ""), flush=True)
+        if (r["completed"] != GUARD_LOAD["n_req"] or r["new_programs"]
+                or r["steps"] < 2 or not r["prefills"]):
+            fail(f"phase 17 (c): the guarded drain with {draft} drafts "
+                 f"completed {r['completed']} in {r['steps']} steps "
+                 f"({r['prefills']} prefills) and built "
+                 f"{r['new_programs']}")
+    x = torch.ones(4, device="cuda")
+    try:
+        with rt.no_implicit_syncs():
+            x.sum().item()
+    except RuntimeError as e:
+        print(f"phase 17 (d) a synthetic .item() under no_implicit_syncs "
+              f"raises: {str(e).splitlines()[0]}", flush=True)
+    else:
+        fail("phase 17 (d): a synthetic .item() under the guard did not "
+             "raise")
+    import numpy as np
+    host = torch.from_numpy(np.arange(4, dtype=np.float32))
+    try:
+        with rt.no_implicit_syncs():
+            host.to("cuda")
+    except RuntimeError:
+        upload = "raises"
+    else:
+        upload = "passes"
+    with rt.no_implicit_syncs():
+        back = rt.sanctioned_readback(x.sum())
+        with rt.sanctioned():
+            staged = host.to("cuda")
+    print(f"phase 17 (d) an upload from pageable host memory under the "
+          f"guard {upload}; sanctioned_readback under it: {back}; a "
+          f"sanctioned upload: {staged.sum().item()}", flush=True)
+    if upload != "raises":
+        fail("phase 17 (d): an upload from pageable memory passed the guard")
+    return read_launches()
+
+
+def entry_point_phases(torch) -> dict:
+    """Phase 17: (a) ``serve_cluster`` at full width, (b) the failure
+    drill on the card, each against the port's CPU run; (c) and (d) the
+    runtime guards on (a)'s weights.  Returns the launches of (a) and
+    (c)."""
+    t0 = time.perf_counter()
+    cpu_cluster = cpu_entry("serve_cluster", "--smoke")
+    cpu_drill = cpu_entry("drill", "--horizon-h", str(DRILL_H))
+    try:
+        launches, engines = serve_cluster_phase(torch, cpu_cluster)
+        print(f"phase 17 (a) done in {time.perf_counter() - t0:.1f} s",
+              flush=True)
+        t = time.perf_counter()
+        for name, n in guard_phase(torch, engines[0]).items():
+            launches[name] += n
+        print(f"phase 17 (c)-(d) done in {time.perf_counter() - t:.1f} s",
+              flush=True)
+        del engines
+        gc.collect()
+        torch.cuda.empty_cache()
+        t = time.perf_counter()
+        drill_phase(torch, cpu_drill)
+        print(f"phase 17 (b) done in {time.perf_counter() - t:.1f} s; "
+              f"phase 17 {time.perf_counter() - t0:.1f} s", flush=True)
+    finally:
+        for proc in (cpu_cluster, cpu_drill):
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -6381,6 +6692,12 @@ def main() -> int:
     for name, n in analysis_phase(torch, sweep).items():
         launches[name] += n
     print(f"phase 16 done at {time.perf_counter() - t_start:.1f} s",
+          flush=True)
+
+    # phase 17: serve_cluster, the failure drill and the runtime guards
+    for name, n in entry_point_phases(torch).items():
+        launches[name] += n
+    print(f"phase 17 done at {time.perf_counter() - t_start:.1f} s",
           flush=True)
     for e in entries:
         e["launches"] = launches[e["name"]]

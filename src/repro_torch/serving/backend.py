@@ -164,7 +164,7 @@ class EngineBackend:
         for _ in range(int(round(load * self.requests_per_load))):
             # fresh construction, not a copy of an existing Request — the
             # backend attrs just share the field names
-            req = Request(
+            req = Request(  # tapaslint: disable=TL004
                 prompt=[int(t) for t in self.rng.integers(
                     0, vocab, self.prompt_len)],
                 max_new_tokens=self.max_new_tokens,
@@ -384,7 +384,7 @@ class FleetBackend(EngineBackend):
         for _ in range(int(round(load * self.requests_per_load))):
             # fresh construction, not a copy of an existing Request — the
             # backend attrs just share the field names
-            req = Request(
+            req = Request(  # tapaslint: disable=TL004
                 prompt=[int(t) for t in self.rng.integers(
                     0, vocab, self.prompt_len)],
                 max_new_tokens=self.max_new_tokens,

@@ -53,7 +53,11 @@ round, the chunk tick and the slot step as CUDA graphs captured once per
 shape and replayed (``serving.graphs``), the counterpart of the
 reference's jitted steps; on the CPU the same steps run eagerly.
 ``graphs=False`` runs them eagerly on the card too, as ``jax.disable_jit``
-does for the reference.
+does for the reference.  Every deliberate host-device copy (the staging of
+a step's host state, the one readback per horizon) goes through
+``analysis.lint.runtime``'s ``sanctioned``/``sanctioned_readback``, as the
+reference's goes through explicit ``device_put``/``np.asarray``: under
+``no_implicit_syncs`` any other sync on the path raises.
 
 Resilience (the fault model of ``core.faults``): ``EngineKnobs.paused``
 holds admission through a reconfiguration drain; requests with
@@ -84,6 +88,7 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
+from repro_torch.analysis.lint.runtime import sanctioned, sanctioned_readback
 from repro_torch.configs.drafters import check_draft_pair
 from repro_torch.core.traces import _stable_seed
 from repro_torch.models.transformer import (SALT_SAMPLE, Model, event_keys,
@@ -477,7 +482,8 @@ class Engine:
         self._bind(self.variants[self.knobs.variant][0])
 
     def _to_device(self, a: np.ndarray) -> torch.Tensor:
-        return torch.from_numpy(a).to(self.model.device)
+        with sanctioned():
+            return torch.from_numpy(a).to(self.model.device)
 
     # -- request lifecycle -------------------------------------------------
     def submit(self, req: Request) -> None:
@@ -555,18 +561,20 @@ class Engine:
         nxt = logits[:, :v].argmax(dim=-1).to(torch.int32)
         if any(r.temperature > 0 for r in reqs):
             rows, dev = len(reqs), logits.device
-            temps = torch.tensor([r.temperature for r in reqs],
-                                 dtype=torch.float32, device=dev)
-            top_ks = torch.tensor([r.top_k for r in reqs], dtype=torch.int32,
-                                  device=dev)
-            seeds = torch.tensor([self._req_seed(r) for r in reqs],
-                                 dtype=torch.int32, device=dev)
-            keys = event_keys(lane_keys(seeds), torch.as_tensor(
-                np.asarray(idx[:rows], np.int32), device=dev), SALT_SAMPLE)
+            with sanctioned():
+                temps = torch.tensor([r.temperature for r in reqs],
+                                     dtype=torch.float32, device=dev)
+                top_ks = torch.tensor([r.top_k for r in reqs],
+                                      dtype=torch.int32, device=dev)
+                seeds = torch.tensor([self._req_seed(r) for r in reqs],
+                                     dtype=torch.int32, device=dev)
+                pos = torch.as_tensor(np.asarray(idx[:rows], np.int32),
+                                      device=dev)
+            keys = event_keys(lane_keys(seeds), pos, SALT_SAMPLE)
             nxt[:rows] = sample_from_dist(
                 keys, sampling_dist(logits[:rows, :v], temps, top_ks),
                 temps <= 0.0)
-        return nxt.cpu().numpy()
+        return sanctioned_readback(nxt)
 
     # -- resilience: deadlines, bounded retry, NaN quarantine, crash -------
     def _release_delayed(self, now: float) -> None:
@@ -900,9 +908,10 @@ class Engine:
                                                       c_pad, width, **kw),
                 lambda eng: (eng._d_params, eng.pool.draft_cache)))
         for p in progs:
-            for name, a in (("tokens", tokens), ("starts", starts),
-                            ("lens", lens), ("tables", tables)):
-                p.bufs[name].copy_(torch.from_numpy(a))
+            with sanctioned():
+                for name, a in (("tokens", tokens), ("starts", starts),
+                                ("lens", lens), ("tables", tables)):
+                    p.bufs[name].copy_(torch.from_numpy(a))
             p.run()
         self.stats.prefill_batches += 1
         nxt = None
@@ -979,16 +988,18 @@ class Engine:
         b["tokens"].copy_(self.pool.last_tokens_dev())
         b["positions"].copy_(self.pool.positions())
         b["tables"].copy_(self.pool.tables())
-        for name, a in (("active", active_mask), ("budgets", budget_arr),
-                        ("eos", eos_arr)):
-            b[name].copy_(torch.from_numpy(a))
-        if sampled:
-            G.set_sampling(b, *self._sampling(
-                {self.pool.lane_of[rid]: req
-                 for rid, req in self.active.items()}))
+        with sanctioned():
+            for name, a in (("active", active_mask), ("budgets", budget_arr),
+                            ("eos", eos_arr)):
+                b[name].copy_(torch.from_numpy(a))
+            if sampled:
+                G.set_sampling(b, *self._sampling(
+                    {self.pool.lane_of[rid]: req
+                     for rid, req in self.active.items()}))
         toks, emitted = G.run_horizon(prog, n_eff)
         # the horizon's single host sync: tokens and flags in one readback
-        drained = torch.stack([toks, emitted.to(torch.int32)]).cpu().numpy()
+        drained = sanctioned_readback(
+            torch.stack([toks, emitted.to(torch.int32)]))
         toks_h, em_h = drained[0], drained[1].astype(bool)
         self.stats.host_syncs += 1
         self.stats.decode_syncs += 1
@@ -1061,16 +1072,18 @@ class Engine:
         b["positions"].copy_(self.pool.positions())
         b["tables"].copy_(self.pool.tables())
         b["hist"].copy_(hist)
-        for name, a in (("active", active_mask), ("budgets", budget_arr),
-                        ("eos", eos_arr)):
-            b[name].copy_(torch.from_numpy(a))
-        G.set_sampling(b, *self._sampling(
-            {self.pool.lane_of[rid]: req for rid, req in self.active.items()}))
+        with sanctioned():
+            for name, a in (("active", active_mask), ("budgets", budget_arr),
+                            ("eos", eos_arr)):
+                b[name].copy_(torch.from_numpy(a))
+            G.set_sampling(b, *self._sampling(
+                {self.pool.lane_of[rid]: req
+                 for rid, req in self.active.items()}))
         toks, em, acc = G.run_spec(prog, n_eff)
         # the launch's single host sync: tokens, flags and accepted counts
         # in one readback
-        drained = torch.cat([toks.flatten(), em.flatten().to(torch.int32),
-                             acc.flatten()]).cpu().numpy()
+        drained = sanctioned_readback(torch.cat([
+            toks.flatten(), em.flatten().to(torch.int32), acc.flatten()]))
         n = toks.numel()
         toks_h = drained[:n].reshape(toks.shape)
         em_h = drained[n:2 * n].reshape(toks.shape).astype(bool)
@@ -1126,14 +1139,15 @@ class Engine:
             ("slot", self.knobs.variant, width, sampled),
             lambda tensors, **kw: G.slot_program(self.model, tensors, width,
                                                  sampled=sampled, **kw))
-        prog.bufs["tokens"].copy_(torch.from_numpy(tokens))
-        prog.bufs["positions"].copy_(
-            torch.tensor(self.pool.lengths, dtype=torch.int32))
-        if sampled:
-            G.set_sampling(prog.bufs, *self._sampling(
-                {lanes[rid]: req for rid, req in self.active.items()}))
+        with sanctioned():
+            prog.bufs["tokens"].copy_(torch.from_numpy(tokens))
+            prog.bufs["positions"].copy_(
+                torch.tensor(self.pool.lengths, dtype=torch.int32))
+            if sampled:
+                G.set_sampling(prog.bufs, *self._sampling(
+                    {lanes[rid]: req for rid, req in self.active.items()}))
         prog.run()
-        nxt = prog.bufs["nxt"].cpu().numpy()
+        nxt = sanctioned_readback(prog.bufs["nxt"])
         self.stats.host_syncs += 1
         self.stats.decode_syncs += 1
         produced = 0

@@ -29,9 +29,11 @@ The numpy arrays (tables, lengths, last tokens, history) are the source of
 truth; ``tables()`` / ``positions()`` / ``last_tokens_dev()`` /
 ``hist_dev()`` return persistent device copies that are built once and
 then updated in place, a row (or cell) at a time, as the allocator
-mutates.  After a decode horizon the engine copies the loop's final device
-state into them with ``adopt_device``.  The pool itself is written in
-place (the reference donates it to a jitted scatter).
+mutates (each upload through ``analysis.lint.runtime.sanctioned``, the
+reference's explicit ``device_put``).  After a decode horizon the engine
+copies the loop's final device state into them with ``adopt_device``.
+The pool itself is written in place (the reference donates it to a
+jitted scatter).
 
 Fault injection and the NaN guard: ``corrupt_lane`` poisons one physical
 block with NaNs, ``bad_lanes`` finds the lanes whose written positions
@@ -47,6 +49,7 @@ import hashlib
 import numpy as np
 import torch
 
+from repro_torch.analysis.lint.runtime import sanctioned, sanctioned_readback
 from repro_torch.models.layers import tree_map
 from repro_torch.models.transformer import Model
 from repro_torch.serving.graphs import _leaves
@@ -96,8 +99,9 @@ class CachePool:
     def positions(self) -> torch.Tensor:
         """Next write position per slot (parked slots write at 0, which is
         always overwritten by the next prefill insert)."""
-        return torch.tensor(self.lengths, dtype=torch.int32,
-                            device=self.model.device)
+        with sanctioned():
+            return torch.tensor(self.lengths, dtype=torch.int32,
+                                device=self.model.device)
 
     def advance(self, active_slots: list) -> None:
         for s in active_slots:
@@ -228,8 +232,9 @@ class PagedCachePool:
 
     def _device(self, name: str) -> torch.Tensor:
         if name not in self._dev:
-            self._dev[name] = torch.from_numpy(
-                self._host_of(name).copy()).to(self.device)
+            with sanctioned():
+                self._dev[name] = torch.from_numpy(
+                    self._host_of(name).copy()).to(self.device)
         return self._dev[name]
 
     def mirror_write(self, name: str, lane: int,
@@ -240,14 +245,15 @@ class PagedCachePool:
         dev = self._dev.get(name)
         if dev is None:
             return
-        if pos is not None:
-            dev[lane, pos] = int(self._host_of(name)[lane, pos])
-            return
-        row = self._host_of(name)[lane]
-        if np.ndim(row) == 0:
-            dev[lane] = int(row)
-        else:
-            dev[lane].copy_(torch.from_numpy(np.ascontiguousarray(row)))
+        with sanctioned():
+            if pos is not None:
+                dev[lane, pos] = int(self._host_of(name)[lane, pos])
+                return
+            row = self._host_of(name)[lane]
+            if np.ndim(row) == 0:
+                dev[lane] = int(row)
+            else:
+                dev[lane].copy_(torch.from_numpy(np.ascontiguousarray(row)))
 
     def adopt_device(self, name: str, arr: torch.Tensor) -> None:
         """Copy a device array produced by the decode loop into the
@@ -335,7 +341,8 @@ class PagedCachePool:
         ``(L, B, S_pad, K, hd)``) into the physical blocks ``blks`` of
         ``cache`` (default: the pool's): the block ids go to the device
         once, then ``_paged_insert``."""
-        idx = torch.tensor(blks, dtype=torch.long, device=self.device)
+        with sanctioned():
+            idx = torch.tensor(blks, dtype=torch.long, device=self.device)
         _paged_insert(self.cache if cache is None else cache, prefill_cache,
                       idx, row)
 
@@ -473,18 +480,19 @@ class PagedCachePool:
         """Which masked lanes hold NaN/Inf anywhere in their written KV:
         one scan and one host readback (the caller counts the sync); the
         engine runs it only while its guard is armed."""
-        out = _bad_lane_scan(self.cache, self.tables(), self.positions(),
-                             torch.as_tensor(np.asarray(mask, bool),
-                                             device=self.device))
-        return out.cpu().numpy()
+        with sanctioned():
+            mask = torch.as_tensor(np.asarray(mask, bool), device=self.device)
+        return sanctioned_readback(_bad_lane_scan(
+            self.cache, self.tables(), self.positions(), mask))
 
     def scrub_lane(self, req_id: int) -> None:
         """Zero every block a quarantined request holds, so the blocks
         re-enter the free list pristine.  Sharers of a poisoned block are
         quarantined by the same scan (their tables alias the same physical
         block), so scrubbing under them is safe."""
-        ids = torch.tensor(self.blocks_of[req_id], dtype=torch.long,
-                           device=self.device)
+        with sanctioned():
+            ids = torch.tensor(self.blocks_of[req_id], dtype=torch.long,
+                               device=self.device)
         _zero_blocks(self.cache, ids)
         if self.draft_cache is not None:
             _zero_blocks(self.draft_cache, ids)

@@ -2864,3 +2864,92 @@ def test_roofline_reading_of_a_captured_step(gen):
     assert 0 < r["roofline_share"] <= 1
     assert cost["kernels"]["paged_decode_attention"]["calls"] == \
         4 * ctx.cfg.num_layers
+
+
+# ---------------------------------------------------------------------------
+# the runtime guards (repro_torch.analysis.lint.runtime) on the card: the
+# counterparts of tests/test_runtime_guards.py's steady-state drain and
+# zero retrace budget
+# ---------------------------------------------------------------------------
+
+def _guard_engine(draft):
+    from repro_torch.serving import EngineSpec
+    cfg = get_config("llama2-7b").smoke_config()
+    return EngineSpec(cfg, max_seq=128, n_slots=3, block_size=8, horizon=4,
+                      draft=draft).build()
+
+
+def _guard_load(eng, seed=0, max_new=48, stagger=8):
+    import numpy as np
+
+    from repro_torch.serving import Request
+    rng = np.random.default_rng(seed)
+    vocab = eng.model.cfg.vocab_size
+    for i in range(4):
+        plen = int(rng.integers(4, 20))
+        eng.submit(Request(
+            prompt=[int(t) for t in rng.integers(0, vocab, plen)],
+            max_new_tokens=max_new + stagger * i, temperature=0.0))
+
+
+@pytest.mark.parametrize("draft", [None, "ngram"])
+def test_steady_state_drain_is_sync_clean_and_captures_nothing(gen, draft):
+    """After a warm-up step (3 of 4 requests admitted, the decode program
+    captured) the rest of the drain, the 4th request's admission included,
+    makes no implicit host sync (every upload and the per-horizon readback
+    go through the sanctioned helpers) and captures no new graph."""
+    from repro_torch.analysis.lint import runtime as rt
+    eng = _guard_engine(draft)
+    _guard_load(eng)
+    eng.step()
+    keys = set(rt.programs(eng))
+    prefills = eng.stats.prefill_batches
+    assert keys and all(rt.capture_count(p) == 1
+                        for p in rt.programs(eng).values())
+    steps = 0
+    with rt.no_implicit_syncs(), \
+            rt.capture_budget(*rt.programs(eng).values(), budget=0):
+        while (eng.queue or eng.active or eng.prefilling) and steps < 300:
+            eng.step()
+            steps += 1
+    assert len(eng.stats.completed) == 4
+    assert steps >= 2 and eng.stats.prefill_batches > prefills
+    assert set(rt.programs(eng)) == keys
+    if draft:
+        assert eng.stats.accepted_per_sync >= 1.0
+
+
+def test_sync_guard_raises_on_item_and_lifts_for_sanctioned(gen):
+    from repro_torch.analysis.lint import runtime as rt
+    x = torch.ones(4, device="cuda")
+    with pytest.raises(RuntimeError, match="synchroniz"):
+        with rt.no_implicit_syncs():
+            x.sum().item()
+    host = torch.ones(2)
+    with pytest.raises(RuntimeError, match="synchroniz"):
+        with rt.no_implicit_syncs():
+            host.to("cuda")              # pageable memory: a sync
+    with rt.hot_path_guard():
+        assert rt.sanctioned_readback(x.sum()) == 4.0
+        with rt.sanctioned():
+            y = torch.tensor([1, 2], device="cuda")
+    assert torch.cuda.get_sync_debug_mode() == 0
+    assert y.tolist() == [1, 2]
+
+
+def test_capture_budget_catches_a_recapture(gen):
+    """A program whose leaf moves captures again: budget 0 fails."""
+    from repro_torch.analysis.lint import runtime as rt
+    eng = _guard_engine(None)
+    _guard_load(eng)
+    eng.step()
+    prog = next(iter(rt.programs(eng).values()))
+
+    def clone(tree):
+        return ({k: clone(v) for k, v in tree.items()}
+                if isinstance(tree, dict) else tree.clone())
+
+    eng.pool.cache = clone(eng.pool.cache)      # every leaf moves
+    with pytest.raises(AssertionError, match="capture budget"):
+        with rt.capture_budget(prog):
+            eng.step()

@@ -23,8 +23,10 @@ from repro_torch.kernels import int8_matmul as i8_mod
 from repro_torch.kernels import paged_decode_attention as paged_mod
 from repro_torch.kernels import paged_prefill_attention as prefill_mod
 from repro_torch.kernels import rwkv6_wkv as wkv_mod
+from repro_torch.launch import drill as launch_drill
 from repro_torch.launch import fleet as launch_fleet
 from repro_torch.launch import oversub as launch_oversub
+from repro_torch.launch import serve_cluster as launch_serve_cluster
 from repro_torch.models import Model, build_model, layers, local_plan
 from repro_torch.models import attention as TA
 from repro_torch.models import moe as TM
@@ -110,6 +112,8 @@ def test_every_kernel_source_is_built():
     oversubscribe.FleetOversubPlanner.__init__, launch_fleet.make_fleet,
     launch_fleet.run_drill, launch_fleet.run_measured_drill,
     launch_oversub.run_sweep, launch_oversub.run_fleet,
+    launch_serve_cluster.build_engines, launch_serve_cluster.run,
+    launch_drill.run_drills,
 ], ids=lambda f: f.__qualname__)
 def test_entry_points_default_to_cuda(fn):
     assert inspect.signature(fn).parameters["device"].default == "cuda"
@@ -125,11 +129,14 @@ def test_serve_cli_defaults_to_cuda():
         serve.main(["--smoke", "--requests", "1"])
 
 
-@pytest.mark.parametrize("main", [launch_fleet.main, launch_oversub.main],
-                         ids=["fleet", "oversub"])
+@pytest.mark.parametrize("main", [launch_fleet.main, launch_oversub.main,
+                                  launch_serve_cluster.main,
+                                  launch_drill.main],
+                         ids=["fleet", "oversub", "serve_cluster", "drill"])
 def test_fleet_clis_default_to_cuda(main):
-    """Without --device the fleet and oversubscription CLIs put their
-    physics on CUDA (and so fail where there is none)."""
+    """Without --device the fleet, oversubscription, serve_cluster and
+    drill CLIs put their physics (and engines) on CUDA (and so fail where
+    there is none)."""
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default would run")
     with pytest.raises((AssertionError, RuntimeError)):
