@@ -32,7 +32,11 @@ Builds the hand-written CUDA kernels from ``src/repro_torch/csrc`` (one
    SDPA; for kernel 2, a speculative verify pass's 20 pseudo-lanes, 4
    lanes' current tokens and 4 drafts each, with the split plan pinned to
    4 lanes, bit-identical row for row to 4-lane launches at each
-   candidate's position, at llama2-7b's and llama2-13b's heads), and
+   candidate's position, at llama2-7b's and llama2-13b's heads), runs
+   ``torch.library.opcheck`` on every kernel op at a small shape
+   (``repro_torch.kernels.opcheck``'s cases: each op's fake against its
+   kernel's real outputs, the schema's declared writes against what the
+   kernel writes, kernel 7's ``s_out`` also as its ``s0``), and
    times kernel, plain version and a
    PyTorch library call beside each where one exists (the library call is
    a yardstick only; the port never calls it).  Kernels 1-5 and kernel
@@ -1264,6 +1268,41 @@ def check_prefill_head_dims(torch) -> None:
                      f"C={C} H={H} K={K} D={D} bs={bs} T={T} starts "
                      f"[0, 100, padded]", o,
                      ppa.paged_prefill_attention_ref(*args), name)
+
+
+def check_ops(torch) -> None:
+    """``torch.library.opcheck`` of every case of ``kernels.opcheck`` on
+    the card: fails unless each passes its schema, fake-tensor,
+    autograd-registration and AOT-dispatch checks."""
+    from repro_torch.kernels import opcheck
+    t0 = time.perf_counter()
+    # opcheck seeds torch's global generators: the later phases draw from
+    # them as they did before this check
+    with torch.random.fork_rng(devices=[torch.cuda.current_device()]):
+        check_each_op(torch, opcheck)
+    torch.cuda.synchronize()
+    print(f"opcheck: {len(opcheck.CASES)} cases over "
+          f"{len({op for op, _ in opcheck.CASES})} ops pass on the card "
+          f"in {time.perf_counter() - t0:.1f} s", flush=True)
+
+
+def check_each_op(torch, opcheck) -> None:
+    for op, case in opcheck.CASES:
+        res = opcheck.check(op, case, "cuda")
+        bad = {k: str(v)[:300] for k, v in res.items() if v != "SUCCESS"}
+        if bad:
+            fail(f"opcheck {op} [{case}]: {bad}")
+    # a reading: at the model's layout (q, k, v transposed views of (B,
+    # S, H, D)) kernel 1 writes o in q's layout, its fake (and plain
+    # version) contiguous
+    fn, (q, k, v), kw = opcheck.inputs("flash_attention", "causal", "cuda")
+    views = [t.transpose(1, 2).contiguous().transpose(1, 2)
+             for t in (q, k, v)]
+    got = torch.library.opcheck(fn, tuple(views), kw,
+                                test_utils=("test_faketensor",),
+                                raise_exception=False)["test_faketensor"]
+    print(f"opcheck reading, kernel 1 at the model's layout: "
+          f"{str(got)[:300]}", flush=True)
 
 
 def check_head_dim_256(torch) -> None:
@@ -6574,6 +6613,7 @@ def main() -> int:
     check_flash_head_dims(torch, dtypes)
     check_prefill_head_dims(torch)
     check_head_dim_256(torch)
+    check_ops(torch)
     print(f"phase 1 done at {time.perf_counter() - t_start:.1f} s",
           flush=True)
 

@@ -19,6 +19,7 @@ backward (``rwkv6_wkv_bwd``, "7 bwd") at ``chip_smoke.py``'s
 ``WKV_BWD_CASES``.
 
     python3 scripts/flash_turns.py OTHER_TREE [--only NAME,NAME]
+    python3 scripts/flash_turns.py OTHER_TREE --host
     python3 scripts/flash_turns.py --sweep
 
 ``--only`` keeps the shapes whose names contain one of the comma-separated
@@ -35,6 +36,19 @@ time: the readings the plans' rules were chosen from.
 
 With ``--sweep`` it also times 3s at split lengths 128-1024 beside
 ``paged_prefill_split_plan``'s.
+
+With ``--host`` the turns time the host's share of a call instead, at
+kernel 2's served step (4 lanes at 230/180/120/40), kernel 1 at the
+llama2-7b phase-1 shape and one eager prompt prefill of full-width
+llama2-7b (``prefill_ragged``, 4 prompts of 230/180/120/40 tokens in a
+256 bucket, random bf16 weights from seed 0: 32 kernel-1 calls), each
+through ``kernels.ops`` as the model calls it (in grad mode, as the
+engine runs) and, for the two kernels, through the kernel's wrapper
+alone: CUDA events around back-to-back calls (median of 5 runs of 20
+calls, 5 prefills), the device time (of the calls held behind a spin
+kernel; a prefill's, whose launches overflow the queue behind a spin,
+from a trace), the host's time to queue them (while the card is held;
+a prefill onto an idle card), and events minus device time.
 
 OTHER_TREE is a checkout of another commit, for instance the parent
 unpacked with ``git archive`` into a directory that ``.gitignore`` lists.
@@ -668,10 +682,170 @@ def sweep() -> int:
     return 0
 
 
+def host_child(src: str) -> None:
+    """One turn of ``--host``: the host's share of a call of kernel 2, of
+    kernel 1 and of an eager prefill, through the ops and the wrappers."""
+    sys.path.insert(0, src)
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import paged_decode_attention as pa
+    from repro_torch.models import build_model, local_plan
+
+    cuda_ms, held_ms = timers(torch)
+
+    def host_ms(fn, iters):
+        """Host time per call queueing ``iters`` calls behind a spin."""
+        fn()
+        torch.cuda.synchronize()
+        torch.cuda._sleep(400_000_000)       # >= 0.2 s at <= 2 GHz
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        host = (time.perf_counter() - t0) / iters * 1e3
+        torch.cuda.synchronize()
+        return host
+
+    def read(fn):
+        runs = [cuda_ms(fn) for _ in range(5)]
+        ev = statistics.median(runs)
+        dev = statistics.median(held_ms(fn) for _ in range(5))
+        return {"events": ev, "min": min(runs), "max": max(runs),
+                "device": dev,
+                "host": statistics.median(host_ms(fn, 20) for _ in range(5)),
+                "excess": ev - dev}
+
+    def read_prefill(fn):
+        """A prefill's ~2300 launches overflow the card's queue behind a
+        spin, so: the device's busy time from a trace of one prefill, and
+        the host's time to issue one onto an idle card (it issues slower
+        than the card runs them, so it never waits on the queue)."""
+        from torch.profiler import ProfilerActivity, profile
+        runs = [cuda_ms(fn, 5) for _ in range(5)]
+        ev = statistics.median(runs)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        dev = sum(getattr(e, "self_device_time_total",
+                          getattr(e, "self_cuda_time_total", 0))
+                  for e in prof.key_averages()
+                  if e.device_type.name == "CUDA") / 1e3
+        hosts = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            hosts.append((time.perf_counter() - t0) * 1e3)
+            torch.cuda.synchronize()
+        return {"events": ev, "min": min(runs), "max": max(runs),
+                "device": dev, "host": statistics.median(hosts),
+                "excess": ev - dev}
+
+    out = {}
+    B, H, K, D, bs, T, positions = PAGED["kernel 2 llama2-7b served"]
+    args = paged_inputs(torch, B, H, K, D, bs, T, 1 + B * T, 1,
+                        positions)[0][0]
+    out["kernel 2 served, ops"] = read(
+        lambda: ops.paged_decode_attention(*args))
+    out["kernel 2 served, wrapper"] = read(
+        lambda: pa.paged_decode_attention(*args))
+    Bf, Hf, Kf, S, Df, causal, window = FLASH["llama2-7b causal"]
+    g = torch.Generator(device="cuda").manual_seed(0)
+    q, k, v = (torch.randn(Bf, S, n, Df, generator=g, device="cuda",
+                           dtype=torch.bfloat16).transpose(1, 2)
+               for n in (Hf, Kf, Kf))
+    out["kernel 1 phase 1, ops"] = read(
+        lambda: ops.flash_attention(q, k, v, causal=causal, window=window))
+    out["kernel 1 phase 1, wrapper"] = read(
+        lambda: fa.flash_attention(q, k, v, causal=causal, window=window))
+    cfg = get_config("llama2-7b")
+    model = build_model(cfg, local_plan(param_dtype=torch.bfloat16))
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    lengths = [230, 180, 120, 40]
+    tokens = torch.randint(0, cfg.vocab_size, (4, 256), device="cuda",
+                           dtype=torch.int32, generator=torch.Generator(
+                               device="cuda").manual_seed(2))
+    lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+    before = fa.flash_attention.launches
+    model.prefill_ragged(params, tokens, lens)
+    per = fa.flash_attention.launches - before
+    out["llama2-7b eager prefill"] = read_prefill(
+        lambda: model.prefill_ragged(params, tokens, lens))
+    out["llama2-7b eager prefill"]["kernel-1 calls"] = per
+    out["decode step count"] = decode_count(torch, model, params, lengths)
+    print("TURN " + json.dumps(out), flush=True)
+
+
+def decode_count(torch, model, params, lengths) -> dict:
+    """``op_cost``'s count of the body of ``chip_smoke.py`` phase 16 (c)'s
+    decode step (the horizon program over a 516-block pool, 4 lanes at
+    ``lengths`` + 50), exact: flops, bytes, peak live bytes, the kernels'
+    rows and a digest of the census."""
+    import hashlib
+    from repro_torch.analysis import op_cost
+    from repro_torch.serving import PagedCachePool
+    from repro_torch.serving import graphs as G
+    B = len(lengths)
+    pool = PagedCachePool(model, B, 2048, block_size=16, n_blocks=516)
+    T = pool.blocks_per_seq
+    prog = G.horizon_program(model, lambda: (params, pool.cache), B, T,
+                             max_len=2048, sampled=False, capture=False)
+    prog.bufs["tables"].copy_((1 + torch.arange(B * T, device="cuda",
+                                                dtype=torch.int32)
+                               ).reshape(B, T))
+    prog.bufs["positions"].copy_(torch.tensor(lengths, device="cuda") + 50)
+    prog.bufs["active"].fill_(True)
+    prog.bufs["budgets"].fill_(1000)
+    prog.bufs["eos"].fill_(-1)
+    with torch.inference_mode():
+        cost = op_cost.count(prog.body)[1]
+    census = json.dumps(cost["census"], sort_keys=True).encode()
+    return {k: cost[k] for k in ("flops", "bytes", "gemm_flops",
+                                 "peak_live_bytes", "kernels")} | {
+        "census": hashlib.sha256(census).hexdigest()[:16]}
+
+
+def host_turns(other: Path) -> int:
+    """``--host``: four turns (other, this, this, other), then each
+    case's readings side by side."""
+    print(f"card: {card()}", flush=True)
+    turns = []
+    for label, tree in (("other", other), ("this", THIS), ("this", THIS),
+                        ("other", other)):
+        run = subprocess.run([sys.executable, __file__, "--host-child",
+                              str(tree / "src")], capture_output=True,
+                             text=True, timeout=900)
+        lines = [ln for ln in run.stdout.splitlines()
+                 if ln.startswith("TURN ")]
+        if run.returncode or not lines:
+            print(run.stdout[-4000:], run.stderr[-4000:], file=sys.stderr)
+            return 1
+        turns.append((label, json.loads(lines[0][5:])))
+        print(f"{label} ({tree}): {lines[0][5:]}", flush=True)
+    counts = [t.pop("decode step count") for _, t in turns]
+    print(f"decode step count, equal in every turn: "
+          f"{all(c == counts[0] for c in counts)}; "
+          f"{json.dumps(counts[0])}", flush=True)
+    for name in turns[0][1]:
+        cells = ", ".join(
+            f"{label} events {t[name]['events']:.4f} ({t[name]['min']:.4f}-"
+            f"{t[name]['max']:.4f}) device {t[name]['device']:.4f} host "
+            f"{t[name]['host']:.4f} events-device {t[name]['excess']:.4f}"
+            for label, t in turns)
+        print(f"{name} (ms a call): {cells}", flush=True)
+    return 0
+
+
 def main(argv: list[str]) -> int:
     if len(argv) == 4 and argv[0] == "--child":
         child(argv[1], argv[2], argv[3])
         return 0
+    if len(argv) == 2 and argv[0] == "--host-child":
+        host_child(argv[1])
+        return 0
+    if len(argv) == 2 and argv[1] == "--host":
+        return host_turns(Path(argv[0]).resolve())
     if argv == ["--sweep"]:
         return sweep()
     only = ""

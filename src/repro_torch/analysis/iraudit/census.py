@@ -6,8 +6,8 @@ capture, so ``trace`` runs the body once, on the audit's device, under
 
 * ``op_cost``'s ``CostMode`` (a ``TorchDispatchMode``): flops, bytes,
   the ATen op census and the peak of live bytes, every kernel call one
-  unit counted by its formula (``kernels.ops._HOOK``), nothing inside its
-  plain version seen;
+  op of the ``repro_torch`` namespace counted by its formula, nothing
+  inside its implementation seen;
 * a ``TorchFunctionMode``: the Python-level calls that reach the host
   before any ATen op does (``torch.tensor`` from Python values,
   ``Tensor.item`` / ``tolist`` / ``bool`` / ``int``, ``Tensor.cpu``),
@@ -26,8 +26,8 @@ from dataclasses import dataclass, field
 import torch
 from torch.overrides import TorchFunctionMode
 
-from repro_torch.analysis.op_cost import (CostMode, _tensors, composite,
-                                          counting)
+from repro_torch.analysis.op_cost import (KERNELS, CostMode, _tensors,
+                                          composite, counting)
 
 # Python-level calls that read a device value back to the host
 HOST_READS = {"item": "Tensor.item()", "tolist": "Tensor.tolist()",
@@ -83,8 +83,8 @@ class _AuditMode(CostMode):
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
-        if self.opaque:
-            return func(*args, **kwargs)
+        if func.namespace == KERNELS:     # one unit, none of it recorded
+            return self.kernel(func, args, kwargs)
         if composite(func):
             with self:                    # its parts come through the mode
                 return func.decompose(*args, **kwargs)
@@ -125,21 +125,20 @@ class _AuditMode(CostMode):
 class _HostCalls(TorchFunctionMode):
     """Records Python-level host reads and host-built tensors."""
 
-    def __init__(self, tr: Trace, mode: _AuditMode):
+    def __init__(self, tr: Trace):
         super().__init__()
-        self.tr, self.mode = tr, mode
+        self.tr = tr
 
     def __torch_function__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
         name = getattr(func, "__name__", "")
-        if not self.mode.opaque:
-            if func in (torch.tensor, torch.as_tensor, torch.from_numpy):
-                self.tr.host.append(("built", HOST_BUILT[name]))
-            elif name in HOST_READS and args \
-                    and isinstance(args[0], torch.Tensor):
-                self.tr.host.append(("sync", HOST_READS[name]))
-                if args[0].is_meta:
-                    raise _Stop(HOST_READS[name])
+        if func in (torch.tensor, torch.as_tensor, torch.from_numpy):
+            self.tr.host.append(("built", HOST_BUILT[name]))
+        elif name in HOST_READS and args \
+                and isinstance(args[0], torch.Tensor):
+            self.tr.host.append(("sync", HOST_READS[name]))
+            if args[0].is_meta:
+                raise _Stop(HOST_READS[name])
         return func(*args, **kwargs)
 
 
@@ -148,7 +147,7 @@ def trace(body, *, device, live=()) -> Trace:
     its ``Trace`` (``cost`` as ``op_cost.count``'s)."""
     tr = Trace(str(device))
     with counting(live=live, mode=_AuditMode, tr=tr) as mode, \
-            _HostCalls(tr, mode):
+            _HostCalls(tr):
         try:
             body()
         except _Stop as e:

@@ -124,7 +124,7 @@ class ModuleContext:
     HOT_NAME_RE = re.compile(
         r"^(decode_|prefill_|gqa_prefill|block_|_flash|_paged|.*_kernel$)")
 
-    def _call_chain(self, func: ast.AST) -> list[str]:
+    def _attr_chain(self, func: ast.AST) -> list[str]:
         parts: list[str] = []
         while isinstance(func, ast.Attribute):
             parts.append(func.attr)
@@ -140,7 +140,7 @@ class ModuleContext:
         for item in node.items:
             expr = item.context_expr
             if isinstance(expr, ast.Call):
-                chain = self._call_chain(expr.func)
+                chain = self._attr_chain(expr.func)
                 if chain[-2:] == ["cuda", "graph"]:
                     return True
         return False
@@ -163,7 +163,7 @@ class ModuleContext:
         for node in ast.walk(self.tree):
             if isinstance(node, ast.Call):
                 # functions passed (by name) into a capture entry point
-                chain = self._call_chain(node.func)
+                chain = self._attr_chain(node.func)
                 if chain[-1:] and chain[-1] in self.CAPTURE_WRAPPERS:
                     for arg in list(node.args) + [kw.value
                                                   for kw in node.keywords]:
@@ -179,7 +179,7 @@ class ModuleContext:
                                             ast.AsyncFunctionDef)):
                             captured.add(sub)
                         elif isinstance(sub, ast.Call):
-                            name = self._call_chain(sub.func)[-1:]
+                            name = self._attr_chain(sub.func)[-1:]
                             if name and name[0] in by_name:
                                 captured.update(by_name[name[0]])
         # closure: defs nested inside captured defs are captured
@@ -251,7 +251,7 @@ class Registry:
             deco_names = set()
             frozen = False
             for dec in node.decorator_list:
-                chain = ctx._call_chain(
+                chain = ctx._attr_chain(
                     dec.func if isinstance(dec, ast.Call) else dec)
                 deco_names.update(chain)
                 if isinstance(dec, ast.Call) and "dataclass" in chain:
@@ -259,7 +259,7 @@ class Registry:
                         if kw.arg == "frozen" and isinstance(
                                 kw.value, ast.Constant):
                             frozen = bool(kw.value.value)
-            base_names = {n for b in node.bases for n in ctx._call_chain(b)}
+            base_names = {n for b in node.bases for n in ctx._attr_chain(b)}
             if "dataclass" in deco_names:
                 fields = [s.target.id for s in node.body
                           if isinstance(s, ast.AnnAssign)

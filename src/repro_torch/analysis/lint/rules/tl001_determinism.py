@@ -88,7 +88,7 @@ class DeterminismRule(Rule):
         return False
 
     def _check_call(self, ctx, node, stdlib_random):
-        chain = ctx._call_chain(node.func)
+        chain = ctx._attr_chain(node.func)
         if len(chain) >= 2 and chain[-2:-1] == ["random"] \
                 and chain[0] in ("np", "numpy"):
             fn = chain[-1]
@@ -119,7 +119,7 @@ class DeterminismRule(Rule):
                 "traces._stable_seed / zlib.crc32 for seeds and keys")
 
     def _check_torch(self, ctx, node):
-        chain = ctx._call_chain(node.func)
+        chain = ctx._attr_chain(node.func)
         if chain in _GLOBAL_SEEDS:
             yield from self.emit(
                 ctx, node,

@@ -68,7 +68,7 @@ class HostSyncRule(Rule):
                 continue
             fn = ctx.enclosing_function(node)
             in_capture = fn is not None and fn in captured
-            chain = ctx._call_chain(node.func)
+            chain = ctx._attr_chain(node.func)
             attr = node.func.attr if isinstance(node.func, ast.Attribute) \
                 else None
             if attr in ("item", "tolist") and not node.args:

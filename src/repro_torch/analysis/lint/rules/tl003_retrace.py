@@ -25,8 +25,10 @@ Flags:
     statics (``self``/``cfg``/``params``/``num_steps``/...), ``x is
     None`` checks, ``isinstance`` checks, ``len(...)``/``.shape``/
     ``.ndim``/``.dtype`` probes and device probes (``.device``,
-    ``.device.type``, ``.is_cuda``, ``kernels/ops.py``'s ``_on_cpu(...)``)
-    are allowed: those are fixed for the life of a capture.
+    ``.device.type``, ``.is_cuda``) are allowed: those are fixed for the
+    life of a capture.  A kernel call needs no device branch at all:
+    ``kernels/ops.py`` registers each kernel as a ``torch.library`` op
+    whose CUDA and CPU implementations the dispatcher picks.
   * call sites of the program builders (``horizon_program``,
     ``spec_program``, ``chunk_program``, ``slot_program``) and of
     ``run_horizon``/``run_spec`` passing a *computed* expression (min/
@@ -47,7 +49,6 @@ _STATIC_NAMES = {"self", "cls", "cfg", "plan", "params", "config",
 _STATIC_PROBES = {"shape", "ndim", "dtype", "size",
                   # device probes: fixed for the life of a capture
                   "device", "is_cuda"}
-_DEVICE_CALLS = {"_on_cpu"}
 #: positional parameters of the program builders and runners
 #: (``serving/graphs.py``), and which of them key a program
 _PROGRAM_CALLS = {
@@ -135,10 +136,10 @@ class RetraceRule(Rule):
             return None
         allowed: set[int] = set()
         for sub in ast.walk(test):
-            # len(x), _on_cpu(x), x.shape/.ndim/.dtype/.size/.device:
-            # fixed for the life of a capture
+            # len(x), x.shape/.ndim/.dtype/.size/.device: fixed for the
+            # life of a capture
             if isinstance(sub, ast.Call) and isinstance(sub.func, ast.Name) \
-                    and sub.func.id in {"len"} | _DEVICE_CALLS:
+                    and sub.func.id == "len":
                 allowed.update(id(n) for n in ast.walk(sub))
             elif isinstance(sub, ast.Attribute) \
                     and sub.attr in _STATIC_PROBES:
@@ -151,7 +152,7 @@ class RetraceRule(Rule):
 
     # -- per-call-varying program keys at builder call sites ---------------
     def _check_key_args(self, ctx, node: ast.Call):
-        name = ctx._call_chain(node.func)[-1:]
+        name = ctx._attr_chain(node.func)[-1:]
         params = _PROGRAM_CALLS.get(name[0]) if name else None
         if params is None:
             return

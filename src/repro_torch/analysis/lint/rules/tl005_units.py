@@ -103,7 +103,7 @@ class UnitSuffixRule(Rule):
             "explicitly and name the result with its unit")
 
     def _check_fields(self, ctx, node: ast.ClassDef):
-        is_dc = any("dataclass" in ctx._call_chain(
+        is_dc = any("dataclass" in ctx._attr_chain(
             d.func if isinstance(d, ast.Call) else d)
             for d in node.decorator_list)
         if not is_dc:

@@ -42,7 +42,7 @@ class ProtocolConformanceRule(Rule):
             if not isinstance(node, ast.ClassDef):
                 continue
             base_names = {n for b in node.bases
-                          for n in ctx._call_chain(b)}
+                          for n in ctx._attr_chain(b)}
             if "Protocol" in base_names:
                 continue                      # the protocol itself
             methods = {s.name: s for s in node.body

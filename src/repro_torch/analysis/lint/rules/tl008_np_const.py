@@ -120,7 +120,7 @@ class NpConstRule(Rule):
             if fn is None or fn not in captured:
                 continue
             if isinstance(node, ast.Call):
-                chain = ctx._call_chain(node.func)
+                chain = ctx._attr_chain(node.func)
                 ctor = self._np_ctor_call(node, np_names) if np_names \
                     else None
                 if ctor is not None:

@@ -8,15 +8,19 @@ on the ``meta`` device no numerics run and nothing is allocated
 (``launch.dryrun`` counts full-width cells there), on the CPU or a card
 the step runs as it would.
 
-* **Kernels count by their formula.**  Every kernel call of
-  ``kernels.ops`` reaches ``count``'s hook (``ops._HOOK``) as one unit and
-  counts as ``kernel_work``: its row's function in ``analysis.roofline``,
-  the data-dependent counts (live keys, owned rows, seen pairs) read off
-  its tensors, or, on the meta device where there is no data, the most
-  its shapes allow (every table slot live, every chunk at the table's
-  end, every block owned).  Nothing its plain version does is counted:
-  the masked dense gathers of kernels 2-4 and the step-by-step recurrence
-  of kernel 7 are not the kernel's arithmetic.
+* **Kernels count by their formula.**  Every kernel is one op of the
+  ``repro_torch`` namespace (``kernels.ops`` registers them), which
+  reaches the mode whole, whatever implementation the dispatcher then
+  runs (the kernel, the plain version or, on the meta device, the
+  fake), and counts as ``kernel_work``: its row's function in
+  ``analysis.roofline``, the data-dependent counts (live keys, owned
+  rows, seen pairs) read off its tensors, or, on the meta device where
+  there is no data, the most its shapes allow (every table slot live,
+  every chunk at the table's end, every block owned).  Nothing its
+  implementation does is counted (the mode is off while an op runs):
+  the masked dense gathers of kernels 2-4's plain versions and the
+  step-by-step recurrence of kernel 7's are not the kernel's
+  arithmetic.
 * **Matmuls** (``mm``, ``bmm``, ``addmm``, ``baddbmm``) count 2 M N K
   flops (``torch.utils.flop_counter``'s formulas) as ``gemm_flops``; any
   other op that computes counts one flop per output element, as
@@ -51,6 +55,7 @@ from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils.flop_counter import flop_registry
 
 from repro_torch.analysis import roofline as R
+from repro_torch.kernels.ops import NAMESPACE as KERNELS
 
 _GEMMS = {"mm", "bmm", "addmm", "baddbmm"}
 # ops that move or make data without arithmetic: no flops
@@ -210,7 +215,7 @@ def _flash_bwd(q, k, v, o, do, lse, *, causal=True, window=0, **_):
                                       causal=causal, window=window)
 
 
-def _wkv(r, k, v, w, u, s0=None, **_):
+def _wkv(r, k, v, w, u, s0=None, *_, **__):
     B, T, H, D = r.shape
     return R.wkv_work(B, T, H, D, r.dtype, state_in=s0 is not None)
 
@@ -240,6 +245,7 @@ KERNEL_WORK = {
     "paged_decode_attention_lse": _paged_decode_lse,
     "paged_prefill_attention": _paged_prefill,
     "paged_prefill_attention_lse": _paged_prefill_lse,
+    "paged_verify_attention": _paged_prefill,
     "decode_attention": _decode,
     "rwkv6_wkv": _wkv,
     "rwkv6_wkv_train": _wkv_train,
@@ -249,85 +255,9 @@ KERNEL_WORK = {
 }
 
 
-def _empty(shape, dtype, like):
-    return torch.empty(shape, dtype=dtype, device=like.device)
-
-
-def _attn_out(q, *_, **__):
-    return torch.empty_like(q, memory_format=torch.contiguous_format)
-
-
-def _flash_lse_out(q, *_, **__):
-    return _attn_out(q), _empty(q.shape[:3], torch.float32, q)
-
-
-def _flash_bwd_out(q, k, v, *_, **__):
-    return tuple(torch.empty_like(t, memory_format=torch.contiguous_format)
-                 for t in (q, k, v))
-
-
-def _lse_out(q, *_, **__):
-    return _attn_out(q), _empty(q.shape[:-1], torch.float32, q)
-
-
-def _wkv_out(r, k, v, w, u, s0=None, *, s_out=None, **_):
-    B, T, H, D = r.shape
-    s = s_out if s_out is not None else _empty((B, H, D, D), torch.float32,
-                                               r)
-    return torch.empty_like(r), s
-
-
-def _wkv_train_out(r, k, v, w, u, s0=None, **_):
-    from repro_torch.kernels.rwkv6_wkv import wkv_chunk
-    B, T, H, D = r.shape
-    return (torch.empty_like(r), _empty((B, H, D, D), torch.float32, r),
-            _empty((B, H, _ceil(T, wkv_chunk(D)), D, D), torch.float32, r))
-
-
-def _wkv_bwd_out(r, k, v, w, u, *_, **__):
-    B, T, H, D = r.shape
-    return (torch.empty_like(r), torch.empty_like(k), torch.empty_like(v),
-            _empty(w.shape, torch.float32, r),
-            _empty(u.shape, torch.float32, r),
-            _empty((B, H, D, D), torch.float32, r))
-
-
-def _int8_out(x, w, *rest, out_dtype=torch.bfloat16, **_):
-    return _empty((x.shape[0], w.shape[1]), out_dtype, x)
-
-
-# each kernel's outputs as shapes only: what a call on the meta device
-# returns in ``count`` and ``iraudit`` in place of running its plain
-# version, whose loops (kernel 7's over time) would take minutes at full
-# width; ``tests/test_torch_dryrun.py`` holds them to the plain versions'
-KERNEL_OUTPUTS = {
-    "flash_attention": _attn_out,
-    "flash_attention_lse": _flash_lse_out,
-    "flash_attention_bwd": _flash_bwd_out,
-    "paged_decode_attention": _attn_out,
-    "paged_decode_attention_lse": _lse_out,
-    "paged_prefill_attention": _attn_out,
-    "paged_prefill_attention_lse": _lse_out,
-    "decode_attention": _attn_out,
-    "rwkv6_wkv": _wkv_out,
-    "rwkv6_wkv_train": _wkv_train_out,
-    "rwkv6_wkv_bwd": _wkv_bwd_out,
-    "int8_matmul": _int8_out,
-    "int8_matmul_quantized": _int8_out,
-}
-
-
-def run_kernel(name: str, args: tuple, kwargs: dict, run):
-    """A kernel call: ``run()``, or on the meta device its outputs'
-    shapes (``KERNEL_OUTPUTS``)."""
-    if all(t.is_meta for t in _tensors((args, kwargs))):
-        return KERNEL_OUTPUTS[name](*args, **kwargs)
-    return run()
-
-
 def kernel_work(name: str, args: tuple, kwargs: dict | None = None) -> tuple:
-    """``(bytes, flops, peak)`` of one call of kernel ``name`` (a
-    ``kernels.ops`` name) on ``args``: its ``analysis.roofline`` formula,
+    """``(bytes, flops, peak)`` of one call of kernel ``name`` (an op of
+    ``kernels.ops``) on ``args``: its ``analysis.roofline`` formula,
     the data-dependent counts read off the tensors (the most the shapes
     allow on the meta device)."""
     return KERNEL_WORK[name](*args, **(kwargs or {}))
@@ -379,8 +309,8 @@ def composite(func) -> bool:
 
 
 class CostMode(TorchDispatchMode):
-    """Counts every ATen op issued under it (see the module docstring);
-    kernel calls come in through ``kernel_call``."""
+    """Counts every op issued under it (see the module docstring): an op
+    of the kernels' namespace by its formula, any other as an ATen op."""
 
     def __init__(self, *, live: int = 0, breakdown: bool = False):
         super().__init__()
@@ -393,7 +323,6 @@ class CostMode(TorchDispatchMode):
         self.kernels: dict = {}
         self.sites: dict = {}
         self.breakdown = breakdown
-        self.opaque = 0
         self.live = _Live(live)
 
     # -- attribution -------------------------------------------------------
@@ -418,8 +347,8 @@ class CostMode(TorchDispatchMode):
     # -- ops ----------------------------------------------------------------
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
-        if self.opaque:
-            return func(*args, **kwargs)
+        if func.namespace == KERNELS:
+            return self.kernel(func, args, kwargs)
         if composite(func):
             with self:                    # its parts come through the mode
                 return func.decompose(*args, **kwargs)
@@ -445,15 +374,14 @@ class CostMode(TorchDispatchMode):
             self._add(self._site(), flops, n_bytes)
         return out
 
-    def kernel_call(self, name, args, kwargs, run):
-        self.opaque += 1         # the formula's own reads are not counted
-        try:
+    def kernel(self, func, args, kwargs):
+        """One call of kernel op ``func``: counted by its formula, then
+        run.  Neither the formula's reads nor the implementation reach a
+        torch function mode (an audit's host-call record)."""
+        name = func._overloadpacket.__name__
+        with torch._C.DisableTorchFunction():
             n_bytes, flops, _ = kernel_work(name, args, kwargs)
-            out = run_kernel(name, args, kwargs, run)
-        finally:
-            self.opaque -= 1
-        if self.opaque:          # a kernel inside a kernel call: not counted
-            return out
+            out = func(*args, **kwargs)
         row = self.kernels.setdefault(name, {"calls": 0, "flops": 0,
                                              "bytes": 0})
         row["calls"] += 1
@@ -464,7 +392,10 @@ class CostMode(TorchDispatchMode):
         self.flops += flops
         self.bytes += n_bytes
         self.census[f"kernel:{name}"] += 1
-        for t in _tensors(out):
+        # its outputs, and what it writes into (kernel 7's ``s_out``)
+        written = [a for a, arg in zip(args, func._schema.arguments)
+                   if arg.alias_info is not None and arg.alias_info.is_write]
+        for t in _tensors((out, written)):
             self.live.track(t)
         if self.breakdown:
             self._add(self._site(), flops, n_bytes)
@@ -484,9 +415,8 @@ class CostMode(TorchDispatchMode):
 
 class counting:
     """Context manager: ``with counting(live=...) as mode: step()``, then
-    ``mode.result()``.  Installs ``kernels.ops``'s hook for its span.
-    ``mode``: the ``CostMode`` class to count with (``mode_kw`` its
-    further arguments)."""
+    ``mode.result()``.  ``mode``: the ``CostMode`` class to count with
+    (``mode_kw`` its further arguments)."""
 
     def __init__(self, *, live=(), breakdown: bool = False, mode=CostMode,
                  **mode_kw):
@@ -501,20 +431,11 @@ class counting:
         self.mode.live.seen |= seen
 
     def __enter__(self) -> CostMode:
-        from repro_torch.kernels import ops
-        if ops._HOOK is not None:
-            raise RuntimeError("op_cost: a count or an audit is already "
-                               "running")
-        self._ops = ops
-        ops._HOOK = self.mode.kernel_call
         self.mode.__enter__()
         return self.mode
 
     def __exit__(self, *exc):
-        try:
-            self.mode.__exit__(*exc)
-        finally:
-            self._ops._HOOK = None
+        self.mode.__exit__(*exc)
         return False
 
 
@@ -531,5 +452,5 @@ def count(fn, *args, live=(), breakdown: bool = False, **kwargs):
     return out, mode.result()
 
 
-__all__ = ["CostMode", "KERNEL_OUTPUTS", "KERNEL_WORK", "count", "counting",
-           "composite", "kernel_work", "run_kernel"]
+__all__ = ["CostMode", "KERNELS", "KERNEL_WORK", "count", "counting",
+           "composite", "kernel_work"]

@@ -1,3 +1,3 @@
 """Hand-written CUDA kernels (``csrc/``) with their plain PyTorch versions;
-``ops`` routes CPU tensors to the plain versions and CUDA tensors to the
-kernels."""
+``ops`` registers each kernel as a ``torch.library`` op whose dispatcher
+sends CPU tensors to the plain version and CUDA tensors to the kernel."""

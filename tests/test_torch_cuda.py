@@ -18,7 +18,7 @@ from repro_torch.kernels import build
 from repro_torch.kernels import decode_attention as da
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import int8_matmul as i8
-from repro_torch.kernels import ops
+from repro_torch.kernels import opcheck, ops
 from repro_torch.kernels import paged_decode_attention as pa
 from repro_torch.kernels import paged_prefill_attention as ppa
 from repro_torch.kernels import rwkv6_wkv as wkv
@@ -2953,3 +2953,54 @@ def test_capture_budget_catches_a_recapture(gen):
     with pytest.raises(AssertionError, match="capture budget"):
         with rt.capture_budget(prog):
             eng.step()
+
+
+# ---------------------------------------------------------------------------
+# the kernels as torch.library ops on the card
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("op,case", opcheck.CASES,
+                         ids=[f"{op}-{case}" for op, case in opcheck.CASES])
+def test_opcheck_on_the_card(gen, op, case):
+    """Each op's fake against its kernel's real outputs (shapes, dtypes,
+    strides, aliasing), its schema against what the kernel reads and
+    writes (kernel 7's ``s_out``, also when it is ``s0``), its eager
+    result against an AOT-dispatched one."""
+    launches = {n: f.launches for n, f in _wrappers().items()}
+    res = opcheck.check(op, case, "cuda")
+    assert res == {k: "SUCCESS" for k in res}, res
+    # the kernel ran: its wrapper counted launches
+    assert any(f.launches > launches[n] for n, f in _wrappers().items())
+
+
+def _wrappers() -> dict:
+    return {"flash_attention": fa.flash_attention,
+            "flash_attention_lse": fa.flash_attention_lse,
+            "flash_attention_bwd": fa.flash_attention_bwd,
+            "paged_decode_attention": pa.paged_decode_attention,
+            "paged_decode_attention_lse": pa.paged_decode_attention_lse,
+            "paged_prefill_attention": ppa.paged_prefill_attention,
+            "paged_prefill_attention_lse": ppa.paged_prefill_attention_lse,
+            "decode_attention": da.decode_attention,
+            "rwkv6_wkv": wkv.rwkv6_wkv,
+            "rwkv6_wkv_train": wkv.rwkv6_wkv_train,
+            "rwkv6_wkv_bwd": wkv.rwkv6_wkv_bwd,
+            "int8_matmul": i8.int8_matmul}
+
+
+@pytest.mark.parametrize("op,case", opcheck.CASES,
+                         ids=[f"{op}-{case}" for op, case in opcheck.CASES])
+def test_ops_refuse_a_gradient_and_a_mix_on_the_card(gen, op, case):
+    """On CUDA tensors every op raises at forward time where autograd
+    would need a backward, and ``ValueError`` for a CPU tensor beside
+    CUDA ones."""
+    fn, args, kwargs = opcheck.inputs(op, case, "cuda")
+    i = next(j for j, a in enumerate(args)
+             if isinstance(a, torch.Tensor) and a.is_floating_point())
+    leafy = list(args)
+    leafy[i] = args[i].clone().requires_grad_(True)
+    with pytest.raises(RuntimeError, match="no backward"):
+        fn(*leafy, **kwargs)
+    mixed = [a.cpu() if j == 0 else a for j, a in enumerate(args)]
+    with pytest.raises(ValueError):
+        fn(*mixed, **kwargs)

@@ -2,9 +2,9 @@
 meta device (nothing allocated, the state's bytes exact), the meta
 build's bytes against a real CPU build of every assigned smoke config,
 ``op_cost``'s GEMM flops of a smoke decode step against 2 x matmul
-parameters x tokens, each kernel call counted by its row's formula in
-``analysis.roofline`` (and its meta stand-in shaped as its plain
-version's output), and, as a reading, a step's count beside the JAX
+parameters x tokens, each kernel op counted by its row's formula in
+``analysis.roofline`` (and its fake on the meta device shaped as its
+plain version's output), and, as a reading, a step's count beside the JAX
 reference's ``analyze_hlo`` of the same step."""
 import torch_threads  # noqa: F401  (one torch thread a worker)
 import pytest
@@ -192,7 +192,7 @@ def _calls(gen):
          (qc, pool, pool, tab, starts), {},
          (2 * (3 + 12) * K * D * 2 + 2 * B * C * H * D * 2 + 4 * (1 + 3)
           + 4 * B, 4 * D * H * pairs([0, 9]))),
-        ("paged_prefill_attention", ops.paged_verify_attention,
+        ("paged_verify_attention", ops.paged_verify_attention,
          (qc, pool, pool, tab, starts), {},
          (2 * (3 + 12) * K * D * 2 + 2 * B * C * H * D * 2 + 4 * (1 + 3)
           + 4 * B, 4 * D * H * pairs([0, 9]))),
@@ -213,6 +213,11 @@ def _calls(gen):
 
 
 def test_each_kernel_call_counts_as_its_formula():
+    """Each ``kernels.ops`` call reaches the count as one op of the
+    ``repro_torch`` namespace, named as its registration names it, and
+    counts as its formula; on the meta device the op's fake gives the CPU
+    output's shapes and dtypes, and the count is the most the shapes
+    allow."""
     gen = torch.Generator().manual_seed(3)
     for name, fn, args, kwargs, (n_bytes, flops) in _calls(gen):
         with torch.no_grad():
@@ -222,16 +227,15 @@ def test_each_kernel_call_counts_as_its_formula():
         # nothing the plain version did is counted: one op, the call
         assert cost["census"] == {f"kernel:{name}": 1}, name
         assert (cost["flops"], cost["bytes"]) == (flops, n_bytes), name
-        # on the meta device the call's stand-in has the plain output's
-        # shapes and dtypes
         meta = [a.to("meta") if isinstance(a, torch.Tensor) else a
                 for a in args]
         with torch.no_grad():
-            stand_in, mcost = op_cost.count(fn, *meta, **kwargs)
-        got, want = (list(op_cost._tensors(t)) for t in (stand_in, out))
+            fake, mcost = op_cost.count(fn, *meta, **kwargs)
+        got, want = (list(op_cost._tensors(t)) for t in (fake, out))
         assert [(t.shape, t.dtype) for t in got] == \
             [(t.shape, t.dtype) for t in want], name
         assert all(t.is_meta for t in got)
+        assert mcost["census"] == {f"kernel:{name}": 1}, name
         assert mcost["kernels"][name]["flops"] >= flops
 
 

@@ -25,6 +25,7 @@ from repro.kernels import ref as jref  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
+from torch_cuda_route import cuda_route  # noqa: E402
 
 # (B, H, K, S, D, causal, window): causal, window (W = 16 and W >= S),
 # bidirectional (with and without a window); GQA 4/2, 8/2, 25/5 and MHA;
@@ -192,15 +193,6 @@ def test_refuse_grad_guard():
     assert type(out.grad_fn).__name__ == "WkvFnBackward"
 
 
-class _FakeCuda:
-    """Stands in for a CUDA tensor where there is no card: the Function
-    routes on ``.device`` alone."""
-    device = torch.device("cuda", 0)
-
-    def stride(self):
-        return (4, 3, 2, 1)
-
-
 class _Ctx:
     def save_for_backward(self, *t):
         self.saved_tensors = t
@@ -208,26 +200,30 @@ class _Ctx:
 
 def test_function_sends_cuda_tensors_to_the_kernels(monkeypatch):
     """On CUDA tensors ``FlashAttentionFn`` calls the training forward and
-    the backward kernel, never their plain versions."""
+    the backward kernel, never their plain versions: through the ops'
+    CUDA implementations (the dispatcher's CUDA key, on CPU tensors)."""
     calls = []
 
     def plain(*a, **k):
         raise AssertionError("a CUDA tensor reached a plain version")
 
+    fwd = (torch.zeros(1), torch.zeros(1))
+    bwd = tuple(torch.zeros(1) for _ in range(3))
     monkeypatch.setattr(fa, "flash_attention_lse_ref", plain)
     monkeypatch.setattr(fa, "flash_attention_bwd_ref", plain)
     monkeypatch.setattr(fa, "flash_attention_lse",
-                        lambda *a, **k: calls.append(("fwd", k))
-                        or (_FakeCuda(), _FakeCuda()))
+                        lambda *a, **k: calls.append(("fwd", k)) or fwd)
     monkeypatch.setattr(fa, "flash_attention_bwd",
-                        lambda *a, **k: calls.append(("bwd", k))
-                        or ("dq", "dk", "dv"))
+                        lambda *a, **k: calls.append(("bwd", k)) or bwd)
     ctx = _Ctx()
-    q, k, v = _FakeCuda(), _FakeCuda(), _FakeCuda()
-    ops.FlashAttentionFn.forward(ctx, q, k, v, 0.5, False, 16)
-    assert len(ctx.saved_tensors) == 5
-    grads = ops.FlashAttentionFn.backward(ctx, _FakeCuda())
-    assert grads == ("dq", "dk", "dv", None, None, None)
+    q, k, v = (torch.zeros(1) for _ in range(3))
+    with cuda_route() as route:
+        ops.FlashAttentionFn.forward(ctx, q, k, v, 0.5, False, 16)
+        assert len(ctx.saved_tensors) == 5
+        grads = ops.FlashAttentionFn.backward(ctx, torch.zeros(1))
+    assert route.ops == ["flash_attention_lse", "flash_attention_bwd"]
+    assert all(a is b for a, b in zip(grads, bwd))
+    assert grads[3:] == (None, None, None)
     kw = dict(scale=0.5, causal=False, window=16)
     assert calls == [("fwd", kw), ("bwd", kw)]
 

@@ -256,7 +256,7 @@ def test_tl003_flags_runtime_branch_inside_capture():
 def test_tl003_quiet_on_device_and_static_probes():
     fs = {KERNELS: """\
     def decode_attention(q, k, v, positions, *, ring: bool = False):
-        if _on_cpu(q, k, v, positions):
+        if q.device.type == "cpu":
             return q
         if q.device.type == "cuda" and k.is_cuda:
             q = q + 1
@@ -268,13 +268,25 @@ def test_tl003_quiet_on_device_and_static_probes():
 
 
 def test_tl003_quiet_on_the_ops_device_branch():
-    """``kernels/ops.py``'s ``decode_attention`` branches on ``_on_cpu``:
-    a device, fixed for the life of a capture."""
+    """``kernels/ops.py`` has no device branch: each kernel is a
+    ``torch.library`` op whose route the dispatcher picks, and its one
+    Python branch, kernel 5's plain version by ``ring``, reads a bool
+    fixed for the life of a capture.  A branch on a helper's verdict
+    about a tensor is a runtime branch to TL003."""
     path = "src/repro_torch/kernels/ops.py"
     src = (ROOT / path).read_text()
-    assert "    if _on_cpu(q, k, v, positions):\n" in src
+    assert "def _dense_cpu(q, k, v, positions, *, scale=None, " \
+        "ring: bool = False):" in src
+    assert "_LIB.impl(name, _refusing(name, cuda, hint), \"CUDA\")" in src
     assert [f for f in port_lint.lint_sources({path: src})
             if f.rule == "TL003"] == []
+    fs = {KERNELS: """\
+    def decode_attention(q, k, v, positions):
+        if _on_cpu(q, k, v, positions):
+            return q
+        return k
+    """}
+    assert codes(fs) == ["TL003"]
 
 
 def test_tl003_flags_computed_program_keys():

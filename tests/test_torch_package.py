@@ -13,6 +13,7 @@ import pytest
 import torch
 
 import repro_torch
+from torch_cuda_route import cuda_route
 from repro_torch import convert
 from repro_torch.configs import get_config
 from repro_torch.core import FleetSim, oversubscribe
@@ -143,12 +144,16 @@ def test_fleet_clis_default_to_cuda(main):
         main([])
 
 
-class _FakeCuda:
-    """Stands in for a CUDA tensor where there is no card: the dispatcher
-    routes on ``.device``, and on ``requires_grad`` (an input that needs no
-    gradient takes the serve form)."""
-    device = torch.device("cuda", 0)
-    requires_grad = False
+def _outs(name: str):
+    """Stand-ins for what op ``name``'s kernel returns: one tensor per
+    output of its schema."""
+    n = len(getattr(torch.ops.repro_torch, name).default._schema.returns)
+    outs = tuple(torch.zeros(1) for _ in range(n))
+    return outs[0] if n == 1 else outs
+
+
+def _plain(*a, **k):
+    raise AssertionError("a CUDA tensor reached the plain version")
 
 
 # ops entry -> (module, kernel wrapper, plain versions it must not reach,
@@ -187,19 +192,21 @@ def test_dispatcher_covers_every_ops_entry():
 
 @pytest.mark.parametrize("name", sorted(DISPATCH))
 def test_dispatcher_sends_cuda_tensors_to_the_kernel(monkeypatch, name):
+    """Each entry is one call of its own op, whose CUDA implementation
+    (reached through the dispatcher's CUDA key) is the kernel's wrapper,
+    its result returned as the wrapper gave it."""
     mod, wrapper, plains, n_args = DISPATCH[name]
-    calls = []
-    monkeypatch.setattr(mod, wrapper,
-                        lambda *a, **k: calls.append(a) or "kernel")
-
-    def plain(*a, **k):
-        raise AssertionError("a CUDA tensor reached the plain version")
-
+    calls, out = [], _outs(name)
+    monkeypatch.setattr(mod, wrapper, lambda *a, **k: calls.append(a) or out)
     for ref in plains:
-        monkeypatch.setattr(mod, ref, plain)
-    args = [_FakeCuda() for _ in range(n_args)]
-    assert getattr(ops, name)(*args) == "kernel"
-    assert len(calls) == 1
+        monkeypatch.setattr(mod, ref, _plain)
+    args = [torch.zeros(1) for _ in range(n_args)]
+    with cuda_route() as route:
+        got = getattr(ops, name)(*args)
+    assert route.ops == [name]
+    assert got is out if not isinstance(out, tuple) else \
+        all(a is b for a, b in zip(got, out))
+    assert len(calls) == 1 and all(a is b for a, b in zip(calls[0], args))
 
 
 @pytest.mark.parametrize("name,kw", [("flash_attention", {"window": 16}),
@@ -212,15 +219,11 @@ def test_dispatcher_sends_cuda_tensors_to_the_kernel_in_every_form(
     mod, wrapper, plains, n_args = DISPATCH[name]
     calls = []
     monkeypatch.setattr(mod, wrapper,
-                        lambda *a, **k: calls.append(k) or "kernel")
-
-    def plain(*a, **k):
-        raise AssertionError("a CUDA tensor reached the plain version")
-
+                        lambda *a, **k: calls.append(k) or _outs(name))
     for ref in plains:
-        monkeypatch.setattr(mod, ref, plain)
-    assert getattr(ops, name)(*[_FakeCuda() for _ in range(n_args)],
-                              **kw) == "kernel"
+        monkeypatch.setattr(mod, ref, _plain)
+    with cuda_route():
+        getattr(ops, name)(*[torch.zeros(1) for _ in range(n_args)], **kw)
     assert len(calls) == 1
     assert calls[0].get("window") == kw.get("window")   # passed through
 
@@ -234,34 +237,33 @@ def test_dispatcher_passes_the_pinned_plan_to_the_kernel(monkeypatch, name):
     mod, wrapper, plains, n_args = DISPATCH[name]
     calls = []
     monkeypatch.setattr(mod, wrapper,
-                        lambda *a, **k: calls.append(k) or "kernel")
-    assert getattr(ops, name)(*[_FakeCuda() for _ in range(n_args)],
-                              plan_lanes=4) == "kernel"
-    assert calls == [{"scale": None, "plan_lanes": 4}]
+                        lambda *a, **k: calls.append(k) or _outs(name))
+    with cuda_route():
+        getattr(ops, name)(*[torch.zeros(1) for _ in range(n_args)],
+                           plan_lanes=4)
+    assert calls == [{"plan_lanes": 4}]
     monkeypatch.setattr(mod, plains[0],
-                        lambda *a, **k: calls.append(k) or "plain")
+                        lambda *a, **k: calls.append(k) or _outs(name))
     cpu = [torch.zeros(1) for _ in range(n_args)]
-    assert getattr(ops, name)(*cpu, plan_lanes=4) == "plain"
-    assert calls[-1] == {"scale": None}
+    getattr(ops, name)(*cpu, plan_lanes=4)
+    assert calls[-1] == {}
 
 
 @pytest.mark.parametrize("window", [0, 16])
 def test_dispatcher_sends_bidirectional_flash_to_the_kernel(monkeypatch,
                                                            window):
     """Kernel 1's bidirectional form (with and without a window) launches
-    the kernel for CUDA tensors, its flags passed through."""
+    the kernel for CUDA tensors, its flags passed through (a flag at its
+    schema default reaches the wrapper as the wrapper's default)."""
     calls = []
     monkeypatch.setattr(flash_mod, "flash_attention",
-                        lambda *a, **k: calls.append(k) or "kernel")
-
-    def plain(*a, **k):
-        raise AssertionError("a CUDA tensor reached the plain version")
-
-    monkeypatch.setattr(flash_mod, "flash_attention_ref", plain)
-    assert ops.flash_attention(*[_FakeCuda() for _ in range(3)],
-                               causal=False, window=window) == "kernel"
+                        lambda *a, **k: calls.append(k) or torch.zeros(1))
+    monkeypatch.setattr(flash_mod, "flash_attention_ref", _plain)
+    with cuda_route():
+        ops.flash_attention(*[torch.zeros(1) for _ in range(3)],
+                            causal=False, window=window)
     assert len(calls) == 1
-    assert (calls[0]["causal"], calls[0]["window"]) == (False, window)
+    assert (calls[0]["causal"], calls[0].get("window", 0)) == (False, window)
 
 
 @pytest.mark.parametrize("causal,window", [(True, 0), (True, 5),
@@ -306,9 +308,9 @@ def test_dispatcher_refuses_other_devices(devices):
 
 
 def test_dispatcher_takes_the_plain_path_on_meta():
-    """Every kernel call on meta tensors alone runs its plain version
-    (shapes only: nothing built, nothing launched), as ``launch.dryrun``
-    and ``analysis`` trace steps there."""
+    """Every kernel call on meta tensors alone takes its op's fake (shapes
+    only: nothing built, nothing launched, no plain loop run), as
+    ``launch.dryrun`` and ``analysis`` trace steps there."""
     q = torch.zeros(1, 2, 4, 8, device="meta")
     i = torch.zeros(1, 2, dtype=torch.int32, device="meta")
     outs = [ops.flash_attention(q, q, q),

@@ -30,6 +30,7 @@ import torch  # noqa: E402
 from repro.kernels.ref import rwkv6_wkv_ref as j_wkv_ref  # noqa: E402
 from repro.models import ssm as JS  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
+from torch_cuda_route import cuda_route  # noqa: E402
 from repro_torch.kernels import rwkv6_wkv as wkv  # noqa: E402
 from repro_torch.models import ssm as TS  # noqa: E402
 
@@ -191,18 +192,6 @@ def test_wkv_function_on_cpu_tensors():
         ops.rwkv6_wkv(*leaves, s_out=torch.zeros(1, 2, 16, 16))
 
 
-class _FakeCuda:
-    """Stands in for a CUDA tensor where there is no card."""
-    device = torch.device("cuda", 0)
-    requires_grad = False
-
-    def float(self):
-        return self
-
-    def contiguous(self):
-        return self
-
-
 class _Ctx:
     def save_for_backward(self, *t):
         self.saved_tensors = t
@@ -212,28 +201,35 @@ class _Ctx:
 
 
 def test_wkv_function_sends_cuda_tensors_to_the_kernels(monkeypatch):
+    """On CUDA tensors ``WkvFn`` calls kernel 7's training form and its
+    backward kernel, never their plain versions: through the ops' CUDA
+    implementations (the dispatcher's CUDA key, on CPU tensors)."""
     calls = []
 
     def plain(*a, **k):
         raise AssertionError("a CUDA tensor reached a plain version")
 
+    fwd = tuple(torch.zeros(1) for _ in range(3))
+    bwd = tuple(torch.zeros(1) for _ in range(6))
     monkeypatch.setattr(wkv, "rwkv6_wkv_train_ref", plain)
     monkeypatch.setattr(wkv, "rwkv6_wkv_bwd_ref", plain)
     monkeypatch.setattr(wkv, "rwkv6_wkv_train",
-                        lambda *a: calls.append("fwd")
-                        or ("y", "s", "ckpt"))
+                        lambda *a: calls.append("fwd") or fwd)
     monkeypatch.setattr(wkv, "rwkv6_wkv_bwd",
-                        lambda *a: calls.append(("bwd", a[5], a[7]))
-                        or ("dr", "dk", "dv", "dw", "du", "ds0"))
+                        lambda *a: calls.append(("bwd", a[5], a[7])) or bwd)
     ctx = _Ctx()
-    t = [_FakeCuda() for _ in range(5)]
-    assert ops.WkvFn.forward(ctx, *t, None) == ("y", "s")
-    assert ctx.saved_tensors[5] == "ckpt" and ctx.has_s0 is False
-    assert ctx.materialize is False
-    ds = _FakeCuda()
-    grads = ops.WkvFn.backward(ctx, _FakeCuda(), ds)
-    assert grads == ("dr", "dk", "dv", "dw", "du", None)
-    assert calls == ["fwd", ("bwd", "ckpt", ds)]
+    t = [torch.zeros(1) for _ in range(5)]
+    ds = torch.zeros(1)
+    with cuda_route() as route:
+        y, s = ops.WkvFn.forward(ctx, *t, None)
+        assert y is fwd[0] and s is fwd[1]
+        assert ctx.saved_tensors[5] is fwd[2] and ctx.has_s0 is False
+        assert ctx.materialize is False
+        grads = ops.WkvFn.backward(ctx, torch.zeros(1), ds)
+    assert route.ops == ["rwkv6_wkv_train", "rwkv6_wkv_bwd"]
+    assert all(a is b for a, b in zip(grads, bwd[:5])) and grads[5] is None
+    assert calls[0] == "fwd" and calls[1][0] == "bwd"
+    assert calls[1][1] is fwd[2] and calls[1][2] is ds
 
 
 # ---------------------------------------------------------------------------
